@@ -1,0 +1,530 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+  python3 chip_smoke.py            # from the root of a checkout, one GPU
+
+Phases, each printed as one JSON line; any failed check raises and the
+script exits non-zero before the final line:
+
+1. The card (``nvidia-smi``) and the parallel build of every CUDA kernel
+   from the sources in ``src/repro_torch/csrc`` (one nvcc per source).
+2. One phase per kernel: the CUDA kernel against its plain PyTorch version
+   on the same inputs on the card, at the main path's shapes (smollm-135m:
+   8 lanes, 9 query / 3 KV heads, head dim 64, page 16, contexts up to
+   about 2k, prefill chunks of 512) and at head dim 32 and 128 (qwen3-1.7b,
+   GQA 2, sliding window 4096 over a 6000-token context), with masked
+   lanes and mid-page chunk starts.  Outputs agree within 1e-4 on valid
+   rows, pools are bit-equal after the write, poisoned pages unchanged.
+   At the main shapes each version is timed with CUDA events (the L2 cache
+   flushed before every launch), beside the least time the card could take
+   and one PyTorch ``scaled_dot_product_attention`` call over the gathered
+   K/V (the yardstick; the port never calls it).
+3. Greedy streams of the full-width engine against plain full-causal
+   generation on the card: three requests of different prompt lengths in
+   one padded prefill group, mid-page second chunks, and padded decode
+   groups whose lanes freeze at uneven budgets (a difference counts only
+   if the reference's top-2 logit margin there is at least 1e-4).
+4. The main path: ``repro_torch.launch.serve`` replays 16 chatbot requests
+   at their own lengths on full-width smollm-135m (random weights from the
+   seed, float32).  The kernel launch counts are zeroed just before and read
+   just after: every decode step must launch the decode kernel once per
+   layer, every prefill group the prefill kernel once per layer, and the
+   plain versions never.
+5. The kernels line, the card line, and ``{"ok": true, "device": ...}``.
+
+It imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+LIMIT = 1e-4                   # max |kernel - plain| on valid rows
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+N_TIMED = 20
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+# ------------------------------ timing --------------------------------- #
+_FLUSH = None
+
+
+def time_ms(fn) -> float:
+    """Mean device time of ``fn`` over N_TIMED launches, each after a
+    200 MB write that evicts the 50 MB L2 cache (the main path reads each
+    layer's pages cold)."""
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.empty(50_000_000, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(N_TIMED):
+        _FLUSH.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / N_TIMED
+
+
+def bound(n_bytes: float, n_flops: float):
+    t_b, t_f = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOP_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+# ------------------------------ inputs --------------------------------- #
+def pools_and_tables(gen, B, KVH, hd, page, max_pages):
+    n_pages = B * max_pages + 5
+    kp = torch.randn(n_pages, page, KVH, hd, generator=gen, device="cuda")
+    vp = torch.randn(n_pages, page, KVH, hd, generator=gen, device="cuda")
+    perm = torch.randperm(n_pages, generator=gen, device="cuda")
+    table = perm[:B * max_pages].reshape(B, max_pages).to(torch.int32)
+    return kp, vp, table.contiguous()
+
+
+def pages_visited(lo_pos, hi_pos, page):
+    """Pages holding positions [lo_pos, hi_pos)."""
+    return max(0, (hi_pos + page - 1) // page - max(lo_pos, 0) // page)
+
+
+# ---------------------------- decode phase ----------------------------- #
+DECODE_CASES = [   # name, B, H, KVH, hd, page, max_pages, lens, window
+    ("main", 8, 9, 3, 64, 16, 256,
+     [1, 17, 333, 780, 1024, 1500, 1999, 2048], None),
+    ("hd32", 8, 6, 2, 32, 8, 64, [1, 8, 9, 100, 200, 300, 500, 512], None),
+    ("hd128_window", 4, 16, 8, 128, 16, 400, [6000, 4097, 4096, 37], 4096),
+]
+
+
+def decode_phase(pa):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    results = {}
+    for name, B, H, KVH, hd, page, max_pages, lens, window in DECODE_CASES:
+        kp, vp, table = pools_and_tables(gen, B, KVH, hd, page, max_pages)
+        q = torch.randn(B, H, hd, generator=gen, device="cuda")
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        scale = hd ** -0.5
+        got = pa.paged_decode_attention(q, kp, vp, table, sl, window=window)
+        want = pa.paged_decode_plain(q, kp, vp, table, sl, scale=scale,
+                                     window=window)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        # poison every key the queries may not see: the output must not move
+        kpp, vpp = kp.clone(), vp.clone()
+        mapped = torch.zeros(kp.shape[0], dtype=torch.bool, device="cuda")
+        mapped[table.long().flatten()] = True
+        kpp[~mapped] = 1e4
+        vpp[~mapped] = 1e4
+        pos = torch.arange(max_pages * page, device="cuda")
+        bad = pos[None] >= sl[:, None]
+        if window is not None:
+            bad |= pos[None] < sl[:, None] - window
+        flat = (table.long()[:, :, None] * page
+                + torch.arange(page, device="cuda")).reshape(B, -1)
+        kpp.view(-1, KVH, hd)[flat[bad]] = 1e4
+        vpp.view(-1, KVH, hd)[flat[bad]] = 1e4
+        poisoned = pa.paged_decode_attention(q, kpp, vpp, table, sl,
+                                             window=window)
+        perr = (poisoned - got).abs().max().item()
+        ok = err <= LIMIT and perr <= LIMIT and bool(torch.isfinite(got).all())
+        rec = {"phase": "kernel", "kernel": "paged_decode_attention",
+               "case": name, "B": B, "H": H, "KVH": KVH, "hd": hd,
+               "page": page, "seq_lens": lens, "window": window,
+               "max_abs_err": err, "poisoned_err": perr, "ok": ok}
+        if name == "main":
+            rec.update(decode_timing(pa, q, kp, vp, table, sl, lens, window))
+            results = rec
+        emit(rec)
+        if not ok:
+            raise SystemExit(f"paged_decode_attention disagrees ({name})")
+    return results
+
+
+def gathered_kv(kp, vp, table, n_keys, G):
+    """K/V of each lane's first ``n_keys`` positions, gathered from its
+    pages and repeated over the query heads: (B, H, T, hd) for SDPA."""
+    B = table.shape[0]
+    _, page, KVH, hd = kp.shape
+    idx = table.long()[:, :(n_keys + page - 1) // page]
+
+    def one(pool):
+        return pool[idx].reshape(B, -1, KVH, hd).transpose(1, 2) \
+            .repeat_interleave(G, 1).contiguous()
+    return one(kp), one(vp)
+
+
+def decode_timing(pa, q, kp, vp, table, sl, lens, window):
+    B, H, hd = q.shape
+    _, page, KVH, _ = kp.shape
+    G = H // KVH
+    scale = hd ** -0.5
+    # the yardstick sees only the pages up to the longest lane
+    k, v = gathered_kv(kp, vp, table, max(lens), G)
+    pos = torch.arange(k.shape[2], device="cuda")
+    mask = pos[None] < sl[:, None]
+    if window is not None:
+        mask &= pos[None] >= sl[:, None] - window
+    mask = mask[:, None, None, :]
+    qs = q[:, :, None, :]
+    F = torch.nn.functional
+    kernel_ms = time_ms(lambda: pa.paged_decode_attention(
+        q, kp, vp, table, sl, window=window))
+    plain_ms = time_ms(lambda: pa.paged_decode_plain(
+        q, kp, vp, table, sl, scale=scale, window=window))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, k, v, attn_mask=mask, scale=scale))
+    # bytes: q read and out written once, seq_lens, and per lane the table
+    # entries of the pages it visits and the K/V rows of the keys it sees
+    # (one KV head's row is hd contiguous floats, so no whole pages);
+    # flops: 4*hd per (query head, visible key)
+    n_bytes = 4 * (2 * B * H * hd + B)
+    n_flops = 0
+    for n in lens:
+        lo = 0 if window is None else max(n - window, 0)
+        n_bytes += 4 * pages_visited(lo, n, page)
+        n_bytes += 4 * 2 * (n - lo) * KVH * hd
+        n_flops += 4 * H * hd * (n - lo)
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_call": "scaled_dot_product_attention over K/V gathered "
+                            "up to the longest lane"}
+
+
+# ---------------------------- prefill phase ---------------------------- #
+PREFILL_CASES = [  # name, B, S, H, KVH, hd, page, max_pages, pos0, clen, win
+    ("main", 8, 512, 9, 3, 64, 16, 256,
+     [0, 0, 7, 512, 1000, 1480, 0, 0], [512, 300, 512, 512, 488, 512, 1, 0],
+     None),
+    ("hd32", 8, 64, 6, 2, 32, 8, 32,
+     [0, 3, 8, 100, 77, 0, 0, 0], [64, 64, 64, 1, 40, 0, 0, 0], None),
+    ("hd128_window", 4, 512, 16, 8, 128, 16, 400,
+     [5488, 4000, 9, 0], [512, 300, 512, 0], 4096),
+]
+
+
+def prefill_phase(pp):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    results = {}
+    for (name, B, S, H, KVH, hd, page, max_pages, pos0, clen,
+         window) in PREFILL_CASES:
+        kp, vp, table = pools_and_tables(gen, B, KVH, hd, page, max_pages)
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda")
+        kn = torch.randn(B, S, KVH, hd, generator=gen, device="cuda")
+        vn = torch.randn(B, S, KVH, hd, generator=gen, device="cuda")
+        p0 = torch.tensor(pos0, dtype=torch.int32, device="cuda")
+        cl = torch.tensor(clen, dtype=torch.int32, device="cuda")
+        # masked lanes alias lane 0's table, as engine padding does
+        for b in range(B):
+            if clen[b] == 0:
+                table[b] = table[0]
+        scale = hd ** -0.5
+        kp_k, vp_k = kp.clone(), vp.clone()
+        got, _, _ = pp.paged_prefill_attention(q, kn, vn, kp_k, vp_k, table,
+                                               p0, cl, window=window)
+        kp_p, vp_p = kp.clone(), vp.clone()
+        want, _, _ = pp.paged_prefill_plain(q, kn, vn, kp_p, vp_p, table, p0,
+                                            cl, scale=scale, window=window)
+        torch.cuda.synchronize()
+        valid = (torch.arange(S, device="cuda")[None] < cl[:, None])
+        err = (got - want).abs()[valid].max().item()
+        pools_equal = bool(torch.equal(kp_k, kp_p) and torch.equal(vp_k, vp_p))
+        written = torch.zeros(kp.shape[0], dtype=torch.bool, device="cuda")
+        for b in range(B):
+            for slot in range(pos0[b] // page,
+                              (pos0[b] + clen[b] + page - 1) // page):
+                if clen[b]:
+                    written[int(table[b, slot])] = True
+        untouched = bool(torch.equal(kp_k[~written], kp[~written])
+                         and torch.equal(vp_k[~written], vp[~written]))
+        padded_zero = not bool(got[~valid].any())
+        ok = (err <= LIMIT and pools_equal and untouched and padded_zero
+              and bool(torch.isfinite(got).all()))
+        rec = {"phase": "kernel", "kernel": "paged_prefill_attention",
+               "case": name, "B": B, "S": S, "H": H, "KVH": KVH, "hd": hd,
+               "page": page, "pos0": pos0, "chunk_len": clen,
+               "window": window, "max_abs_err": err,
+               "pools_bit_equal": pools_equal,
+               "unwritten_pages_unchanged": untouched,
+               "padded_rows_zero": padded_zero, "ok": ok}
+        if name == "main":
+            rec.update(prefill_timing(pp, q, kn, vn, kp, vp, table, p0, cl,
+                                      pos0, clen, window))
+            results = rec
+        emit(rec)
+        if not ok:
+            raise SystemExit(f"paged_prefill_attention disagrees ({name})")
+    return results
+
+
+def prefill_timing(pp, q, kn, vn, kp, vp, table, p0, cl, pos0, clen, window):
+    B, S, H, hd = q.shape
+    _, page, KVH, _ = kp.shape
+    G = H // KVH
+    scale = hd ** -0.5
+    F = torch.nn.functional
+    # SDPA over the K/V gathered after the write, up to the longest lane's
+    # end, with the kernel's mask
+    kpw, vpw = kp.clone(), vp.clone()
+    pp.paged_prefill_plain(q, kn, vn, kpw, vpw, table, p0, cl, scale=scale,
+                           window=window)
+    end = max(p + n for p, n in zip(pos0, clen))
+    k, v = gathered_kv(kpw, vpw, table, end, G)
+    qs = q.transpose(1, 2).contiguous()
+    q_pos = p0.long()[:, None, None] + torch.arange(S, device="cuda")[None, :,
+                                                                      None]
+    k_pos = torch.arange(k.shape[2], device="cuda")[None, None, :]
+    mask = ((k_pos <= q_pos) & (k_pos < (p0 + cl).long()[:, None, None]))
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    mask |= (k_pos == 0)          # keep padded rows finite; not compared
+    mask = mask[:, None]
+    kernel_ms = time_ms(lambda: pp.paged_prefill_attention(
+        q, kn, vn, kp, vp, table, p0, cl, window=window))
+    plain_ms = time_ms(lambda: pp.paged_prefill_plain(
+        q, kn, vn, kp, vp, table, p0, cl, scale=scale, window=window))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, k, v, attn_mask=mask, scale=scale))
+    # bytes: out written in full (padded rows are zeros), pos0 and
+    # chunk_len, and per real lane its valid q / k_new / v_new rows, the
+    # table entries of the pages it visits, the visible history read once
+    # and the chunk's rows written once; flops: 4*hd per visible (q, k) pair
+    n_bytes = 4 * (B * S * H * hd + 2 * B)
+    n_flops = 0
+    for b in range(B):
+        n, p = clen[b], pos0[b]
+        if n == 0:
+            continue
+        lo = 0 if window is None else max(p - window + 1, 0)
+        n_bytes += 4 * n * (H + 2 * KVH) * hd               # q, k_new, v_new
+        n_bytes += 4 * pages_visited(lo, p + n, page)       # table entries
+        n_bytes += 4 * 2 * max(p - lo, 0) * KVH * hd        # history read
+        n_bytes += 4 * 2 * n * KVH * hd                     # rows written
+        for i in range(n):
+            qp = p + i
+            vis = qp + 1 if window is None else min(qp + 1, window)
+            n_flops += 4 * H * hd * vis
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_call": "scaled_dot_product_attention over K/V gathered "
+                            "up to the longest lane (write not included)"}
+
+
+# ---------------------------- stream check ----------------------------- #
+# Three requests of different prompt lengths through the engine: the
+# first prefill group holds three lanes (chunks 24, 29 and 20 in the
+# 32-token bucket, padded to four lanes with a masked one); the second
+# chunks of rids 1 and 3 start mid-page while rid 2 decodes; the decode
+# groups pad three lanes to four and freeze them at uneven budgets.
+STREAM_PROMPTS = {1: 40, 2: 29, 3: 53}
+STREAM_SCRIPT = [
+    [(1, "P", 24), (2, "P", 29), (3, "P", 20)],
+    [(1, "P", 16), (2, "D", 3), (3, "P", 33)],
+    [(1, "D", 5), (2, "D", 2), (3, "D", 7)],
+    [(1, "D", 1), (2, "D", 4), (3, "D", 2)],
+]
+
+
+def stream_phase(seed: int):
+    """Greedy streams of the engine (chunked lane-batched prefill through
+    the fused kernel, padded multi-lane decode through the decode kernel)
+    against plain full-causal generation with the same full-width
+    weights.  A difference counts only where the reference's top-2 logit
+    margin is below 1e-4 (a tie)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.batch import Batch
+    from repro_torch.core.slo import StageKind
+    from repro_torch.device import generator
+    from repro_torch.models import init_params, logits_fn, model_forward
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    cfg = get_config("smollm-135m")
+    dev = torch.device("cuda")
+    params = init_params(cfg, generator(dev, seed), device=dev)
+    eng = ServingEngine(cfg, params, EngineConfig(max_slots=8, max_len=4096,
+                                                  total_pages=64),
+                        device=dev)
+    g = torch.Generator().manual_seed(seed)
+    prompts = {rid: torch.randint(1, cfg.vocab, (n,), generator=g).tolist()
+               for rid, n in STREAM_PROMPTS.items()}
+    for rid, prompt in prompts.items():
+        assert eng.add_request(rid, prompt, expected_total=96)
+    kinds = {"P": StageKind.PREFILL, "D": StageKind.DECODE}
+    got = {rid: [] for rid in prompts}
+    for step in STREAM_SCRIPT:
+        b = Batch()
+        for rid, kind, n in step:
+            b.add(rid, kinds[kind], n)
+        for rid, toks in eng.execute(b).items():
+            got[rid] += toks
+    want_len = {1: 7, 2: 10, 3: 10}    # one prefill emission + decode steps
+    rec = {"phase": "stream", "requests": len(prompts),
+           "prefill_calls": eng.counters["prefill_calls"],
+           "decode_calls": eng.counters["decode_calls"]}
+    ok = True
+    with torch.no_grad():
+        for rid, prompt in prompts.items():
+            toks, want, margins = list(prompt), [], []
+            for _ in range(len(got[rid])):
+                h, _ = model_forward(params, cfg,
+                                     torch.tensor([toks], device=dev))
+                lg = logits_fn(params, cfg, h[0, -1])
+                top = torch.topk(lg, 2).values
+                margins.append((top[0] - top[1]).item())
+                toks.append(int(torch.argmax(lg)))
+                want.append(toks[-1])
+            first = next((i for i, (a, b) in enumerate(zip(got[rid], want))
+                          if a != b), None)
+            tie = first is not None and margins[first] < 1e-4
+            ok_r = len(got[rid]) == want_len[rid] and (first is None or tie)
+            ok = ok and ok_r
+            rec[f"rid{rid}"] = {"prompt": len(prompt), "tokens": len(got[rid]),
+                                "equal": first is None,
+                                "first_difference": first, "tie": tie,
+                                "min_top2_margin": min(margins, default=None),
+                                "ok": ok_r}
+            if not ok_r:
+                rec[f"rid{rid}"].update(got=got[rid], want=want)
+    rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        raise SystemExit("engine streams differ from plain generation")
+
+
+# ----------------------------- main path ------------------------------- #
+class SpanTimer:
+    """Engine tracer (the duck type of the telemetry StepTracer): wall
+    seconds per span name, with the device synchronised at each span's
+    end so that its work is counted in its span."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self.count: dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def span(self, name, **attrs):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0)
+            self.count[name] = self.count.get(name, 0) + 1
+
+
+def main_path(pa, pp, seed: int):
+    from repro_torch.launch import serve
+    args = serve.parse_args(["--time-scale", "1.0", "--max-requests", "16",
+                             "--duration", "10", "--seed", str(seed)])
+    fe, eng = serve.build(args)
+    timer = SpanTimer()
+    eng.tracer = timer
+    torch.cuda.reset_peak_memory_stats()
+    for c in (pa.COUNTS, pp.COUNTS):
+        c["kernel"] = c["plain"] = 0
+    wall = serve.replay(fe)
+    launches = {"decode": dict(pa.COUNTS), "prefill": dict(pp.COUNTS)}
+    s, c = fe.stats, eng.counters
+    L = eng.cfg.n_layers
+    checks = {
+        "served_all": s.served == s.submitted == 16,
+        "tokens_out": s.tokens_out > 0,
+        "decode_launches":
+            launches["decode"]["kernel"] == L * c["decode_steps"],
+        "prefill_launches":
+            launches["prefill"]["kernel"] == L * c["prefill_calls"],
+        "no_plain": launches["decode"]["plain"] == 0
+                    and launches["prefill"]["plain"] == 0,
+    }
+    emit({"phase": "main_path", "model": eng.cfg.name,
+          "layers": L, "submitted": s.submitted, "served": s.served,
+          "attained": s.attained, "dropped": s.dropped,
+          "tokens_out": s.tokens_out, "prefill_calls": c["prefill_calls"],
+          "decode_calls": c["decode_calls"], "decode_steps": c["decode_steps"],
+          "decode_tokens": c["decode_tokens"], "launches": launches,
+          "wall_s": wall, "span_s": timer.seconds, "spans": timer.count,
+          "outside_spans_s": wall - sum(timer.seconds.values()),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "checks": checks})
+    if not all(checks.values()):
+        raise SystemExit(f"main path checks failed: {checks}")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.device import set_precision
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_prefill as pp
+
+    set_precision()
+    seed = 0
+    t0 = time.perf_counter()
+    card = card_line()
+    info = build.build_all()
+    ptxas = {k: [ln.strip() for ln in v.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for k, v in info["ptxas"].items()}
+    emit({"phase": "setup", "gpu": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "build_s": info["seconds"],
+          "ptxas": ptxas})
+    dec = decode_phase(pa)
+    pre = prefill_phase(pp)
+    stream_phase(seed)
+    launches = main_path(pa, pp, seed)
+    torch.cuda.synchronize()
+
+    def entry(name, source, replaces, rec, n):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n,
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+    emit({"phase": "done", "total_s": time.perf_counter() - t0})
+    emit({"kernels": [
+        entry("paged_decode_attention", "src/repro_torch/csrc/paged_decode.cu",
+              "src/repro/kernels/paged_attention.py:73", dec,
+              launches["decode"]["kernel"]),
+        entry("paged_prefill_attention",
+              "src/repro_torch/csrc/paged_prefill.cu",
+              "src/repro/kernels/paged_prefill.py:125", pre,
+              launches["prefill"]["kernel"]),
+    ]})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

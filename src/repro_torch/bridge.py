@@ -1,0 +1,57 @@
+"""Move weights and KV state between the JAX reference and the port as
+numpy arrays, so both run the same weights and their state can be compared.
+
+The caller turns JAX arrays into numpy (``jax.tree.map(np.asarray, tree)``);
+this module never imports JAX.  Key paths are the same on both sides:
+``params["segments"][i]["p"]["attn"]["wq"]`` is the same (stacked) array.
+Page pools differ by one page: the port's pools end in a write-off page
+(``models/attention.py``) that the reference does not have.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def params_from_numpy(tree, device=None):
+    """A pytree of numpy arrays (from ``repro.models.init_params``) as
+    torch tensors under the same key paths, on ``resolve_device(device)``
+    (CUDA unless named)."""
+    device = resolve_device(device)
+    return _map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def pools_from_numpy(pools, device=None):
+    """Reference page pools (per-segment ``{"self": {"k_pages", ...}}``,
+    page axis 1 when stacked over layers, else 0) as port pools on
+    ``resolve_device(device)``: each gets its trailing write-off page
+    (zeros)."""
+    device = resolve_device(device)
+
+    def conv(a):
+        a = np.asarray(a)
+        ax = a.ndim - 4                       # page axis: 0, or 1 if stacked
+        pad = [(0, 0)] * a.ndim
+        pad[ax] = (0, 1)
+        return torch.from_numpy(np.pad(a, pad)).to(device)
+    return _map(conv, pools)
+
+
+def pools_to_numpy(pools):
+    """Port page pools as reference-shaped numpy arrays (write-off page
+    dropped), for bit-level state comparisons."""
+    def conv(t):
+        a = t.detach().cpu().numpy()
+        ax = a.ndim - 4
+        return np.take(a, np.arange(a.shape[ax] - 1), axis=ax)
+    return _map(conv, pools)

@@ -1,0 +1,43 @@
+"""Architecture config registry (ported subset of ``repro.configs``).
+
+``get_config(arch)`` returns the full published configuration and
+``get_reduced(arch)`` the CPU-test variant of the same family.  Only the
+dense GQA families of the serving main path are ported; every other
+architecture the reference knows raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+_MODULES = {
+    "smollm-135m": "smollm_135m",
+    "qwen3-1.7b": "qwen3_1p7b",
+    "qwen3-1.7b-swa": "qwen3_1p7b",
+}
+
+# architectures the JAX reference serves that this package does not yet
+_NOT_PORTED = (
+    "whisper-large-v3", "phi4-mini-3.8b", "llama-3.2-vision-11b",
+    "command-r-plus-104b", "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b",
+    "mamba2-2.7b", "zamba2-7b", "opt-125m", "opt-7b", "opt-13b", "opt-30b",
+)
+
+def _mod(arch: str):
+    if arch in _NOT_PORTED:
+        raise NotImplementedError(f"{arch}: not yet ported")
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    m = _mod(arch)
+    return m.get(arch) if hasattr(m, "get") else m.CONFIG
+
+
+def get_reduced(arch: str) -> ModelConfig:
+    m = _mod(arch)
+    return (m.get_reduced(arch) if hasattr(m, "get_reduced")
+            else m.REDUCED)

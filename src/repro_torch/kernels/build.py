@@ -1,0 +1,106 @@
+"""Build and load the hand-written CUDA kernels under ``repro_torch/csrc``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared library,
+loaded with ``ctypes``.  Nothing includes PyTorch's headers, so a build
+takes seconds.  The build runs at first use (never at import: the CPU
+tests import every module on machines with no ``nvcc``), from the sources
+in the checkout only, into ``build/repro_torch_kernels/`` at the root of
+the checkout.  A library is named after a hash of its source and flags,
+so an edited source is rebuilt and a stale library is never loaded.
+
+``build_all()`` starts one ``nvcc`` per source at once and waits for all
+of them; ``chip_smoke.py`` calls it to build the kernels in parallel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C signatures of the exported launchers: every pointer and the stream
+# are c_void_p (a plain int would truncate them to 32 bits)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "paged_decode": ("repro_paged_decode_f32",
+                     [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+    "paged_prefill": ("repro_paged_prefill_f32",
+                      [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels can only be built "
+                       "on a machine with the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (Popen, final path, temp path) or
+    None when the library for this exact source already exists."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out, tmp
+
+
+def _finish(name: str, started) -> str:
+    if started is None:
+        return ""
+    proc, out, tmp = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)            # atomic: a reader never sees a partial .so
+    return log
+
+
+def build_all() -> dict:
+    """Compile every kernel source in parallel (one nvcc each).  Returns
+    ``{"seconds": wall time, "ptxas": {name: nvcc's -Xptxas -v output}}``."""
+    t0 = time.perf_counter()
+    started = {name: _start(name) for name in SIGNATURES}
+    logs = {name: _finish(name, s) for name, s in started.items()}
+    return {"seconds": time.perf_counter() - t0, "ptxas": logs}
+
+
+def load(name: str):
+    """The exported launcher of ``csrc/<name>.cu``, building it if needed."""
+    fn_name, argtypes = SIGNATURES[name]
+    lib = _LIBS.get(name)
+    if lib is None:
+        _finish(name, _start(name))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _LIBS[name] = lib
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

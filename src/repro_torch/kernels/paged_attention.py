@@ -1,0 +1,103 @@
+"""Paged decode attention (kernel B1): the CUDA kernel, its plain PyTorch
+version, and the launch counts.
+
+Port of ``repro/kernels/paged_attention.py::paged_decode_attention``.  One
+query token per lane attends over a KV history scattered across pages
+addressed by a block table; with ``window`` the query at position
+``seq_len - 1`` sees only keys at positions ``>= seq_len - window``.
+
+``paged_decode_attention`` dispatches on the device of its inputs, never
+on what happens to be installed: CPU tensors run the plain version, CUDA
+tensors launch the hand-written kernel in ``csrc/paged_decode.cu`` (or
+raise), anything else raises.  ``COUNTS["kernel"]`` counts CUDA launches
+and ``COUNTS["plain"]`` calls of the plain version, so a run can show which
+of the two its main path went through.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+COUNTS = {"kernel": 0, "plain": 0}
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *,
+                           scale: Optional[float] = None,
+                           window: Optional[int] = None):
+    """q: (B, H, hd); k/v_pages: (n_pages, page, KVH, hd); block_table:
+    (B, max_pages) int32; seq_lens: (B,) int32, each >= 1; window: sliding
+    window in tokens (None = full causal).  Returns (B, H, hd) in q's dtype,
+    accumulated in float32."""
+    B, H, hd = q.shape
+    KVH = k_pages.shape[2]
+    if H % KVH:
+        raise ValueError(f"{H} query heads do not group over {KVH} KV heads")
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_pages, v_pages, block_table, seq_lens,
+                                  scale=scale, window=window)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"paged_decode_attention: no kernel for {q.device}")
+    return _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window)
+
+
+def check_tensor(name, t, dtype, device, ndim):
+    if t.device != device or t.dtype != dtype or t.dim() != ndim \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: need a contiguous {ndim}-d {dtype} tensor on {device}, "
+            f"got {tuple(t.shape)} {t.dtype} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+def _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window):
+    from repro_torch.kernels import build
+    dev = q.device
+    check_tensor("q", q, torch.float32, dev, 3)
+    check_tensor("k_pages", k_pages, torch.float32, dev, 4)
+    check_tensor("v_pages", v_pages, torch.float32, dev, 4)
+    check_tensor("block_table", block_table, torch.int32, dev, 2)
+    check_tensor("seq_lens", seq_lens, torch.int32, dev, 1)
+    B, H, hd = q.shape
+    n_pages, page, KVH, hd_k = k_pages.shape
+    if hd_k != hd or v_pages.shape != k_pages.shape \
+            or block_table.shape[0] != B or seq_lens.shape[0] != B:
+        raise ValueError("paged_decode_attention: inconsistent shapes")
+    out = torch.empty_like(q)
+    fn = build.load("paged_decode")
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            B, H, KVH, hd, page, block_table.shape[1], scale,
+            -1 if window is None else int(window),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {rc}")
+    COUNTS["kernel"] += 1
+    return out
+
+
+def paged_decode_plain(q, k_pages, v_pages, block_table, seq_lens, *,
+                       scale: float, window: Optional[int] = None):
+    """The kernel's function in plain PyTorch: gather each lane's pages,
+    then a masked softmax over the whole gathered stream."""
+    COUNTS["plain"] += 1
+    B, H, hd = q.shape
+    _, page, KVH, _ = k_pages.shape
+    G = H // KVH
+    idx = block_table.long()
+    k = k_pages[idx].reshape(B, -1, KVH, hd).float()        # (B, T, KVH, hd)
+    v = v_pages[idx].reshape(B, -1, KVH, hd).float()
+    qf = q.float().reshape(B, KVH, G, hd)
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k) * scale
+    pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    lens = seq_lens.long()[:, None]
+    valid = pos < lens
+    if window is not None:
+        valid &= pos >= lens - window
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v)
+    return out.reshape(B, H, hd).to(q.dtype)

@@ -1,0 +1,126 @@
+"""Fused chunked-prefill paged attention (kernel B2): the CUDA kernel, its
+plain PyTorch version, and the launch counts.
+
+Port of ``repro/kernels/paged_prefill.py::paged_prefill_attention``.  One
+call per layer per prefill group writes the chunk's K/V rows into the
+lanes' pool pages (row i of lane b lands at position ``pos0[b] + i``, only
+for ``i < chunk_len[b]``; a lane with ``chunk_len`` 0 writes nothing) and
+attends, causally and with an optional sliding window, over the paged
+history plus the chunk.  The pools are updated IN PLACE and returned, the
+counterpart of the TPU kernel's input/output aliasing.
+
+Output rows at ``i >= chunk_len[b]`` (bucket padding, masked lanes) are
+zeros in both versions; the TPU kernel leaves them as attention over the
+lane's history, which no caller reads.
+
+Dispatch is by the inputs' device, as in ``paged_attention.py``:
+CPU → plain version, CUDA → ``csrc/paged_prefill.cu`` or raise.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.paged_attention import NEG_INF, check_tensor
+
+COUNTS = {"kernel": 0, "plain": 0}
+
+# query positions per block of the CUDA kernel's (lane, KV head, tile) grid
+TILE_Q = 16
+
+
+def paged_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_table,
+                            pos0, chunk_len, *, scale: Optional[float] = None,
+                            window: Optional[int] = None):
+    """q: (B, S, H, hd); k_new/v_new: (B, S, KVH, hd); k/v_pages:
+    (n_pages, page, KVH, hd), written in place; block_table: (B, max_pages)
+    int32; pos0/chunk_len: (B,) int32.  Returns (out (B, S, H, hd),
+    k_pages, v_pages)."""
+    B, S, H, hd = q.shape
+    KVH = k_pages.shape[2]
+    if H % KVH:
+        raise ValueError(f"{H} query heads do not group over {KVH} KV heads")
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return paged_prefill_plain(q, k_new, v_new, k_pages, v_pages,
+                                   block_table, pos0, chunk_len, scale=scale,
+                                   window=window)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"paged_prefill_attention: no kernel for {q.device}")
+    return _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
+                   chunk_len, scale, window)
+
+
+def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
+            scale, window):
+    from repro_torch.kernels import build
+    dev = q.device
+    check_tensor("q", q, torch.float32, dev, 4)
+    check_tensor("k_new", k_new, torch.float32, dev, 4)
+    check_tensor("v_new", v_new, torch.float32, dev, 4)
+    check_tensor("k_pages", k_pages, torch.float32, dev, 4)
+    check_tensor("v_pages", v_pages, torch.float32, dev, 4)
+    check_tensor("block_table", block_table, torch.int32, dev, 2)
+    check_tensor("pos0", pos0, torch.int32, dev, 1)
+    check_tensor("chunk_len", chunk_len, torch.int32, dev, 1)
+    B, S, H, hd = q.shape
+    n_pages, page, KVH, hd_k = k_pages.shape
+    if hd_k != hd or k_new.shape != (B, S, KVH, hd) \
+            or v_new.shape != k_new.shape or v_pages.shape != k_pages.shape \
+            or block_table.shape[0] != B or pos0.shape[0] != B \
+            or chunk_len.shape[0] != B:
+        raise ValueError("paged_prefill_attention: inconsistent shapes")
+    if (H // KVH) * TILE_Q > 256:
+        raise ValueError("paged_prefill_attention: GQA group too large")
+    out = torch.empty_like(q)
+    fn = build.load("paged_prefill")
+    rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
+            pos0.data_ptr(), chunk_len.data_ptr(), out.data_ptr(),
+            B, S, H, KVH, hd, page, block_table.shape[1], scale,
+            -1 if window is None else int(window), TILE_Q,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_prefill kernel launch failed: CUDA error {rc}")
+    COUNTS["kernel"] += 1
+    return out, k_pages, v_pages
+
+
+def paged_prefill_plain(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
+                        chunk_len, *, scale: float,
+                        window: Optional[int] = None):
+    """The kernel's function in plain PyTorch: scatter the chunk's rows
+    into the pages (in place), gather each lane's stream, masked softmax.
+    The scatter selects the written rows with a boolean mask, which waits
+    on the device; this version is never on the CUDA main path."""
+    COUNTS["plain"] += 1
+    B, S, H, hd = q.shape
+    _, page, KVH, _ = k_pages.shape
+    G = H // KVH
+    dev = q.device
+    i = torch.arange(S, device=dev)
+    pos = pos0.long()[:, None] + i[None, :]                     # (B, S)
+    valid = i[None, :] < chunk_len.long()[:, None]
+    slot = (pos // page).clamp(0, block_table.shape[1] - 1)
+    pid = torch.gather(block_table.long(), 1, slot)
+    flat = (pid * page + pos % page)[valid]
+    k_pages.view(-1, KVH, hd)[flat] = k_new[valid].to(k_pages.dtype)
+    v_pages.view(-1, KVH, hd)[flat] = v_new[valid].to(v_pages.dtype)
+
+    idx = block_table.long()
+    k = k_pages[idx].reshape(B, -1, KVH, hd).float()            # (B, T, ...)
+    v = v_pages[idx].reshape(B, -1, KVH, hd).float()
+    qf = q.float().reshape(B, S, KVH, G, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qf, k) * scale
+    q_pos = pos[:, :, None]                                     # (B, S, 1)
+    k_pos = torch.arange(k.shape[1], device=dev)[None, None, :]
+    kv_len = (pos0.long() + chunk_len.long())[:, None, None]
+    m = (k_pos < kv_len) & (k_pos <= q_pos)
+    if window is not None:
+        m &= k_pos > q_pos - window
+    s = torch.where(m[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v).reshape(B, S, H, hd)
+    out = torch.where(valid[:, :, None, None], out, 0.0)
+    return out.to(q.dtype), k_pages, v_pages

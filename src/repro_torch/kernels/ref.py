@@ -1,0 +1,78 @@
+"""Loop-per-lane oracles for the paged kernels, ported from
+``repro/kernels/ref.py`` (``ref_paged_decode`` / ``ref_paged_prefill``).
+
+They are the slowest, most obviously right versions: one lane at a time,
+one written row at a time, a full softmax over the gathered stream.  The
+tests hold the kernels' plain versions against them and against the JAX
+oracles on the same inputs.  Unlike the kernels they never write in place:
+``ref_paged_prefill`` returns updated copies of the pools.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def ref_paged_decode(q, k_pages, v_pages, block_table, seq_lens, *,
+                     scale=None, window=None):
+    """q: (B, H, hd); k/v_pages: (n_pages, page, KVH, hd); block_table:
+    (B, max_pages); seq_lens: (B,); window: the query at ``seq_len - 1``
+    sees keys at positions ``>= seq_len - window``."""
+    B, H, hd = q.shape
+    _, page, KVH, _ = k_pages.shape
+    max_pages = block_table.shape[1]
+    G = H // KVH
+    scale = hd ** -0.5 if scale is None else scale
+    pos = torch.arange(max_pages * page)
+    out = []
+    for b in range(B):
+        rows = block_table[b].long()
+        ks = k_pages[rows].reshape(max_pages * page, KVH, hd)
+        vs = v_pages[rows].reshape(max_pages * page, KVH, hd)
+        ks = ks.repeat_interleave(G, dim=1).float()       # (T, H, hd)
+        vs = vs.repeat_interleave(G, dim=1).float()
+        s = torch.einsum("hd,shd->hs", q[b].float(), ks) * scale
+        valid = pos < int(seq_lens[b])
+        if window is not None:
+            valid &= pos >= int(seq_lens[b]) - window
+        s = torch.where(valid[None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out.append(torch.einsum("hs,shd->hd", p, vs))
+    return torch.stack(out).to(q.dtype)
+
+
+def ref_paged_prefill(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
+                      chunk_len, *, scale=None, window=None):
+    """Unfused oracle: scatter the chunk's K/V rows into copies of the
+    pages, gather each lane's stream, run masked attention.  Returns
+    (out (B, S, H, hd), k_pages', v_pages')."""
+    B, S, H, hd = q.shape
+    _, page, KVH, _ = k_pages.shape
+    max_pages = block_table.shape[1]
+    G = H // KVH
+    scale = hd ** -0.5 if scale is None else scale
+    kp, vp = k_pages.clone(), v_pages.clone()
+    for b in range(B):
+        for i in range(int(chunk_len[b])):
+            p = int(pos0[b]) + i
+            pid = int(block_table[b, p // page])
+            kp[pid, p % page] = k_new[b, i].to(kp.dtype)
+            vp[pid, p % page] = v_new[b, i].to(vp.dtype)
+    k_pos = torch.arange(max_pages * page)[None, :]
+    out = []
+    for b in range(B):
+        rows = block_table[b].long()
+        ks = kp[rows].reshape(max_pages * page, KVH, hd)
+        vs = vp[rows].reshape(max_pages * page, KVH, hd)
+        ks = ks.repeat_interleave(G, dim=1).float()
+        vs = vs.repeat_interleave(G, dim=1).float()
+        s = torch.einsum("qhd,shd->hqs", q[b].float(), ks) * scale
+        q_pos = int(pos0[b]) + torch.arange(S)[:, None]
+        mask = (k_pos < int(pos0[b]) + int(chunk_len[b])) & (k_pos <= q_pos)
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        s = torch.where(mask[None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out.append(torch.einsum("hqs,shd->qhd", p, vs))
+    return torch.stack(out).to(q.dtype), kp, vp

@@ -1,0 +1,179 @@
+"""GQA self-attention (RoPE, qk-norm, sliding window) over paged KV — the
+GQA half of ``repro/models/attention.py``.
+
+Two execution modes share ``attn_forward``:
+  * full causal (``cache=None``): plain masked attention over the chunk;
+  * paged (``cache = {"k_pages", "v_pages"}``): page pools addressed by
+    per-lane block tables.  A multi-token chunk goes to the fused prefill
+    kernel (B2, ``kernels/paged_prefill.py``), which writes the chunk's KV
+    into the pages and attends in one launch.  A decode token is written
+    by the plain ``paged_write`` scatter and attends through the paged
+    decode kernel (B1, ``kernels/paged_attention.py``).
+
+Pools are updated in place: ``attn_forward`` returns the same tensors it
+was given.  Every pool the engine owns ends in one WRITE-OFF page
+(``pages[-1]``) that no block table maps: ``paged_write`` routes masked
+rows there.  JAX drops them with ``mode="drop"``; torch has no such mode,
+and routing them to "the old value" would race with lane 0's real write,
+since padded decode lanes repeat lane 0's slot.  The write-off page keeps
+the scatter free of host syncs.  MLA and cross-attention are not ported.
+
+``OP_STATS`` keeps the reference's keys, but the port runs eagerly and
+counts per call, where JAX counts once per traced program.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.paged_prefill import paged_prefill_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, rms_head_norm
+
+NEG_INF = -1e30
+
+OP_STATS = {"paged_write": 0, "prefill_attn": 0, "fused_prefill": 0,
+            "verify_write": 0, "verify_attn": 0, "fused_verify": 0}
+
+
+# ----------------------------- paged KV --------------------------------- #
+def paged_write(pages, vals, block_table, pos0, chunk_len):
+    """Scatter a chunk's per-token vectors into KV pages, in place.
+
+    pages: (P + 1, page, ...) whose last page is the write-off page;
+    vals: (B, S, ...); block_table: (B, max_pages); pos0 / chunk_len:
+    (B,) int32.  Token i of lane b lands at global position pos0[b] + i
+    of the lane's block table; rows at or past chunk_len[b] go to the
+    write-off page.  No host sync."""
+    OP_STATS["paged_write"] += 1
+    P1, page = pages.shape[:2]
+    B, S = vals.shape[:2]
+    tail = pages.shape[2:]
+    i = torch.arange(S, device=vals.device)
+    pos = pos0.long()[:, None] + i[None, :]                      # (B, S)
+    slot = (pos // page).clamp(0, block_table.shape[1] - 1)
+    pid = torch.gather(block_table.long(), 1, slot)
+    flat = pid * page + pos % page
+    valid = i[None, :] < chunk_len.long()[:, None]
+    flat = torch.where(valid, flat, (P1 - 1) * page)             # write-off
+    pages.view((P1 * page,) + tail).index_copy_(
+        0, flat.reshape(-1), vals.to(pages.dtype).reshape((B * S,) + tail))
+    return pages
+
+
+def paged_gather(pages, block_table):
+    """Each lane's logical KV stream: (P, page, ...) x (B, max_pages) ->
+    (B, max_pages * page, ...)."""
+    g = pages[block_table.long()]
+    return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + g.shape[3:])
+
+
+# ------------------------------ init ----------------------------------- #
+def init_attn(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, dtype=dtype, device=device)
+    s = d ** -0.5
+    p = {"wq": normal(d, h, hd) * s,
+         "wk": normal(d, kv, hd) * s,
+         "wv": normal(d, kv, hd) * s,
+         "wo": normal(h, hd, d) * (h * hd) ** -0.5}
+    if cfg.use_bias:
+        p["bq"] = torch.zeros(h, hd, dtype=dtype, device=device)
+        p["bk"] = torch.zeros(kv, hd, dtype=dtype, device=device)
+        p["bv"] = torch.zeros(kv, hd, dtype=dtype, device=device)
+        p["bo"] = torch.zeros(d, dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
+    return p
+
+
+# ----------------------------- core math -------------------------------- #
+def sdpa(q, k, v, mask, scale: Optional[float] = None):
+    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); mask: (B, 1, Sq, Sk) bool."""
+    H, hd = q.shape[2], q.shape[3]
+    KV = k.shape[2]
+    if H != KV:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    scale = scale if scale is not None else hd ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def causal_mask(B, Sq, Sk, pos0, kv_len, window: Optional[int] = None):
+    """Query i (global position pos0 + i) sees key j iff j <= pos0 + i,
+    j < kv_len and, with a window, j > pos0 + i - window.  pos0, kv_len:
+    (B,) int.  Returns (B, 1, Sq, Sk) bool."""
+    dev = pos0.device
+    q_pos = pos0[:, None] + torch.arange(Sq, device=dev)[None, :]
+    k_idx = torch.arange(Sk, device=dev)[None, None, :]
+    m = k_idx <= q_pos[:, :, None]
+    m &= k_idx < kv_len[:, None, None]
+    if window is not None:
+        m &= k_idx > q_pos[:, :, None] - window
+    return m[:, None, :, :]
+
+
+# --------------------------- self-attention ----------------------------- #
+def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
+                 pos0=None, block_tables=None, chunk_len=None):
+    """Returns (ctx (B, Sq, H, hd), cache).
+
+    cache: None (full causal, nothing kept) or dict(k_pages, v_pages) page
+    pools addressed through ``block_tables`` and updated in place.  pos0:
+    (B,) write offsets; chunk_len: (B,) true (unpadded) chunk lengths."""
+    B, Sq, d = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].reshape(d, h * hd)).reshape(B, Sq, h, hd)
+    k = (x @ p["wk"].reshape(d, kv * hd)).reshape(B, Sq, kv, hd)
+    v = (x @ p["wv"].reshape(d, kv * hd)).reshape(B, Sq, kv, hd)
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if "q_norm" in p:
+        q = rms_head_norm(p["q_norm"], q)
+        k = rms_head_norm(p["k_norm"], k)
+    if cfg.learned_pos == 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.sliding_window
+
+    if cache is None:
+        zeros = torch.zeros(B, dtype=torch.int32, device=x.device)
+        full = torch.full((B,), Sq, dtype=torch.int32, device=x.device)
+        return sdpa(q, k, v, causal_mask(B, Sq, Sq, zeros, full, window)), None
+    if "k_pages" not in cache:
+        raise NotImplementedError("only paged KV caches are ported")
+
+    kp, vp = cache["k_pages"], cache["v_pages"]
+    if chunk_len is None:
+        chunk_len = torch.full((B,), Sq, dtype=torch.int32, device=x.device)
+    if Sq > 1:
+        # fused chunked prefill: the kernel writes the chunk's KV into the
+        # pages and attends over the paged history in the same launch (the
+        # engine's CoW barrier made every written page exclusive).  The
+        # write-off page is left out: the kernel never writes masked rows.
+        OP_STATS["fused_prefill"] += 1
+        out, _, _ = paged_prefill_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), kp[:-1],
+            vp[:-1], block_tables, pos0, chunk_len, window=window)
+        return out, cache
+    paged_write(kp, k, block_tables, pos0, chunk_len)
+    paged_write(vp, v, block_tables, pos0, chunk_len)
+    out = paged_decode_attention(q[:, 0].contiguous(), kp[:-1], vp[:-1],
+                                 block_tables, pos0 + 1, window=window)
+    return out[:, None], cache
+
+
+def attn_output(p, ctx):
+    B, S, h, hd = ctx.shape
+    out = ctx.reshape(B, S, h * hd) @ p["wo"].reshape(h * hd, -1)
+    if "bo" in p:
+        out = out + p["bo"]
+    return out

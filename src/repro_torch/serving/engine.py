@@ -1,0 +1,492 @@
+"""Continuous-batching execution engine on a paged, device-resident KV
+runtime (port of ``repro/serving/engine.py``).
+
+The engine executes planner ``Batch`` objects:
+  * PREFILL entries process the next chunk of a request's pending context,
+    grouped into lanes of same-bucket chunks; one model call per group
+    writes the chunks' KV into the page pools through the fused prefill
+    kernel and samples each lane's token at its last real position.
+  * DECODE entries emit tokens autoregressively.  All requested steps of a
+    batch group run back to back on the device — sampling, EOS masking,
+    per-lane step budgets, position advance and page writes included — and
+    only the final (B, n_steps) token matrix is copied to the host: one
+    host sync per group, as in the reference's single jitted scan.  The
+    loop is eager PyTorch; capturing it in a CUDA graph is later work.
+
+The engine runs in float32, the reference's default dtype and the one
+the kernels take; on the card TF32 is off (``device.resolve_device``).
+
+``counters`` counts device calls (prefill_calls, decode_calls,
+decode_tokens) with the reference's keys.  ``prefill_fused_ops`` counts
+``attention.OP_STATS["fused_prefill"]`` deltas per call: the port runs
+eagerly, where JAX counts only in freshly traced programs, so it agrees
+with the reference only on a first trace.  Every prefill goes through the
+fused kernel, so the reference's ``prefill_scatter_ops`` and
+``prefill_attn_ops`` (the unfused gather path) have no counterpart.
+
+Not ported yet: speculative decoding (``draft=``), mesh-sharded serving
+(``EngineConfig.mesh``), encoder / image conditioning and the host spill
+tier; asking for any of them raises ``NotImplementedError``.  Prefix
+matching is always token-level and admission always reserves the full
+expected context (the reference's ``token_level_prefix=False`` and
+``prefix_aware_admission=True`` are not ported).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.batch import Batch
+from repro_torch.core.slo import StageKind
+from repro_torch.device import generator, resolve_device
+from repro_torch.models import attention as _attn
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import logits_fn, model_forward
+from repro_torch.serving.kvcache import PagedKVManager
+from repro_torch.serving.sampling import sample
+
+_NULL_CTX = contextlib.nullcontext()
+
+
+def _bucket(n: int, buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 2048)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return ((n + 2047) // 2048) * 2048
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    max_slots: int = 8                # max concurrent sequences
+    max_len: int = 512                # per-sequence context cap (table width)
+    page_size: int = 16
+    total_pages: int = 1024
+    temperature: float = 0.0
+    seed: int = 0
+    # prefix sharing with refcounts + copy-on-write (serving/kvcache.py)
+    share_prefix: bool = True
+    host_spill_pages: int = 0         # > 0 raises: not yet ported
+    mesh: object = None               # not None raises: not yet ported
+
+
+@dataclasses.dataclass
+class RequestCtx:
+    rid: int
+    prompt: list
+    pending: list            # tokens not yet prefilled (prompt or tool ctx)
+    generated: list
+    eos: Optional[int] = None
+    done: bool = False
+    # preemption bookkeeping: ``history`` mirrors the KV cache content, so
+    # a preempted request re-prefills it verbatim; ``replay`` counts
+    # pending tokens that are recompute work; ``recompute`` suppresses the
+    # one prefill-completion emission that would re-sample a token
+    history: list = dataclasses.field(default_factory=list)
+    replay: int = 0
+    recompute: bool = False
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig = None,
+                 draft: Optional[tuple] = None, device=None):
+        self.ecfg = ecfg or EngineConfig()
+        if draft is not None:
+            raise NotImplementedError("speculative decoding is not yet ported")
+        if self.ecfg.mesh is not None:
+            raise NotImplementedError("mesh-sharded serving is not yet ported")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.kv = PagedKVManager(cfg, total_pages=self.ecfg.total_pages,
+                                 page_size=self.ecfg.page_size,
+                                 max_seqs=self.ecfg.max_slots,
+                                 max_len=self.ecfg.max_len,
+                                 dtype=torch.float32,
+                                 share_prefix=self.ecfg.share_prefix,
+                                 host_spill_pages=self.ecfg.host_spill_pages,
+                                 device=self.device)
+        self.reqs: dict[int, RequestCtx] = {}
+        self.gen = generator(self.device, self.ecfg.seed)
+        # the reference's keys, less the speculative-decoding ones;
+        # decode_steps sums the bucketed step counts of the decode groups
+        # (each step launches the decode kernel once per layer)
+        self.counters = {"prefill_calls": 0, "decode_calls": 0,
+                         "decode_steps": 0, "decode_tokens": 0,
+                         "preemptions": 0, "prefix_hit_tokens": 0,
+                         "prefill_fused_ops": 0}
+        # fresh progress granted by the last admission's prefix hit
+        self.last_hit_fresh = 0
+        # fresh (non-replay) prefill tokens per rid in the last execute()
+        self.last_prefill_progress: dict[int, int] = {}
+        # (accepted, drafted) per rid of the last execute(): no speculation
+        self.last_spec_stats: dict[int, tuple[int, int]] = {}
+        self.tracer = None                # optional StepTracer (duck type)
+        self.spec = None                  # speculative decoding: not ported
+
+    # ------------------------- device programs -------------------------- #
+    def _prefill_forward(self, cache, tokens, pos0, true_len, bt,
+                         sample_rows):
+        """One lane-batched chunk group: every lane writes its chunk's KV
+        into its own pages and the token at its last REAL position is
+        sampled.  Only that hidden row per lane goes through the unembed,
+        so the logits never grow with the chunk.  ``sample_rows`` lists the
+        lanes whose sample is kept; only they draw random numbers."""
+        h, _ = model_forward(self.params, self.cfg, tokens, cache=cache,
+                             pos0=pos0, block_tables=bt, chunk_len=true_len)
+        idx = (true_len.long() - 1).clamp(min=0)
+        last = h[torch.arange(h.shape[0], device=h.device), idx]   # (B, D)
+        if self.ecfg.temperature <= 0.0:
+            return sample(logits_fn(self.params, self.cfg, last))
+        toks = torch.zeros(h.shape[0], dtype=torch.int32, device=h.device)
+        if sample_rows:
+            rows = torch.as_tensor(sample_rows, device=h.device)
+            lg = logits_fn(self.params, self.cfg, last[rows])
+            toks[rows] = sample(lg, self.gen, self.ecfg.temperature)
+        return toks
+
+    def _decode_loop(self, cache, tokens0, pos0, steps, eos, bt,
+                     n_steps: int):
+        """All n_steps decode steps of a batch group, with no host sync.
+        Per-lane step budgets (``steps``) and EOS stop lanes early; frozen
+        lanes emit -1 and neither write KV nor advance."""
+        B = tokens0.shape[0]
+        dev = tokens0.device
+        tok, pos = tokens0, pos0
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        emitted = torch.empty((B, n_steps), dtype=torch.int32, device=dev)
+        for i in range(n_steps):
+            active = (~done) & (steps > i)
+            h, _ = model_forward(self.params, self.cfg, tok[:, None],
+                                 cache=cache, pos0=pos, block_tables=bt,
+                                 chunk_len=active.to(torch.int32))
+            logits = logits_fn(self.params, self.cfg, h[:, -1])
+            nxt = sample(logits, self.gen, self.ecfg.temperature)
+            emitted[:, i] = torch.where(active, nxt, -1)
+            tok = torch.where(active, nxt, tok)
+            pos = pos + active.to(pos.dtype)
+            done = done | (active & (nxt == eos))
+        return emitted
+
+    # ------------------------------------------------------------------ #
+    def _share_tokens(self, tokens):
+        """Prefix-sharing key for an admission, or None with sharing off."""
+        return tokens if self.ecfg.share_prefix else None
+
+    def _consume_hit(self, ctx: RequestCtx, hit: int) -> int:
+        """Apply an admission-time prefix hit: ``hit`` leading pending
+        tokens move to ``history`` without a prefill.  Returns the fresh
+        request-level progress (hit beyond preemption replay)."""
+        self.last_hit_fresh = 0
+        if hit <= 0:
+            return 0
+        ctx.history.extend(ctx.pending[:hit])
+        ctx.pending = ctx.pending[hit:]
+        replayed = min(hit, ctx.replay)
+        ctx.replay -= replayed
+        self.counters["prefix_hit_tokens"] += hit
+        self.last_hit_fresh = hit - replayed
+        return self.last_hit_fresh
+
+    def add_request(self, rid: int, prompt: list, expected_total: int,
+                    enc_states=None) -> bool:
+        """Admit a request: a sequence slot + pages for the expected
+        context; a prompt longer than max_len is rejected.  Cached leading
+        pages are mapped in and their tokens never re-prefill."""
+        if enc_states is not None:
+            raise NotImplementedError("encoder conditioning is not yet ported")
+        if len(prompt) > self.ecfg.max_len:
+            return False
+        if not self.kv.admit(rid, expected_total,
+                             tokens=self._share_tokens(prompt)):
+            return False
+        ctx = RequestCtx(rid=rid, prompt=list(prompt),
+                         pending=list(prompt), generated=[])
+        self.reqs[rid] = ctx
+        self._consume_hit(ctx, self.kv.length(rid))
+        return True
+
+    def finish(self, rid: int) -> None:
+        self.kv.release(rid)
+        self.reqs.pop(rid, None)
+
+    # --------------------- preemption / re-admission -------------------- #
+    def preempt(self, rid: int) -> int:
+        """Free a request's pages now, keeping its context and slot; the KV
+        is rebuilt later by re-prefilling ``history``, so the greedy stream
+        resumes identically.  Returns pages freed."""
+        ctx = self.reqs.get(rid)
+        if ctx is None:
+            return 0
+        freed = self.kv.preempt(rid)
+        ctx.recompute = ctx.recompute or (bool(ctx.generated)
+                                          and not ctx.pending)
+        ctx.replay += len(ctx.history)
+        ctx.pending = ctx.history + ctx.pending
+        ctx.history = []
+        self.counters["preemptions"] += 1
+        return freed
+
+    def readmit(self, rid: int, expected_total: int) -> bool:
+        """Re-reserve pages for a preempted request's recompute context;
+        False while the pool is still short."""
+        if rid not in self.reqs or rid not in self.kv.seq_of:
+            return False
+        ctx = self.reqs[rid]
+        hit = self.kv.resume(rid, expected_total,
+                             tokens=self._share_tokens(ctx.pending))
+        if hit is None:
+            return False
+        self._consume_hit(ctx, hit)
+        return True
+
+    def drop(self, rid: int):
+        """Evict a request fully (pages and slot), returning its context
+        for a later ``restore``."""
+        self.kv.release(rid)
+        return self.reqs.pop(rid, None)
+
+    def restore(self, rid: int, ctx: RequestCtx,
+                expected_total: int) -> bool:
+        """Re-admit a context evicted by ``drop`` for a recompute prefill."""
+        if len(ctx.pending) > self.ecfg.max_len:
+            return False
+        if not self.kv.admit(rid, expected_total,
+                             tokens=self._share_tokens(ctx.pending)):
+            return False
+        self.reqs[rid] = ctx
+        self._consume_hit(ctx, self.kv.length(rid))
+        return True
+
+    def rollback(self, rid: int, n_tokens: int) -> None:
+        """Discard the last n cache positions: a block-table length
+        decrement."""
+        if n_tokens:
+            self.kv.truncate(rid, n_tokens)
+
+    def _reserve(self, rid: int, new_total: int, on_pressure=None) -> None:
+        if new_total > self.ecfg.max_len:
+            raise RuntimeError(
+                f"request {rid}: context {new_total} exceeds max_len "
+                f"{self.ecfg.max_len}")
+        if self.kv.extend(rid, new_total):
+            return
+        if on_pressure is not None:
+            short = (self.kv.pages_needed(new_total)
+                     - len(self.kv.tables.get(rid, []))
+                     - self.kv.free_pages)
+            on_pressure(max(short, 1))
+            if self.kv.extend(rid, new_total):
+                return
+        raise RuntimeError(f"request {rid}: out of KV pages")
+
+    def _cow_barrier(self, rid: int, start: int, n: int,
+                     on_pressure=None) -> None:
+        """Copy-on-write barrier with the same pressure escape hatch as
+        ``_reserve``."""
+        try:
+            self.kv.ensure_writable(rid, start, n)
+        except RuntimeError:
+            if on_pressure is None:
+                raise
+            on_pressure(1)
+            self.kv.ensure_writable(rid, start, n)
+
+    # ------------------------------------------------------------------ #
+    def execute(self, batch: Batch, on_pressure=None) -> dict[int, list]:
+        """Run one planner batch; returns {rid: emitted tokens}.
+        ``on_pressure(pages_short)`` lets the frontend preempt best-effort
+        victims when a page reservation cannot be met."""
+        emitted: dict[int, list] = {}
+        self.last_prefill_progress = {}
+        self.last_spec_stats = {}
+        prefills = []
+        decode_rids = []
+        for e in batch.entries:
+            if e.rid not in self.reqs:
+                continue
+            if e.kind == StageKind.PREFILL:
+                prefills.append((e.rid, e.n_tokens))
+            else:
+                decode_rids.append((e.rid, e.n_tokens))
+        with self._tspan("prefill", n=len(prefills)) if prefills \
+                else _NULL_CTX:
+            for group in self._group_prefills(prefills, on_pressure):
+                for rid, toks in self._prefill_group(*group).items():
+                    emitted.setdefault(rid, []).extend(toks)
+        if decode_rids:
+            with self._tspan("decode", n=len(decode_rids)):
+                out = self._decode_batched(dict(decode_rids), on_pressure)
+                for rid, toks in out.items():
+                    emitted.setdefault(rid, []).extend(toks)
+        return emitted
+
+    def _tspan(self, name: str, **attrs):
+        if self.tracer is None:
+            return _NULL_CTX
+        return self.tracer.span(name, **attrs)
+
+    # ------------------------------------------------------------------ #
+    def _group_prefills(self, entries, on_pressure=None):
+        """Reserve pages (and run the CoW barrier) for EVERY chunk first,
+        so a failure leaves every prompt retryable; then consume the chunks
+        and group same-bucket ones, at most 8 lanes per call."""
+        recs = []
+        for rid, n in entries:
+            ctx = self.reqs[rid]
+            L = min(n, len(ctx.pending))
+            if L <= 0:
+                continue
+            pos = self.kv.length(rid)
+            self._reserve(rid, pos + L, on_pressure)
+            self._cow_barrier(rid, pos, L, on_pressure)
+            self.kv.check_writable(rid, pos, L)
+            recs.append((rid, ctx.pending[:L], pos))
+        for rid, chunk, _ in recs:
+            self.reqs[rid].pending = self.reqs[rid].pending[len(chunk):]
+        groups: dict = {}
+        for rec in recs:
+            groups.setdefault(_bucket(len(rec[1])), []).append(rec)
+        out = []
+        for Lp, g in groups.items():
+            for i in range(0, len(g), 8):
+                out.append((Lp, g[i:i + 8]))
+        return out
+
+    def _prefill_group(self, Lp: int, recs) -> dict[int, list]:
+        """One lane-batched prefill forward for same-bucket chunks of
+        different requests: one model call (one fused-kernel launch per
+        layer) for the whole group, one host sync for its sampled tokens."""
+        rids = [rid for rid, _, _ in recs]
+        slots = [self.kv.seq_of[r] for r in rids]
+        B = _bucket(len(recs), (1, 2, 4, 8))
+        pad = B - len(recs)
+        slots_p = slots + [slots[0]] * pad
+        toks = np.zeros((B, Lp), np.int64)
+        true_len = np.zeros((B,), np.int32)
+        pos0 = np.zeros((B,), np.int32)
+        sample_rows = []
+        for i, (rid, chunk, pos) in enumerate(recs):
+            toks[i, :len(chunk)] = chunk
+            true_len[i] = len(chunk)
+            pos0[i] = pos
+            ctx = self.reqs[rid]
+            # a sample that will be discarded draws no random numbers:
+            # temperature > 0 output must not depend on the prefill split
+            if not (ctx.pending or ctx.recompute):
+                sample_rows.append(i)
+        dev = self.device
+        cache = self.kv.lane_cache(slots_p)
+        fused0 = _attn.OP_STATS["fused_prefill"]
+        tok = self._prefill_forward(
+            cache, torch.from_numpy(toks).to(dev),
+            torch.from_numpy(pos0).to(dev),
+            torch.from_numpy(true_len).to(dev), self.kv.table_rows(slots_p),
+            sample_rows)
+        self.counters["prefill_fused_ops"] += (
+            _attn.OP_STATS["fused_prefill"] - fused0)
+        self.kv.absorb(slots, cache)
+        self.counters["prefill_calls"] += 1
+        tok_h = tok.cpu().numpy()                  # one host sync per group
+        out: dict[int, list] = {}
+        for i, (rid, chunk, _) in enumerate(recs):
+            ctx = self.reqs[rid]
+            self.kv.seq_len[slots[i]] += len(chunk)
+            replayed = min(len(chunk), ctx.replay)
+            ctx.replay -= replayed
+            self.last_prefill_progress[rid] = len(chunk) - replayed
+            ctx.history.extend(chunk)
+            # publish completed prompt pages; decode pages stay private
+            self.kv.register_prefix(rid, ctx.history)
+            if not ctx.pending:
+                if ctx.recompute:
+                    # recompute after preemption: the cache is restored
+                    # exactly and this re-sampled emission is discarded
+                    ctx.recompute = False
+                else:
+                    t = int(tok_h[i])
+                    ctx.generated.append(t)
+                    out[rid] = [t]
+        return out
+
+    # ------------------------------------------------------------------ #
+    def _decode_batched(self, steps_of, on_pressure=None) -> dict[int, list]:
+        """steps_of: {rid: n_steps} or list of rids (1 step each).  One
+        device loop for the whole group, one host sync."""
+        if not isinstance(steps_of, dict):
+            steps_of = {r: 1 for r in steps_of}
+        out = {r: [] for r in steps_of}
+        live = [r for r in steps_of
+                if r in self.reqs and not self.reqs[r].done
+                and steps_of[r] > 0]
+        if not live:
+            return out
+        if on_pressure is not None:
+            # report the decode shortfall so the frontend can preempt
+            # best-effort victims before the capping below trims budgets
+            need = 0
+            for r in live:
+                want = min(self.kv.length(r) + steps_of[r],
+                           self.ecfg.max_len)
+                need += max(0, self.kv.pages_needed(want)
+                            - len(self.kv.tables.get(r, [])))
+            short = need - self.kv.free_pages
+            if short > 0:
+                on_pressure(short)
+        # cap each lane's budget to the pages/context available
+        # (sequential: earlier lanes claim free pages first)
+        capped = {}
+        for r in live:
+            cur = self.kv.length(r)
+            n = min(steps_of[r], self.kv.token_capacity(r) - cur)
+            if n > 0:
+                self.kv.extend(r, cur + n)
+                self._cow_barrier(r, cur, n, on_pressure)
+                capped[r] = n
+        steps_of = capped
+        live = [r for r in live if r in capped]
+        if not live:
+            return out
+        n_steps = _bucket(max(steps_of[r] for r in live),
+                          (1, 2, 4, 8, 16, 32, 64, 128, 256))
+        B = _bucket(len(live), (1, 2, 4, 8, 16, 32, 64, 128))
+        pad = B - len(live)
+        slots = [self.kv.seq_of[r] for r in live]
+        slots_p = slots + [slots[0]] * pad
+        starts = [self._last_token(r) for r in live]
+        eos = [self.reqs[r].eos if self.reqs[r].eos is not None else -1
+               for r in live]
+
+        def dev(vals):
+            return torch.tensor(vals, dtype=torch.int32, device=self.device)
+        cache = self.kv.lane_cache(slots_p)
+        emitted = self._decode_loop(
+            cache, dev(starts + [0] * pad), dev(self.kv.seq_len[slots_p].tolist()),
+            dev([steps_of[r] for r in live] + [0] * pad),
+            dev(eos + [-1] * pad), self.kv.table_rows(slots_p), n_steps)
+        self.kv.absorb(slots, cache)
+        self.counters["decode_calls"] += 1
+        self.counters["decode_steps"] += n_steps
+        em = emitted.cpu().numpy()                 # ONE host sync per group
+        for i, r in enumerate(live):
+            ctx = self.reqs[r]
+            toks = [int(t) for t in em[i, :steps_of[r]] if t >= 0]
+            ctx.generated.extend(toks)
+            # tokens written to KV this call: the start input + all but
+            # the last emission (whose KV lands on the next call)
+            ctx.history.extend(([starts[i]] + toks)[:len(toks)])
+            out[r].extend(toks)
+            self.kv.seq_len[slots[i]] += len(toks)
+            self.counters["decode_tokens"] += len(toks)
+            if ctx.eos is not None and toks and toks[-1] == ctx.eos:
+                ctx.done = True
+        return out
+
+    def _last_token(self, rid: int) -> int:
+        ctx = self.reqs[rid]
+        if ctx.generated:
+            return ctx.generated[-1]
+        return ctx.prompt[-1] if ctx.prompt else 0

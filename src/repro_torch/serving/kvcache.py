@@ -1,0 +1,615 @@
+"""KV-cache memory management: the paged, device-resident serving cache
+(port of ``repro/serving/kvcache.py``).
+
+``PageAllocator`` is the logical page accountant (free list + per-request
+page tables), kept standalone so the planner and property tests can reason
+about memory without a device.  ``PagedKVManager`` extends it into the one
+physical manager the engine uses: it owns the per-layer page pools
+(``models/transformer.init_paged_cache``), the block tables that address
+them and the per-sequence lengths.
+
+The prefix-sharing contract is the reference's (refcounts, a chain-hash
+prefix index verified token by token, token-level partial-page heads,
+copy-on-write in ``ensure_writable``, an LRU cached pool of zero-refcount
+published pages); see the reference module's docstring.  What differs:
+
+* Block tables live on the host (``block_tables``, numpy int32) and the
+  rows a call needs are copied to the device by ``table_rows``; the
+  reference keeps a device array updated with ``.at[].set``.
+* Pools are torch tensors updated in place (CoW copies with indexed
+  assignment, kernel writes straight into the pools), so ``lane_cache``
+  and ``absorb`` pass the pools through unchanged: JAX needed them to
+  thread its functional pool updates and buffer donation.
+* The host spill tier (``host_spill_pages > 0``) and mesh placement are
+  not ported yet; asking for either raises.  ``prefix_discounts`` always
+  reports 0 spilled pages, so the frontend never asks for a prefetch
+  time (``prefetch_seconds`` arrives with the spill tier).
+"""
+from __future__ import annotations
+
+import math
+from collections import OrderedDict
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import init_paged_cache
+
+
+def kv_page_bytes(cfg: ModelConfig, page_size: int = 16,
+                  dtype=torch.float32) -> int:
+    """Device bytes one KV page costs for ``cfg``, summed over all layers
+    (K and V planes of every attention layer)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    per_tok = 2 * cfg.n_kv_heads * cfg.head_dim
+    return sum(n * page_size * per_tok * itemsize for _, n in cfg.segments())
+
+
+class SharedPageBudget:
+    """Cluster-wide KV page budget shared by several PagedKVManagers.
+    Conservation invariant: ``used`` equals the sum of ``used_pages`` over
+    the attached managers (a shared page counts once)."""
+
+    def __init__(self, total_pages: int):
+        self.total_pages = total_pages
+        self.used = 0
+
+    @property
+    def available(self) -> int:
+        return self.total_pages - self.used
+
+    def reserve(self, n_pages: int) -> bool:
+        if n_pages > self.available:
+            return False
+        self.used += n_pages
+        return True
+
+    def release(self, n_pages: int) -> None:
+        self.used -= n_pages
+        assert self.used >= 0, "shared budget released more than reserved"
+
+
+class PageAllocator:
+    def __init__(self, total_pages: int, page_size: int = 16,
+                 budget: Optional[SharedPageBudget] = None):
+        self.total_pages = total_pages
+        self.page_size = page_size
+        self.budget = budget
+        self.free = list(range(total_pages - 1, -1, -1))
+        self.tables: dict[int, list[int]] = {}
+
+    def pages_needed(self, n_tokens: int) -> int:
+        return max(1, math.ceil(n_tokens / self.page_size))
+
+    def can_allocate(self, n_tokens: int) -> bool:
+        return self.pages_needed(n_tokens) <= self.free_pages
+
+    def allocate(self, rid: int, n_tokens: int) -> Optional[list[int]]:
+        need = self.pages_needed(n_tokens)
+        if need > len(self.free):
+            return None
+        if self.budget is not None and not self.budget.reserve(need):
+            return None
+        pages = [self.free.pop() for _ in range(need)]
+        self.tables.setdefault(rid, []).extend(pages)
+        return pages
+
+    def extend(self, rid: int, new_total_tokens: int) -> bool:
+        have = len(self.tables.get(rid, []))
+        need = self.pages_needed(new_total_tokens)
+        if need <= have:
+            return True
+        extra = need - have
+        if extra > len(self.free):
+            return False
+        if self.budget is not None and not self.budget.reserve(extra):
+            return False
+        self.tables.setdefault(rid, []).extend(
+            self.free.pop() for _ in range(extra))
+        return True
+
+    def release(self, rid: int) -> int:
+        pages = self.tables.pop(rid, [])
+        self.free.extend(reversed(pages))
+        if self.budget is not None:
+            self.budget.release(len(pages))
+        return len(pages)
+
+    @property
+    def used_pages(self) -> int:
+        return self.total_pages - len(self.free)
+
+    @property
+    def free_pages(self) -> int:
+        if self.budget is None:
+            return len(self.free)
+        return min(len(self.free), self.budget.available)
+
+
+class PagedKVManager(PageAllocator):
+    """Unified logical + physical KV manager.
+
+    Device state: ``pools``, the per-segment page pools (each with its
+    trailing write-off page).  Host state: ``block_tables`` (max_seqs,
+    max_pages_per_seq) int32, ``seq_len`` per slot, ``seq_of`` (rid →
+    slot), per-page ``refcount``, the prefix index and LRU cached pool, and
+    the inherited free list / page tables.
+
+    Token-level partial-page matching is always on (the reference's
+    ``token_level=False`` page-granular mode is not ported).  ``device``
+    follows ``resolve_device``: CUDA unless named.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, total_pages: int,
+                 page_size: int = 16, max_seqs: int = 8,
+                 max_len: int = 512, dtype=torch.float32,
+                 budget: Optional[SharedPageBudget] = None,
+                 share_prefix: bool = False, host_spill_pages: int = 0,
+                 device=None):
+        if host_spill_pages > 0:
+            raise NotImplementedError("the host spill tier is not yet ported")
+        super().__init__(total_pages, page_size, budget=budget)
+        self.cfg = cfg
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.max_seqs = max_seqs
+        self.max_len = max_len
+        self.max_pages_per_seq = max(1, math.ceil(max_len / page_size))
+        self.pools = init_paged_cache(cfg, total_pages, page_size, dtype,
+                                      self.device)
+        self.block_tables = np.zeros((max_seqs, self.max_pages_per_seq),
+                                     np.int32)
+        self.seq_len = np.zeros((max_seqs,), np.int64)
+        self.free_seqs = list(range(max_seqs - 1, -1, -1))
+        self.seq_of: dict[int, int] = {}
+        # ---- prefix sharing state (reference module docstring) ----
+        self.share_prefix = share_prefix
+        self.refcount = np.zeros((total_pages,), np.int32)
+        self.prefix_index: dict[int, int] = {}       # chain hash -> page
+        self.page_key: dict[int, int] = {}           # page -> chain hash
+        self.page_tokens: dict[int, tuple] = {}      # page -> exact chunk
+        self.page_parent: dict[int, Optional[int]] = {}
+        self.children: dict[Optional[int], set[int]] = {}
+        self.cached: OrderedDict[int, int] = OrderedDict()  # LRU, zero-ref
+        self._reg_state: dict[int, tuple[int, Optional[int]]] = {}
+        self.cow_copies = 0
+        self.partial_head_copies = 0
+        self.partial_hit_tokens = 0
+        self._partial_pending = 0
+
+    # ------------------------ physical page ops ------------------------- #
+    @property
+    def used_pages(self) -> int:
+        """Pages some live request holds (refcount >= 1)."""
+        return self.total_pages - len(self.free) - len(self.cached)
+
+    @property
+    def free_pages(self) -> int:
+        avail = len(self.free) + len(self.cached)
+        if self.budget is None:
+            return avail
+        return min(avail, self.budget.available)
+
+    def _grab_pages(self, n: int) -> Optional[list[int]]:
+        """Take n physical pages: free list first, then LRU eviction of
+        zero-refcount cached pages.  Reserves the shared budget; None
+        (nothing taken) if pages or budget are short."""
+        if n <= 0:
+            return []
+        if n > len(self.free) + len(self.cached):
+            return None
+        if self.budget is not None and not self.budget.reserve(n):
+            return None
+        out = []
+        for _ in range(n):
+            if self.free:
+                p = self.free.pop()
+            else:
+                p, _ = self.cached.popitem(last=False)     # LRU victim
+                self._unpublish(p)
+            self.refcount[p] = 1
+            out.append(p)
+        return out
+
+    def _unref(self, p: int) -> int:
+        """Drop one reference to page p; 1 when it became reclaimable.
+        Published pages retire to the LRU cached pool."""
+        self.refcount[p] -= 1
+        assert self.refcount[p] >= 0, f"page {p} refcount underflow"
+        if self.refcount[p] > 0:
+            return 0
+        if self.budget is not None:
+            self.budget.release(1)
+        key = self.page_key.get(p)
+        if key is not None:
+            self.cached[p] = key
+        else:
+            self.free.append(p)
+        return 1
+
+    def _drop_pages(self, rid: int) -> int:
+        """Unmap all of rid's pages (keep the rid entry and slot)."""
+        n = 0
+        for p in reversed(self.tables.get(rid, [])):
+            n += self._unref(p)
+        self.tables[rid] = []
+        self._reg_state.pop(rid, None)
+        s = self.seq_of.get(rid)
+        if s is not None:
+            self.block_tables[s] = 0
+            self.seq_len[s] = 0
+        return n
+
+    # --------------------------- seq slots ----------------------------- #
+    def acquire(self, rid: int) -> Optional[int]:
+        if rid in self.seq_of:
+            return self.seq_of[rid]
+        if not self.free_seqs:
+            return None
+        s = self.free_seqs.pop()
+        self.seq_of[rid] = s
+        self.seq_len[s] = 0
+        self.block_tables[s] = 0
+        return s
+
+    def admit(self, rid: int, expected_total: int, tokens=None) -> bool:
+        """Admission = a sequence slot + pages for the expected context;
+        with ``tokens`` and sharing on, the longest published chain is
+        mapped in first and ``length(rid)`` reports the hit."""
+        fresh_slot = rid not in self.seq_of
+        if self.acquire(rid) is None:
+            return False
+        hit = 0
+        if self.share_prefix and tokens is not None:
+            hit = self._share_pages(rid, tokens)
+        if not self.extend(rid, expected_total):
+            self._partial_pending = 0
+            self._drop_pages(rid)
+            if fresh_slot:
+                self.tables.pop(rid, None)
+                self.free_seqs.append(self.seq_of.pop(rid))
+            return False
+        self.partial_hit_tokens += self._partial_pending
+        self._partial_pending = 0
+        self.seq_len[self.seq_of[rid]] = hit
+        return True
+
+    def resume(self, rid: int, expected_total: int,
+               tokens=None) -> Optional[int]:
+        """Re-reserve pages for a preempted request's recompute context,
+        re-sharing any still-published prefix; the hit, or None while the
+        pool is short (nothing stays mapped then)."""
+        if rid not in self.seq_of:
+            return None
+        hit = 0
+        if self.share_prefix and tokens is not None \
+                and not self.tables.get(rid):
+            hit = self._share_pages(rid, tokens)
+        if not self.extend(rid, expected_total):
+            self._partial_pending = 0
+            if hit:
+                self._drop_pages(rid)
+            return None
+        self.partial_hit_tokens += self._partial_pending
+        self._partial_pending = 0
+        self.seq_len[self.seq_of[rid]] = hit
+        return hit
+
+    # ------------------ page ops (block table in lockstep) -------------- #
+    def _map_pages(self, rid: int, start: int, pages: list[int]) -> None:
+        s = self.seq_of.get(rid)
+        if s is None or start >= self.max_pages_per_seq or not pages:
+            return
+        end = min(start + len(pages), self.max_pages_per_seq)
+        self.block_tables[s, start:end] = pages[:end - start]
+
+    def allocate(self, rid: int, n_tokens: int) -> Optional[list[int]]:
+        have = len(self.tables.get(rid, []))
+        pages = self._grab_pages(self.pages_needed(n_tokens))
+        if pages is None:
+            return None
+        self.tables.setdefault(rid, []).extend(pages)
+        self._map_pages(rid, have, pages)
+        return pages
+
+    def extend(self, rid: int, new_total_tokens: int) -> bool:
+        have = len(self.tables.get(rid, []))
+        need = self.pages_needed(new_total_tokens)
+        if need <= have:
+            return True
+        pages = self._grab_pages(need - have)
+        if pages is None:
+            return False
+        self.tables.setdefault(rid, []).extend(pages)
+        self._map_pages(rid, have, pages)
+        return True
+
+    def release(self, rid: int) -> int:
+        n = self._drop_pages(rid)
+        self.tables.pop(rid, None)
+        s = self.seq_of.pop(rid, None)
+        if s is not None:
+            self.free_seqs.append(s)
+        return n
+
+    def preempt(self, rid: int) -> int:
+        """Drop rid's page references but keep its slot for a recompute
+        prefill after re-admission; returns pages physically freed."""
+        return self._drop_pages(rid)
+
+    def truncate(self, rid: int, n_tokens: int) -> None:
+        """Roll back the last n cache positions: a length decrement."""
+        self.seq_len[self.seq_of[rid]] -= n_tokens
+
+    def length(self, rid: int) -> int:
+        return int(self.seq_len[self.seq_of[rid]])
+
+    def token_capacity(self, rid: int) -> int:
+        """Max context this request could reach right now."""
+        have = len(self.tables.get(rid, []))
+        return min(self.max_len, (have + self.free_pages) * self.page_size)
+
+    # ------------------------- prefix sharing --------------------------- #
+    @staticmethod
+    def _chain(parent: Optional[int], chunk) -> int:
+        return hash((parent, tuple(int(t) for t in chunk)))
+
+    def live_prefix_pages(self, tokens, exclude_pages=None) -> int:
+        """Matched prefix pages currently mapped by other requests."""
+        return self.prefix_discounts(tokens, exclude_pages)[1]
+
+    def prefix_discounts(self, tokens,
+                         exclude_pages=None) -> tuple[int, int, int]:
+        """``(probe hit tokens, live pages, spilled pages)`` from one chain
+        walk; spilled is always 0 without a spill tier."""
+        matches, hit, partial = self._match_pages(tokens)
+        live = int(sum(1 for p, _, _, _ in matches
+                       if self.refcount[p] > 0
+                       and (exclude_pages is None
+                            or p not in exclude_pages)))
+        if not matches and partial is None:
+            return 0, live, 0
+        avail = self.budget.available if self.budget is not None else None
+        phys = len(self.free) + len(self.cached)
+        usable = 0
+        for p, _, _, _ in matches:
+            if self.refcount[p] > 0:
+                usable += 1
+            elif avail is None or avail > 0:
+                # cached revival: one budget page; the page leaves the pool
+                if avail is not None:
+                    avail -= 1
+                phys -= 1
+                usable += 1
+            else:
+                partial = None   # _share_pages truncates the same way
+                break
+        out = min(hit, usable * self.page_size)
+        if partial is not None and out == hit and phys > 0 \
+                and (avail is None or avail > 0):
+            out += partial[1]
+        return out, live, 0
+
+    def _match_pages(self, tokens) -> tuple[list[tuple], int,
+                                            Optional[tuple[int, int]]]:
+        """(matches, hit_tokens, partial) of the longest published chain
+        for ``tokens``: matches are ``(page, chain_hash, parent, chunk)``,
+        ``hit`` is capped at ``len(tokens) - 1`` and ``partial =
+        (donor_page, head_len)`` extends an uncapped chain with a
+        token-verified head of a published boundary page."""
+        if not self.share_prefix or tokens is None or len(tokens) < 2:
+            return [], 0, None
+        ps = self.page_size
+        h, matches = None, []
+        for i in range(len(tokens) // ps):
+            chunk = tuple(int(t) for t in tokens[i * ps:(i + 1) * ps])
+            nh = self._chain(h, chunk)
+            p = self.prefix_index.get(nh)
+            # hash match alone is not proof: verify the exact tokens
+            if p is None or self.page_tokens.get(p) != chunk:
+                break
+            matches.append((p, nh, h, chunk))
+            h = nh
+        hit = min(len(matches) * ps, len(tokens) - 1)
+        if hit < len(matches) * ps:
+            return (matches[:self.pages_needed(hit) if hit else 0],
+                    hit, None)
+        return matches, hit, self._match_head(h, tokens, hit)
+
+    def _match_head(self, parent: Optional[int], tokens,
+                    start: int) -> Optional[tuple[int, int]]:
+        """Longest token-verified head of a published boundary page that
+        extends chain ``parent`` past ``start``; smallest page id breaks
+        length ties."""
+        room = min(len(tokens) - 1 - start, self.page_size)
+        if room <= 0:
+            return None
+        nxt = [int(t) for t in tokens[start:start + room]]
+        best = None
+        for p in sorted(self.children.get(parent, ())):
+            chunk = self.page_tokens.get(p)
+            if not chunk:
+                continue
+            m = 0
+            for a, b in zip(chunk, nxt):
+                if a != b:
+                    break
+                m += 1
+            if m > 0 and (best is None or m > best[1]):
+                best = (p, m)
+        return best
+
+    def _share_pages(self, rid: int, tokens) -> int:
+        """Map the longest published chain into rid's (empty) block table
+        with refcount bumps; a partial-page boundary match appends a CoW
+        copy of the donor's head and counts only the verified head."""
+        self._partial_pending = 0
+        matches, hit, partial = self._match_pages(tokens)
+        taken: list[int] = []
+        for p, _, _, _ in matches:
+            if self.refcount[p] > 0:
+                self.refcount[p] += 1
+            elif self.budget is None or self.budget.reserve(1):
+                self.cached.pop(p)
+                self.refcount[p] = 1
+            else:
+                break
+            taken.append(p)
+        if len(taken) < len(matches):
+            hit = min(hit, len(taken) * self.page_size)
+            partial = None
+        if partial is not None:
+            head = self._cow_head(partial[0])
+            if head is not None:
+                taken.append(head)
+                hit += partial[1]
+                self._partial_pending = partial[1]
+        if not taken:
+            return 0
+        self.tables.setdefault(rid, []).extend(taken)
+        self._map_pages(rid, 0, taken)
+        return hit
+
+    def _cow_head(self, donor: int) -> Optional[int]:
+        """Copy the published donor page into a fresh exclusively-owned
+        page; None when pages or budget are short.  If the grab evicted
+        the donor itself, its content is already in place."""
+        fresh = self._grab_pages(1)
+        if fresh is None:
+            return None
+        q = fresh[0]
+        if q != donor:
+            self._copy_pages([donor], [q])
+        self.partial_head_copies += 1
+        return q
+
+    def register_prefix(self, rid: int, tokens) -> None:
+        """Publish rid's full, final pages into the prefix index (call
+        after prefill writes; ``tokens`` = the exact cache content)."""
+        if not self.share_prefix:
+            return
+        pages = self.tables.get(rid, [])
+        ps = self.page_size
+        done, h = self._reg_state.get(rid, (0, None))
+        n_full = min(len(tokens) // ps, len(pages))
+        for i in range(done, n_full):
+            chunk = tuple(int(t) for t in tokens[i * ps:(i + 1) * ps])
+            parent = h
+            h = self._chain(h, chunk)
+            p = pages[i]
+            if h in self.prefix_index or p in self.page_key:
+                continue
+            self._publish(p, h, parent, chunk)
+        if n_full > done:
+            self._reg_state[rid] = (n_full, h)
+
+    def _publish(self, p: int, h: int, parent: Optional[int],
+                 chunk: tuple) -> None:
+        self.prefix_index[h] = p
+        self.page_key[p] = h
+        self.page_tokens[p] = chunk
+        self.page_parent[p] = parent
+        self.children.setdefault(parent, set()).add(p)
+
+    def _unpublish(self, p: int) -> None:
+        key = self.page_key.pop(p, None)
+        if key is None:
+            return
+        del self.prefix_index[key]
+        self.page_tokens.pop(p, None)
+        parent = self.page_parent.pop(p, None)
+        kids = self.children.get(parent)
+        if kids is not None:
+            kids.discard(p)
+            if not kids:
+                del self.children[parent]
+
+    def ensure_writable(self, rid: int, start_tok: int,
+                        n_tokens: int) -> None:
+        """Copy-on-write barrier before rid writes positions
+        ``[start_tok, start_tok + n_tokens)``: shared pages are copied into
+        fresh ones and remapped, exclusively-owned published pages are
+        unpublished.  Transactional: raises RuntimeError with no state
+        mutated when the copy targets cannot be grabbed."""
+        if not self.share_prefix or n_tokens <= 0:
+            return
+        pages = self.tables.get(rid, [])
+        ps = self.page_size
+        first = start_tok // ps
+        last = min((start_tok + n_tokens - 1) // ps, len(pages) - 1)
+        idx = [i for i in range(first, last + 1)
+               if self.refcount[pages[i]] > 1]
+        fresh = self._grab_pages(len(idx)) if idx else []
+        if fresh is None:
+            raise RuntimeError(
+                f"request {rid}: out of KV pages for copy-on-write")
+        for i in range(first, last + 1):
+            p = pages[i]
+            if self.refcount[p] <= 1 and p in self.page_key:
+                self._unpublish(p)
+        src, dst = [], []
+        for i, q in zip(idx, fresh):
+            p = pages[i]
+            self.refcount[p] -= 1            # still shared by the others
+            pages[i] = q
+            src.append(p)
+            dst.append(q)
+        if not src:
+            return
+        self._copy_pages(src, dst)
+        s = self.seq_of.get(rid)
+        if s is not None:
+            cols = [i for i in idx if i < self.max_pages_per_seq]
+            self.block_tables[s, cols] = [pages[i] for i in cols]
+        self.cow_copies += len(src)
+
+    def check_writable(self, rid: int, start_tok: int,
+                       n_tokens: int) -> list[int]:
+        """The write set handed to the fused prefill kernel: the pages
+        covering ``[start_tok, start_tok + n_tokens)``, asserted
+        exclusively owned and unpublished (the kernel writes them with no
+        further checks)."""
+        pages = self.tables.get(rid, [])
+        ps = self.page_size
+        first = start_tok // ps
+        last = min((start_tok + n_tokens - 1) // ps, len(pages) - 1)
+        out = [pages[i] for i in range(first, last + 1)] if n_tokens > 0 \
+            else []
+        if self.share_prefix:
+            for p in out:
+                assert self.refcount[p] == 1, \
+                    f"page {p} of rid {rid} still shared at write time"
+                assert p not in self.page_key, \
+                    f"page {p} of rid {rid} still published at write time"
+        return out
+
+    def _copy_pages(self, src: list[int], dst: list[int]) -> None:
+        """Copy pages ``src`` onto pages ``dst`` in every pool, in place
+        (the right-hand side is gathered before the write)."""
+        si = torch.as_tensor(src, dtype=torch.long, device=self.device)
+        di = torch.as_tensor(dst, dtype=torch.long, device=self.device)
+        for pool, (_, n) in zip(self.pools, self.cfg.segments()):
+            for leaf in pool["self"].values():
+                if n > 1:
+                    leaf[:, di] = leaf[:, si]
+                else:
+                    leaf[di] = leaf[si]
+
+    # ------------------------ device-facing views ----------------------- #
+    def table_rows(self, slots) -> torch.Tensor:
+        """(len(slots), max_pages_per_seq) int32 block-table rows on the
+        device."""
+        rows = np.ascontiguousarray(self.block_tables[np.asarray(slots)])
+        return torch.from_numpy(rows).to(self.device)
+
+    def lane_cache(self, slots):
+        """The cache a model call reads: the page pools themselves (they
+        are global and updated in place; dense models keep no lane state)."""
+        return self.pools
+
+    def absorb(self, slots, new_cache) -> None:
+        """Nothing to store: the model call updated the pools in place
+        (``new_cache`` is ``self.pools``)."""
