@@ -17,7 +17,12 @@ script exits non-zero before the final line:
    At the main shapes each version is timed with CUDA events (the L2 cache
    flushed before every launch), beside the least time the card could take
    and one PyTorch ``scaled_dot_product_attention`` call over the gathered
-   K/V (the yardstick; the port never calls it).
+   K/V (the yardstick; the port never calls it).  The verify kernel (B3)
+   is held the same way at qwen3-1.7b's heads (16 query / 8 KV, head dim
+   128; one lane, an 8- or 16-row window with 1 to 9 live rows, histories
+   of 0 to about 2000 keys, a 4096-token window over 6000 keys) and at
+   smollm's group with a masked lane, and timed at the spec replay's shape
+   (an 8-row window with 2 live rows: the last token and one draft).
 3. Greedy streams of the full-width engine against plain full-causal
    generation on the card: three requests of different prompt lengths in
    one padded prefill group, mid-page second chunks, and padded decode
@@ -29,13 +34,30 @@ script exits non-zero before the final line:
    just after: every decode step must launch the decode kernel once per
    layer, every prefill group the prefill kernel once per layer, and the
    plain versions never.
-5. The kernels line, the card line, and ``{"ok": true, "device": ...}``.
+5. Speculative decoding at the full width of qwen3-1.7b (28 layers, random
+   weights from the seed): three prompts decoded by spec cycles of draft
+   length 1, 3 and 8, with the 1-layer draft of the reference's tests and
+   with the target as its own draft, each stream held against plain
+   greedy generation under the same tie rule.
+6. The spec path: ``ServingFrontend`` over ``ServingEngine(draft=...)``
+   (the target as its own draft) with a speculation-planning
+   ``SLOsServeScheduler`` serves eight requests (prompt 512, output 64) in
+   a tight and a loose TPOT tier.  Counts zeroed just before and read just
+   after: the verify kernel launches once per layer per verify, the
+   prefill kernel once per layer per prefill group and draft catch-up,
+   the decode kernel once per layer per target decode step and draft
+   step, and the plain versions never.  The line lists the verify windows
+   the replay ran (rows / live rows), which must include the shape at
+   which step 2 timed the verify kernel.
+7. The kernels line (B1 and B2 launches from step 4, B3's from step 6),
+   the card line, and ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -52,6 +74,14 @@ N_TIMED = 20
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def free_device_memory() -> None:
+    """Drop the previous phase's engines (the engine and its speculative
+    decoder refer to each other, so only the cycle collector frees them)
+    before the next phase allocates and measures its peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line() -> str:
@@ -212,7 +242,9 @@ def decode_timing(pa, q, kp, vp, table, sl, lens, window):
                             "up to the longest lane"}
 
 
-# ---------------------------- prefill phase ---------------------------- #
+# -------------------- prefill and verify phases ------------------------ #
+# B2 (fused prefill) and B3 (fused verify) compute the same function of the
+# same arguments; one phase holds each against its plain version.
 PREFILL_CASES = [  # name, B, S, H, KVH, hd, page, max_pages, pos0, clen, win
     ("main", 8, 512, 9, 3, 64, 16, 256,
      [0, 0, 7, 512, 1000, 1480, 0, 0], [512, 300, 512, 512, 488, 512, 1, 0],
@@ -222,14 +254,52 @@ PREFILL_CASES = [  # name, B, S, H, KVH, hd, page, max_pages, pos0, clen, win
     ("hd128_window", 4, 512, 16, 8, 128, 16, 400,
      [5488, 4000, 9, 0], [512, 300, 512, 0], 4096),
 ]
+# B3 at qwen3-1.7b's heads (16 query, 8 KV, head dim 128; one lane, an 8-
+# or 16-row window with 1 to 9 live rows) over histories of 0, 37, 524,
+# 555 and 1995 keys (one split with keys, a few, and all of them), a
+# 4096-token window over 6000 keys, and smollm's group (head dim 64, G 3)
+# with a masked lane.  "main" is the spec replay's shape: its planner
+# drafts one token per verify, so the window holds 2 live rows padded to
+# 8, at positions 512 to 536 after a 512-token prompt (the replay checks
+# that it ran this window and prints the positions).
+VERIFY_CASES = [
+    ("main", 1, 8, 16, 8, 128, 16, 64, [524], [2], None),
+    ("hist0", 1, 16, 16, 8, 128, 16, 64, [0], [9], None),
+    ("hist37_clen1", 1, 16, 16, 8, 128, 16, 64, [37], [1], None),
+    ("hist37_clen5", 1, 16, 16, 8, 128, 16, 64, [37], [5], None),
+    ("hist555_clen9", 1, 16, 16, 8, 128, 16, 64, [555], [9], None),
+    ("hist2000", 1, 16, 16, 8, 128, 16, 160, [1995], [7], None),
+    ("window", 1, 16, 16, 8, 128, 16, 400, [6000], [8], 4096),
+    ("smollm", 2, 16, 9, 3, 64, 16, 64, [300, 0], [4, 0], None),
+]
 
 
 def prefill_phase(pp):
+    return chunk_phase("paged_prefill_attention", pp.paged_prefill_attention,
+                       pp.paged_prefill_plain, PREFILL_CASES, seed=2)
+
+
+def verify_phase(pv):
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return chunk_phase(
+        "paged_verify_attention", pv.paged_verify_attention,
+        pv.paged_verify_plain, VERIFY_CASES, seed=3,
+        extra=lambda B, KVH, page, max_pages, window: {
+            "splits": pv.n_splits(B, KVH, page, max_pages, window, n_sms)})
+
+
+def chunk_phase(kernel_name, kernel, plain, cases, seed, extra=None):
+    """Each case: the kernel against its plain version on the same pools,
+    with every key no live row may see poisoned (unmapped pages; in each
+    lane's pages the positions at or past pos0, whose keys come from
+    k_new / v_new, and those below the widest window).  Outputs agree on
+    valid rows, pools bit-equal, pages outside the write set unchanged,
+    padded rows zeros.  The "main" case is timed."""
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(2)
+    gen.manual_seed(seed)
     results = {}
     for (name, B, S, H, KVH, hd, page, max_pages, pos0, clen,
-         window) in PREFILL_CASES:
+         window) in cases:
         kp, vp, table = pools_and_tables(gen, B, KVH, hd, page, max_pages)
         q = torch.randn(B, S, H, hd, generator=gen, device="cuda")
         kn = torch.randn(B, S, KVH, hd, generator=gen, device="cuda")
@@ -241,12 +311,27 @@ def prefill_phase(pp):
             if clen[b] == 0:
                 table[b] = table[0]
         scale = hd ** -0.5
+        mapped = torch.zeros(kp.shape[0], dtype=torch.bool, device="cuda")
+        mapped[table.long().flatten()] = True
+        kp[~mapped] = 1e4
+        vp[~mapped] = 1e4
+        pos = torch.arange(max_pages * page, device="cuda")
+        flat = (table.long()[:, :, None] * page
+                + torch.arange(page, device="cuda")).reshape(B, -1)
+        for b in range(B):
+            if clen[b] == 0:
+                continue
+            bad = pos >= pos0[b]
+            if window is not None:
+                bad |= pos <= pos0[b] - window
+            kp.view(-1, KVH, hd)[flat[b][bad]] = 1e4
+            vp.view(-1, KVH, hd)[flat[b][bad]] = 1e4
         kp_k, vp_k = kp.clone(), vp.clone()
-        got, _, _ = pp.paged_prefill_attention(q, kn, vn, kp_k, vp_k, table,
-                                               p0, cl, window=window)
+        got, _, _ = kernel(q, kn, vn, kp_k, vp_k, table, p0, cl,
+                           window=window)
         kp_p, vp_p = kp.clone(), vp.clone()
-        want, _, _ = pp.paged_prefill_plain(q, kn, vn, kp_p, vp_p, table, p0,
-                                            cl, scale=scale, window=window)
+        want, _, _ = plain(q, kn, vn, kp_p, vp_p, table, p0, cl, scale=scale,
+                           window=window)
         torch.cuda.synchronize()
         valid = (torch.arange(S, device="cuda")[None] < cl[:, None])
         err = (got - want).abs()[valid].max().item()
@@ -262,24 +347,28 @@ def prefill_phase(pp):
         padded_zero = not bool(got[~valid].any())
         ok = (err <= LIMIT and pools_equal and untouched and padded_zero
               and bool(torch.isfinite(got).all()))
-        rec = {"phase": "kernel", "kernel": "paged_prefill_attention",
+        rec = {"phase": "kernel", "kernel": kernel_name,
                "case": name, "B": B, "S": S, "H": H, "KVH": KVH, "hd": hd,
                "page": page, "pos0": pos0, "chunk_len": clen,
-               "window": window, "max_abs_err": err,
-               "pools_bit_equal": pools_equal,
-               "unwritten_pages_unchanged": untouched,
-               "padded_rows_zero": padded_zero, "ok": ok}
+               "window": window}
+        if extra is not None:
+            rec.update(extra(B, KVH, page, max_pages, window))
+        rec.update({"max_abs_err": err, "pools_bit_equal": pools_equal,
+                    "unwritten_pages_unchanged": untouched,
+                    "padded_rows_zero": padded_zero, "ok": ok})
         if name == "main":
-            rec.update(prefill_timing(pp, q, kn, vn, kp, vp, table, p0, cl,
-                                      pos0, clen, window))
+            rec.update(chunk_timing(kernel_name, kernel, plain, q, kn, vn,
+                                    kp, vp, table, p0, cl, pos0, clen,
+                                    window))
             results = rec
         emit(rec)
         if not ok:
-            raise SystemExit(f"paged_prefill_attention disagrees ({name})")
+            raise SystemExit(f"{kernel_name} disagrees ({name})")
     return results
 
 
-def prefill_timing(pp, q, kn, vn, kp, vp, table, p0, cl, pos0, clen, window):
+def chunk_timing(kernel_name, kernel, plain, q, kn, vn, kp, vp, table, p0,
+                 cl, pos0, clen, window):
     B, S, H, hd = q.shape
     _, page, KVH, _ = kp.shape
     G = H // KVH
@@ -288,8 +377,7 @@ def prefill_timing(pp, q, kn, vn, kp, vp, table, p0, cl, pos0, clen, window):
     # SDPA over the K/V gathered after the write, up to the longest lane's
     # end, with the kernel's mask
     kpw, vpw = kp.clone(), vp.clone()
-    pp.paged_prefill_plain(q, kn, vn, kpw, vpw, table, p0, cl, scale=scale,
-                           window=window)
+    plain(q, kn, vn, kpw, vpw, table, p0, cl, scale=scale, window=window)
     end = max(p + n for p, n in zip(pos0, clen))
     k, v = gathered_kv(kpw, vpw, table, end, G)
     qs = q.transpose(1, 2).contiguous()
@@ -301,10 +389,10 @@ def prefill_timing(pp, q, kn, vn, kp, vp, table, p0, cl, pos0, clen, window):
         mask &= k_pos > q_pos - window
     mask |= (k_pos == 0)          # keep padded rows finite; not compared
     mask = mask[:, None]
-    kernel_ms = time_ms(lambda: pp.paged_prefill_attention(
-        q, kn, vn, kp, vp, table, p0, cl, window=window))
-    plain_ms = time_ms(lambda: pp.paged_prefill_plain(
-        q, kn, vn, kp, vp, table, p0, cl, scale=scale, window=window))
+    kernel_ms = time_ms(lambda: kernel(q, kn, vn, kp, vp, table, p0, cl,
+                                       window=window))
+    plain_ms = time_ms(lambda: plain(q, kn, vn, kp, vp, table, p0, cl,
+                                     scale=scale, window=window))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qs, k, v, attn_mask=mask, scale=scale))
     # bytes: out written in full (padded rows are zeros), pos0 and
@@ -334,6 +422,33 @@ def prefill_timing(pp, q, kn, vn, kp, vp, table, p0, cl, pos0, clen, window):
 
 
 # ---------------------------- stream check ----------------------------- #
+def greedy_reference(params, cfg, prompt, n, dev):
+    """Plain full-causal greedy generation: n tokens and the top-2 logit
+    margin at each."""
+    from repro_torch.models import logits_fn, model_forward
+    toks, margins = list(prompt), []
+    with torch.no_grad():
+        for _ in range(n):
+            h, _ = model_forward(params, cfg, torch.tensor([toks], device=dev))
+            lg = logits_fn(params, cfg, h[0, -1])
+            top = torch.topk(lg, 2).values
+            margins.append((top[0] - top[1]).item())
+            toks.append(int(torch.argmax(lg)))
+    return toks[len(prompt):], margins
+
+
+def compare_stream(got, want, margins):
+    """Equal, or first different where the reference's top-2 margin is
+    below 1e-4 (a tie)."""
+    first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+    tie = first is not None and margins[first] < 1e-4
+    return {"tokens": len(got), "equal": first is None,
+            "first_difference": first, "tie": tie,
+            "min_top2_margin": min(margins[:len(got)], default=None),
+            "ok": len(got) <= len(want) and (first is None or tie)}
+
+
 # Three requests of different prompt lengths through the engine: the
 # first prefill group holds three lanes (chunks 24, 29 and 20 in the
 # 32-token bucket, padded to four lanes with a masked one); the second
@@ -358,7 +473,7 @@ def stream_phase(seed: int):
     from repro_torch.core.batch import Batch
     from repro_torch.core.slo import StageKind
     from repro_torch.device import generator
-    from repro_torch.models import init_params, logits_fn, model_forward
+    from repro_torch.models import init_params
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
     cfg = get_config("smollm-135m")
@@ -385,33 +500,215 @@ def stream_phase(seed: int):
            "prefill_calls": eng.counters["prefill_calls"],
            "decode_calls": eng.counters["decode_calls"]}
     ok = True
-    with torch.no_grad():
-        for rid, prompt in prompts.items():
-            toks, want, margins = list(prompt), [], []
-            for _ in range(len(got[rid])):
-                h, _ = model_forward(params, cfg,
-                                     torch.tensor([toks], device=dev))
-                lg = logits_fn(params, cfg, h[0, -1])
-                top = torch.topk(lg, 2).values
-                margins.append((top[0] - top[1]).item())
-                toks.append(int(torch.argmax(lg)))
-                want.append(toks[-1])
-            first = next((i for i, (a, b) in enumerate(zip(got[rid], want))
-                          if a != b), None)
-            tie = first is not None and margins[first] < 1e-4
-            ok_r = len(got[rid]) == want_len[rid] and (first is None or tie)
-            ok = ok and ok_r
-            rec[f"rid{rid}"] = {"prompt": len(prompt), "tokens": len(got[rid]),
-                                "equal": first is None,
-                                "first_difference": first, "tie": tie,
-                                "min_top2_margin": min(margins, default=None),
-                                "ok": ok_r}
-            if not ok_r:
-                rec[f"rid{rid}"].update(got=got[rid], want=want)
+    for rid, prompt in prompts.items():
+        want, margins = greedy_reference(params, cfg, prompt, len(got[rid]),
+                                         dev)
+        r = {"prompt": len(prompt), **compare_stream(got[rid], want, margins)}
+        r["ok"] = r["ok"] and len(got[rid]) == want_len[rid]
+        ok = ok and r["ok"]
+        rec[f"rid{rid}"] = r
+        if not r["ok"]:
+            r.update(got=got[rid], want=want)
     rec["ok"] = ok
     emit(rec)
     if not ok:
         raise SystemExit("engine streams differ from plain generation")
+
+
+# --------------------------- spec-decode phases ------------------------- #
+SPEC_ARCH = "qwen3-1.7b"
+SPEC_PROMPTS = {1: 40, 2: 51, 3: 60}
+SPEC_CYCLES = [    # draft length per request per batch (one verify each)
+    {1: 3, 2: 8, 3: 1}, {1: 8, 2: 1, 3: 3}, {1: 1, 2: 3, 3: 8},
+    {1: 3, 2: 8, 3: 3},
+]
+
+
+def one_layer_draft(cfg, dev, seed):
+    """The reference tests' draft recipe: the target's config cut to one
+    ``attn`` layer, with its own seed."""
+    import dataclasses
+
+    from repro_torch.device import generator
+    from repro_torch.models import init_params
+    dcfg = dataclasses.replace(cfg, name=cfg.name + "-draft", n_layers=1,
+                               block_pattern=("attn",))
+    return dcfg, init_params(dcfg, generator(dev, seed), device=dev)
+
+
+def spec_stream_phase(seed: int):
+    """Speculative decoding of the full-width target (random weights from
+    the seed) against plain greedy generation, with the 1-layer draft
+    (mostly rejected: rollback of both caches) and with the target as its
+    own draft (whole windows accepted, bonus tokens).  Three prompts are
+    prefilled, then decoded by spec cycles of draft length 1, 3 and 8."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.batch import Batch
+    from repro_torch.core.slo import StageKind
+    from repro_torch.device import generator
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    cfg = get_config(SPEC_ARCH)
+    dev = torch.device("cuda")
+    params = init_params(cfg, generator(dev, seed), device=dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    prompts = {rid: torch.randint(1, cfg.vocab, (n,), generator=g).tolist()
+               for rid, n in SPEC_PROMPTS.items()}
+    drafts = {"one_layer": one_layer_draft(cfg, dev, seed + 7),
+              "self": (cfg, params)}
+    got = {}
+    rec = {"phase": "spec_stream", "model": cfg.name, "layers": cfg.n_layers,
+           "prompts": {r: len(p) for r, p in prompts.items()}}
+    for name, draft in drafts.items():
+        eng = ServingEngine(cfg, params, EngineConfig(
+            max_slots=4, max_len=256, total_pages=64), draft=draft,
+            device=dev)
+        b = Batch()
+        for rid, prompt in prompts.items():
+            assert eng.add_request(rid, prompt, expected_total=128)
+            b.add(rid, StageKind.PREFILL, len(prompt))
+        got[name] = {rid: list(t) for rid, t in eng.execute(b).items()}
+        for cycle in SPEC_CYCLES:
+            b = Batch(spec_step=max(cycle.values()))
+            for rid, k in cycle.items():
+                b.add(rid, StageKind.DECODE, k + 1)
+            for rid, toks in eng.execute(b).items():
+                got[name][rid] += toks
+        c = eng.counters
+        rec[name] = {"accepted": c["spec_accepted_tokens"],
+                     "drafted": c["spec_drafted_tokens"],
+                     "verify_calls": c["spec_verify_calls"]}
+        del eng
+    del drafts
+    free_device_memory()
+    ok = (rec["one_layer"]["accepted"] < rec["one_layer"]["drafted"]
+          and rec["self"]["accepted"] > 0)
+    for rid, prompt in prompts.items():
+        n = max(len(got[d][rid]) for d in got)
+        want, margins = greedy_reference(params, cfg, prompt, n, dev)
+        for name in got:
+            r = compare_stream(got[name][rid], want, margins)
+            rec[name][f"rid{rid}"] = r
+            ok = ok and r["ok"]
+            if not r["ok"]:
+                r.update(got=got[name][rid], want=want)
+    rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        raise SystemExit("spec-decoded streams differ from plain generation")
+
+
+SPEC_REPLAY = dict(requests=8, prompt=512, output=64, tight=0.0125,
+                   loose=0.1, ttft_slowdown=8.0)
+
+
+def spec_replay_phase(pa, pp, pv, seed: int):
+    """The spec path end to end: ``ServingFrontend`` over ``ServingEngine``
+    with the target as its own draft and a speculation-planning
+    ``SLOsServeScheduler`` (the JAX demo's recipe), eight requests (prompt
+    512, output 64) at t = 0, four in a tight TPOT tier and four in a
+    loose one.  The kernel launch counts are zeroed just before the replay
+    and checked just after against the engine's counters; the verify
+    windows the replay ran must include the shape the verify phase
+    timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.perf_model import opt_perf_model
+    from repro_torch.core.request import simple_request
+    from repro_torch.core.scheduler import SchedulerConfig, SLOsServeScheduler
+    from repro_torch.device import generator
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.frontend import ServingFrontend
+
+    dev = torch.device("cuda")
+    cfg = get_config(SPEC_ARCH)
+    params = init_params(cfg, generator(dev, seed), device=dev)
+    eng = ServingEngine(cfg, params, EngineConfig(
+        max_slots=8, max_len=1024, page_size=16, total_pages=2048),
+        draft=(cfg, params), device=dev)
+    sched = SLOsServeScheduler(opt_perf_model(7e9, spec=True), SchedulerConfig(
+        page_size=16, prefill_emits_first_token=True, spec_alpha=0.7))
+    fe = ServingFrontend(eng, sched)
+    timer = SpanTimer()
+    eng.tracer = timer
+    # the verify windows this run gives B3: "rows/live rows" -> count
+    windows: dict[str, int] = {}
+    verify_pos0: list[int] = []
+    verify_forward = eng._verify_forward
+
+    def seen_verify(cache, tokens, pos0, true_len, bt):
+        key = f"{tokens.shape[1]}/{int(true_len[0])}"
+        windows[key] = windows.get(key, 0) + 1
+        verify_pos0.append(int(pos0[0]))
+        return verify_forward(cache, tokens, pos0, true_len, bt)
+    eng._verify_forward = seen_verify
+    R = SPEC_REPLAY
+    g = torch.Generator().manual_seed(seed + 2)
+    for rid in range(R["requests"]):
+        tpot = R["tight"] if rid < R["requests"] // 2 else R["loose"]
+        req = simple_request(rid, 0.0, prompt=R["prompt"], output=R["output"],
+                             ttft_slowdown=R["ttft_slowdown"], tpot=tpot)
+        fe.submit(req, prompt=torch.randint(1, cfg.vocab, (R["prompt"],),
+                                            generator=g).tolist())
+    planned: dict[str, dict[int, int]] = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in (pa.COUNTS, pp.COUNTS, pv.COUNTS):
+        c["kernel"] = c["plain"] = 0
+    t0 = time.perf_counter()
+    steps = 0
+    while not fe.idle and steps < 2000:
+        fe.step()
+        steps += 1
+        tiers, sls, _ = sched.last_spec_plan or ((), None, None)
+        for tier, sl in zip(tiers, sls or [0] * len(tiers)):
+            hist = planned.setdefault(str(tier), {})
+            hist[sl] = hist.get(sl, 0) + 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"decode": dict(pa.COUNTS), "prefill": dict(pp.COUNTS),
+                "verify": dict(pv.COUNTS)}
+    s, c = fe.stats, eng.counters
+    L, Ld = cfg.n_layers, eng.spec.cfg.n_layers
+    timed = next(f"{S}/{clen[0]}" for (name, _, S, *_, clen, _)
+                 in VERIFY_CASES if name == "main")
+    checks = {
+        "served_all": s.served == s.submitted == R["requests"],
+        "verified": c["spec_verify_calls"] > 0,
+        "verify_launches":
+            launches["verify"]["kernel"] == L * c["spec_verify_calls"],
+        "prefill_launches": launches["prefill"]["kernel"]
+            == L * c["prefill_calls"] + Ld * c["spec_catch_up_calls"],
+        "decode_launches": launches["decode"]["kernel"]
+            == L * c["decode_steps"] + Ld * c["spec_draft_steps"],
+        "no_plain": not any(v["plain"] for v in launches.values()),
+        "timed_verify_window_ran": timed in windows,
+    }
+    rec = {"phase": "spec_replay", "model": cfg.name, "layers": L,
+           "draft": "self", "draft_layers": Ld, "submitted": s.submitted,
+           "served": s.served, "attained": s.attained, "dropped": s.dropped,
+           "tokens_out": s.tokens_out, "steps": steps,
+           "accepted": c["spec_accepted_tokens"],
+           "drafted": c["spec_drafted_tokens"],
+           "planned_sl_per_tier": planned,
+           "verify_windows": windows, "timed_verify_window": timed,
+           "verify_pos0_range": [min(verify_pos0, default=None),
+                                 max(verify_pos0, default=None)],
+           "counters": {k: c[k] for k in (
+               "prefill_calls", "decode_calls", "decode_steps",
+               "decode_tokens", "spec_draft_calls", "spec_verify_calls",
+               "spec_draft_steps", "spec_catch_up_calls",
+               "verify_fused_ops")},
+           "launches": launches, "wall_s": wall, "span_s": timer.seconds,
+           "spans": timer.count,
+           "outside_spans_s": wall - sum(timer.seconds.values()),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "checks": checks}
+    emit(rec)
+    if not all(checks.values()):
+        raise SystemExit(f"spec replay checks failed: {checks}")
+    return launches
 
 
 # ----------------------------- main path ------------------------------- #
@@ -485,6 +782,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import paged_verify as pv
 
     set_precision()
     seed = 0
@@ -499,9 +797,15 @@ def main() -> int:
           "ptxas": ptxas})
     dec = decode_phase(pa)
     pre = prefill_phase(pp)
+    ver = verify_phase(pv)
     stream_phase(seed)
     launches = main_path(pa, pp, seed)
+    free_device_memory()
+    spec_stream_phase(seed)
+    free_device_memory()
+    spec = spec_replay_phase(pa, pp, pv, seed)
     torch.cuda.synchronize()
+    emit({"phase": "done", "total_s": time.perf_counter() - t0})
 
     def entry(name, source, replaces, rec, n):
         return {"name": name, "route": "cuda", "source": source,
@@ -509,7 +813,6 @@ def main() -> int:
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-    emit({"phase": "done", "total_s": time.perf_counter() - t0})
     emit({"kernels": [
         entry("paged_decode_attention", "src/repro_torch/csrc/paged_decode.cu",
               "src/repro/kernels/paged_attention.py:73", dec,
@@ -518,6 +821,10 @@ def main() -> int:
               "src/repro_torch/csrc/paged_prefill.cu",
               "src/repro/kernels/paged_prefill.py:125", pre,
               launches["prefill"]["kernel"]),
+        entry("paged_verify_attention",
+              "src/repro_torch/csrc/paged_verify.cu",
+              "src/repro/kernels/paged_prefill.py:308", ver,
+              spec["verify"]["kernel"]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -35,6 +35,8 @@ SIGNATURES = {
                      [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
     "paged_prefill": ("repro_paged_prefill_f32",
                       [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
+    "paged_verify": ("repro_paged_verify_f32",
+                     [_P] * 12 + [_I] * 7 + [_F, _I, _I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

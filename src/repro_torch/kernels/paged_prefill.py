@@ -90,11 +90,18 @@ def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
 def paged_prefill_plain(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
                         chunk_len, *, scale: float,
                         window: Optional[int] = None):
-    """The kernel's function in plain PyTorch: scatter the chunk's rows
-    into the pages (in place), gather each lane's stream, masked softmax.
-    The scatter selects the written rows with a boolean mask, which waits
-    on the device; this version is never on the CUDA main path."""
+    """The kernel's function in plain PyTorch (``prefill_math``)."""
     COUNTS["plain"] += 1
+    return prefill_math(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
+                        chunk_len, scale=scale, window=window)
+
+
+def prefill_math(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
+                 chunk_len, *, scale: float, window: Optional[int] = None):
+    """Scatter the chunk's rows into the pages (in place), gather each
+    lane's stream, masked softmax; the plain version of B2 and of B3.
+    The scatter selects the written rows with a boolean mask, which waits
+    on the device; this arithmetic is never on the CUDA main path."""
     B, S, H, hd = q.shape
     _, page, KVH, _ = k_pages.shape
     G = H // KVH

@@ -1,0 +1,118 @@
+"""Fused speculative-verify paged attention (kernel B3): the CUDA kernel,
+its plain PyTorch version, and the launch counts.
+
+Port of ``repro/kernels/paged_prefill.py::paged_verify_attention``.  The
+target model scores a verify window of ``sl + 1`` tokens (the last emitted
+token and the draft's ``sl`` proposals) over its paged history.  That is
+the fused chunked prefill's function (``paged_prefill.py``): same
+arguments, same result, pools written in place and returned, output rows
+at ``i >= chunk_len[b]`` zeros.  The shape is what differs, a few rows
+over a long history, so the CUDA kernel (``csrc/paged_verify.cu``) splits
+the history over blocks and merges the splits in a second launch.
+
+Dispatch is by the inputs' device: CPU → plain version, CUDA → the kernel
+or raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.paged_attention import check_tensor
+from repro_torch.kernels.paged_prefill import prefill_math
+
+COUNTS = {"kernel": 0, "plain": 0}
+
+# blocks in flight the split count aims at, per SM of the card
+BLOCKS_PER_SM = 2
+
+
+def paged_verify_attention(q, k_new, v_new, k_pages, v_pages, block_table,
+                           pos0, chunk_len, *, scale: Optional[float] = None,
+                           window: Optional[int] = None):
+    """q: (B, S, H, hd); k_new/v_new: (B, S, KVH, hd); k/v_pages:
+    (n_pages, page, KVH, hd), written in place; block_table: (B, max_pages)
+    int32; pos0/chunk_len: (B,) int32.  Returns (out (B, S, H, hd),
+    k_pages, v_pages)."""
+    B, S, H, hd = q.shape
+    KVH = k_pages.shape[2]
+    if H % KVH:
+        raise ValueError(f"{H} query heads do not group over {KVH} KV heads")
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return paged_verify_plain(q, k_new, v_new, k_pages, v_pages,
+                                  block_table, pos0, chunk_len, scale=scale,
+                                  window=window)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"paged_verify_attention: no kernel for {q.device}")
+    return _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
+                   chunk_len, scale, window)
+
+
+def n_splits(B: int, KVH: int, page: int, max_pages: int,
+             window: Optional[int], n_sms: int) -> int:
+    """Key splits per (lane, KV head): about ``BLOCKS_PER_SM`` blocks per
+    SM in flight, capped by the history pages a lane can hold (the table
+    width, or the window's pages).  The host does not know the lanes'
+    positions without a sync; a split whose range is empty exits early."""
+    cap = max_pages
+    if window is not None:
+        cap = min(cap, (window - 1 + page - 1) // page + 1)
+    return max(1, min(math.ceil(BLOCKS_PER_SM * n_sms / (B * KVH)), cap))
+
+
+def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
+            scale, window):
+    from repro_torch.kernels import build
+    dev = q.device
+    check_tensor("q", q, torch.float32, dev, 4)
+    check_tensor("k_new", k_new, torch.float32, dev, 4)
+    check_tensor("v_new", v_new, torch.float32, dev, 4)
+    check_tensor("k_pages", k_pages, torch.float32, dev, 4)
+    check_tensor("v_pages", v_pages, torch.float32, dev, 4)
+    check_tensor("block_table", block_table, torch.int32, dev, 2)
+    check_tensor("pos0", pos0, torch.int32, dev, 1)
+    check_tensor("chunk_len", chunk_len, torch.int32, dev, 1)
+    B, S, H, hd = q.shape
+    n_pages, page, KVH, hd_k = k_pages.shape
+    if hd_k != hd or k_new.shape != (B, S, KVH, hd) \
+            or v_new.shape != k_new.shape or v_pages.shape != k_pages.shape \
+            or block_table.shape[0] != B or pos0.shape[0] != B \
+            or chunk_len.shape[0] != B:
+        raise ValueError("paged_verify_attention: inconsistent shapes")
+    if hd % 4 or any(t.data_ptr() % 16 for t in (q, k_new, v_new, k_pages,
+                                                  v_pages)):
+        raise ValueError("paged_verify_attention: rows must be float4-aligned")
+    # a window whose G * S query rows do not fit one block's shared memory
+    # is refused by the launch (cudaFuncSetAttribute), reported below
+    ns = n_splits(B, KVH, page, block_table.shape[1], window,
+                  torch.cuda.get_device_properties(dev).multi_processor_count)
+    R = S * (H // KVH)
+    m_ws = torch.empty((B, KVH, ns, R), dtype=torch.float32, device=dev)
+    l_ws = torch.empty_like(m_ws)
+    acc_ws = torch.empty((B, KVH, ns, R, hd), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    fn = build.load("paged_verify")
+    rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
+            pos0.data_ptr(), chunk_len.data_ptr(), m_ws.data_ptr(),
+            l_ws.data_ptr(), acc_ws.data_ptr(), out.data_ptr(),
+            B, S, H, KVH, hd, page, block_table.shape[1], scale,
+            -1 if window is None else int(window), ns,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_verify kernel launch failed: CUDA error {rc}")
+    COUNTS["kernel"] += 1
+    return out, k_pages, v_pages
+
+
+def paged_verify_plain(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
+                       chunk_len, *, scale: float,
+                       window: Optional[int] = None):
+    """The kernel's function in plain PyTorch: the fused prefill's plain
+    arithmetic (scatter the window's rows, gather, masked softmax)."""
+    COUNTS["plain"] += 1
+    return prefill_math(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
+                        chunk_len, scale=scale, window=window)

@@ -6,7 +6,10 @@ Two execution modes share ``attn_forward``:
   * paged (``cache = {"k_pages", "v_pages"}``): page pools addressed by
     per-lane block tables.  A multi-token chunk goes to the fused prefill
     kernel (B2, ``kernels/paged_prefill.py``), which writes the chunk's KV
-    into the pages and attends in one launch.  A decode token is written
+    into the pages and attends in one launch; a speculative-decoding verify
+    window (``verify=True``) goes to the fused verify kernel (B3,
+    ``kernels/paged_verify.py``), the same function split over the history
+    for a few rows.  A decode token is written
     by the plain ``paged_write`` scatter and attends through the paged
     decode kernel (B1, ``kernels/paged_attention.py``).
 
@@ -29,6 +32,7 @@ import torch
 
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
+from repro_torch.kernels.paged_verify import paged_verify_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, rms_head_norm
 
@@ -123,12 +127,14 @@ def causal_mask(B, Sq, Sk, pos0, kv_len, window: Optional[int] = None):
 
 # --------------------------- self-attention ----------------------------- #
 def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
-                 pos0=None, block_tables=None, chunk_len=None):
+                 pos0=None, block_tables=None, chunk_len=None, verify=False):
     """Returns (ctx (B, Sq, H, hd), cache).
 
     cache: None (full causal, nothing kept) or dict(k_pages, v_pages) page
     pools addressed through ``block_tables`` and updated in place.  pos0:
-    (B,) write offsets; chunk_len: (B,) true (unpadded) chunk lengths."""
+    (B,) write offsets; chunk_len: (B,) true (unpadded) chunk lengths;
+    verify: the chunk is a speculative-decoding verify window (same
+    function, own kernel and ``OP_STATS`` key)."""
     B, Sq, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"].reshape(d, h * hd)).reshape(B, Sq, h, hd)
@@ -154,6 +160,15 @@ def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
     kp, vp = cache["k_pages"], cache["v_pages"]
     if chunk_len is None:
         chunk_len = torch.full((B,), Sq, dtype=torch.int32, device=x.device)
+    if Sq > 1 and verify:
+        # fused spec verify: B3 writes the window's KV into the pages and
+        # attends over the paged history (the engine's CoW barrier ran
+        # over the window first)
+        OP_STATS["fused_verify"] += 1
+        out, _, _ = paged_verify_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), kp[:-1],
+            vp[:-1], block_tables, pos0, chunk_len, window=window)
+        return out, cache
     if Sq > 1:
         # fused chunked prefill: the kernel writes the chunk's KV into the
         # pages and attends over the paged history in the same launch (the

@@ -41,12 +41,12 @@ def init_block(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
 
 
 def block_forward(p, cfg: ModelConfig, x, *, positions, cache=None,
-                  pos0=None, block_tables=None, chunk_len=None):
+                  pos0=None, block_tables=None, chunk_len=None, verify=False):
     """One ``attn`` block: pre-norm attention then pre-norm MLP."""
     h = apply_norm(p["norm1"], x, cfg.norm)
     ctx, _ = attn_forward(p["attn"], h, cfg, positions=positions,
                           cache=cache, pos0=pos0, block_tables=block_tables,
-                          chunk_len=chunk_len)
+                          chunk_len=chunk_len, verify=verify)
     x = x + attn_output(p["attn"], ctx).to(x.dtype)
     h2 = apply_norm(p["norm2"], x, cfg.norm)
     return x + apply_mlp(p["mlp"], h2, cfg.act).to(x.dtype)
@@ -110,14 +110,16 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 
 # ---------------------------- full forward ----------------------------- #
 def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
-                  block_tables=None, chunk_len=None):
+                  block_tables=None, chunk_len=None, verify=False):
     """Returns (hidden (B, S, D), cache).
 
     ``cache=None`` is full causal attention over ``tokens``.  With paged
     pools from ``init_paged_cache``, the S new tokens of each lane are
     written at offset ``pos0`` (B,) through ``block_tables`` (B, max_pages)
     — only the first ``chunk_len`` (B,) of them — and the pools are
-    updated in place (the returned cache is the one passed in)."""
+    updated in place (the returned cache is the one passed in).
+    ``verify=True`` marks the chunk as a speculative-decoding verify
+    window, which the attention layers send to the verify kernel."""
     _check_ported(cfg)
     x = embed(params["embed"], tokens) if not tokens.is_floating_point() \
         else tokens
@@ -135,7 +137,7 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
                 c = seg_c if n == 1 else {k: t[l] for k, t in seg_c.items()}
             x = block_forward(p, cfg, x, positions=positions, cache=c,
                               pos0=pos0, block_tables=block_tables,
-                              chunk_len=chunk_len)
+                              chunk_len=chunk_len, verify=verify)
     return apply_norm(params["final_norm"], x, cfg.norm), cache
 
 

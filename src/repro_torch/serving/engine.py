@@ -12,23 +12,33 @@ The engine executes planner ``Batch`` objects:
     only the final (B, n_steps) token matrix is copied to the host: one
     host sync per group, as in the reference's single jitted scan.  The
     loop is eager PyTorch; capturing it in a CUDA graph is later work.
+  * With a draft model (``draft=(cfg, params)``), a batch planned with
+    ``spec_step > 0`` runs its decodes one request at a time through
+    ``serving/spec_decode.SpecDecoder``: draft steps, then one verify
+    forward of the target through the verify kernel (``"verify"`` span).
 
 The engine runs in float32, the reference's default dtype and the one
 the kernels take; on the card TF32 is off (``device.resolve_device``).
 
 ``counters`` counts device calls (prefill_calls, decode_calls,
-decode_tokens) with the reference's keys.  ``prefill_fused_ops`` counts
-``attention.OP_STATS["fused_prefill"]`` deltas per call: the port runs
-eagerly, where JAX counts only in freshly traced programs, so it agrees
-with the reference only on a first trace.  Every prefill goes through the
-fused kernel, so the reference's ``prefill_scatter_ops`` and
-``prefill_attn_ops`` (the unfused gather path) have no counterpart.
+decode_tokens, spec_draft_calls, spec_verify_calls) with the reference's
+keys.  ``prefill_fused_ops`` and ``verify_fused_ops`` count
+``attention.OP_STATS`` deltas per call: the port runs eagerly, where JAX
+counts only in freshly traced programs, so they agree with the reference
+only on a first trace.  Every prefill and every verify goes through its
+fused kernel, so the reference's ``prefill_scatter_ops``,
+``prefill_attn_ops``, ``verify_scatter_ops`` and ``verify_attn_ops`` (the
+unfused gather path) have no counterpart: the last two stay 0.  Three
+counters are the port's own: ``decode_steps`` sums the bucketed step
+counts of the decode groups, ``spec_draft_steps`` those of the draft
+loops, and ``spec_catch_up_calls`` counts the draft's catch-up prefills
+(each step launches the decode kernel once per layer, each catch-up the
+prefill kernel).
 
-Not ported yet: speculative decoding (``draft=``), mesh-sharded serving
-(``EngineConfig.mesh``), encoder / image conditioning and the host spill
-tier; asking for any of them raises ``NotImplementedError``.  Prefix
-matching is always token-level and admission always reserves the full
-expected context (the reference's ``token_level_prefix=False`` and
+Not ported yet: mesh-sharded serving (``EngineConfig.mesh``), encoder /
+image conditioning and the host spill tier; asking for any of them raises
+``NotImplementedError``.  Prefix matching is always token-level and
+admission always reserves the full expected context (the reference's ``token_level_prefix=False`` and
 ``prefix_aware_admission=True`` are not ported).
 """
 from __future__ import annotations
@@ -92,10 +102,8 @@ class RequestCtx:
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig = None,
-                 draft: Optional[tuple] = None, device=None):
+                 draft: Optional[tuple] = None, kv_budget=None, device=None):
         self.ecfg = ecfg or EngineConfig()
-        if draft is not None:
-            raise NotImplementedError("speculative decoding is not yet ported")
         if self.ecfg.mesh is not None:
             raise NotImplementedError("mesh-sharded serving is not yet ported")
         self.device = resolve_device(device)
@@ -106,26 +114,36 @@ class ServingEngine:
                                  max_seqs=self.ecfg.max_slots,
                                  max_len=self.ecfg.max_len,
                                  dtype=torch.float32,
+                                 budget=kv_budget,
                                  share_prefix=self.ecfg.share_prefix,
                                  host_spill_pages=self.ecfg.host_spill_pages,
                                  device=self.device)
         self.reqs: dict[int, RequestCtx] = {}
         self.gen = generator(self.device, self.ecfg.seed)
-        # the reference's keys, less the speculative-decoding ones;
-        # decode_steps sums the bucketed step counts of the decode groups
-        # (each step launches the decode kernel once per layer)
+        # the reference's keys, and the port's own decode_steps,
+        # spec_draft_steps and spec_catch_up_calls (module docstring)
         self.counters = {"prefill_calls": 0, "decode_calls": 0,
                          "decode_steps": 0, "decode_tokens": 0,
+                         "spec_draft_calls": 0, "spec_verify_calls": 0,
+                         "spec_draft_steps": 0, "spec_catch_up_calls": 0,
                          "preemptions": 0, "prefix_hit_tokens": 0,
-                         "prefill_fused_ops": 0}
+                         "prefill_fused_ops": 0, "verify_scatter_ops": 0,
+                         "verify_attn_ops": 0, "verify_fused_ops": 0,
+                         "spec_accepted_tokens": 0,
+                         "spec_drafted_tokens": 0}
         # fresh progress granted by the last admission's prefix hit
         self.last_hit_fresh = 0
         # fresh (non-replay) prefill tokens per rid in the last execute()
         self.last_prefill_progress: dict[int, int] = {}
-        # (accepted, drafted) per rid of the last execute(): no speculation
+        # (accepted, drafted) per rid of the last execute()'s verifies,
+        # which the frontend folds into its per-class acceptance EWMA
         self.last_spec_stats: dict[int, tuple[int, int]] = {}
         self.tracer = None                # optional StepTracer (duck type)
-        self.spec = None                  # speculative decoding: not ported
+        # speculative decoding: (draft_cfg, draft_params)
+        self.spec = None
+        if draft is not None:
+            from repro_torch.serving.spec_decode import SpecDecoder
+            self.spec = SpecDecoder(self, draft[0], draft[1])
 
     # ------------------------- device programs -------------------------- #
     def _prefill_forward(self, cache, tokens, pos0, true_len, bt,
@@ -147,6 +165,16 @@ class ServingEngine:
             lg = logits_fn(self.params, self.cfg, last[rows])
             toks[rows] = sample(lg, self.gen, self.ecfg.temperature)
         return toks
+
+    def _verify_forward(self, cache, tokens, pos0, true_len, bt):
+        """Spec-decode verify: one pass over [last, drafts...] through the
+        verify kernel; the greedy target token at every row, on the
+        device (the caller reads it once)."""
+        h, _ = model_forward(self.params, self.cfg, tokens, cache=cache,
+                             pos0=pos0, block_tables=bt, chunk_len=true_len,
+                             verify=True)
+        return torch.argmax(logits_fn(self.params, self.cfg, h[0]),
+                            dim=-1).to(torch.int32)
 
     def _decode_loop(self, cache, tokens0, pos0, steps, eos, bt,
                      n_steps: int):
@@ -211,6 +239,8 @@ class ServingEngine:
 
     def finish(self, rid: int) -> None:
         self.kv.release(rid)
+        if self.spec is not None:
+            self.spec.release(rid)
         self.reqs.pop(rid, None)
 
     # --------------------- preemption / re-admission -------------------- #
@@ -222,6 +252,8 @@ class ServingEngine:
         if ctx is None:
             return 0
         freed = self.kv.preempt(rid)
+        if self.spec is not None:
+            self.spec.release(rid)      # draft cache re-syncs on resume
         ctx.recompute = ctx.recompute or (bool(ctx.generated)
                                           and not ctx.pending)
         ctx.replay += len(ctx.history)
@@ -247,6 +279,8 @@ class ServingEngine:
         """Evict a request fully (pages and slot), returning its context
         for a later ``restore``."""
         self.kv.release(rid)
+        if self.spec is not None:
+            self.spec.release(rid)
         return self.reqs.pop(rid, None)
 
     def restore(self, rid: int, ctx: RequestCtx,
@@ -260,6 +294,9 @@ class ServingEngine:
         self.reqs[rid] = ctx
         self._consume_hit(ctx, self.kv.length(rid))
         return True
+
+    def context_len(self, rid: int) -> int:
+        return self.kv.length(rid)
 
     def rollback(self, rid: int, n_tokens: int) -> None:
         """Discard the last n cache positions: a block-table length
@@ -318,10 +355,17 @@ class ServingEngine:
                 for rid, toks in self._prefill_group(*group).items():
                     emitted.setdefault(rid, []).extend(toks)
         if decode_rids:
-            with self._tspan("decode", n=len(decode_rids)):
-                out = self._decode_batched(dict(decode_rids), on_pressure)
-                for rid, toks in out.items():
-                    emitted.setdefault(rid, []).extend(toks)
+            if batch.spec_step > 0 and self.spec is not None:
+                with self._tspan("verify", n=len(decode_rids)):
+                    for rid, n in decode_rids:
+                        emitted.setdefault(rid, []).extend(
+                            self.spec.decode(rid, n, on_pressure))
+            else:
+                with self._tspan("decode", n=len(decode_rids)):
+                    out = self._decode_batched(dict(decode_rids),
+                                               on_pressure)
+                    for rid, toks in out.items():
+                        emitted.setdefault(rid, []).extend(toks)
         return emitted
 
     def _tspan(self, name: str, **attrs):

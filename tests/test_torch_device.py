@@ -21,6 +21,7 @@ from repro_torch.configs import get_reduced                     # noqa: E402
 from repro_torch.kernels import build                           # noqa: E402
 from repro_torch.kernels import paged_attention as pa           # noqa: E402
 from repro_torch.kernels import paged_prefill as pp             # noqa: E402
+from repro_torch.kernels import paged_verify as pv              # noqa: E402
 from repro_torch.launch import serve                            # noqa: E402
 from repro_torch.models import (init_paged_cache,               # noqa: E402
                                 init_params)
@@ -65,6 +66,8 @@ def test_default_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params, draft=(cfg, params))
+    with pytest.raises(RuntimeError, match="CUDA"):
         serve.build(serve.parse_args(["--reduced"]))
 
 
@@ -82,6 +85,9 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(RuntimeError, match="no kernel"):
         pp.paged_prefill_attention(qs, kn, kn, pages, pages, table, lens,
                                    lens)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        pv.paged_verify_attention(qs, kn, kn, pages, pages, table, lens,
+                                  lens)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

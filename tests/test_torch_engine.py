@@ -144,9 +144,6 @@ def test_unported_engine_options_raise(reference):
     _, _, params, _, _ = reference
     cfg = get_reduced(ARCH)
     with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, params, EngineConfig(**ECFG), draft=(cfg, params),
-                      device="cpu")
-    with pytest.raises(NotImplementedError):
         ServingEngine(cfg, params, EngineConfig(mesh=object(), **ECFG),
                       device="cpu")
     eng = _port(params)

@@ -1,4 +1,5 @@
-"""Paged kernels of the port (B1 decode, B2 fused prefill) against the JAX
+"""Paged kernels of the port (B1 decode, B2 fused prefill, B3 fused verify)
+against the JAX
 package: the same numpy-seeded inputs go through the JAX Pallas kernels in
 interpret mode, the JAX oracles, and the port's plain versions (what the
 wrappers run for CPU tensors) and loop oracles.
@@ -18,8 +19,11 @@ jnp = jax.numpy
 from repro.kernels import ops                                  # noqa: E402
 from repro.kernels.ref import ref_paged_decode as jax_ref_decode  # noqa: E402
 from repro.kernels.ref import ref_paged_prefill as jax_ref_prefill  # noqa: E402
+from repro.kernels.paged_prefill import (                       # noqa: E402
+    paged_verify_attention as jax_paged_verify)
 from repro_torch.kernels import paged_attention as pa          # noqa: E402
 from repro_torch.kernels import paged_prefill as pp            # noqa: E402
+from repro_torch.kernels import paged_verify as pv             # noqa: E402
 from repro_torch.kernels.ref import (ref_paged_decode,         # noqa: E402
                                      ref_paged_prefill)
 
@@ -230,3 +234,44 @@ def test_prefill_then_decode_sees_the_chunk():
                                     torch.tensor([S], dtype=torch.int32))
     np.testing.assert_allclose(dec.numpy(), full[:, S - 1].numpy(),
                                atol=ATOL, rtol=0)
+
+
+# ---------------------------- B3: fused verify --------------------------- #
+@pytest.mark.parametrize("B,S,H,KV,hd,page,max_pages,pos0,clen,window", [
+    (1, 8, 4, 2, 32, 8, 6, [11], [5], None),          # mid-page, clen < S
+    (2, 16, 6, 2, 32, 8, 5, [19, 0], [9, 0], None),   # S 16, masked lane
+    (1, 16, 4, 2, 64, 16, 4, [37], [9], 20),          # window over pages
+])
+def test_verify_matches_jax(B, S, H, KV, hd, page, max_pages, pos0, clen,
+                            window):
+    """The verify window (sl + 1 rows, bucketed to S) over a paged
+    history: the port's plain version against the JAX entry point in
+    interpret mode; pools bit-equal, padded rows zeros."""
+    q, kn, vn, kp, vp, table = _inputs(S + hd + B, B, S, H, KV, hd, page,
+                                       max_pages)
+    pos0 = np.array(pos0, np.int32)
+    clen = np.array(clen, np.int32)
+    jout, jkp, jvp = jax_paged_verify(
+        *map(jnp.asarray, (q, kn, vn, kp, vp, table, pos0, clen)),
+        window=window, interpret=True)
+    n0 = dict(pv.COUNTS)
+    out, kp2, vp2 = pv.paged_verify_attention(
+        *_t(q, kn, vn, kp, vp, table, pos0, clen), window=window)
+    assert pv.COUNTS == {"kernel": n0["kernel"], "plain": n0["plain"] + 1}
+    np.testing.assert_array_equal(kp2.numpy(), np.asarray(jkp))
+    np.testing.assert_array_equal(vp2.numpy(), np.asarray(jvp))
+    for b in range(B):
+        n = int(clen[b])
+        np.testing.assert_allclose(out[b, :n].numpy(), np.asarray(jout[b, :n]),
+                                   atol=ATOL, rtol=0)
+        assert not out[b, n:].any()
+
+
+def test_verify_split_count():
+    """About two blocks per SM, capped by the pages a lane can hold."""
+    assert pv.n_splits(1, 8, 16, 64, None, 132) == 33
+    assert pv.n_splits(1, 8, 16, 4, None, 132) == 4
+    assert pv.n_splits(1, 8, 16, 400, 4096, 132) == 33
+    assert pv.n_splits(1, 8, 16, 400, 40, 132) == 4    # 39 keys: 4 pages
+    assert pv.n_splits(8, 32, 16, 64, None, 132) == 2
+    assert pv.n_splits(64, 32, 16, 64, None, 132) == 1
