@@ -49,8 +49,26 @@ script exits non-zero before the final line:
    step, and the plain versions never.  The line lists the verify windows
    the replay ran (rows / live rows), which must include the shape at
    which step 2 timed the verify kernel.
-7. The kernels line (B1 and B2 launches from step 4, B3's from step 6),
-   the card line, and ``{"ok": true, "device": ...}``.
+7. The MLA kernel (B4) against its plain version at deepseek-v2's full
+   widths (128 heads, latent rank 512, rope 64, page 16): a chunk that
+   straddles pages from a mid-page start, a chunk from position 0, masked
+   and partial lanes, a long history, every unreachable row and unmapped
+   page poisoned.  Outputs agree within 1e-4 on valid rows, pools
+   bit-equal, unwritten pages unchanged, padded rows zeros.  Timed at the
+   mla replay's prefill shape (one lane, a 16-row bucket with 15 live rows
+   after 120 tokens of history) and at a 256-token chunk.
+8. DeepSeek-V2 at full width cut to three layers (``mla``, ``mla_moe``,
+   ``mla_moe``; random weights from the seed, 34.8 GiB in float32): three
+   greedy streams of the engine against plain full-causal generation, as
+   in step 3.
+9. The MLA path: ``ServingFrontend`` with ``SLOsServeScheduler`` serves 8
+   chatbot requests (lengths scaled by 0.25, 2/s) on the cut model.
+   Counts zeroed just before and read just after: B4 launches once per
+   layer per prefill group, B1-B3 never (MLA uses none of them), plain
+   versions never.  Then one decode step of eight lanes is timed whole and
+   by part (an MLA layer's naive decode, an MoE layer).
+10. The kernels line (B1 and B2 launches from step 4, B3's from step 6,
+    B4's from step 9), the card line, and ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -424,12 +442,17 @@ def chunk_timing(kernel_name, kernel, plain, q, kn, vn, kp, vp, table, p0,
 # ---------------------------- stream check ----------------------------- #
 def greedy_reference(params, cfg, prompt, n, dev):
     """Plain full-causal greedy generation: n tokens and the top-2 logit
-    margin at each."""
+    margin at each.  MoE layers run with the engine's dropless capacity
+    factor E / k (exact inference; the model's default 2.0 is the
+    reference's training setting, which drops units)."""
     from repro_torch.models import logits_fn, model_forward
+    from repro_torch.models.moe import dropless_capacity_factor
+    moe_cf = dropless_capacity_factor(cfg)
     toks, margins = list(prompt), []
     with torch.no_grad():
         for _ in range(n):
-            h, _ = model_forward(params, cfg, torch.tensor([toks], device=dev))
+            h, _ = model_forward(params, cfg, torch.tensor([toks], device=dev),
+                                 moe_cf=moe_cf)
             lg = logits_fn(params, cfg, h[0, -1])
             top = torch.topk(lg, 2).values
             margins.append((top[0] - top[1]).item())
@@ -470,19 +493,30 @@ def stream_phase(seed: int):
     weights.  A difference counts only where the reference's top-2 logit
     margin is below 1e-4 (a tie)."""
     from repro_torch.configs import get_config
-    from repro_torch.core.batch import Batch
-    from repro_torch.core.slo import StageKind
     from repro_torch.device import generator
     from repro_torch.models import init_params
-    from repro_torch.serving.engine import EngineConfig, ServingEngine
 
     cfg = get_config("smollm-135m")
     dev = torch.device("cuda")
     params = init_params(cfg, generator(dev, seed), device=dev)
-    eng = ServingEngine(cfg, params, EngineConfig(max_slots=8, max_len=4096,
+    engine_streams({"phase": "stream"}, cfg, params, max_len=4096,
+                   prompt_seed=seed)
+
+
+def engine_streams(rec, cfg, params, *, max_len: int, prompt_seed: int):
+    """STREAM_SCRIPT through a fresh engine, then each stream against plain
+    generation; emits ``rec`` with the results and fails on a difference
+    that is not a tie."""
+    from repro_torch.core.batch import Batch
+    from repro_torch.core.slo import StageKind
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    dev = torch.device("cuda")
+    eng = ServingEngine(cfg, params, EngineConfig(max_slots=8,
+                                                  max_len=max_len,
                                                   total_pages=64),
                         device=dev)
-    g = torch.Generator().manual_seed(seed)
+    g = torch.Generator().manual_seed(prompt_seed)
     prompts = {rid: torch.randint(1, cfg.vocab, (n,), generator=g).tolist()
                for rid, n in STREAM_PROMPTS.items()}
     for rid, prompt in prompts.items():
@@ -496,9 +530,11 @@ def stream_phase(seed: int):
         for rid, toks in eng.execute(b).items():
             got[rid] += toks
     want_len = {1: 7, 2: 10, 3: 10}    # one prefill emission + decode steps
-    rec = {"phase": "stream", "requests": len(prompts),
-           "prefill_calls": eng.counters["prefill_calls"],
-           "decode_calls": eng.counters["decode_calls"]}
+    rec.update({"requests": len(prompts),
+                "prefill_calls": eng.counters["prefill_calls"],
+                "decode_calls": eng.counters["decode_calls"]})
+    del eng
+    free_device_memory()
     ok = True
     for rid, prompt in prompts.items():
         want, margins = greedy_reference(params, cfg, prompt, len(got[rid]),
@@ -512,7 +548,8 @@ def stream_phase(seed: int):
     rec["ok"] = ok
     emit(rec)
     if not ok:
-        raise SystemExit("engine streams differ from plain generation")
+        raise SystemExit(f"{rec['phase']}: engine streams differ from plain "
+                         "generation")
 
 
 # --------------------------- spec-decode phases ------------------------- #
@@ -711,6 +748,307 @@ def spec_replay_phase(pa, pp, pv, seed: int):
     return launches
 
 
+# ------------------------------ MLA phases ------------------------------ #
+MLA_ARCH = "deepseek-v2-236b"
+MLA_CUT = dict(n_layers=3, block_pattern=("mla", "mla_moe", "mla_moe"))
+MLA_H, MLA_R, MLA_ROPE = 128, 512, 64
+# name, B, S, page, max_pages, pos0, chunk_len.  "main" is the mla
+# replay's prefill shape: its planner cuts prompts into chunks of 9 to 15
+# tokens (one lane, the 16-row bucket) at positions up to about 250
+# (rehearsed on the CPU at reduced width with the same engine and trace).
+MLA_CASES = [
+    ("main", 1, 16, 16, 64, [120], [15]),
+    ("straddle_midpage", 2, 64, 16, 64, [8, 37], [64, 50]),
+    ("pos0_zero_256", 1, 256, 16, 32, [0], [256]),
+    ("masked_partial", 4, 32, 16, 64, [37, 0, 300, 0], [32, 0, 17, 0]),
+    ("long_history", 2, 16, 16, 80, [1000, 497], [16, 9]),
+]
+MLA_TIMED = ("main", "pos0_zero_256")
+
+
+def mla_prefill_phase(mk):
+    """B4 against its plain version on the same pools at full-width heads,
+    with every key no live row may see poisoned: unmapped pages, and in
+    each live lane's pages the positions at or past pos0 (the chunk's keys
+    come from ckv_new / krope_new)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    H, r, rope = MLA_H, MLA_R, MLA_ROPE
+    scale = (128 + rope) ** -0.5          # (qk_nope + rope)^-0.5
+    results = {}
+    for name, B, S, page, max_pages, pos0, clen in MLA_CASES:
+        n_pages = B * max_pages + 5
+        cp = torch.randn(n_pages, page, r, generator=gen, device="cuda")
+        rp = torch.randn(n_pages, page, rope, generator=gen, device="cuda")
+        perm = torch.randperm(n_pages, generator=gen, device="cuda")
+        table = perm[:B * max_pages].reshape(B, max_pages).to(torch.int32)
+        for b in range(B):
+            if clen[b] == 0:
+                table[b] = table[0]   # masked lanes alias lane 0, as padding
+        table = table.contiguous()
+        ql = torch.randn(B, S, H, r, generator=gen, device="cuda")
+        qr = torch.randn(B, S, H, rope, generator=gen, device="cuda")
+        cn = torch.randn(B, S, r, generator=gen, device="cuda")
+        rn = torch.randn(B, S, rope, generator=gen, device="cuda")
+        p0 = torch.tensor(pos0, dtype=torch.int32, device="cuda")
+        cl = torch.tensor(clen, dtype=torch.int32, device="cuda")
+        mapped = torch.zeros(n_pages, dtype=torch.bool, device="cuda")
+        mapped[table.long().flatten()] = True
+        cp[~mapped] = 1e4
+        rp[~mapped] = 1e4
+        pos = torch.arange(max_pages * page, device="cuda")
+        flat = (table.long()[:, :, None] * page
+                + torch.arange(page, device="cuda")).reshape(B, -1)
+        for b in range(B):
+            if clen[b]:
+                cp.view(-1, r)[flat[b][pos >= pos0[b]]] = 1e4
+                rp.view(-1, rope)[flat[b][pos >= pos0[b]]] = 1e4
+        cp_k, rp_k = cp.clone(), rp.clone()
+        got, _, _ = mk.mla_paged_prefill_attention(
+            ql, qr, cn, rn, cp_k, rp_k, table, p0, cl, scale=scale)
+        cp_p, rp_p = cp.clone(), rp.clone()
+        want, _, _ = mk.mla_paged_prefill_plain(
+            ql, qr, cn, rn, cp_p, rp_p, table, p0, cl, scale=scale)
+        torch.cuda.synchronize()
+        valid = torch.arange(S, device="cuda")[None] < cl[:, None]
+        err = (got - want).abs()[valid].max().item()
+        pools_equal = bool(torch.equal(cp_k, cp_p) and torch.equal(rp_k, rp_p))
+        written = torch.zeros(n_pages, dtype=torch.bool, device="cuda")
+        for b in range(B):
+            for slot in range(pos0[b] // page,
+                              (pos0[b] + clen[b] + page - 1) // page):
+                if clen[b]:
+                    written[int(table[b, slot])] = True
+        untouched = bool(torch.equal(cp_k[~written], cp[~written])
+                         and torch.equal(rp_k[~written], rp[~written]))
+        padded_zero = not bool(got[~valid].any())
+        ok = (err <= LIMIT and pools_equal and untouched and padded_zero
+              and bool(torch.isfinite(got).all()))
+        rec = {"phase": "kernel", "kernel": "mla_paged_prefill_attention",
+               "case": name, "B": B, "S": S, "H": H, "r": r, "rope": rope,
+               "page": page, "pos0": pos0, "chunk_len": clen,
+               "max_abs_err": err, "pools_bit_equal": pools_equal,
+               "unwritten_pages_unchanged": untouched,
+               "padded_rows_zero": padded_zero, "ok": ok}
+        if name in MLA_TIMED:
+            rec.update(mla_timing(mk, ql, qr, cn, rn, cp, rp, table, p0, cl,
+                                  pos0, clen, scale))
+        if name == "main":
+            results = rec
+        emit(rec)
+        if not ok:
+            raise SystemExit(f"mla_paged_prefill_attention disagrees ({name})")
+    return results
+
+
+def mla_timing(mk, ql, qr, cn, rn, cp, rp, table, p0, cl, pos0, clen, scale):
+    B, S, H, r = ql.shape
+    _, page, rope = rp.shape
+    F = torch.nn.functional
+    # SDPA over [ckv | krope] keys (dim 576) and ckv values (dim 512),
+    # gathered after the write up to the longest lane's end and expanded to
+    # the H heads, with the kernel's causal offset mask
+    cpw, rpw = cp.clone(), rp.clone()
+    mk.mla_paged_prefill_plain(ql, qr, cn, rn, cpw, rpw, table, p0, cl,
+                               scale=scale)
+    end = max(p + n for p, n in zip(pos0, clen))
+    idx = table.long()[:, :(end + page - 1) // page]
+    ck = cpw[idx].reshape(B, -1, r)
+    keys = torch.cat([ck, rpw[idx].reshape(B, -1, rope)], -1)
+    k = keys[:, None].expand(B, H, keys.shape[1], r + rope)
+    v = ck[:, None].expand(B, H, ck.shape[1], r)
+    q = torch.cat([ql, qr], -1).transpose(1, 2)            # (B, H, S, 576)
+    q_pos = p0.long()[:, None, None] + torch.arange(S, device="cuda")[
+        None, :, None]
+    k_pos = torch.arange(k.shape[2], device="cuda")[None, None, :]
+    mask = (k_pos <= q_pos) & (k_pos < (p0 + cl).long()[:, None, None])
+    mask = (mask | (k_pos == 0))[:, None]    # padded rows finite; unread
+    kernel_ms = time_ms(lambda: mk.mla_paged_prefill_attention(
+        ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale))
+    plain_ms = time_ms(lambda: mk.mla_paged_prefill_plain(
+        ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale))
+    # bytes: out written in full (padded rows are zeros), pos0 / chunk_len,
+    # and per live lane its live q_lat / q_rope / ckv_new / krope_new rows,
+    # the table entries of the pages it visits, the history's latent rows
+    # read once and the chunk's rows written once; flops: 2 (r + rope) for
+    # the logit and 2 r for the context per (query row, visible key)
+    n_bytes = 4 * (B * S * H * r + 2 * B)
+    n_flops = 0
+    for n, p in zip(clen, pos0):
+        if n == 0:
+            continue
+        n_bytes += 4 * n * (H * (r + rope) + r + rope)
+        n_bytes += 4 * pages_visited(0, p + n, page)
+        n_bytes += 4 * (p + n) * (r + rope)
+        n_flops += (2 * (r + rope) + 2 * r) * H * sum(p + i + 1
+                                                      for i in range(n))
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_call": "scaled_dot_product_attention, keys [ckv | "
+                            "krope] and values ckv gathered up to the "
+                            "longest lane, expanded to H heads (write not "
+                            "included)"}
+
+
+def mla_model(seed: int):
+    """The cut deepseek-v2 at full width and its random weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import init_params
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(MLA_ARCH), **MLA_CUT)
+    return cfg, init_params(cfg, generator(dev, seed), device=dev)
+
+
+def mla_stream_phase(cfg, params, seed: int):
+    """The engine's greedy streams on the cut deepseek-v2 (B4 for every
+    prefill chunk, the naive MLA decode, MoE in every step) against plain
+    full-causal generation, as in the stream phase."""
+    engine_streams({"phase": "mla_stream", "model": cfg.name,
+                    "layers": cfg.n_layers,
+                    "block_pattern": list(cfg.block_pattern)},
+                   cfg, params, max_len=256, prompt_seed=seed + 3)
+
+
+MLA_REPLAY = ["--arch", MLA_ARCH, "--scenario", "chatbot", "--rate", "2.0",
+              "--time-scale", "0.25", "--max-requests", "8",
+              "--duration", "10"]
+
+
+def mla_replay_phase(cfg, params, kernels, seed: int):
+    """The MLA path end to end: ``ServingFrontend`` with the launcher's
+    ``SLOsServeScheduler`` and virtual perf model over ``ServingEngine`` on
+    the cut deepseek-v2 (page 16, 8 slots, max_len 1024, 512 pages),
+    serving the launcher's chatbot trace.  Launch counts are zeroed just
+    before and read just after; the prefill groups the replay ran must
+    include the shape the B4 phase timed."""
+    from repro_torch.core.scheduler import SchedulerConfig, SLOsServeScheduler
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.frontend import ServingFrontend
+
+    dev = torch.device("cuda")
+    eng = ServingEngine(cfg, params, EngineConfig(
+        max_slots=8, max_len=1024, page_size=16, total_pages=512),
+        device=dev)
+    sched = SLOsServeScheduler(serve.VIRTUAL_PERF, SchedulerConfig(
+        prefill_emits_first_token=True))
+    fe = ServingFrontend(eng, sched, seed=seed)
+    args = serve.parse_args(MLA_REPLAY + ["--seed", str(seed)])
+    for req in serve.trace(args):
+        fe.submit(req)
+    timer = SpanTimer()
+    eng.tracer = timer
+    # the prefill groups this run gives B4: "lanes/bucket" -> count, and
+    # the exact (pos0, chunk_len) of the timed shape's bucket
+    groups: dict[str, int] = {}
+    exact: list = []
+    prefill_forward = eng._prefill_forward
+
+    def seen_prefill(cache, tokens, pos0, true_len, bt, sample_rows):
+        key = f"{tokens.shape[0]}/{tokens.shape[1]}"
+        groups[key] = groups.get(key, 0) + 1
+        exact.append((pos0.tolist(), true_len.tolist()))
+        return prefill_forward(cache, tokens, pos0, true_len, bt, sample_rows)
+    eng._prefill_forward = seen_prefill
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in kernels.values():
+        c.COUNTS["kernel"] = c.COUNTS["plain"] = 0
+    wall = serve.replay(fe)
+    launches = {k: dict(m.COUNTS) for k, m in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s, c = fe.stats, eng.counters
+    L = cfg.n_layers
+    main = next(case for case in MLA_CASES if case[0] == "main")
+    timed = f"{main[1]}/{main[2]}"
+    checks = {
+        "served_all": s.served == s.submitted == 8,
+        "tokens_out": s.tokens_out > 0,
+        "mla_prefill_launches":
+            launches["mla_prefill"]["kernel"] == L * c["prefill_calls"],
+        "no_gqa_kernel": all(launches[k]["kernel"] == 0
+                             for k in ("decode", "prefill", "verify")),
+        "no_plain": not any(v["plain"] for v in launches.values()),
+        "timed_prefill_shape_ran": timed in groups,
+    }
+    rec = {"phase": "mla_replay", "model": cfg.name, "layers": L,
+           "submitted": s.submitted, "served": s.served,
+           "attained": s.attained, "dropped": s.dropped,
+           "tokens_out": s.tokens_out,
+           "counters": {k: c[k] for k in (
+               "prefill_calls", "decode_calls", "decode_steps",
+               "decode_tokens", "prefill_fused_ops")},
+           "prefill_groups": groups, "timed_prefill_shape": timed,
+           "timed_exact_ran": ([main[5], main[6]] in
+                               [list(e) for e in exact]),
+           "prefill_pos0_range": [min(min(p) for p, _ in exact),
+                                  max(max(p) for p, _ in exact)],
+           "launches": launches, "wall_s": wall, "span_s": timer.seconds,
+           "spans": timer.count,
+           "outside_spans_s": wall - sum(timer.seconds.values()),
+           "decode_step_ms": (1e3 * timer.seconds.get("decode", 0.0)
+                              / max(c["decode_steps"], 1)),
+           "peak_mem_gib": peak, "checks": checks}
+    eng.tracer = None
+    rec["decode_breakdown"] = mla_decode_breakdown(cfg, params, eng)
+    emit(rec)
+    if not all(checks.values()):
+        raise SystemExit(f"mla replay checks failed: {checks}")
+    return launches
+
+
+def mla_decode_breakdown(cfg, params, eng):
+    """Device time of one decode step of eight lanes over the replay's
+    table width (every lane at position 900; chunk_len 0, so every write
+    goes to the write-off page and the pools keep their state), whole and
+    by part: the first layer's MLA (the naive expansion of every cached
+    latent into per-head keys and values), one MoE FFN, the unembedding."""
+    from repro_torch.models import attention, logits_fn, model_forward, moe
+    from repro_torch.models.layers import apply_norm
+
+    dev = torch.device("cuda")
+    B, width = 8, eng.kv.max_pages_per_seq
+    table = (torch.arange(B * width, device=dev, dtype=torch.int32)
+             % eng.ecfg.total_pages).reshape(B, width)
+    pos0 = torch.full((B,), 900, dtype=torch.int32, device=dev)
+    none = torch.zeros(B, dtype=torch.int32, device=dev)
+    tok = torch.ones(B, 1, dtype=torch.long, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(B, 1, cfg.d_model, generator=g, device=dev)
+    p0, p1 = params["segments"][0]["p"], params["segments"][1]["p"]
+    cache0 = eng.kv.pools[0]["self"]
+    moe_p = {k: t[0] for k, t in p1["moe"].items()}
+    positions = pos0[:, None]
+
+    def step():
+        h, _ = model_forward(params, cfg, tok, cache=eng.kv.pools, pos0=pos0,
+                             block_tables=table, chunk_len=none,
+                             moe_cf=eng._moe_cf)
+        return logits_fn(params, cfg, h[:, -1])
+    parts = {
+        "step_ms": step,
+        "mla_layer_ms": lambda: attention.mla_forward(
+            p0["attn"], apply_norm(p0["norm1"], x), cfg, positions=positions,
+            cache=cache0, pos0=pos0, block_tables=table, chunk_len=none),
+        "moe_layer_ms": lambda: moe.moe_forward(moe_p, x, cfg,
+                                                capacity_factor=eng._moe_cf),
+        "unembed_ms": lambda: logits_fn(params, cfg, x[:, 0]),
+    }
+    out = {"lanes": B, "keys_per_lane": width * eng.ecfg.page_size}
+    with torch.no_grad():
+        for name, fn in parts.items():
+            out[name] = time_ms(fn)
+    out["mla_share_of_step"] = (cfg.n_layers * out["mla_layer_ms"]
+                                / out["step_ms"])
+    return out
+
+
 # ----------------------------- main path ------------------------------- #
 class SpanTimer:
     """Engine tracer (the duck type of the telemetry StepTracer): wall
@@ -782,6 +1120,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import mla_paged_prefill as mk
     from repro_torch.kernels import paged_verify as pv
 
     set_precision()
@@ -804,6 +1143,17 @@ def main() -> int:
     spec_stream_phase(seed)
     free_device_memory()
     spec = spec_replay_phase(pa, pp, pv, seed)
+    free_device_memory()
+    mla = mla_prefill_phase(mk)
+    free_device_memory()
+    cfg, params = mla_model(seed)
+    mla_stream_phase(cfg, params, seed)
+    free_device_memory()
+    mla_launches = mla_replay_phase(
+        cfg, params, {"decode": pa, "prefill": pp, "verify": pv,
+                      "mla_prefill": mk}, seed)
+    del params
+    free_device_memory()
     torch.cuda.synchronize()
     emit({"phase": "done", "total_s": time.perf_counter() - t0})
 
@@ -825,6 +1175,10 @@ def main() -> int:
               "src/repro_torch/csrc/paged_verify.cu",
               "src/repro/kernels/paged_prefill.py:308", ver,
               spec["verify"]["kernel"]),
+        entry("mla_paged_prefill_attention",
+              "src/repro_torch/csrc/mla_paged_prefill.cu",
+              "src/repro/kernels/paged_prefill.py:255", mla,
+              mla_launches["mla_prefill"]["kernel"]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,10 @@ The caller turns JAX arrays into numpy (``jax.tree.map(np.asarray, tree)``);
 this module never imports JAX.  Key paths are the same on both sides:
 ``params["segments"][i]["p"]["attn"]["wq"]`` is the same (stacked) array.
 Page pools differ by one page: the port's pools end in a write-off page
-(``models/attention.py``) that the reference does not have.
+(``models/attention.py``) that the reference does not have.  The page axis
+is found by the leaf's name: GQA pools (``k_pages``, ``v_pages``) are
+(..., P, page, KVH, hd) and MLA pools (``ckv_pages``, ``krope_pages``)
+(..., P, page, r | rope), each with an optional leading layer axis.
 """
 from __future__ import annotations
 
@@ -15,12 +18,26 @@ import torch
 from repro_torch.device import resolve_device
 
 
+# trailing axes after the page axis, by pool leaf name
+_PAGE_TAIL = {"k_pages": 3, "v_pages": 3, "ckv_pages": 2, "krope_pages": 2}
+
+
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _map_pools(fn, pools):
+    """``fn(leaf, page_axis)`` over every pool leaf of a cache pytree."""
+    if isinstance(pools, dict):
+        return {k: (fn(v, v.ndim - 1 - _PAGE_TAIL[k]) if k in _PAGE_TAIL
+                    else _map_pools(fn, v)) for k, v in pools.items()}
+    if isinstance(pools, (list, tuple)):
+        return type(pools)(_map_pools(fn, v) for v in pools)
+    raise ValueError(f"not a page pool leaf: {type(pools)}")
 
 
 def params_from_numpy(tree, device=None):
@@ -32,26 +49,24 @@ def params_from_numpy(tree, device=None):
 
 
 def pools_from_numpy(pools, device=None):
-    """Reference page pools (per-segment ``{"self": {"k_pages", ...}}``,
-    page axis 1 when stacked over layers, else 0) as port pools on
-    ``resolve_device(device)``: each gets its trailing write-off page
-    (zeros)."""
+    """Reference page pools (per-segment ``{"self": {"k_pages", ...}}`` or
+    ``{"self": {"ckv_pages", ...}}``, page axis 1 when stacked over layers,
+    else 0) as port pools on ``resolve_device(device)``: each gets its
+    trailing write-off page (zeros)."""
     device = resolve_device(device)
 
-    def conv(a):
+    def conv(a, ax):
         a = np.asarray(a)
-        ax = a.ndim - 4                       # page axis: 0, or 1 if stacked
         pad = [(0, 0)] * a.ndim
         pad[ax] = (0, 1)
         return torch.from_numpy(np.pad(a, pad)).to(device)
-    return _map(conv, pools)
+    return _map_pools(conv, pools)
 
 
 def pools_to_numpy(pools):
     """Port page pools as reference-shaped numpy arrays (write-off page
     dropped), for bit-level state comparisons."""
-    def conv(t):
+    def conv(t, ax):
         a = t.detach().cpu().numpy()
-        ax = a.ndim - 4
         return np.take(a, np.arange(a.shape[ax] - 1), axis=ax)
-    return _map(conv, pools)
+    return _map_pools(conv, pools)

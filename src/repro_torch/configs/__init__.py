@@ -1,9 +1,10 @@
 """Architecture config registry (ported subset of ``repro.configs``).
 
 ``get_config(arch)`` returns the full published configuration and
-``get_reduced(arch)`` the CPU-test variant of the same family.  Only the
-dense GQA families of the serving main path are ported; every other
-architecture the reference knows raises ``NotImplementedError``.
+``get_reduced(arch)`` the CPU-test variant of the same family.  Ported:
+the dense GQA families of the serving main path and deepseek-v2 (MLA +
+MoE); every other architecture the reference knows raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,13 +16,14 @@ _MODULES = {
     "smollm-135m": "smollm_135m",
     "qwen3-1.7b": "qwen3_1p7b",
     "qwen3-1.7b-swa": "qwen3_1p7b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
 # architectures the JAX reference serves that this package does not yet
 _NOT_PORTED = (
     "whisper-large-v3", "phi4-mini-3.8b", "llama-3.2-vision-11b",
-    "command-r-plus-104b", "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b",
-    "mamba2-2.7b", "zamba2-7b", "opt-125m", "opt-7b", "opt-13b", "opt-30b",
+    "command-r-plus-104b", "phi3.5-moe-42b-a6.6b", "mamba2-2.7b",
+    "zamba2-7b", "opt-125m", "opt-7b", "opt-13b", "opt-30b",
 )
 
 def _mod(arch: str):

@@ -37,6 +37,8 @@ SIGNATURES = {
                       [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
     "paged_verify": ("repro_paged_verify_f32",
                      [_P] * 12 + [_I] * 7 + [_F, _I, _I, _P]),
+    "mla_paged_prefill": ("repro_mla_paged_prefill_f32",
+                          [_P] * 10 + [_I] * 7 + [_F, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

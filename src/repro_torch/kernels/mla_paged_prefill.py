@@ -1,0 +1,128 @@
+"""Fused MLA latent-page chunked prefill (kernel B4): the CUDA kernel, its
+plain PyTorch version, and the launch counts.
+
+Port of ``repro/kernels/paged_prefill.py::mla_paged_prefill_attention``.
+One call per MLA layer per prefill group writes the chunk's headless
+latent rows (``ckv``, r floats, and ``krope``, rope floats, per token,
+shared by every head) into the lanes' pool pages (row i of lane b lands at
+position ``pos0[b] + i``, only for ``i < chunk_len[b]``; a lane with
+``chunk_len`` 0 writes nothing) and runs causal attention of every query
+row against the lane's latent stream: logits
+``(q_lat . ckv + q_rope . krope) * scale``, the context accumulated in
+latent space; the caller up-projects it through ``w_uv`` and ``wo``.  The
+pools are updated IN PLACE and returned.  MLA has no sliding window.
+
+Output rows at ``i >= chunk_len[b]`` (bucket padding, masked lanes) are
+zeros in both versions, as for B2; the TPU kernel leaves them as attention
+over the lane's history, which no caller reads.
+
+Dispatch is by the inputs' device, as in ``paged_attention.py``:
+CPU → plain version, CUDA → ``csrc/mla_paged_prefill.cu`` or raise.  The
+kernel is built for deepseek-v2's latent widths (r 512, rope 64); other
+widths raise on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.paged_attention import NEG_INF, check_tensor
+
+COUNTS = {"kernel": 0, "plain": 0}
+
+# the latent widths csrc/mla_paged_prefill.cu is compiled for
+KERNEL_RANK, KERNEL_ROPE = 512, 64
+
+
+def mla_paged_prefill_attention(q_lat, q_rope, ckv_new, krope_new, ckv_pages,
+                                krope_pages, block_table, pos0, chunk_len, *,
+                                scale: float):
+    """q_lat: (B, S, H, r) absorbed queries (``q_nope . w_uk``); q_rope:
+    (B, S, H, rope); ckv_new: (B, S, r); krope_new: (B, S, rope);
+    ckv/krope_pages: (n_pages, page, r | rope), written in place;
+    block_table: (B, max_pages) int32; pos0/chunk_len: (B,) int32.
+    Returns (ctx_lat (B, S, H, r), ckv_pages, krope_pages)."""
+    if q_lat.device.type == "cpu":
+        return mla_paged_prefill_plain(q_lat, q_rope, ckv_new, krope_new,
+                                       ckv_pages, krope_pages, block_table,
+                                       pos0, chunk_len, scale=scale)
+    if q_lat.device.type != "cuda":
+        raise RuntimeError(
+            f"mla_paged_prefill_attention: no kernel for {q_lat.device}")
+    return _launch(q_lat, q_rope, ckv_new, krope_new, ckv_pages, krope_pages,
+                   block_table, pos0, chunk_len, float(scale))
+
+
+def _launch(q_lat, q_rope, ckv_new, krope_new, ckv_pages, krope_pages,
+            block_table, pos0, chunk_len, scale):
+    from repro_torch.kernels import build
+    dev = q_lat.device
+    check_tensor("q_lat", q_lat, torch.float32, dev, 4)
+    check_tensor("q_rope", q_rope, torch.float32, dev, 4)
+    check_tensor("ckv_new", ckv_new, torch.float32, dev, 3)
+    check_tensor("krope_new", krope_new, torch.float32, dev, 3)
+    check_tensor("ckv_pages", ckv_pages, torch.float32, dev, 3)
+    check_tensor("krope_pages", krope_pages, torch.float32, dev, 3)
+    check_tensor("block_table", block_table, torch.int32, dev, 2)
+    check_tensor("pos0", pos0, torch.int32, dev, 1)
+    check_tensor("chunk_len", chunk_len, torch.int32, dev, 1)
+    B, S, H, r = q_lat.shape
+    n_pages, page, rope = krope_pages.shape
+    if q_rope.shape != (B, S, H, rope) or ckv_new.shape != (B, S, r) \
+            or krope_new.shape != (B, S, rope) \
+            or ckv_pages.shape != (n_pages, page, r) \
+            or block_table.shape[0] != B or pos0.shape[0] != B \
+            or chunk_len.shape[0] != B:
+        raise ValueError("mla_paged_prefill_attention: inconsistent shapes")
+    if (r, rope) != (KERNEL_RANK, KERNEL_ROPE):
+        raise ValueError(
+            f"mla_paged_prefill_attention: the kernel takes r {KERNEL_RANK} "
+            f"and rope {KERNEL_ROPE}, got r {r} and rope {rope}")
+    out = torch.empty_like(q_lat)
+    fn = build.load("mla_paged_prefill")
+    rc = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv_new.data_ptr(),
+            krope_new.data_ptr(), ckv_pages.data_ptr(), krope_pages.data_ptr(),
+            block_table.data_ptr(), pos0.data_ptr(), chunk_len.data_ptr(),
+            out.data_ptr(), B, S, H, r, rope, page, block_table.shape[1],
+            scale, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"mla_paged_prefill kernel launch failed: CUDA error {rc}")
+    COUNTS["kernel"] += 1
+    return out, ckv_pages, krope_pages
+
+
+def mla_paged_prefill_plain(q_lat, q_rope, ckv_new, krope_new, ckv_pages,
+                            krope_pages, block_table, pos0, chunk_len, *,
+                            scale: float):
+    """The kernel's function in plain PyTorch: scatter the chunk's latent
+    rows into the pages (in place), gather each lane's latent stream,
+    masked two-term softmax.  The scatter selects the written rows with a
+    boolean mask, which waits on the device; this arithmetic is never on
+    the CUDA main path."""
+    COUNTS["plain"] += 1
+    B, S, H, r = q_lat.shape
+    _, page, rope = krope_pages.shape
+    dev = q_lat.device
+    i = torch.arange(S, device=dev)
+    pos = pos0.long()[:, None] + i[None, :]                     # (B, S)
+    valid = i[None, :] < chunk_len.long()[:, None]
+    slot = (pos // page).clamp(0, block_table.shape[1] - 1)
+    pid = torch.gather(block_table.long(), 1, slot)
+    flat = (pid * page + pos % page)[valid]
+    ckv_pages.view(-1, r)[flat] = ckv_new[valid].to(ckv_pages.dtype)
+    krope_pages.view(-1, rope)[flat] = krope_new[valid].to(krope_pages.dtype)
+
+    idx = block_table.long()
+    cs = ckv_pages[idx].reshape(B, -1, r).float()               # (B, T, r)
+    rs = krope_pages[idx].reshape(B, -1, rope).float()
+    s = (torch.einsum("bqhr,btr->bhqt", q_lat.float(), cs)
+         + torch.einsum("bqhc,btc->bhqt", q_rope.float(), rs)) * scale
+    q_pos = pos[:, :, None]                                     # (B, S, 1)
+    k_pos = torch.arange(cs.shape[1], device=dev)[None, None, :]
+    kv_len = (pos0.long() + chunk_len.long())[:, None, None]
+    m = (k_pos < kv_len) & (k_pos <= q_pos)                     # (B, S, T)
+    s = torch.where(m[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqt,btr->bqhr", p, cs)
+    out = torch.where(valid[:, :, None, None], out, 0.0)
+    return out.to(q_lat.dtype), ckv_pages, krope_pages

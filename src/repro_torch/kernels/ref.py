@@ -1,11 +1,12 @@
 """Loop-per-lane oracles for the paged kernels, ported from
-``repro/kernels/ref.py`` (``ref_paged_decode`` / ``ref_paged_prefill``).
+``repro/kernels/ref.py`` (``ref_paged_decode``, ``ref_paged_prefill`` and
+``ref_mla_paged_prefill``).
 
 They are the slowest, most obviously right versions: one lane at a time,
 one written row at a time, a full softmax over the gathered stream.  The
 tests hold the kernels' plain versions against them and against the JAX
 oracles on the same inputs.  Unlike the kernels they never write in place:
-``ref_paged_prefill`` returns updated copies of the pools.
+the prefill oracles return updated copies of the pools.
 """
 from __future__ import annotations
 
@@ -76,3 +77,38 @@ def ref_paged_prefill(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
         p = torch.softmax(s, dim=-1)
         out.append(torch.einsum("hqs,shd->qhd", p, vs))
     return torch.stack(out).to(q.dtype), kp, vp
+
+
+def ref_mla_paged_prefill(q_lat, q_rope, ckv_new, krope_new, ckv_pages,
+                          krope_pages, block_table, pos0, chunk_len, *,
+                          scale):
+    """Unfused oracle of the MLA latent-page prefill: scatter the chunk's
+    headless ckv / krope rows into copies of the pages, gather each lane's
+    latent stream, run the two-term (nope + rope) masked attention in
+    latent space.  q_lat: (B, S, H, r); q_rope: (B, S, H, rope); ckv_new:
+    (B, S, r); krope_new: (B, S, rope); ckv/krope_pages: (n_pages, page,
+    r | rope).  Returns (ctx_lat (B, S, H, r), ckv_pages', krope_pages')."""
+    B, S, H, r = q_lat.shape
+    _, page, _ = ckv_pages.shape
+    max_pages = block_table.shape[1]
+    cp, rp = ckv_pages.clone(), krope_pages.clone()
+    for b in range(B):
+        for i in range(int(chunk_len[b])):
+            p = int(pos0[b]) + i
+            pid = int(block_table[b, p // page])
+            cp[pid, p % page] = ckv_new[b, i].to(cp.dtype)
+            rp[pid, p % page] = krope_new[b, i].to(rp.dtype)
+    k_pos = torch.arange(max_pages * page)[None, :]
+    out = []
+    for b in range(B):
+        rows = block_table[b].long()
+        cs = cp[rows].reshape(max_pages * page, r).float()
+        rs = rp[rows].reshape(max_pages * page, -1).float()
+        s = (torch.einsum("qhr,sr->hqs", q_lat[b].float(), cs)
+             + torch.einsum("qhc,sc->hqs", q_rope[b].float(), rs)) * scale
+        q_pos = int(pos0[b]) + torch.arange(S)[:, None]
+        mask = (k_pos < int(pos0[b]) + int(chunk_len[b])) & (k_pos <= q_pos)
+        s = torch.where(mask[None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out.append(torch.einsum("hqs,sr->qhr", p, cs))
+    return torch.stack(out).to(q_lat.dtype), cp, rp

@@ -11,6 +11,8 @@ with ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve              # CUDA
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
+      --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -70,14 +72,21 @@ def build(args):
     sched = SLOsServeScheduler(VIRTUAL_PERF, SchedulerConfig(
         prefill_emits_first_token=True))
     fe = ServingFrontend(engine, sched, seed=args.seed)
+    for r in trace(args):
+        fe.submit(r)
+    return fe, engine
+
+
+def trace(args):
+    """The scenario's requests, cut to ``--max-requests``, their stage
+    lengths scaled by ``--time-scale`` (at least 4 tokens each)."""
     reqs = generate_workload(args.scenario, args.rate, args.duration,
                              args.seed)[:args.max_requests]
     for r in reqs:
         for i, s in enumerate(r.stages):
             r.stages[i] = type(s)(s.slo, max(4, int(s.length
                                                     * args.time_scale)))
-        fe.submit(r)
-    return fe, engine
+    return reqs
 
 
 def replay(fe) -> float:

@@ -1,4 +1,5 @@
-"""Model zoo of the port: dense GQA decoders (``attn`` blocks) so far."""
+"""Model zoo of the port: dense GQA decoders (``attn`` blocks) and
+DeepSeek-V2 (``mla`` / ``mla_moe`` blocks)."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (init_paged_cache, init_params,
                                             logits_fn, model_forward)

@@ -1,5 +1,6 @@
-"""GQA self-attention (RoPE, qk-norm, sliding window) over paged KV — the
-GQA half of ``repro/models/attention.py``.
+"""Self-attention mixers over paged KV (port of
+``repro/models/attention.py``): GQA (RoPE, qk-norm, sliding window) and
+MLA (DeepSeek-V2 multi-head latent attention, ``mla_forward``).
 
 Two execution modes share ``attn_forward``:
   * full causal (``cache=None``): plain masked attention over the chunk;
@@ -19,7 +20,7 @@ was given.  Every pool the engine owns ends in one WRITE-OFF page
 rows there.  JAX drops them with ``mode="drop"``; torch has no such mode,
 and routing them to "the old value" would race with lane 0's real write,
 since padded decode lanes repeat lane 0's slot.  The write-off page keeps
-the scatter free of host syncs.  MLA and cross-attention are not ported.
+the scatter free of host syncs.  Cross-attention is not ported.
 
 ``OP_STATS`` keeps the reference's keys, but the port runs eagerly and
 counts per call, where JAX counts once per traced program.
@@ -30,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.mla_paged_prefill import mla_paged_prefill_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
 from repro_torch.kernels.paged_verify import paged_verify_attention
@@ -192,3 +194,118 @@ def attn_output(p, ctx):
     if "bo" in p:
         out = out + p["bo"]
     return out
+
+
+# ------------------------------- MLA ------------------------------------ #
+def init_mla(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
+    """MLA weights with the reference's shapes and scales, from ``gen``."""
+    c = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk_dim = c.qk_nope_head_dim + c.qk_rope_head_dim
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, dtype=dtype, device=device)
+    s = d ** -0.5
+    r = c.kv_lora_rank
+    p = {"w_dkv": normal(d, r) * s,
+         "w_krope": normal(d, c.qk_rope_head_dim) * s,
+         "w_uk": normal(r, h, c.qk_nope_head_dim) * r ** -0.5,
+         "w_uv": normal(r, h, c.v_head_dim) * r ** -0.5,
+         "wo": normal(h, c.v_head_dim, d) * (h * c.v_head_dim) ** -0.5,
+         "kv_norm": torch.ones(r, dtype=torch.float32, device=device)}
+    if c.q_lora_rank:
+        p["w_dq"] = normal(d, c.q_lora_rank) * s
+        p["w_uq"] = normal(c.q_lora_rank, h, qk_dim) * c.q_lora_rank ** -0.5
+        p["q_norm"] = torch.ones(c.q_lora_rank, dtype=torch.float32,
+                                 device=device)
+    else:
+        p["wq"] = normal(d, h, qk_dim) * s
+    return p
+
+
+def mla_forward(p, x, cfg: ModelConfig, *, positions, cache=None, pos0=None,
+                block_tables=None, chunk_len=None):
+    """MLA over a compressed cache: per token one ``kv_lora_rank`` latent
+    (``ckv``) plus one shared rope key (``krope``), no head axis.  Returns
+    (out (B, Sq, D), cache): unlike ``attn_forward`` the output is already
+    projected through ``wo``.
+
+    cache: None (full causal over the chunk) or the paged pools
+    ``{"ckv_pages": (P + 1, page, r), "krope_pages": (P + 1, page, rope)}``
+    (the last page is the write-off page), updated in place.  A
+    multi-token chunk goes to the fused latent-page prefill kernel (B4)
+    with absorbed queries ``q_lat = q_nope . w_uk``; a decode token is
+    written by ``paged_write`` and attends over the gathered latents, by
+    the naive expansion (per-head keys and values built from every cached
+    latent, the reference's default) or, with ``cfg.mla_absorb``, in
+    latent space.  The dense fixed-buffer cache is not ported."""
+    c = cfg.mla
+    B, Sq, _ = x.shape
+    nope, rope_hd = c.qk_nope_head_dim, c.qk_rope_head_dim
+    scale = (nope + rope_hd) ** -0.5
+    if "w_dq" in p:
+        ql = rms_head_norm(p["q_norm"], x @ p["w_dq"])
+        q = torch.einsum("bsr,rhk->bshk", ql, p["w_uq"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = rms_head_norm(p["kv_norm"], x @ p["w_dkv"])          # (B, Sq, r)
+    krope = apply_rope((x @ p["w_krope"])[:, :, None, :], positions,
+                       cfg.rope_theta)[:, :, 0, :]             # (B, Sq, rope)
+
+    if cache is None:
+        ckv_all, krope_all = ckv, krope
+        q_pos0 = torch.zeros(B, dtype=torch.int32, device=x.device)
+        kv_len = torch.full((B,), Sq, dtype=torch.int32, device=x.device)
+    elif "ckv_pages" not in cache:
+        raise NotImplementedError("only paged MLA caches are ported")
+    else:
+        cp, rp = cache["ckv_pages"], cache["krope_pages"]
+        if chunk_len is None:
+            chunk_len = torch.full((B,), Sq, dtype=torch.int32,
+                                   device=x.device)
+        if Sq > 1:
+            # fused latent-page prefill: B4 writes the chunk's ckv / krope
+            # rows into the pages and attends over the paged latent history
+            # in one launch (the engine's CoW barrier made every written
+            # page exclusive).  The write-off page is left out.
+            OP_STATS["fused_prefill"] += 1
+            q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, p["w_uk"])
+            ctx_lat, _, _ = mla_paged_prefill_attention(
+                q_lat.contiguous(), q_rope.contiguous(), ckv.contiguous(),
+                krope.contiguous(), cp[:-1], rp[:-1], block_tables, pos0,
+                chunk_len, scale=scale)
+            ctx = torch.einsum("bqhr,rhv->bqhv", ctx_lat.to(x.dtype),
+                               p["w_uv"])
+            return torch.einsum("bshk,hkd->bsd", ctx, p["wo"]), cache
+        paged_write(cp, ckv, block_tables, pos0, chunk_len)
+        paged_write(rp, krope, block_tables, pos0, chunk_len)
+        ckv_all = paged_gather(cp, block_tables).to(x.dtype)
+        krope_all = paged_gather(rp, block_tables).to(x.dtype)
+        q_pos0, kv_len = pos0, pos0 + Sq
+
+    Sk = ckv_all.shape[1]
+    mask = causal_mask(B, Sq, Sk, q_pos0, kv_len)
+    if cfg.mla_absorb and Sq <= 4:
+        # absorbed decode: w_uk folded into the query, w_uv into the
+        # output, so attention runs against the latents themselves
+        q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, p["w_uk"])
+        logits = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_all)
+                  + torch.einsum("bqhr,bkr->bhqk", q_rope, krope_all)
+                  ).float() * scale
+        probs = torch.softmax(torch.where(mask, logits, NEG_INF),
+                              dim=-1).to(x.dtype)
+        ctx_lat = torch.einsum("bhqk,bkr->bqhr", probs, ckv_all)
+        ctx = torch.einsum("bqhr,rhv->bqhv", ctx_lat, p["w_uv"])
+        return torch.einsum("bshk,hkd->bsd", ctx, p["wo"]), cache
+    # naive: per-head keys and values expanded from every latent
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv_all, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", ckv_all, p["w_uv"])
+    logits = (torch.einsum("bqhn,bkhn->bhqk", q_nope, k_nope)
+              + torch.einsum("bqhr,bkr->bhqk", q_rope, krope_all)
+              ).float() * scale
+    probs = torch.softmax(torch.where(mask, logits, NEG_INF),
+                          dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"]), cache

@@ -1,0 +1,122 @@
+"""Mixture-of-Experts FFN: top-k routing, shared experts, load-balance
+terms (port of ``repro/models/moe.py``, its ``dispatch`` mode).
+
+Routing and capacity are the reference's: fp32 router logits, softmax,
+top-k, the k weights renormalised (sum clipped at 1e-9); each (token,
+slot) unit takes a place in its expert's queue in unit order
+(token-major), and units at or past the capacity ``C = ceil(cf * k * T /
+E)`` are dropped.  Two things differ from a literal copy, neither in the
+result:
+
+* The reference scatters the units into an ``(E, C, D)`` buffer and runs
+  every expert over all C rows.  With the serving engine's dropless
+  ``cf = E / k`` that makes ``C = T``: at deepseek-v2's full width a
+  1024-token prefill group would build 160 x 1024 x 5120 floats (3.4 GB)
+  and spend most of its expert FLOPs on empty rows.  Here each expert runs
+  its SwiGLU only over its kept units (plain matrix products, as the
+  reference leaves them to XLA).  The per-expert unit counts are read on
+  the host once per call to size those products.
+* The unit outputs are combined by gathering them into ``(T, k, D)`` and
+  summing over the k slots in the reference's slot order, with no
+  scatter-add: CUDA's atomic ``index_add_`` would sum in another order on
+  every run and break the port's bit-identity contracts (sharing on/off,
+  preempt replay).
+
+``jax.lax.top_k`` and ``torch.topk`` may order exactly tied probabilities
+differently.  With fp32 router probabilities from real activations exact
+ties do not arise, so no tie-break is added that the reference lacks.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+
+
+def init_moe(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
+    """Router, stacked routed experts and the shared experts, with the
+    reference's shapes and scales, drawn from ``gen``."""
+    m = cfg.moe
+    d, f = cfg.d_model, m.d_ff_expert
+
+    def normal(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, dtype=dt, device=device)
+    s_in, s_out = d ** -0.5, f ** -0.5
+    p = {"router": normal(d, m.n_experts, dt=torch.float32) * s_in,
+         "w_gate": normal(m.n_experts, d, f) * s_in,
+         "w_up": normal(m.n_experts, d, f) * s_in,
+         "w_down": normal(m.n_experts, f, d) * s_out}
+    if m.n_shared:
+        p["shared_gate"] = normal(d, m.n_shared * f) * s_in
+        p["shared_up"] = normal(d, m.n_shared * f) * s_in
+        p["shared_down"] = normal(m.n_shared * f, d) * s_out
+    return p
+
+
+def _route(p, xt, m):
+    logits = xt.float() @ p["router"]                        # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(probs, m.top_k, dim=-1)          # (T, k)
+    topv = topv / topv.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    return probs, topv, topi
+
+
+def dropless_capacity_factor(cfg: ModelConfig):
+    """E / k, the serving engine's capacity factor (capacity >= tokens, so
+    no unit is dropped: exact inference), or None for a model without
+    MoE."""
+    return float(cfg.moe.n_experts) / cfg.moe.top_k if cfg.moe else None
+
+
+def capacity(cf: float, k: int, T: int, E: int) -> int:
+    """Per-expert queue length, computed as the reference computes it."""
+    return max(1, math.ceil(cf * k * T / E))
+
+
+def moe_forward(p, x, cfg: ModelConfig, capacity_factor=None):
+    """Returns (out (B, S, D), aux) with aux ``{"aux_loss",
+    "expert_density"}``.  ``capacity_factor`` None means 2.0 (the
+    reference's training default); any value >= E / k is dropless."""
+    m = cfg.moe
+    cf = 2.0 if capacity_factor is None else capacity_factor
+    B, S, D = x.shape
+    xt = x.reshape(-1, D)
+    T = xt.shape[0]
+    E, k = m.n_experts, m.top_k
+    probs, topv, topi = _route(p, xt, m)
+
+    C = capacity(cf, k, T, E)
+    e_u = topi.reshape(-1)                                   # (T*k,)
+    t_u = torch.arange(T, device=x.device).repeat_interleave(k)
+    # units grouped by expert, in unit order within each expert: expert e
+    # keeps the first min(count_e, C) of its group; a dropped unit's output
+    # stays 0
+    order = torch.argsort(e_u, stable=True)
+    counts = torch.bincount(e_u, minlength=E).tolist()       # host sync
+    unit_out = torch.zeros(T * k, D, dtype=x.dtype, device=x.device)
+    start = 0
+    for e, n in enumerate(counts):
+        if n:
+            idx = order[start:start + min(n, C)]
+            h = xt[t_u[idx]]
+            unit_out[idx] = (F.silu(h @ p["w_gate"][e])
+                             * (h @ p["w_up"][e])) @ p["w_down"][e]
+        start += n
+    unit_out = unit_out * topv.reshape(-1).to(x.dtype)[:, None]
+    per_slot = unit_out.reshape(T, k, D)
+    out = per_slot[:, 0]
+    for j in range(1, k):                    # the reference's slot order
+        out = out + per_slot[:, j]
+
+    if m.n_shared:
+        sh = F.silu(xt @ p["shared_gate"]) * (xt @ p["shared_up"])
+        out = out + sh @ p["shared_down"]
+
+    density = F.one_hot(topi, E).float().sum(1).mean(0)
+    router_mean = probs.mean(0)
+    aux_loss = E * torch.sum(density / k * router_mean)
+    return out.reshape(B, S, D), {"aux_loss": aux_loss,
+                                  "expert_density": density}

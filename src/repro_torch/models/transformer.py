@@ -1,4 +1,4 @@
-"""Decoder stack for dense ``attn`` models (port of
+"""Decoder stack for ``attn``, ``mla`` and ``mla_moe`` models (port of
 ``repro/models/transformer.py``).
 
 Parameters keep the JAX pytree's layout: ``cfg.block_pattern`` is grouped
@@ -6,7 +6,8 @@ into homogeneous segments and each segment's block parameters are stacked
 on a leading layer axis (unstacked when the segment has one layer).  Where
 JAX runs ``lax.scan`` over a segment, this module loops over the layer
 index in Python; each layer reads and writes its own slice of the stacked
-page pools in place.  Only ``attn`` blocks are ported: any other block
+page pools in place.  Block kinds: ``attn`` (GQA + dense MLP), ``mla``
+(MLA + dense MLP) and ``mla_moe`` (MLA + MoE FFN, DeepSeek-V2); any other
 kind raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -14,13 +15,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import attn_forward, attn_output, init_attn
+from repro_torch.models.attention import (attn_forward, attn_output,
+                                          init_attn, init_mla, mla_forward)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed,
                                        init_embed, init_mlp, init_norm,
                                        init_unembed)
+from repro_torch.models.moe import init_moe, moe_forward
 
-PORTED_KINDS = ("attn",)
+PORTED_KINDS = ("attn", "mla", "mla_moe")
+MLA_KINDS = ("mla", "mla_moe")
+MOE_KINDS = ("mla_moe",)
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -32,30 +37,61 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 
 # ------------------------------ blocks --------------------------------- #
-def init_block(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
-    return {"norm1": init_norm(cfg.d_model, cfg.norm, device),
-            "attn": init_attn(gen, cfg, dtype, device),
-            "norm2": init_norm(cfg.d_model, cfg.norm, device),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act,
-                            cfg.use_bias, dtype, device)}
+def init_block(gen, kind: str, cfg: ModelConfig, dtype=torch.float32,
+               device=None):
+    p = {"norm1": init_norm(cfg.d_model, cfg.norm, device)}
+    if kind in MLA_KINDS:
+        p["attn"] = init_mla(gen, cfg, dtype, device)
+    else:
+        p["attn"] = init_attn(gen, cfg, dtype, device)
+    p["norm2"] = init_norm(cfg.d_model, cfg.norm, device)
+    if kind in MOE_KINDS:
+        p["moe"] = init_moe(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act,
+                            cfg.use_bias, dtype, device)
+    return p
 
 
-def block_forward(p, cfg: ModelConfig, x, *, positions, cache=None,
-                  pos0=None, block_tables=None, chunk_len=None, verify=False):
-    """One ``attn`` block: pre-norm attention then pre-norm MLP."""
+def block_forward(p, kind: str, cfg: ModelConfig, x, *, positions,
+                  cache=None, pos0=None, block_tables=None, chunk_len=None,
+                  verify=False, moe_cf=None):
+    """One block: pre-norm attention (GQA or MLA) then a pre-norm dense MLP
+    or MoE FFN.  MLA takes no ``verify`` flag: its verify window is a
+    chunked prefill, as in the reference."""
     h = apply_norm(p["norm1"], x, cfg.norm)
-    ctx, _ = attn_forward(p["attn"], h, cfg, positions=positions,
-                          cache=cache, pos0=pos0, block_tables=block_tables,
-                          chunk_len=chunk_len, verify=verify)
-    x = x + attn_output(p["attn"], ctx).to(x.dtype)
+    if kind in MLA_KINDS:
+        y, _ = mla_forward(p["attn"], h, cfg, positions=positions,
+                           cache=cache, pos0=pos0, block_tables=block_tables,
+                           chunk_len=chunk_len)
+    else:
+        ctx, _ = attn_forward(p["attn"], h, cfg, positions=positions,
+                              cache=cache, pos0=pos0,
+                              block_tables=block_tables,
+                              chunk_len=chunk_len, verify=verify)
+        y = attn_output(p["attn"], ctx)
+    x = x + y.to(x.dtype)
     h2 = apply_norm(p["norm2"], x, cfg.norm)
-    return x + apply_mlp(p["mlp"], h2, cfg.act).to(x.dtype)
+    if kind in MOE_KINDS:
+        y2, _ = moe_forward(p["moe"], h2, cfg, capacity_factor=moe_cf)
+    else:
+        y2 = apply_mlp(p["mlp"], h2, cfg.act)
+    return x + y2.to(x.dtype)
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked_like(tree, n: int):
+    """Uninitialised tensors of ``tree``'s leaves with a leading axis n."""
+    if isinstance(tree, dict):
+        return {k: _stacked_like(v, n) for k, v in tree.items()}
+    return tree.new_empty((n,) + tuple(tree.shape))
+
+
+def _set_layer(stacked, i: int, tree) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _set_layer(stacked[k], i, v)
+    else:
+        stacked[i].copy_(tree)
 
 
 def _layer(tree, i: int):
@@ -79,9 +115,19 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         params["unembed"] = init_unembed(gen, cfg.vocab, cfg.d_model, dtype,
                                          device)
     segs = []
-    for _, n in cfg.segments():
-        blocks = [init_block(gen, cfg, dtype, device) for _ in range(n)]
-        segs.append({"p": blocks[0] if n == 1 else _stack(blocks)})
+    for kind, n in cfg.segments():
+        block = init_block(gen, kind, cfg, dtype, device)
+        if n > 1:
+            # filled layer by layer, so that at most one unstacked block
+            # lives beside the stack (a deepseek-v2 MoE block is 15 GB)
+            stacked = _stacked_like(block, n)
+            for l in range(n):
+                if l:
+                    block = init_block(gen, kind, cfg, dtype, device)
+                _set_layer(stacked, l, block)
+                del block
+            block = stacked
+        segs.append({"p": block})
     params["segments"] = segs
     return params
 
@@ -89,28 +135,38 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 # ------------------------------ caches --------------------------------- #
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
                      dtype=torch.float32, device=None):
-    """Per-segment page pools ``{"self": {"k_pages", "v_pages"}}`` of
-    shape (layers, n_pages + 1, page, KVH, hd), unstacked for a one-layer
-    segment.  Each layer gets its own memory (JAX's ``broadcast_to`` would
-    become an aliasing ``expand`` here).  The extra last page is the
-    write-off page of ``attention.paged_write``; no block table maps it.
-    ``device`` follows ``resolve_device``: CUDA unless named."""
+    """Per-segment page pools, ``{"self": {"k_pages", "v_pages"}}`` of
+    shape (n_pages + 1, page, KVH, hd) for ``attn`` segments and
+    ``{"self": {"ckv_pages", "krope_pages"}}`` of shape (n_pages + 1, page,
+    kv_lora_rank | qk_rope_head_dim) for MLA segments (one headless latent
+    row per token), stacked on a leading layer axis for a segment of
+    several layers.  Each layer gets its own memory (JAX's
+    ``broadcast_to`` would become an aliasing ``expand`` here).  The extra
+    last page is the write-off page of ``attention.paged_write``; no block
+    table maps it.  ``device`` follows ``resolve_device``: CUDA unless
+    named."""
     _check_ported(cfg)
     device = resolve_device(device)
     caches = []
-    for _, n in cfg.segments():
-        shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
-        if n > 1:
-            shape = (n,) + shape
+    for kind, n in cfg.segments():
+        lead = (n,) if n > 1 else ()
+        base = (n_pages + 1, page_size)
+        if kind in MLA_KINDS:
+            shapes = {"ckv_pages": (cfg.mla.kv_lora_rank,),
+                      "krope_pages": (cfg.mla.qk_rope_head_dim,)}
+        else:
+            hd = (cfg.n_kv_heads, cfg.head_dim)
+            shapes = {"k_pages": hd, "v_pages": hd}
         caches.append({"self": {
-            "k_pages": torch.zeros(shape, dtype=dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}})
+            name: torch.zeros(lead + base + tail, dtype=dtype, device=device)
+            for name, tail in shapes.items()}})
     return caches
 
 
 # ---------------------------- full forward ----------------------------- #
 def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
-                  block_tables=None, chunk_len=None, verify=False):
+                  block_tables=None, chunk_len=None, verify=False,
+                  moe_cf=None):
     """Returns (hidden (B, S, D), cache).
 
     ``cache=None`` is full causal attention over ``tokens``.  With paged
@@ -119,7 +175,9 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
     — only the first ``chunk_len`` (B,) of them — and the pools are
     updated in place (the returned cache is the one passed in).
     ``verify=True`` marks the chunk as a speculative-decoding verify
-    window, which the attention layers send to the verify kernel."""
+    window, which the GQA layers send to the verify kernel.  ``moe_cf`` is
+    the MoE capacity factor (None: the reference's default 2.0; the
+    engine passes the dropless E / k)."""
     _check_ported(cfg)
     x = embed(params["embed"], tokens) if not tokens.is_floating_point() \
         else tokens
@@ -127,7 +185,7 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
     if pos0 is None:
         pos0 = torch.zeros(B, dtype=torch.int32, device=x.device)
     positions = pos0[:, None] + torch.arange(S, device=x.device)[None, :]
-    for i, (_, n) in enumerate(cfg.segments()):
+    for i, (kind, n) in enumerate(cfg.segments()):
         seg_p = params["segments"][i]["p"]
         seg_c = cache[i]["self"] if cache is not None else None
         for l in range(n):
@@ -135,9 +193,10 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
             c = None
             if seg_c is not None:
                 c = seg_c if n == 1 else {k: t[l] for k, t in seg_c.items()}
-            x = block_forward(p, cfg, x, positions=positions, cache=c,
+            x = block_forward(p, kind, cfg, x, positions=positions, cache=c,
                               pos0=pos0, block_tables=block_tables,
-                              chunk_len=chunk_len, verify=verify)
+                              chunk_len=chunk_len, verify=verify,
+                              moe_cf=moe_cf)
     return apply_norm(params["final_norm"], x, cfg.norm), cache
 
 

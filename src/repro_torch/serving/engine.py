@@ -19,6 +19,9 @@ The engine executes planner ``Batch`` objects:
 
 The engine runs in float32, the reference's default dtype and the one
 the kernels take; on the card TF32 is off (``device.resolve_device``).
+MoE models run with the reference's dropless capacity factor E / k; their
+MoE layers read the per-expert unit counts on the host (``models/moe.py``),
+one more sync per MoE layer per step than a dense model's decode loop.
 
 ``counters`` counts device calls (prefill_calls, decode_calls,
 decode_tokens, spec_draft_calls, spec_verify_calls) with the reference's
@@ -55,6 +58,7 @@ from repro_torch.core.slo import StageKind
 from repro_torch.device import generator, resolve_device
 from repro_torch.models import attention as _attn
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import dropless_capacity_factor
 from repro_torch.models.transformer import logits_fn, model_forward
 from repro_torch.serving.kvcache import PagedKVManager
 from repro_torch.serving.sampling import sample
@@ -120,6 +124,7 @@ class ServingEngine:
                                  device=self.device)
         self.reqs: dict[int, RequestCtx] = {}
         self.gen = generator(self.device, self.ecfg.seed)
+        self._moe_cf = dropless_capacity_factor(cfg)
         # the reference's keys, and the port's own decode_steps,
         # spec_draft_steps and spec_catch_up_calls (module docstring)
         self.counters = {"prefill_calls": 0, "decode_calls": 0,
@@ -154,7 +159,8 @@ class ServingEngine:
         so the logits never grow with the chunk.  ``sample_rows`` lists the
         lanes whose sample is kept; only they draw random numbers."""
         h, _ = model_forward(self.params, self.cfg, tokens, cache=cache,
-                             pos0=pos0, block_tables=bt, chunk_len=true_len)
+                             pos0=pos0, block_tables=bt, chunk_len=true_len,
+                             moe_cf=self._moe_cf)
         idx = (true_len.long() - 1).clamp(min=0)
         last = h[torch.arange(h.shape[0], device=h.device), idx]   # (B, D)
         if self.ecfg.temperature <= 0.0:
@@ -172,13 +178,14 @@ class ServingEngine:
         device (the caller reads it once)."""
         h, _ = model_forward(self.params, self.cfg, tokens, cache=cache,
                              pos0=pos0, block_tables=bt, chunk_len=true_len,
-                             verify=True)
+                             verify=True, moe_cf=self._moe_cf)
         return torch.argmax(logits_fn(self.params, self.cfg, h[0]),
                             dim=-1).to(torch.int32)
 
     def _decode_loop(self, cache, tokens0, pos0, steps, eos, bt,
                      n_steps: int):
-        """All n_steps decode steps of a batch group, with no host sync.
+        """All n_steps decode steps of a batch group, with no host sync
+        (beyond the MoE layers' expert counts, module docstring).
         Per-lane step budgets (``steps``) and EOS stop lanes early; frozen
         lanes emit -1 and neither write KV nor advance."""
         B = tokens0.shape[0]
@@ -190,7 +197,8 @@ class ServingEngine:
             active = (~done) & (steps > i)
             h, _ = model_forward(self.params, self.cfg, tok[:, None],
                                  cache=cache, pos0=pos, block_tables=bt,
-                                 chunk_len=active.to(torch.int32))
+                                 chunk_len=active.to(torch.int32),
+                                 moe_cf=self._moe_cf)
             logits = logits_fn(self.params, self.cfg, h[:, -1])
             nxt = sample(logits, self.gen, self.ecfg.temperature)
             emitted[:, i] = torch.where(active, nxt, -1)

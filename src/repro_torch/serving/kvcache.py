@@ -36,16 +36,23 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import init_paged_cache
+from repro_torch.models.transformer import MLA_KINDS, init_paged_cache
 
 
 def kv_page_bytes(cfg: ModelConfig, page_size: int = 16,
                   dtype=torch.float32) -> int:
-    """Device bytes one KV page costs for ``cfg``, summed over all layers
-    (K and V planes of every attention layer)."""
+    """Device bytes one KV page costs for ``cfg``, summed over all layers:
+    K and V planes of every GQA layer, the latent and rope rows of every
+    MLA layer."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    per_tok = 2 * cfg.n_kv_heads * cfg.head_dim
-    return sum(n * page_size * per_tok * itemsize for _, n in cfg.segments())
+    total = 0
+    for kind, n in cfg.segments():
+        if kind in MLA_KINDS:
+            per_tok = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+        else:
+            per_tok = 2 * cfg.n_kv_heads * cfg.head_dim
+        total += n * page_size * per_tok * itemsize
+    return total
 
 
 class SharedPageBudget:

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.models import attention as _attn
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import dropless_capacity_factor
 from repro_torch.models.transformer import logits_fn, model_forward
 from repro_torch.serving.engine import _bucket
 from repro_torch.serving.kvcache import PagedKVManager, kv_page_bytes
@@ -42,6 +43,7 @@ class SpecDecoder:
         self.engine = engine
         self.cfg = draft_cfg
         self.params = draft_params
+        self._moe_cf = dropless_capacity_factor(draft_cfg)
         e = engine.ecfg
         # Right-size the draft pool: it mirrors the target's token capacity
         # (same page_size, so the same page count serves), but never more
@@ -84,7 +86,8 @@ class SpecDecoder:
             active = i < sl
             h, _ = model_forward(self.params, self.cfg, tok[:, None],
                                  cache=cache, pos0=pos, block_tables=bt,
-                                 chunk_len=one if active else one * 0)
+                                 chunk_len=one if active else one * 0,
+                                 moe_cf=self._moe_cf)
             nxt = torch.argmax(logits_fn(self.params, self.cfg, h[:, -1]),
                                dim=-1).to(torch.int32)
             drafts[i] = nxt[0]
@@ -116,7 +119,7 @@ class SpecDecoder:
                       torch.from_numpy(buf).to(eng.device),
                       cache=self.kv.lane_cache([slot]), pos0=dev([pos]),
                       block_tables=self.kv.table_rows([slot]),
-                      chunk_len=dev([L]))
+                      chunk_len=dev([L]), moe_cf=self._moe_cf)
         self.kv.seq_len[slot] += L
         eng.counters["spec_draft_calls"] += 1
         eng.counters["spec_catch_up_calls"] += 1
