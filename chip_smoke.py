@@ -67,8 +67,24 @@ script exits non-zero before the final line:
    layer per prefill group, B1-B3 never (MLA uses none of them), plain
    versions never.  Then one decode step of eight lanes is timed whole and
    by part (an MLA layer's naive decode, an MoE layer).
-10. The kernels line (B1 and B2 launches from step 4, B3's from step 6,
-    B4's from step 9), the card line, and ``{"ok": true, "device": ...}``.
+10. The SSD kernel (B5) against its plain version at mamba2's widths (80
+    heads, head dim 64, state 128): one chunk of 8, 16, 32 (from a carried
+    state, lanes padded with dt = 0) and 200 tokens, four 128-token chunks
+    carried, a nonzero initial state, lanes of 1 and 4; y and the final
+    state within 1e-4, a lane of length 0 keeps its state exactly.  Timed
+    at the ssm replay's commonest prefill shape and at a 512-token chunk.
+11. mamba2-2.7b at its published width and depth (64 layers, random
+    weights from the seed, 10.5 GiB in float32): three greedy streams of a
+    two-slot engine against plain full-causal generation, the third in the
+    slot the first one freed (its lane rows zero after the admission).
+12. The SSM path: ``ServingFrontend`` with ``SLOsServeScheduler`` serves 8
+    chatbot requests (lengths scaled by 0.25, 2/s) on mamba2 with 4 slots.
+    Counts zeroed just before and read just after: B5 launches once per
+    layer per prefill group, B1-B4 never, plain versions never; the timed
+    shape must be among the prefill groups.
+13. The kernels line (B1 and B2 launches from step 4, B3's from step 6,
+    B4's from step 9, B5's from step 12), the card line, and
+    ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -479,6 +495,7 @@ def compare_stream(got, want, margins):
 # groups pad three lanes to four and freeze them at uneven budgets.
 STREAM_PROMPTS = {1: 40, 2: 29, 3: 53}
 STREAM_SCRIPT = [
+    "admit 1 2 3",
     [(1, "P", 24), (2, "P", 29), (3, "P", 20)],
     [(1, "P", 16), (2, "D", 3), (3, "P", 33)],
     [(1, "D", 5), (2, "D", 2), (3, "D", 7)],
@@ -503,36 +520,60 @@ def stream_phase(seed: int):
                    prompt_seed=seed)
 
 
-def engine_streams(rec, cfg, params, *, max_len: int, prompt_seed: int):
-    """STREAM_SCRIPT through a fresh engine, then each stream against plain
+def engine_streams(rec, cfg, params, *, max_len: int, prompt_seed: int,
+                   max_slots: int = 8, prompt_lens=STREAM_PROMPTS,
+                   script=STREAM_SCRIPT):
+    """``script`` through a fresh engine (``"admit r ..."`` and ``"finish
+    r"`` steps between batches), then each stream against plain
     generation; emits ``rec`` with the results and fails on a difference
-    that is not a tie."""
+    that is not a tie.  An admission into a slot that a finished request
+    freed is listed under ``reused_slots`` with whether the slot's lane
+    rows (SSM models) were all zero after the admission."""
     from repro_torch.core.batch import Batch
     from repro_torch.core.slo import StageKind
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
     dev = torch.device("cuda")
-    eng = ServingEngine(cfg, params, EngineConfig(max_slots=8,
+    eng = ServingEngine(cfg, params, EngineConfig(max_slots=max_slots,
                                                   max_len=max_len,
                                                   total_pages=64),
                         device=dev)
     g = torch.Generator().manual_seed(prompt_seed)
     prompts = {rid: torch.randint(1, cfg.vocab, (n,), generator=g).tolist()
-               for rid, n in STREAM_PROMPTS.items()}
-    for rid, prompt in prompts.items():
-        assert eng.add_request(rid, prompt, expected_total=96)
+               for rid, n in prompt_lens.items()}
     kinds = {"P": StageKind.PREFILL, "D": StageKind.DECODE}
     got = {rid: [] for rid in prompts}
-    for step in STREAM_SCRIPT:
+    # one prefill emission + the decode steps
+    want_len = {rid: 1 for rid in prompts}
+    freed, reused = set(), {}
+    for step in script:
+        if isinstance(step, str):
+            verb, *rids = step.split()
+            for rid in map(int, rids):
+                if verb == "finish":
+                    freed.add(eng.kv.seq_of[rid])
+                    eng.finish(rid)
+                    continue
+                assert eng.add_request(rid, prompts[rid], expected_total=96)
+                slot = eng.kv.seq_of[rid]
+                if slot in freed:
+                    rows = [leaf.select(ax, slot) for pool, ax in zip(
+                        eng.kv.pools, eng.kv.lane_select_axes()) if ax >= 0
+                        for leaf in pool.values()]
+                    reused[rid] = {"slot": slot, "lane_rows_zero":
+                                   not any(bool(r.any()) for r in rows)}
+            continue
         b = Batch()
         for rid, kind, n in step:
             b.add(rid, kinds[kind], n)
+            if kind == "D":
+                want_len[rid] += n
         for rid, toks in eng.execute(b).items():
             got[rid] += toks
-    want_len = {1: 7, 2: 10, 3: 10}    # one prefill emission + decode steps
-    rec.update({"requests": len(prompts),
+    rec.update({"requests": len(prompts), "max_slots": max_slots,
                 "prefill_calls": eng.counters["prefill_calls"],
-                "decode_calls": eng.counters["decode_calls"]})
+                "decode_calls": eng.counters["decode_calls"],
+                "reused_slots": reused})
     del eng
     free_device_memory()
     ok = True
@@ -545,11 +586,12 @@ def engine_streams(rec, cfg, params, *, max_len: int, prompt_seed: int):
         rec[f"rid{rid}"] = r
         if not r["ok"]:
             r.update(got=got[rid], want=want)
+    ok = ok and all(r["lane_rows_zero"] for r in reused.values())
     rec["ok"] = ok
     emit(rec)
     if not ok:
         raise SystemExit(f"{rec['phase']}: engine streams differ from plain "
-                         "generation")
+                         "generation (or a reused slot kept lane rows)")
 
 
 # --------------------------- spec-decode phases ------------------------- #
@@ -1049,6 +1091,295 @@ def mla_decode_breakdown(cfg, params, eng):
     return out
 
 
+# ------------------------------ SSM phases ------------------------------ #
+SSM_ARCH = "mamba2-2.7b"
+SSM_H, SSM_P, SSM_N = 80, 64, 128
+# name, B, S, chunk, init_state, chunk_len per lane (dt = 0 from there on,
+# as the engine pads a bucket; None: every row live).  "main" is the ssm
+# replay's commonest prefill shape: one lane, a 32-token bucket with 17
+# live rows, from the lane's carried state (rehearsed on the CPU at
+# reduced width with the same engine, scheduler and trace: 33 of its 61
+# groups).  "S512_c128" carries the state over four 128-token chunks.
+SSD_CASES = [
+    ("main", 1, 32, 32, True, [17]),
+    ("S8", 1, 8, 8, False, None),
+    ("S16_B4", 4, 16, 16, False, None),
+    ("S512_c128", 1, 512, 128, True, None),
+    ("S200_one_chunk", 1, 200, 200, False, None),
+    ("init_state_B4", 4, 64, 64, True, None),
+    ("padded_lanes", 4, 16, 16, True, [16, 11, 0, 0]),
+]
+SSD_TIMED = ("main", "S512_c128")
+
+
+def ssd_inputs(gen, B, S, clen, with_init):
+    """Inputs at the main path's scales: x, B and C as silu outputs of
+    normals, dt = softplus(normal) (zero past each lane's chunk_len),
+    A = -linspace(1, 16) (the init's A_log), a state of std 0.3."""
+    H, P, N = SSM_H, SSM_P, SSM_N
+    F = torch.nn.functional
+
+    def silu(*shape):
+        return F.silu(torch.randn(*shape, generator=gen, device="cuda"))
+    xh, Bm, Cm = silu(B, S, H, P), silu(B, S, N), silu(B, S, N)
+    dt = F.softplus(torch.randn(B, S, H, generator=gen, device="cuda"))
+    if clen is not None:
+        live = (torch.arange(S, device="cuda")[None]
+                < torch.tensor(clen, device="cuda")[:, None])
+        dt = torch.where(live[..., None], dt, 0.0).contiguous()
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    h0 = (0.3 * torch.randn(B, H, P, N, generator=gen, device="cuda")
+          if with_init else None)
+    return xh, dt, A, Bm, Cm, h0
+
+
+def ssd_phase(sk):
+    """B5 against its plain version on the same inputs at mamba2's widths
+    (80 heads, head dim 64, state 128): y and the final state within 1e-4
+    (and allclose at rtol 1e-4), finite.  A lane with chunk_len 0 must
+    keep its initial state exactly."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    results = {}
+    for name, B, S, chunk, with_init, clen in SSD_CASES:
+        xh, dt, A, Bm, Cm, h0 = ssd_inputs(gen, B, S, clen, with_init)
+        y, hT = sk.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk, init_state=h0)
+        wy, wh = sk.ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk, h0)
+        torch.cuda.synchronize()
+        err_y = (y - wy).abs().max().item()
+        err_h = (hT - wh).abs().max().item()
+        kept = all(bool(torch.equal(hT[b], h0[b])) for b in range(B)
+                   if clen is not None and clen[b] == 0)
+        ok = (err_y <= LIMIT and err_h <= LIMIT and kept
+              and torch.allclose(y, wy, atol=LIMIT, rtol=LIMIT)
+              and torch.allclose(hT, wh, atol=LIMIT, rtol=LIMIT)
+              and bool(torch.isfinite(y).all() and torch.isfinite(hT).all()))
+        rec = {"phase": "kernel", "kernel": "ssd_scan", "case": name,
+               "B": B, "S": S, "chunk": chunk, "H": SSM_H, "P": SSM_P,
+               "N": SSM_N, "init_state": with_init, "chunk_len": clen,
+               "max_abs_err": max(err_y, err_h), "max_abs_err_y": err_y,
+               "max_abs_err_state": err_h, "max_abs_y": wy.abs().max().item(),
+               "max_abs_state": wh.abs().max().item(),
+               "padded_lanes_keep_state": kept, "ok": ok}
+        if name in SSD_TIMED:
+            rec.update(ssd_timing(sk, xh, dt, A, Bm, Cm, h0, chunk))
+        if name == "main":
+            results = rec
+        emit(rec)
+        if not ok:
+            raise SystemExit(f"ssd_scan disagrees ({name})")
+    return results
+
+
+def ssd_timing(sk, xh, dt, A, Bm, Cm, h0, chunk):
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    kernel_ms = time_ms(lambda: sk.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk,
+                                            init_state=h0))
+    plain_ms = time_ms(lambda: sk.ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk,
+                                                    h0))
+    # bytes: x and dt, A, B and C read once, y written once, the initial
+    # state read and the final state written once; flops per lane and
+    # chunk of L: per head P L (L + 1) for the two masked products (2 P
+    # per pair m <= l) and 4 L N P for the incoming state's output term
+    # and the state update, and N L (L + 1) once for C . B (shared by the
+    # heads); padded rows (dt = 0) are computed like live ones
+    n_bytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
+                   + (2 if h0 is not None else 1) * B * H * P * N)
+    L, nc = chunk, S // chunk
+    n_flops = B * nc * (H * (P * L * (L + 1) + 4 * L * N * P)
+                        + N * L * (L + 1))
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_call": "none: no single PyTorch call computes "
+                            "chunked SSD"}
+
+
+def ssm_model(seed: int):
+    """mamba2-2.7b at its published width and depth and its random
+    weights (2.83 B parameters, 10.5 GiB in float32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import init_params
+    dev = torch.device("cuda")
+    cfg = get_config(SSM_ARCH)
+    return cfg, init_params(cfg, generator(dev, seed), device=dev)
+
+
+# rids 1 and 2 share a prefill group (their whole prompts, 24 and 29
+# tokens in the 32-token bucket) and a decode group; rid 1 finishes and
+# rid 3 is admitted into its slot, prefills in two chunks (20, then 33
+# from a mid-chunk state) while rid 2 decodes, and the two decode together
+# at uneven budgets (a frozen lane)
+SSM_STREAM_PROMPTS = {1: 24, 2: 29, 3: 53}
+SSM_STREAM_SCRIPT = [
+    "admit 1 2",
+    [(1, "P", 24), (2, "P", 29)],
+    [(1, "D", 5), (2, "D", 2)],
+    "finish 1",
+    "admit 3",
+    [(3, "P", 20), (2, "D", 3)],
+    [(3, "P", 33), (2, "D", 1)],
+    [(2, "D", 4), (3, "D", 7)],
+    [(3, "D", 2)],
+]
+
+
+def ssm_stream_phase(cfg, params, seed: int):
+    """The engine's greedy streams on full-width mamba2 (B5 for every
+    prefill chunk, the recurrent decode step, lane rows gathered and
+    scattered per call) against plain full-causal generation (B5 over the
+    whole sequence as one chunk when its length is no multiple of 128),
+    with two slots, so that the third stream runs in the slot the first
+    one freed."""
+    engine_streams({"phase": "ssm_stream", "model": cfg.name,
+                    "layers": cfg.n_layers}, cfg, params, max_len=256,
+                   prompt_seed=seed + 4, max_slots=2,
+                   prompt_lens=SSM_STREAM_PROMPTS, script=SSM_STREAM_SCRIPT)
+
+
+SSM_REPLAY = ["--arch", SSM_ARCH, "--scenario", "chatbot", "--rate", "2.0",
+              "--time-scale", "0.25", "--max-requests", "8",
+              "--duration", "10"]
+
+
+def ssm_replay_phase(cfg, params, kernels, seed: int):
+    """The SSM path end to end: ``ServingFrontend`` with the launcher's
+    scheduler and virtual perf model over ``ServingEngine`` on full-width
+    mamba2 with 4 slots (so slots are reused), serving the launcher's
+    chatbot trace.  Launch counts are zeroed just before and read just
+    after; the prefill groups the replay ran must include the shape the
+    B5 phase timed."""
+    from repro_torch.core.scheduler import SchedulerConfig, SLOsServeScheduler
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.frontend import ServingFrontend
+
+    dev = torch.device("cuda")
+    eng = ServingEngine(cfg, params, EngineConfig(
+        max_slots=4, max_len=1024, page_size=16, total_pages=512),
+        device=dev)
+    sched = SLOsServeScheduler(serve.VIRTUAL_PERF, SchedulerConfig(
+        prefill_emits_first_token=True))
+    fe = ServingFrontend(eng, sched, seed=seed)
+    for req in serve.trace(serve.parse_args(SSM_REPLAY
+                                            + ["--seed", str(seed)])):
+        fe.submit(req)
+    timer = SpanTimer()
+    eng.tracer = timer
+    groups: dict[str, int] = {}
+    exact: list = []
+    prefill_forward = eng._prefill_forward
+
+    def seen_prefill(cache, tokens, pos0, true_len, bt, sample_rows):
+        key = f"{tokens.shape[0]}/{tokens.shape[1]}"
+        groups[key] = groups.get(key, 0) + 1
+        exact.append(true_len.tolist())
+        return prefill_forward(cache, tokens, pos0, true_len, bt, sample_rows)
+    eng._prefill_forward = seen_prefill
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in kernels.values():
+        c.COUNTS["kernel"] = c.COUNTS["plain"] = 0
+    wall = serve.replay(fe)
+    launches = {k: dict(m.COUNTS) for k, m in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s, c = fe.stats, eng.counters
+    L = cfg.n_layers
+    main = next(case for case in SSD_CASES if case[0] == "main")
+    timed = f"{main[1]}/{main[2]}"
+    checks = {
+        "served_all": s.served == s.submitted == 8,
+        "tokens_out": s.tokens_out > 0,
+        "ssd_launches": launches["ssd"]["kernel"] == L * c["prefill_calls"],
+        "no_attention_kernel": all(launches[k]["kernel"] == 0 for k in (
+            "decode", "prefill", "verify", "mla_prefill")),
+        "no_plain": not any(v["plain"] for v in launches.values()),
+        "timed_prefill_shape_ran": timed in groups,
+    }
+    rec = {"phase": "ssm_replay", "model": cfg.name, "layers": L,
+           "slots": eng.ecfg.max_slots, "submitted": s.submitted,
+           "served": s.served, "attained": s.attained, "dropped": s.dropped,
+           "tokens_out": s.tokens_out,
+           "counters": {k: c[k] for k in (
+               "prefill_calls", "decode_calls", "decode_steps",
+               "decode_tokens")},
+           "prefill_groups": groups, "timed_prefill_shape": timed,
+           "timed_exact_ran": main[5] in exact,
+           "launches": launches, "wall_s": wall, "span_s": timer.seconds,
+           "spans": timer.count,
+           "outside_spans_s": wall - sum(timer.seconds.values()),
+           "prefill_group_ms": (1e3 * timer.seconds.get("prefill", 0.0)
+                                / max(c["prefill_calls"], 1)),
+           "decode_step_ms": (1e3 * timer.seconds.get("decode", 0.0)
+                              / max(c["decode_steps"], 1)),
+           "peak_mem_gib": peak, "checks": checks}
+    eng.tracer = None
+    rec["decode_breakdown"] = ssm_decode_breakdown(cfg, params, eng)
+    emit(rec)
+    if not all(checks.values()):
+        raise SystemExit(f"ssm replay checks failed: {checks}")
+    return launches
+
+
+def ssm_decode_breakdown(cfg, params, eng):
+    """Device time (CUDA events, so host gaps between launches count) of
+    one decode step over all the engine's slots, whole and by part: the
+    first layer's mixer step, its lane-row write-back (``where`` over the
+    conv and state rows), the unembedding; and the ops one step launches
+    on the card (``torch.profiler``), if it traces the card.  The replay
+    has ended, so every lane is frozen (chunk_len 0) and the rows keep
+    their state."""
+    from repro_torch.models import logits_fn, model_forward, ssm
+    from repro_torch.models.layers import apply_norm
+
+    dev = torch.device("cuda")
+    slots = list(range(eng.ecfg.max_slots))
+    B = len(slots)
+    cache = eng.kv.lane_cache(slots)
+    frozen = torch.zeros(B, dtype=torch.int32, device=dev)
+    pos0 = torch.zeros(B, dtype=torch.int32, device=dev)
+    tok = torch.ones(B, 1, dtype=torch.long, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(B, 1, cfg.d_model, generator=g, device=dev)
+    p0 = {k: t[0] for k, t in params["segments"][0]["p"]["ssm"].items()}
+    rows0 = {k: t[0] for k, t in cache[0].items()}
+    h = apply_norm({"scale": params["segments"][0]["p"]["norm1"]["scale"][0]},
+                   x)
+    _, new = ssm.ssm_decode_step(p0, h, cfg, rows0)
+    keep = frozen > 0
+
+    def step():
+        hid, _ = model_forward(params, cfg, tok, cache=cache, pos0=pos0,
+                               chunk_len=frozen)
+        return logits_fn(params, cfg, hid[:, -1])
+    parts = {
+        "step_ms": step,
+        "mixer_layer_ms": lambda: ssm.ssm_decode_step(p0, h, cfg, rows0),
+        "lane_row_writeback_ms": lambda: ssm.write_lane_rows(rows0, new,
+                                                             keep),
+        "unembed_ms": lambda: logits_fn(params, cfg, x[:, 0]),
+    }
+    out = {"lanes": B}
+    with torch.no_grad():
+        for name, fn in parts.items():
+            out[name] = time_ms(fn)
+        out["mixer_share_of_step"] = (cfg.n_layers * out["mixer_layer_ms"]
+                                      / out["step_ms"])
+        prof = torch.profiler
+        with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as tr:
+            step()
+            torch.cuda.synchronize()
+        ev = [e for e in tr.key_averages()
+              if getattr(e, "device_type", None) == prof.DeviceType.CUDA]
+        out["profiled_device_ops"] = sum(e.count for e in ev)
+        out["profiled_device_ms"] = sum(
+            getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0)) for e in ev) / 1e3
+    return out
+
+
 # ----------------------------- main path ------------------------------- #
 class SpanTimer:
     """Engine tracer (the duck type of the telemetry StepTracer): wall
@@ -1122,6 +1453,7 @@ def main() -> int:
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import mla_paged_prefill as mk
     from repro_torch.kernels import paged_verify as pv
+    from repro_torch.kernels import ssd_scan as sk
 
     set_precision()
     seed = 0
@@ -1154,6 +1486,16 @@ def main() -> int:
                       "mla_prefill": mk}, seed)
     del params
     free_device_memory()
+    ssd = ssd_phase(sk)
+    free_device_memory()
+    cfg, params = ssm_model(seed)
+    ssm_stream_phase(cfg, params, seed)
+    free_device_memory()
+    ssm_launches = ssm_replay_phase(
+        cfg, params, {"decode": pa, "prefill": pp, "verify": pv,
+                      "mla_prefill": mk, "ssd": sk}, seed)
+    del params
+    free_device_memory()
     torch.cuda.synchronize()
     emit({"phase": "done", "total_s": time.perf_counter() - t0})
 
@@ -1179,6 +1521,9 @@ def main() -> int:
               "src/repro_torch/csrc/mla_paged_prefill.cu",
               "src/repro/kernels/paged_prefill.py:255", mla,
               mla_launches["mla_prefill"]["kernel"]),
+        entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+              "src/repro/kernels/ssd_scan.py:59", ssd,
+              ssm_launches["ssd"]["kernel"]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

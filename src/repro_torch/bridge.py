@@ -8,7 +8,10 @@ Page pools differ by one page: the port's pools end in a write-off page
 (``models/attention.py``) that the reference does not have.  The page axis
 is found by the leaf's name: GQA pools (``k_pages``, ``v_pages``) are
 (..., P, page, KVH, hd) and MLA pools (``ckv_pages``, ``krope_pages``)
-(..., P, page, r | rope), each with an optional leading layer axis.
+(..., P, page, r | rope), each with an optional leading layer axis.  SSM
+lane rows (``conv`` (..., max_seqs, d_conv - 1, C) and ``state`` (...,
+max_seqs, H, P, N), lane axis 1 when stacked over layers) are the same on
+both sides and cross unchanged.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from repro_torch.device import resolve_device
 
 # trailing axes after the page axis, by pool leaf name
 _PAGE_TAIL = {"k_pages": 3, "v_pages": 3, "ckv_pages": 2, "krope_pages": 2}
+# SSM lane-row leaves: no page axis
+_LANE_ROWS = ("conv", "state")
 
 
 def _map(fn, tree):
@@ -31,10 +36,16 @@ def _map(fn, tree):
 
 
 def _map_pools(fn, pools):
-    """``fn(leaf, page_axis)`` over every pool leaf of a cache pytree."""
+    """``fn(leaf, page_axis)`` over every pool leaf of a cache pytree;
+    the page axis of a lane-row leaf is None."""
+    def leaf(k, v):
+        if k in _PAGE_TAIL:
+            return fn(v, v.ndim - 1 - _PAGE_TAIL[k])
+        if k in _LANE_ROWS:
+            return fn(v, None)
+        return _map_pools(fn, v)
     if isinstance(pools, dict):
-        return {k: (fn(v, v.ndim - 1 - _PAGE_TAIL[k]) if k in _PAGE_TAIL
-                    else _map_pools(fn, v)) for k, v in pools.items()}
+        return {k: leaf(k, v) for k, v in pools.items()}
     if isinstance(pools, (list, tuple)):
         return type(pools)(_map_pools(fn, v) for v in pools)
     raise ValueError(f"not a page pool leaf: {type(pools)}")
@@ -51,12 +62,15 @@ def params_from_numpy(tree, device=None):
 def pools_from_numpy(pools, device=None):
     """Reference page pools (per-segment ``{"self": {"k_pages", ...}}`` or
     ``{"self": {"ckv_pages", ...}}``, page axis 1 when stacked over layers,
-    else 0) as port pools on ``resolve_device(device)``: each gets its
-    trailing write-off page (zeros)."""
+    else 0) and SSM lane rows (``{"conv", "state"}``) as port pools on
+    ``resolve_device(device)``: each page pool gets its trailing write-off
+    page (zeros); lane rows cross as they are."""
     device = resolve_device(device)
 
     def conv(a, ax):
         a = np.asarray(a)
+        if ax is None:
+            return torch.from_numpy(np.array(a)).to(device)
         pad = [(0, 0)] * a.ndim
         pad[ax] = (0, 1)
         return torch.from_numpy(np.pad(a, pad)).to(device)
@@ -65,8 +79,10 @@ def pools_from_numpy(pools, device=None):
 
 def pools_to_numpy(pools):
     """Port page pools as reference-shaped numpy arrays (write-off page
-    dropped), for bit-level state comparisons."""
+    dropped) and lane rows as they are, for bit-level state comparisons."""
     def conv(t, ax):
         a = t.detach().cpu().numpy()
+        if ax is None:
+            return a
         return np.take(a, np.arange(a.shape[ax] - 1), axis=ax)
     return _map_pools(conv, pools)

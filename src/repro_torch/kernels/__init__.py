@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version: B1 ``paged_attention.paged_decode_attention``, B2
 ``paged_prefill.paged_prefill_attention``, B3
-``paged_verify.paged_verify_attention`` and B4
-``mla_paged_prefill.mla_paged_prefill_attention`` (sources in ``../csrc``,
-built by ``build.py`` at first use).  ``ref.py`` holds the loop-per-lane oracles.
+``paged_verify.paged_verify_attention``, B4
+``mla_paged_prefill.mla_paged_prefill_attention`` and B5
+``ssd_scan.ssd_scan`` (sources in ``../csrc``, built by ``build.py`` at
+first use).  ``ref.py`` holds the loop-per-lane and token-by-token
+oracles.
 Importing this package needs neither ``nvcc`` nor a card."""

@@ -39,6 +39,7 @@ SIGNATURES = {
                      [_P] * 12 + [_I] * 7 + [_F, _I, _I, _P]),
     "mla_paged_prefill": ("repro_mla_paged_prefill_f32",
                           [_P] * 10 + [_I] * 7 + [_F, _P]),
+    "ssd_scan": ("repro_ssd_scan_f32", [_P] * 8 + [_I] * 6 + [_P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

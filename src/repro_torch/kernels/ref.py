@@ -1,9 +1,10 @@
-"""Loop-per-lane oracles for the paged kernels, ported from
-``repro/kernels/ref.py`` (``ref_paged_decode``, ``ref_paged_prefill`` and
-``ref_mla_paged_prefill``).
+"""Loop-per-lane oracles for the paged kernels and the SSD scan, ported
+from ``repro/kernels/ref.py`` (``ref_paged_decode``, ``ref_paged_prefill``,
+``ref_mla_paged_prefill`` and ``ref_ssd``).
 
 They are the slowest, most obviously right versions: one lane at a time,
-one written row at a time, a full softmax over the gathered stream.  The
+one written row at a time, a full softmax over the gathered stream; the
+SSD recurrence one token at a time.  The
 tests hold the kernels' plain versions against them and against the JAX
 oracles on the same inputs.  Unlike the kernels they never write in place:
 the prefill oracles return updated copies of the pools.
@@ -112,3 +113,21 @@ def ref_mla_paged_prefill(q_lat, q_rope, ckv_new, krope_new, ckv_pages,
         p = torch.softmax(s, dim=-1)
         out.append(torch.einsum("hqs,sr->qhr", p, cs))
     return torch.stack(out).to(q_lat.dtype), cp, rp
+
+
+def ref_ssd(xh, dt, A, Bm, Cm, init_state=None):
+    """Sequential (token-by-token) SSD recurrence.  xh: (B, S, H, P); dt:
+    (B, S, H); A: (H,); Bm / Cm: (B, S, N).  Returns (y (B, S, H, P),
+    final_state (B, H, P, N)) in float32."""
+    Bsz, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    h = (torch.zeros(Bsz, H, P, N, device=xh.device) if init_state is None
+         else init_state.float())
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dt[:, t] * A[None, :])                     # (B, H)
+        dBx = torch.einsum("bh,bn,bhp->bhpn", dt[:, t].float(),
+                           Bm[:, t].float(), xh[:, t].float())
+        h = h * dA[..., None, None] + dBx
+        ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t].float(), h))
+    return torch.stack(ys, dim=1), h

@@ -1,0 +1,116 @@
+"""Chunked SSD scan of Mamba2 (kernel B5): the CUDA kernel, its plain
+PyTorch version, and the launch counts.
+
+Port of ``repro/kernels/ssd_scan.py::ssd_scan``, extended to the function
+the serving path runs, the reference's ``models/ssm.py::ssd_chunked``: an
+initial state (zero when None) and the final state as a second output.
+With ``init_state`` None and the final state dropped it is the TPU
+kernel's function.  The sequence is cut into chunks of ``chunk`` tokens
+(``chunk`` divides S); within a chunk the output is the masked quadratic
+SSD form, across chunks the (H, P, N) state is carried.
+
+Dispatch is by the inputs' device, as in ``paged_attention.py``: CPU →
+``ssd_chunked_plain``, CUDA → ``csrc/ssd_scan.cu`` or raise.  The kernel
+is built for mamba2's head dim 64 and state width 128 and takes chunks of
+up to ``KERNEL_MAX_CHUNK`` tokens; other widths raise on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.paged_attention import check_tensor
+
+COUNTS = {"kernel": 0, "plain": 0}
+
+# the widths csrc/ssd_scan.cu is compiled for
+KERNEL_HEAD_DIM, KERNEL_STATE, KERNEL_MAX_CHUNK = 64, 128, 8192
+
+
+def ssd_scan(xh, dt, A, Bm, Cm, *, chunk: int, init_state=None):
+    """xh: (B, S, H, P); dt: (B, S, H); A: (H,) (negative decay rates);
+    Bm / Cm: (B, S, N) (one SSM group, shared across heads); init_state:
+    (B, H, P, N) or None.  Returns (y (B, S, H, P), final_state
+    (B, H, P, N)), all float32."""
+    if xh.shape[1] % chunk:
+        raise ValueError(f"ssd_scan: chunk {chunk} does not divide "
+                         f"S {xh.shape[1]}")
+    if xh.device.type == "cpu":
+        return ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk, init_state)
+    if xh.device.type != "cuda":
+        raise RuntimeError(f"ssd_scan: no kernel for {xh.device}")
+    return _launch(xh, dt, A, Bm, Cm, chunk, init_state)
+
+
+def _launch(xh, dt, A, Bm, Cm, chunk, init_state):
+    from repro_torch.kernels import build
+    dev = xh.device
+    check_tensor("xh", xh, torch.float32, dev, 4)
+    check_tensor("dt", dt, torch.float32, dev, 3)
+    check_tensor("A", A, torch.float32, dev, 1)
+    check_tensor("Bm", Bm, torch.float32, dev, 3)
+    check_tensor("Cm", Cm, torch.float32, dev, 3)
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    if dt.shape != (B, S, H) or A.shape != (H,) or Bm.shape != (B, S, N) \
+            or Cm.shape != (B, S, N):
+        raise ValueError("ssd_scan: inconsistent shapes")
+    if init_state is not None:
+        check_tensor("init_state", init_state, torch.float32, dev, 4)
+        if init_state.shape != (B, H, P, N):
+            raise ValueError("ssd_scan: init_state must be (B, H, P, N)")
+    if (P, N) != (KERNEL_HEAD_DIM, KERNEL_STATE) or chunk > KERNEL_MAX_CHUNK:
+        raise ValueError(
+            f"ssd_scan: the kernel takes head dim {KERNEL_HEAD_DIM}, state "
+            f"{KERNEL_STATE} and chunks up to {KERNEL_MAX_CHUNK}, got P {P}, "
+            f"N {N}, chunk {chunk}")
+    y = torch.empty_like(xh)
+    final = torch.empty(B, H, P, N, dtype=torch.float32, device=dev)
+    h0 = None if init_state is None else init_state.data_ptr()
+    fn = build.load("ssd_scan")
+    rc = fn(xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), h0, y.data_ptr(), final.data_ptr(), B, S, H, P,
+            N, chunk, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+    COUNTS["kernel"] += 1
+    return y, final
+
+
+def ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
+    """The reference's ``ssd_chunked`` line for line: a loop over chunks
+    carrying the state, the intra-chunk decay masked to -1e30 BEFORE the
+    exp (the upper triangle would overflow), in float32."""
+    COUNTS["plain"] += 1
+    Bsz, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    nc = S // chunk
+    xc = xh.reshape(Bsz, nc, chunk, H, P).transpose(0, 1)
+    dtc = dt.reshape(Bsz, nc, chunk, H).transpose(0, 1)
+    Bc = Bm.reshape(Bsz, nc, chunk, N).transpose(0, 1)
+    Cc = Cm.reshape(Bsz, nc, chunk, N).transpose(0, 1)
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=xh.device))
+    h = (torch.zeros(Bsz, H, P, N, device=xh.device) if init_state is None
+         else init_state.float())
+    ys = []
+    for c in range(nc):
+        xk, dtk, Bk, Ck = xc[c], dtc[c], Bc[c], Cc[c]
+        dA = dtk.float() * A[None, None, :]                 # (B, L, H) <= 0
+        seg = torch.cumsum(dA, dim=1)
+        diff = seg[:, :, None, :] - seg[:, None, :, :]
+        diff = torch.where(mask[None, :, :, None], diff, -1e30)
+        decay = torch.exp(diff)
+        cb = torch.einsum("bln,bmn->blm", Ck, Bk)            # (B, L, M)
+        att = cb[..., None] * decay                         # (B, L, M, H)
+        y_intra = torch.einsum("blmh,bmh,bmhp->blhp", att, dtk, xk)
+        # inter-chunk: contribution of the incoming state
+        y_inter = torch.einsum("bln,blh,bhpn->blhp", Ck,
+                               torch.exp(seg).to(Ck.dtype), h.to(Ck.dtype))
+        # state at the end of the chunk
+        decay_to_end = torch.exp(seg[:, -1:, :] - seg)      # (B, L, H)
+        st = torch.einsum("bln,blh,blh,blhp->bhpn", Bk, dtk,
+                          decay_to_end.to(Bk.dtype), xk)
+        h = (h * torch.exp(dA.sum(dim=1))[..., None, None] + st.float())
+        ys.append((y_intra + y_inter).to(xh.dtype))
+    y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
+    return y, h.to(xh.dtype)

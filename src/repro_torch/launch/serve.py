@@ -13,6 +13,8 @@ with ``--device cpu``:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+      --reduced --device cpu
 """
 from __future__ import annotations
 

@@ -1,14 +1,15 @@
-"""Decoder stack for ``attn``, ``mla`` and ``mla_moe`` models (port of
-``repro/models/transformer.py``).
+"""Decoder stack for ``attn``, ``mla``, ``mla_moe`` and ``ssm`` models
+(port of ``repro/models/transformer.py``).
 
 Parameters keep the JAX pytree's layout: ``cfg.block_pattern`` is grouped
 into homogeneous segments and each segment's block parameters are stacked
 on a leading layer axis (unstacked when the segment has one layer).  Where
 JAX runs ``lax.scan`` over a segment, this module loops over the layer
 index in Python; each layer reads and writes its own slice of the stacked
-page pools in place.  Block kinds: ``attn`` (GQA + dense MLP), ``mla``
-(MLA + dense MLP) and ``mla_moe`` (MLA + MoE FFN, DeepSeek-V2); any other
-kind raises ``NotImplementedError``.
+page pools (or SSM lane rows) in place.  Block kinds: ``attn`` (GQA +
+dense MLP), ``mla`` (MLA + dense MLP), ``mla_moe`` (MLA + MoE FFN,
+DeepSeek-V2) and ``ssm`` (a Mamba2 mixer, no FFN half); any other kind
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,8 +23,10 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, embed,
                                        init_embed, init_mlp, init_norm,
                                        init_unembed)
 from repro_torch.models.moe import init_moe, moe_forward
+from repro_torch.models.ssm import (init_ssm, ssm_decode_step, ssm_forward,
+                                    write_lane_rows)
 
-PORTED_KINDS = ("attn", "mla", "mla_moe")
+PORTED_KINDS = ("attn", "mla", "mla_moe", "ssm")
 MLA_KINDS = ("mla", "mla_moe")
 MOE_KINDS = ("mla_moe",)
 
@@ -40,6 +43,9 @@ def _check_ported(cfg: ModelConfig) -> None:
 def init_block(gen, kind: str, cfg: ModelConfig, dtype=torch.float32,
                device=None):
     p = {"norm1": init_norm(cfg.d_model, cfg.norm, device)}
+    if kind == "ssm":
+        p["ssm"] = init_ssm(gen, cfg, dtype, device)
+        return p                                   # Mamba block: no FFN half
     if kind in MLA_KINDS:
         p["attn"] = init_mla(gen, cfg, dtype, device)
     else:
@@ -57,9 +63,26 @@ def block_forward(p, kind: str, cfg: ModelConfig, x, *, positions,
                   cache=None, pos0=None, block_tables=None, chunk_len=None,
                   verify=False, moe_cf=None):
     """One block: pre-norm attention (GQA or MLA) then a pre-norm dense MLP
-    or MoE FFN.  MLA takes no ``verify`` flag: its verify window is a
-    chunked prefill, as in the reference."""
+    or MoE FFN, or a pre-norm Mamba2 mixer.  MLA takes no ``verify`` flag:
+    its verify window is a chunked prefill, as in the reference.
+
+    An ``ssm`` block with a cache takes a decode step when S == 1, else a
+    prefill chunk, and stores its new lane rows into ``cache`` in place; a
+    lane with ``chunk_len`` 0 keeps its rows (a padded prefill lane by
+    construction, a frozen decode lane by ``where``)."""
     h = apply_norm(p["norm1"], x, cfg.norm)
+    if kind == "ssm":
+        if cache is not None and x.shape[1] == 1:
+            y, new = ssm_decode_step(p["ssm"], h, cfg, cache)
+            keep = None if chunk_len is None else chunk_len > 0
+        else:
+            y, new = ssm_forward(
+                p["ssm"], h, cfg, cache=cache,
+                chunk_len=chunk_len if cache is not None else None)
+            keep = None
+        if cache is not None:
+            write_lane_rows(cache, new, keep)
+        return x + y.to(x.dtype)
     if kind in MLA_KINDS:
         y, _ = mla_forward(p["attn"], h, cfg, positions=positions,
                            cache=cache, pos0=pos0, block_tables=block_tables,
@@ -134,14 +157,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 
 # ------------------------------ caches --------------------------------- #
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
-                     dtype=torch.float32, device=None):
+                     max_seqs: int = 1, dtype=torch.float32, device=None):
     """Per-segment page pools, ``{"self": {"k_pages", "v_pages"}}`` of
     shape (n_pages + 1, page, KVH, hd) for ``attn`` segments and
     ``{"self": {"ckv_pages", "krope_pages"}}`` of shape (n_pages + 1, page,
     kv_lora_rank | qk_rope_head_dim) for MLA segments (one headless latent
-    row per token), stacked on a leading layer axis for a segment of
-    several layers.  Each layer gets its own memory (JAX's
-    ``broadcast_to`` would become an aliasing ``expand`` here).  The extra
+    row per token); for ``ssm`` segments per-sequence lane rows
+    ``{"conv": (max_seqs, d_conv - 1, C), "state": (max_seqs, H, P, N)}``,
+    whose size does not grow with context.  Each is stacked on a leading
+    layer axis for a segment of several layers.  Each layer gets its own
+    memory (JAX's ``broadcast_to`` would become an aliasing ``expand``
+    here).  The extra
     last page is the write-off page of ``attention.paged_write``; no block
     table maps it.  ``device`` follows ``resolve_device``: CUDA unless
     named."""
@@ -150,6 +176,16 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     caches = []
     for kind, n in cfg.segments():
         lead = (n,) if n > 1 else ()
+        if kind == "ssm":
+            s = cfg.ssm
+            d_in = s.expand * cfg.d_model
+            shapes = {"conv": (max_seqs, s.d_conv - 1, d_in + 2 * s.d_state),
+                      "state": (max_seqs, d_in // s.head_dim, s.head_dim,
+                                s.d_state)}
+            caches.append({name: torch.zeros(lead + shape, dtype=dtype,
+                                             device=device)
+                           for name, shape in shapes.items()})
+            continue
         base = (n_pages + 1, page_size)
         if kind in MLA_KINDS:
             shapes = {"ckv_pages": (cfg.mla.kv_lora_rank,),
@@ -173,7 +209,9 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
     pools from ``init_paged_cache``, the S new tokens of each lane are
     written at offset ``pos0`` (B,) through ``block_tables`` (B, max_pages)
     — only the first ``chunk_len`` (B,) of them — and the pools are
-    updated in place (the returned cache is the one passed in).
+    updated in place (the returned cache is the one passed in).  SSM
+    segments take lane rows with one row per batch lane (the manager's
+    ``lane_cache``), updated in place the same way.
     ``verify=True`` marks the chunk as a speculative-decoding verify
     window, which the GQA layers send to the verify kernel.  ``moe_cf`` is
     the MoE capacity factor (None: the reference's default 2.0; the
@@ -187,7 +225,9 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
     positions = pos0[:, None] + torch.arange(S, device=x.device)[None, :]
     for i, (kind, n) in enumerate(cfg.segments()):
         seg_p = params["segments"][i]["p"]
-        seg_c = cache[i]["self"] if cache is not None else None
+        seg_c = None
+        if cache is not None:
+            seg_c = cache[i] if kind == "ssm" else cache[i]["self"]
         for l in range(n):
             p = seg_p if n == 1 else _layer(seg_p, l)
             c = None

@@ -12,6 +12,9 @@ The engine executes planner ``Batch`` objects:
     only the final (B, n_steps) token matrix is copied to the host: one
     host sync per group, as in the reference's single jitted scan.  The
     loop is eager PyTorch; capturing it in a CUDA graph is later work.
+  * SSM models (Mamba2) keep per-slot lane rows instead of pages: each
+    call reads them gathered to its lanes (``kv.lane_cache``) and scatters
+    the live lanes' rows back (``kv.absorb``).
   * With a draft model (``draft=(cfg, params)``), a batch planned with
     ``spec_step > 0`` runs its decodes one request at a time through
     ``serving/spec_decode.SpecDecoder``: draft steps, then one verify
@@ -39,9 +42,11 @@ loops, and ``spec_catch_up_calls`` counts the draft's catch-up prefills
 prefill kernel).
 
 Not ported yet: mesh-sharded serving (``EngineConfig.mesh``), encoder /
-image conditioning and the host spill tier; asking for any of them raises
-``NotImplementedError``.  Prefix matching is always token-level and
-admission always reserves the full expected context (the reference's ``token_level_prefix=False`` and
+image conditioning, the host spill tier, and speculative decoding over an
+SSM model (rollback by truncation cannot roll back lane state); asking for
+any of them raises ``NotImplementedError``.  Prefix matching is always
+token-level and admission always reserves the full expected context (the
+reference's ``token_level_prefix=False`` and
 ``prefix_aware_admission=True`` are not ported).
 """
 from __future__ import annotations
@@ -147,6 +152,11 @@ class ServingEngine:
         # speculative decoding: (draft_cfg, draft_params)
         self.spec = None
         if draft is not None:
+            if any(kind == "ssm" for c in (cfg, draft[0])
+                   for kind, _ in c.segments()):
+                raise NotImplementedError(
+                    "speculative decoding over an SSM model is not yet "
+                    "ported")
             from repro_torch.serving.spec_decode import SpecDecoder
             self.spec = SpecDecoder(self, draft[0], draft[1])
 
@@ -187,7 +197,11 @@ class ServingEngine:
         """All n_steps decode steps of a batch group, with no host sync
         (beyond the MoE layers' expert counts, module docstring).
         Per-lane step budgets (``steps``) and EOS stop lanes early; frozen
-        lanes emit -1 and neither write KV nor advance."""
+        lanes emit -1 and neither write KV nor advance.  ``active`` goes
+        to the model as ``chunk_len``: page writes of frozen lanes go to
+        the write-off page, and SSM layers write back
+        ``where(active, new, old)`` into the lane rows, as the reference's
+        ``_decode_scan`` does for every lane-row leaf."""
         B = tokens0.shape[0]
         dev = tokens0.device
         tok, pos = tokens0, pos0

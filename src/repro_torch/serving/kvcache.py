@@ -18,8 +18,14 @@ published pages); see the reference module's docstring.  What differs:
   reference keeps a device array updated with ``.at[].set``.
 * Pools are torch tensors updated in place (CoW copies with indexed
   assignment, kernel writes straight into the pools), so ``lane_cache``
-  and ``absorb`` pass the pools through unchanged: JAX needed them to
-  thread its functional pool updates and buffer donation.
+  and ``absorb`` pass the page pools through unchanged: JAX needed them
+  to thread its functional pool updates and buffer donation.  SSM lane
+  rows are gathered to one row per batch lane and scattered back, as in
+  the reference.
+* A slot's SSM lane rows are zeroed whenever its length is reset to 0
+  (``acquire``, ``preempt``, ``release``), so a reused slot and a
+  preempt replay start from the zero state, as plain generation does.
+  The reference leaves a freed slot's rows as they were.
 * The host spill tier (``host_spill_pages > 0``) and mesh placement are
   not ported yet; asking for either raises.  ``prefix_discounts`` always
   reports 0 spilled pages, so the frontend never asks for a prefetch
@@ -43,10 +49,12 @@ def kv_page_bytes(cfg: ModelConfig, page_size: int = 16,
                   dtype=torch.float32) -> int:
     """Device bytes one KV page costs for ``cfg``, summed over all layers:
     K and V planes of every GQA layer, the latent and rope rows of every
-    MLA layer."""
+    MLA layer.  SSM lane state is not paged and contributes nothing."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     total = 0
     for kind, n in cfg.segments():
+        if kind == "ssm":
+            continue
         if kind in MLA_KINDS:
             per_tok = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
         else:
@@ -146,8 +154,11 @@ class PagedKVManager(PageAllocator):
     the inherited free list / page tables.
 
     Token-level partial-page matching is always on (the reference's
-    ``token_level=False`` page-granular mode is not ported).  ``device``
-    follows ``resolve_device``: CUDA unless named.
+    ``token_level=False`` page-granular mode is not ported).  Prefix
+    sharing is forced off for SSM-bearing models, as in the reference:
+    skipping a cached prefill chunk would skip the (unpaged, lane-resident)
+    SSM state updates it performs.  ``device`` follows ``resolve_device``:
+    CUDA unless named.
     """
 
     def __init__(self, cfg: ModelConfig, *, total_pages: int,
@@ -165,15 +176,16 @@ class PagedKVManager(PageAllocator):
         self.max_seqs = max_seqs
         self.max_len = max_len
         self.max_pages_per_seq = max(1, math.ceil(max_len / page_size))
-        self.pools = init_paged_cache(cfg, total_pages, page_size, dtype,
-                                      self.device)
+        self.pools = init_paged_cache(cfg, total_pages, page_size, max_seqs,
+                                      dtype, self.device)
         self.block_tables = np.zeros((max_seqs, self.max_pages_per_seq),
                                      np.int32)
         self.seq_len = np.zeros((max_seqs,), np.int64)
         self.free_seqs = list(range(max_seqs - 1, -1, -1))
         self.seq_of: dict[int, int] = {}
         # ---- prefix sharing state (reference module docstring) ----
-        self.share_prefix = share_prefix
+        self.share_prefix = share_prefix and not any(
+            kind == "ssm" for kind, _ in cfg.segments())
         self.refcount = np.zeros((total_pages,), np.int32)
         self.prefix_index: dict[int, int] = {}       # chain hash -> page
         self.page_key: dict[int, int] = {}           # page -> chain hash
@@ -248,6 +260,7 @@ class PagedKVManager(PageAllocator):
         if s is not None:
             self.block_tables[s] = 0
             self.seq_len[s] = 0
+            self._zero_lane_rows(s)
         return n
 
     # --------------------------- seq slots ----------------------------- #
@@ -260,7 +273,16 @@ class PagedKVManager(PageAllocator):
         self.seq_of[rid] = s
         self.seq_len[s] = 0
         self.block_tables[s] = 0
+        self._zero_lane_rows(s)
         return s
+
+    def _zero_lane_rows(self, s: int) -> None:
+        """Reset slot s's SSM lane rows to the zero state (a device
+        fill; no host sync)."""
+        for pool, ax in zip(self.pools, self.lane_select_axes()):
+            if ax >= 0:
+                for leaf in pool.values():
+                    leaf.select(ax, s).zero_()
 
     def admit(self, rid: int, expected_total: int, tokens=None) -> bool:
         """Admission = a sequence slot + pages for the expected context;
@@ -598,7 +620,9 @@ class PagedKVManager(PageAllocator):
         (the right-hand side is gathered before the write)."""
         si = torch.as_tensor(src, dtype=torch.long, device=self.device)
         di = torch.as_tensor(dst, dtype=torch.long, device=self.device)
-        for pool, (_, n) in zip(self.pools, self.cfg.segments()):
+        for pool, (kind, n) in zip(self.pools, self.cfg.segments()):
+            if kind == "ssm":
+                continue                       # lane rows: nothing paged
             for leaf in pool["self"].values():
                 if n > 1:
                     leaf[:, di] = leaf[:, si]
@@ -612,11 +636,31 @@ class PagedKVManager(PageAllocator):
         rows = np.ascontiguousarray(self.block_tables[np.asarray(slots)])
         return torch.from_numpy(rows).to(self.device)
 
+    def lane_select_axes(self) -> list[int]:
+        """Per segment, the lane axis of its SSM lane rows (1 when stacked
+        over layers, else 0), or -1 for a page-pool segment."""
+        return [(1 if n > 1 else 0) if kind == "ssm" else -1
+                for kind, n in self.cfg.segments()]
+
     def lane_cache(self, slots):
-        """The cache a model call reads: the page pools themselves (they
-        are global and updated in place; dense models keep no lane state)."""
-        return self.pools
+        """The cache a model call reads: page pools pass through whole
+        (global, addressed by block tables, updated in place); SSM lane
+        rows are gathered to one row per batch lane (``slots`` may repeat
+        a slot for padded lanes)."""
+        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        return [pool if ax < 0 else
+                {k: v.index_select(ax, idx) for k, v in pool.items()}
+                for pool, ax in zip(self.pools, self.lane_select_axes())]
 
     def absorb(self, slots, new_cache) -> None:
-        """Nothing to store: the model call updated the pools in place
-        (``new_cache`` is ``self.pools``)."""
+        """Store a model call's updated cache: page pools were updated in
+        place; the first ``len(slots)`` lane rows scatter back to their
+        slots (padded lanes after them alias ``slots[0]`` and are
+        dropped)."""
+        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        for pool, new, ax in zip(self.pools, new_cache,
+                                 self.lane_select_axes()):
+            if ax < 0:
+                continue
+            for k, leaf in pool.items():
+                leaf.index_copy_(ax, idx, new[k].narrow(ax, 0, len(slots)))
