@@ -32,7 +32,7 @@ script exits non-zero before the final line:
    at their own lengths on full-width smollm-135m (random weights from the
    seed, float32).  The kernel launch counts are zeroed just before and read
    just after: every decode step must launch the decode kernel once per
-   layer, every prefill group the prefill kernel once per layer, and the
+   layer, every prefill group the prefill kernel once per layer, B6 and the
    plain versions never.
 5. Speculative decoding at the full width of qwen3-1.7b (28 layers, random
    weights from the seed): three prompts decoded by spec cycles of draft
@@ -82,9 +82,38 @@ script exits non-zero before the final line:
     Counts zeroed just before and read just after: B5 launches once per
     layer per prefill group, B1-B4 never, plain versions never; the timed
     shape must be among the prefill groups.
-13. The kernels line (B1 and B2 launches from step 4, B3's from step 6,
-    B4's from step 9, B5's from step 12), the card line, and
-    ``{"ok": true, "device": ...}``.
+13. The dense flash attention kernel (B6) against its plain version
+    through the GQA wrapper ``attention``: one whisper encoder layer (20
+    heads, 1500 x 1500 frames, head dim 64, bidirectional), a cross
+    decode step of 8 lanes (Sq 1 over 1500 keys), cross prefill chunks of
+    16 and 128 rows, causal from q_offset 0 and beyond with kv_len < Sk,
+    head dim 32 and 128 (llama-3.2-vision's cross shape: 32 query / 8 KV
+    heads over 1600 image tokens; qwen3-1.7b's no-cache causal shape),
+    Sq and Sk no multiples of the tile; outputs within 1e-4, keys no row
+    may see poisoned.  Timed at the encoder and the cross-decode shape.
+14. whisper-large-v3 at its published width and depth (32 encoder and 32
+    decoder layers, random weights from the seed, 5.9 GiB in float32):
+    each request's frames come from a numpy seed and go through
+    ``encoder_forward`` on the card; three greedy streams of the engine,
+    each lane with its own encoder states, against plain generation
+    (``model_forward(cache=None, enc_states=...)``) under the tie rule.
+15. The whisper path: ``ServingFrontend`` with ``SLOsServeScheduler``
+    serves 8 chatbot requests (lengths scaled by 0.25, 2/s, max_len 448),
+    each submitted with ``enc_states`` from ``encoder_forward``.  Counts
+    zeroed just before the encoder calls and read just after the replay:
+    B6 once per encoder layer per encoder call and once per decoder layer
+    per prefill group and per decode step, B2 once per layer per prefill
+    group, B1 once per layer per decode step, B3-B5 never, plain versions
+    never.  Then one decode step of eight lanes is timed whole and by part
+    (one layer's cross K/V projection, which the reference's design
+    repeats in every step, its cross-attention, its self-attention).
+16. The kernels line (B1 and B2 launches from step 4, B3's from step 6,
+    B4's from step 9, B5's from step 12, B6's from step 15), the card
+    line, and ``{"ok": true, "device": ...}``.
+
+Every earlier replay also checks that B6 never launched: only the
+no-cache attention of plain generation (steps 3, 5, 14) and the
+encoder / cross-attention of steps 14-15 run it.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -456,11 +485,12 @@ def chunk_timing(kernel_name, kernel, plain, q, kn, vn, kp, vp, table, p0,
 
 
 # ---------------------------- stream check ----------------------------- #
-def greedy_reference(params, cfg, prompt, n, dev):
+def greedy_reference(params, cfg, prompt, n, dev, enc=None):
     """Plain full-causal greedy generation: n tokens and the top-2 logit
     margin at each.  MoE layers run with the engine's dropless capacity
     factor E / k (exact inference; the model's default 2.0 is the
-    reference's training setting, which drops units)."""
+    reference's training setting, which drops units).  ``enc``: the
+    request's encoder states for a cross-attending model."""
     from repro_torch.models import logits_fn, model_forward
     from repro_torch.models.moe import dropless_capacity_factor
     moe_cf = dropless_capacity_factor(cfg)
@@ -468,7 +498,7 @@ def greedy_reference(params, cfg, prompt, n, dev):
     with torch.no_grad():
         for _ in range(n):
             h, _ = model_forward(params, cfg, torch.tensor([toks], device=dev),
-                                 moe_cf=moe_cf)
+                                 moe_cf=moe_cf, enc_states=enc)
             lg = logits_fn(params, cfg, h[0, -1])
             top = torch.topk(lg, 2).values
             margins.append((top[0] - top[1]).item())
@@ -522,13 +552,15 @@ def stream_phase(seed: int):
 
 def engine_streams(rec, cfg, params, *, max_len: int, prompt_seed: int,
                    max_slots: int = 8, prompt_lens=STREAM_PROMPTS,
-                   script=STREAM_SCRIPT):
+                   script=STREAM_SCRIPT, encs=None):
     """``script`` through a fresh engine (``"admit r ..."`` and ``"finish
     r"`` steps between batches), then each stream against plain
     generation; emits ``rec`` with the results and fails on a difference
     that is not a tie.  An admission into a slot that a finished request
     freed is listed under ``reused_slots`` with whether the slot's lane
-    rows (SSM models) were all zero after the admission."""
+    rows (SSM models) were all zero after the admission.  ``encs``: each
+    request's encoder states (1, T, D), for a cross-attending model."""
+    encs = encs or {}
     from repro_torch.core.batch import Batch
     from repro_torch.core.slo import StageKind
     from repro_torch.serving.engine import EngineConfig, ServingEngine
@@ -554,7 +586,8 @@ def engine_streams(rec, cfg, params, *, max_len: int, prompt_seed: int,
                     freed.add(eng.kv.seq_of[rid])
                     eng.finish(rid)
                     continue
-                assert eng.add_request(rid, prompts[rid], expected_total=96)
+                assert eng.add_request(rid, prompts[rid], expected_total=96,
+                                       enc_states=encs.get(rid))
                 slot = eng.kv.seq_of[rid]
                 if slot in freed:
                     rows = [leaf.select(ax, slot) for pool, ax in zip(
@@ -579,7 +612,7 @@ def engine_streams(rec, cfg, params, *, max_len: int, prompt_seed: int,
     ok = True
     for rid, prompt in prompts.items():
         want, margins = greedy_reference(params, cfg, prompt, len(got[rid]),
-                                         dev)
+                                         dev, encs.get(rid))
         r = {"prompt": len(prompt), **compare_stream(got[rid], want, margins)}
         r["ok"] = r["ok"] and len(got[rid]) == want_len[rid]
         ok = ok and r["ok"]
@@ -682,7 +715,7 @@ SPEC_REPLAY = dict(requests=8, prompt=512, output=64, tight=0.0125,
                    loose=0.1, ttft_slowdown=8.0)
 
 
-def spec_replay_phase(pa, pp, pv, seed: int):
+def spec_replay_phase(pa, pp, pv, fa, seed: int):
     """The spec path end to end: ``ServingFrontend`` over ``ServingEngine``
     with the target as its own draft and a speculation-planning
     ``SLOsServeScheduler`` (the JAX demo's recipe), eight requests (prompt
@@ -716,11 +749,11 @@ def spec_replay_phase(pa, pp, pv, seed: int):
     verify_pos0: list[int] = []
     verify_forward = eng._verify_forward
 
-    def seen_verify(cache, tokens, pos0, true_len, bt):
+    def seen_verify(cache, tokens, pos0, true_len, *rest):
         key = f"{tokens.shape[1]}/{int(true_len[0])}"
         windows[key] = windows.get(key, 0) + 1
         verify_pos0.append(int(pos0[0]))
-        return verify_forward(cache, tokens, pos0, true_len, bt)
+        return verify_forward(cache, tokens, pos0, true_len, *rest)
     eng._verify_forward = seen_verify
     R = SPEC_REPLAY
     g = torch.Generator().manual_seed(seed + 2)
@@ -733,7 +766,7 @@ def spec_replay_phase(pa, pp, pv, seed: int):
     planned: dict[str, dict[int, int]] = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in (pa.COUNTS, pp.COUNTS, pv.COUNTS):
+    for c in (pa.COUNTS, pp.COUNTS, pv.COUNTS, fa.COUNTS):
         c["kernel"] = c["plain"] = 0
     t0 = time.perf_counter()
     steps = 0
@@ -747,7 +780,7 @@ def spec_replay_phase(pa, pp, pv, seed: int):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"decode": dict(pa.COUNTS), "prefill": dict(pp.COUNTS),
-                "verify": dict(pv.COUNTS)}
+                "verify": dict(pv.COUNTS), "flash": dict(fa.COUNTS)}
     s, c = fe.stats, eng.counters
     L, Ld = cfg.n_layers, eng.spec.cfg.n_layers
     timed = next(f"{S}/{clen[0]}" for (name, _, S, *_, clen, _)
@@ -761,6 +794,7 @@ def spec_replay_phase(pa, pp, pv, seed: int):
             == L * c["prefill_calls"] + Ld * c["spec_catch_up_calls"],
         "decode_launches": launches["decode"]["kernel"]
             == L * c["decode_steps"] + Ld * c["spec_draft_steps"],
+        "no_flash_kernel": launches["flash"]["kernel"] == 0,
         "no_plain": not any(v["plain"] for v in launches.values()),
         "timed_verify_window_ran": timed in windows,
     }
@@ -992,11 +1026,11 @@ def mla_replay_phase(cfg, params, kernels, seed: int):
     exact: list = []
     prefill_forward = eng._prefill_forward
 
-    def seen_prefill(cache, tokens, pos0, true_len, bt, sample_rows):
+    def seen_prefill(cache, tokens, pos0, true_len, *rest):
         key = f"{tokens.shape[0]}/{tokens.shape[1]}"
         groups[key] = groups.get(key, 0) + 1
         exact.append((pos0.tolist(), true_len.tolist()))
-        return prefill_forward(cache, tokens, pos0, true_len, bt, sample_rows)
+        return prefill_forward(cache, tokens, pos0, true_len, *rest)
     eng._prefill_forward = seen_prefill
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1016,6 +1050,7 @@ def mla_replay_phase(cfg, params, kernels, seed: int):
             launches["mla_prefill"]["kernel"] == L * c["prefill_calls"],
         "no_gqa_kernel": all(launches[k]["kernel"] == 0
                              for k in ("decode", "prefill", "verify")),
+        "no_flash_kernel": launches["flash"]["kernel"] == 0,
         "no_plain": not any(v["plain"] for v in launches.values()),
         "timed_prefill_shape_ran": timed in groups,
     }
@@ -1272,11 +1307,11 @@ def ssm_replay_phase(cfg, params, kernels, seed: int):
     exact: list = []
     prefill_forward = eng._prefill_forward
 
-    def seen_prefill(cache, tokens, pos0, true_len, bt, sample_rows):
+    def seen_prefill(cache, tokens, pos0, true_len, *rest):
         key = f"{tokens.shape[0]}/{tokens.shape[1]}"
         groups[key] = groups.get(key, 0) + 1
         exact.append(true_len.tolist())
-        return prefill_forward(cache, tokens, pos0, true_len, bt, sample_rows)
+        return prefill_forward(cache, tokens, pos0, true_len, *rest)
     eng._prefill_forward = seen_prefill
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1294,7 +1329,7 @@ def ssm_replay_phase(cfg, params, kernels, seed: int):
         "tokens_out": s.tokens_out > 0,
         "ssd_launches": launches["ssd"]["kernel"] == L * c["prefill_calls"],
         "no_attention_kernel": all(launches[k]["kernel"] == 0 for k in (
-            "decode", "prefill", "verify", "mla_prefill")),
+            "decode", "prefill", "verify", "mla_prefill", "flash")),
         "no_plain": not any(v["plain"] for v in launches.values()),
         "timed_prefill_shape_ran": timed in groups,
     }
@@ -1380,6 +1415,306 @@ def ssm_decode_breakdown(cfg, params, eng):
     return out
 
 
+# ----------------------------- whisper phases ---------------------------- #
+WHISPER_ARCH = "whisper-large-v3"
+# name, B, Sq, Sk, H, KV, hd, causal, q_offset, kv_len, through the GQA
+# wrapper (B6 runs on (B H, Sq, hd)).  "encoder" is one whisper encoder
+# layer for one request, "cross_decode" one cross-attention layer of an
+# eight-lane decode step; the cross prefill chunks are the replay's 16-row
+# bucket over three lanes and a 128-row one; then causal from q_offset 0,
+# a chunk at an offset whose last rows meet kv_len < Sk, head dim 32,
+# head dim 128 at llama-3.2-vision's cross shape and at qwen3-1.7b's
+# no-cache causal shape, and Sq, Sk and kv_len that are no multiples of
+# the tiles.
+FLASH_CASES = [
+    ("encoder", 1, 1500, 1500, 20, 20, 64, False, 0, None),
+    ("cross_decode", 8, 1, 1500, 20, 20, 64, False, 0, None),
+    ("cross_prefill_16", 3, 16, 1500, 20, 20, 64, False, 0, None),
+    ("cross_prefill_128", 1, 128, 1500, 20, 20, 64, False, 0, None),
+    ("causal_q0", 1, 300, 300, 20, 20, 64, True, 0, None),
+    ("causal_offset_kv_len", 2, 77, 500, 4, 4, 64, True, 200, 260),
+    ("hd32_causal", 2, 45, 101, 6, 2, 32, True, 56, 101),
+    ("hd128_vlm_cross", 2, 37, 1600, 32, 8, 128, False, 0, None),
+    ("hd128_qwen3_causal", 1, 200, 200, 16, 8, 128, True, 0, None),
+    ("ragged", 2, 65, 129, 3, 3, 64, False, 0, 100),
+]
+FLASH_TIMED = ("encoder", "cross_decode")
+
+
+def flat_heads(q, k, v):
+    """(B, S, H | KV, hd) -> (B H, S, hd), K/V repeated over their query
+    groups, as ``attention`` hands them to B6."""
+    B, Sq, H, hd = q.shape
+    G = H // k.shape[2]
+
+    def flat(t):
+        return t.transpose(1, 2).reshape(B * H, t.shape[1], hd).contiguous()
+    return (flat(q), flat(k.repeat_interleave(G, 2)),
+            flat(v.repeat_interleave(G, 2)))
+
+
+def visible_keys(Sq, Sk, causal, q_offset, kv_len):
+    """Keys each query row sees: min(kv_len, q_offset + i + 1) or kv_len."""
+    lim = min(Sk if kv_len is None else kv_len, Sk)
+    return [min(lim, q_offset + i + 1) if causal else lim
+            for i in range(Sq)]
+
+
+def flash_phase(fa):
+    """B6 through its GQA wrapper against its plain version on the same
+    flattened inputs; then the keys no row may see (past kv_len, past the
+    last row's causal limit) are set to 1e4 and the kernel's output must
+    not move.  Outputs within 1e-4, finite."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    results = {}
+    for (name, B, Sq, Sk, H, KV, hd, causal, q_offset,
+         kv_len) in FLASH_CASES:
+        q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda")
+        k = torch.randn(B, Sk, KV, hd, generator=gen, device="cuda")
+        v = torch.randn(B, Sk, KV, hd, generator=gen, device="cuda")
+        kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+        got = fa.attention(q, k, v, **kw)
+        qf, kf, vf = flat_heads(q, k, v)
+        want = fa.flash_attention_plain(
+            qf, kf, vf, causal=causal, q_offset=q_offset,
+            kv_len=Sk if kv_len is None else kv_len, scale=hd ** -0.5)
+        want = want.reshape(B, H, Sq, hd).transpose(1, 2)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        seen = max(visible_keys(Sq, Sk, causal, q_offset, kv_len))
+        kp, vp = k.clone(), v.clone()
+        kp[:, seen:] = 1e4
+        vp[:, seen:] = 1e4
+        perr = (fa.attention(q, kp, vp, **kw) - got).abs().max().item()
+        ok = err <= LIMIT and perr <= LIMIT and bool(torch.isfinite(got).all())
+        rec = {"phase": "kernel", "kernel": "flash_attention_bh", "case": name,
+               "B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
+               "BH": B * H, "causal": causal, "q_offset": q_offset,
+               "kv_len": kv_len, "keys_poisoned": Sk - seen,
+               "max_abs_err": err, "poisoned_err": perr, "ok": ok}
+        if name in FLASH_TIMED:
+            rec.update(flash_timing(fa, qf, kf, vf, causal, q_offset, kv_len))
+            results[name] = rec
+        emit(rec)
+        if not ok:
+            raise SystemExit(f"flash_attention_bh disagrees ({name})")
+    return results
+
+
+def flash_timing(fa, qf, kf, vf, causal, q_offset, kv_len):
+    BH, Sq, hd = qf.shape
+    Sk = kf.shape[1]
+    scale = hd ** -0.5
+    F = torch.nn.functional
+    n_vis = visible_keys(Sq, Sk, causal, q_offset, kv_len)
+    mask = None
+    if causal or max(n_vis) < Sk:
+        mask = (torch.arange(Sk, device="cuda")[None, :]
+                < torch.tensor(n_vis, device="cuda")[:, None])
+    lim = Sk if kv_len is None else kv_len
+    kernel_ms = time_ms(lambda: fa.flash_attention_bh(
+        qf, kf, vf, causal=causal, q_offset=q_offset, kv_len=kv_len))
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(
+        qf, kf, vf, causal=causal, q_offset=q_offset, kv_len=lim,
+        scale=scale))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qf[None], kf[None], vf[None], attn_mask=mask, scale=scale))
+    # bytes: q read and out written once, each visible key's K and V rows
+    # read once; flops: 4 hd per visible (row, key) pair
+    n_bytes = 4 * BH * hd * (2 * Sq + 2 * max(n_vis))
+    n_flops = 4 * hd * BH * sum(n_vis)
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_call": "scaled_dot_product_attention on (1, BH, S, hd)"}
+
+
+def whisper_model(seed: int):
+    """whisper-large-v3 at its published width and depth and its random
+    weights (encoder and decoder)."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import init_encdec_params
+    dev = torch.device("cuda")
+    cfg = get_config(WHISPER_ARCH)
+    return cfg, init_encdec_params(cfg, generator(dev, seed), device=dev)
+
+
+def whisper_frames(cfg, seed: int, rid: int):
+    """One request's frame embeddings (1, 1500, 1280), the conv frontend's
+    stub output, from a numpy seed."""
+    import numpy as np
+    a = np.random.default_rng([seed, rid]).standard_normal(
+        (1, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    return torch.from_numpy(a).to("cuda")
+
+
+def whisper_stream_phase(cfg, params, seed: int):
+    """The engine's greedy streams on full-width whisper (B2 and B1 for the
+    decoder's self-attention, B6 for every cross-attention and for the
+    encoder), each request with its own encoder states, against plain
+    generation, as in the stream phase."""
+    from repro_torch.models import encoder_forward
+    with torch.no_grad():
+        encs = {rid: encoder_forward(params["encoder"], cfg,
+                                     whisper_frames(cfg, seed, rid))
+                for rid in STREAM_PROMPTS}
+    engine_streams({"phase": "whisper_stream", "model": cfg.name,
+                    "layers": cfg.n_layers,
+                    "encoder_layers": cfg.encoder.n_layers,
+                    "enc_abs_max": {r: e.abs().max().item()
+                                    for r, e in encs.items()}},
+                   cfg, params, max_len=448, prompt_seed=seed + 5, encs=encs)
+
+
+WHISPER_REPLAY = ["--scenario", "chatbot", "--rate", "2.0",
+                  "--time-scale", "0.25", "--max-requests", "8",
+                  "--duration", "10"]
+
+
+def whisper_replay_phase(cfg, params, kernels, seed: int):
+    """The whisper path end to end: ``ServingFrontend`` with the launcher's
+    scheduler and virtual perf model over ``ServingEngine`` on full-width
+    whisper (page 16, 8 slots, max_len 448, whisper's decoder context),
+    serving the launcher's chatbot trace; each request is submitted with
+    the ``enc_states`` of its own frames.  Launch counts are zeroed just
+    before the encoder calls and read just after the replay."""
+    from repro_torch.core.scheduler import SchedulerConfig, SLOsServeScheduler
+    from repro_torch.launch import serve
+    from repro_torch.models import encoder_forward
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.frontend import ServingFrontend
+
+    dev = torch.device("cuda")
+    eng = ServingEngine(cfg, params, EngineConfig(
+        max_slots=8, max_len=448, page_size=16, total_pages=256),
+        device=dev)
+    sched = SLOsServeScheduler(serve.VIRTUAL_PERF, SchedulerConfig(
+        prefill_emits_first_token=True))
+    fe = ServingFrontend(eng, sched, seed=seed)
+    reqs = serve.trace(serve.parse_args(WHISPER_REPLAY
+                                        + ["--seed", str(seed)]))
+    frames = {r.rid: whisper_frames(cfg, seed + 1, r.rid) for r in reqs}
+    timer = SpanTimer()
+    eng.tracer = timer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in kernels.values():
+        c.COUNTS["kernel"] = c.COUNTS["plain"] = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for r in reqs:
+            fe.submit(r, enc_states=encoder_forward(params["encoder"], cfg,
+                                                    frames[r.rid]))
+    torch.cuda.synchronize()
+    encoder_s = time.perf_counter() - t0
+    wall = serve.replay(fe)
+    launches = {k: dict(m.COUNTS) for k, m in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s, c = fe.stats, eng.counters
+    L, Le = cfg.n_layers, cfg.encoder.n_layers
+    n_cross = sum(kind == "cross_attn" for kind in cfg.block_pattern)
+    checks = {
+        "served_all": s.served == s.submitted == 8,
+        "tokens_out": s.tokens_out > 0,
+        "flash_launches": launches["flash"]["kernel"]
+            == Le * len(reqs) + n_cross * (c["prefill_calls"]
+                                           + c["decode_steps"]),
+        "prefill_launches":
+            launches["prefill"]["kernel"] == L * c["prefill_calls"],
+        "decode_launches":
+            launches["decode"]["kernel"] == L * c["decode_steps"],
+        "no_other_kernel": all(launches[k]["kernel"] == 0
+                               for k in ("verify", "mla_prefill", "ssd")),
+        "no_plain": not any(v["plain"] for v in launches.values()),
+    }
+    rec = {"phase": "whisper_replay", "model": cfg.name, "layers": L,
+           "encoder_layers": Le, "submitted": s.submitted,
+           "served": s.served, "attained": s.attained, "dropped": s.dropped,
+           "tokens_out": s.tokens_out, "encoder_calls": len(reqs),
+           "encoder_s": encoder_s,
+           "counters": {k: c[k] for k in (
+               "prefill_calls", "decode_calls", "decode_steps",
+               "decode_tokens", "prefill_fused_ops")},
+           "launches": launches, "wall_s": wall, "span_s": timer.seconds,
+           "spans": timer.count,
+           "outside_spans_s": wall - sum(timer.seconds.values()),
+           "prefill_group_ms": (1e3 * timer.seconds.get("prefill", 0.0)
+                                / max(c["prefill_calls"], 1)),
+           "decode_step_ms": (1e3 * timer.seconds.get("decode", 0.0)
+                              / max(c["decode_steps"], 1)),
+           "peak_mem_gib": peak, "checks": checks}
+    eng.tracer = None
+    rec["decode_breakdown"] = whisper_decode_breakdown(cfg, params, eng,
+                                                       frames)
+    emit(rec)
+    if not all(checks.values()):
+        raise SystemExit(f"whisper replay checks failed: {checks}")
+    return launches
+
+
+def whisper_decode_breakdown(cfg, params, eng, frames):
+    """Device time of one decode step of eight lanes over the replay's
+    table width (every lane at position 400; chunk_len 0, so every write
+    goes to the write-off page and the pools keep their state), whole and
+    by part: the first layer's cross K/V projection of the eight lanes'
+    encoder states (the reference's design repeats it in every step of
+    every layer), its cross-attention (q projection, B6, output
+    projection), its self-attention (the page write and B1), the
+    unembedding."""
+    from repro_torch.models import (attention, encoder_forward, logits_fn,
+                                    model_forward)
+    from repro_torch.models.layers import apply_norm
+
+    dev = torch.device("cuda")
+    B, width = 8, eng.kv.max_pages_per_seq
+    table = (torch.arange(B * width, device=dev, dtype=torch.int32)
+             % eng.ecfg.total_pages).reshape(B, width)
+    pos0 = torch.full((B,), 400, dtype=torch.int32, device=dev)
+    none = torch.zeros(B, dtype=torch.int32, device=dev)
+    tok = torch.ones(B, 1, dtype=torch.long, device=dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(B, 1, cfg.d_model, generator=g, device=dev)
+    seg = params["segments"][0]["p"]
+    p0 = {"attn": {k: t[0] for k, t in seg["attn"].items()},
+          "cross": {k: t[0] for k, t in seg["cross"].items()},
+          "norm1": {k: t[0] for k, t in seg["norm1"].items()}}
+    cache0 = {k: t[0] for k, t in eng.kv.pools[0]["self"].items()}
+    with torch.no_grad():
+        enc = torch.cat([encoder_forward(params["encoder"], cfg, f)
+                         for f in list(frames.values())[:B]])
+        ekv = attention.project_cross_kv(p0["cross"], enc)
+        h = apply_norm(p0["norm1"], x, cfg.norm)
+
+    def step():
+        hid, _ = model_forward(params, cfg, tok, cache=eng.kv.pools,
+                               pos0=pos0, block_tables=table,
+                               chunk_len=none, enc_states=enc)
+        return logits_fn(params, cfg, hid[:, -1])
+    parts = {
+        "step_ms": step,
+        "cross_kv_projection_ms": lambda: attention.project_cross_kv(
+            p0["cross"], enc),
+        "cross_attention_ms": lambda: attention.cross_attn_forward(
+            p0["cross"], x, ekv),
+        "self_attention_ms": lambda: attention.attn_forward(
+            p0["attn"], h, cfg, positions=pos0[:, None], cache=cache0,
+            pos0=pos0, block_tables=table, chunk_len=none),
+        "unembed_ms": lambda: logits_fn(params, cfg, x[:, 0]),
+    }
+    out = {"lanes": B, "keys_per_lane": width * eng.ecfg.page_size,
+           "encoder_frames": enc.shape[1]}
+    with torch.no_grad():
+        for name, fn in parts.items():
+            out[name] = time_ms(fn)
+    out["cross_kv_projection_share_of_step"] = (
+        cfg.n_layers * out["cross_kv_projection_ms"] / out["step_ms"])
+    out["cross_attention_share_of_step"] = (
+        cfg.n_layers * out["cross_attention_ms"] / out["step_ms"])
+    return out
+
+
 # ----------------------------- main path ------------------------------- #
 class SpanTimer:
     """Engine tracer (the duck type of the telemetry StepTracer): wall
@@ -1402,7 +1737,7 @@ class SpanTimer:
             self.count[name] = self.count.get(name, 0) + 1
 
 
-def main_path(pa, pp, seed: int):
+def main_path(pa, pp, fa, seed: int):
     from repro_torch.launch import serve
     args = serve.parse_args(["--time-scale", "1.0", "--max-requests", "16",
                              "--duration", "10", "--seed", str(seed)])
@@ -1410,10 +1745,11 @@ def main_path(pa, pp, seed: int):
     timer = SpanTimer()
     eng.tracer = timer
     torch.cuda.reset_peak_memory_stats()
-    for c in (pa.COUNTS, pp.COUNTS):
+    for c in (pa.COUNTS, pp.COUNTS, fa.COUNTS):
         c["kernel"] = c["plain"] = 0
     wall = serve.replay(fe)
-    launches = {"decode": dict(pa.COUNTS), "prefill": dict(pp.COUNTS)}
+    launches = {"decode": dict(pa.COUNTS), "prefill": dict(pp.COUNTS),
+                "flash": dict(fa.COUNTS)}
     s, c = fe.stats, eng.counters
     L = eng.cfg.n_layers
     checks = {
@@ -1423,8 +1759,8 @@ def main_path(pa, pp, seed: int):
             launches["decode"]["kernel"] == L * c["decode_steps"],
         "prefill_launches":
             launches["prefill"]["kernel"] == L * c["prefill_calls"],
-        "no_plain": launches["decode"]["plain"] == 0
-                    and launches["prefill"]["plain"] == 0,
+        "no_flash_kernel": launches["flash"]["kernel"] == 0,
+        "no_plain": not any(v["plain"] for v in launches.values()),
     }
     emit({"phase": "main_path", "model": eng.cfg.name,
           "layers": L, "submitted": s.submitted, "served": s.served,
@@ -1449,6 +1785,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.device import set_precision
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import mla_paged_prefill as mk
@@ -1470,11 +1807,11 @@ def main() -> int:
     pre = prefill_phase(pp)
     ver = verify_phase(pv)
     stream_phase(seed)
-    launches = main_path(pa, pp, seed)
+    launches = main_path(pa, pp, fa, seed)
     free_device_memory()
     spec_stream_phase(seed)
     free_device_memory()
-    spec = spec_replay_phase(pa, pp, pv, seed)
+    spec = spec_replay_phase(pa, pp, pv, fa, seed)
     free_device_memory()
     mla = mla_prefill_phase(mk)
     free_device_memory()
@@ -1483,7 +1820,7 @@ def main() -> int:
     free_device_memory()
     mla_launches = mla_replay_phase(
         cfg, params, {"decode": pa, "prefill": pp, "verify": pv,
-                      "mla_prefill": mk}, seed)
+                      "mla_prefill": mk, "flash": fa}, seed)
     del params
     free_device_memory()
     ssd = ssd_phase(sk)
@@ -1493,7 +1830,17 @@ def main() -> int:
     free_device_memory()
     ssm_launches = ssm_replay_phase(
         cfg, params, {"decode": pa, "prefill": pp, "verify": pv,
-                      "mla_prefill": mk, "ssd": sk}, seed)
+                      "mla_prefill": mk, "ssd": sk, "flash": fa}, seed)
+    del params
+    free_device_memory()
+    flash = flash_phase(fa)
+    free_device_memory()
+    cfg, params = whisper_model(seed)
+    whisper_stream_phase(cfg, params, seed)
+    free_device_memory()
+    whisper_launches = whisper_replay_phase(
+        cfg, params, {"decode": pa, "prefill": pp, "verify": pv,
+                      "mla_prefill": mk, "ssd": sk, "flash": fa}, seed)
     del params
     free_device_memory()
     torch.cuda.synchronize()
@@ -1524,6 +1871,9 @@ def main() -> int:
         entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:59", ssd,
               ssm_launches["ssd"]["kernel"]),
+        entry("flash_attention_bh", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:66", flash["encoder"],
+              whisper_launches["flash"]["kernel"]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

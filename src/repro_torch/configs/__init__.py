@@ -3,8 +3,9 @@
 ``get_config(arch)`` returns the full published configuration and
 ``get_reduced(arch)`` the CPU-test variant of the same family.  Ported:
 the dense GQA families of the serving main path, deepseek-v2 (MLA +
-MoE) and mamba2 (SSM); every other architecture the reference knows
-raises ``NotImplementedError``.
+MoE), mamba2 (SSM), whisper (encoder-decoder) and llama-3.2-vision
+(cross-attention image layers); every other architecture the reference
+knows raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,13 +19,14 @@ _MODULES = {
     "qwen3-1.7b-swa": "qwen3_1p7b",
     "deepseek-v2-236b": "deepseek_v2_236b",
     "mamba2-2.7b": "mamba2_2p7b",
+    "whisper-large-v3": "whisper_large_v3",
+    "llama-3.2-vision-11b": "llama32_vision_11b",
 }
 
 # architectures the JAX reference serves that this package does not yet
 _NOT_PORTED = (
-    "whisper-large-v3", "phi4-mini-3.8b", "llama-3.2-vision-11b",
-    "command-r-plus-104b", "phi3.5-moe-42b-a6.6b", "zamba2-7b",
-    "opt-125m", "opt-7b", "opt-13b", "opt-30b",
+    "phi4-mini-3.8b", "command-r-plus-104b", "phi3.5-moe-42b-a6.6b",
+    "zamba2-7b", "opt-125m", "opt-7b", "opt-13b", "opt-30b",
 )
 
 def _mod(arch: str):

@@ -2,8 +2,9 @@
 version: B1 ``paged_attention.paged_decode_attention``, B2
 ``paged_prefill.paged_prefill_attention``, B3
 ``paged_verify.paged_verify_attention``, B4
-``mla_paged_prefill.mla_paged_prefill_attention`` and B5
-``ssd_scan.ssd_scan`` (sources in ``../csrc``, built by ``build.py`` at
-first use).  ``ref.py`` holds the loop-per-lane and token-by-token
-oracles.
+``mla_paged_prefill.mla_paged_prefill_attention``, B5
+``ssd_scan.ssd_scan`` and B6 ``flash_attention.flash_attention_bh``
+(with its GQA wrapper ``flash_attention.attention``; sources in
+``../csrc``, built by ``build.py`` at first use).  ``ref.py`` holds the
+oracles: loop-per-lane, token-by-token, one head block at a time.
 Importing this package needs neither ``nvcc`` nor a card."""

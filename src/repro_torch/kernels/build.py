@@ -40,6 +40,8 @@ SIGNATURES = {
     "mla_paged_prefill": ("repro_mla_paged_prefill_f32",
                           [_P] * 10 + [_I] * 7 + [_F, _P]),
     "ssd_scan": ("repro_ssd_scan_f32", [_P] * 8 + [_I] * 6 + [_P]),
+    "flash_attention": ("repro_flash_attention_f32",
+                        [_P] * 4 + [_I] * 7 + [_F, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,113 @@
+"""Dense flash attention (kernel B6): the CUDA kernel, its plain PyTorch
+version, the GQA wrapper, and the launch counts.
+
+Port of ``repro/kernels/flash_attention.py::flash_attention_bh`` and of its
+wrapper ``repro/kernels/ops.py::attention``.  Heads are flattened into the
+leading axis: q (BH, Sq, hd), k/v (BH, Sk, hd).  Key j is visible to query
+row i iff ``j < kv_len`` and, when ``causal``, ``j <= q_offset + i``.
+Masked scores are ``NEG_INF = -1e30`` and the softmax denominator is
+floored at 1e-30, as in the TPU kernel; accumulation is float32.  The
+port computes the function, not the TPU's block structure: it does not
+pad Sq or Sk to 128-row blocks.  A row with no visible key (``kv_len`` 0)
+lies on no path of the system; the kernel writes zeros there and the
+plain version the mean of V.
+
+Dispatch is by the inputs' device, as in ``paged_attention.py``: CPU →
+``flash_attention_plain``, CUDA → ``csrc/flash_attention.cu`` or raise.
+The kernel takes head dims 32, 64 and 128.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.paged_attention import NEG_INF, check_tensor
+
+COUNTS = {"kernel": 0, "plain": 0}
+
+# the head dims csrc/flash_attention.cu is compiled for
+KERNEL_HEAD_DIMS = (32, 64, 128)
+
+
+def flash_attention_bh(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                       kv_len: Optional[int] = None,
+                       scale: Optional[float] = None):
+    """q: (BH, Sq, hd); k/v: (BH, Sk, hd).  Returns (BH, Sq, hd) in q's
+    dtype."""
+    BH, Sq, hd = q.shape
+    Sk = k.shape[1]
+    kv_len = Sk if kv_len is None else int(kv_len)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=int(q_offset), kv_len=kv_len,
+                                     scale=scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_bh: no kernel for {q.device}")
+    return _launch(q, k, v, bool(causal), int(q_offset), kv_len, scale)
+
+
+def _launch(q, k, v, causal, q_offset, kv_len, scale):
+    from repro_torch.kernels import build
+    dev = q.device
+    check_tensor("q", q, torch.float32, dev, 3)
+    check_tensor("k", k, torch.float32, dev, 3)
+    check_tensor("v", v, torch.float32, dev, 3)
+    BH, Sq, hd = q.shape
+    Sk = k.shape[1]
+    if k.shape != (BH, Sk, hd) or v.shape != k.shape:
+        raise ValueError("flash_attention_bh: inconsistent shapes")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bh: the kernel takes head dims "
+                         f"{KERNEL_HEAD_DIMS}, got {hd}")
+    out = torch.empty_like(q)
+    fn = build.load("flash_attention")
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq,
+            Sk, hd, int(causal), q_offset, kv_len, scale,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: CUDA error {rc}")
+    COUNTS["kernel"] += 1
+    return out
+
+
+def flash_attention_plain(q, k, v, *, causal: bool, q_offset: int,
+                          kv_len: int, scale: float):
+    """The kernel's function in plain PyTorch: the whole (Sq, Sk) score
+    matrix, masked, one softmax."""
+    COUNTS["plain"] += 1
+    Sq, Sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = k_pos < kv_len
+    if causal:
+        q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+        mask = mask & (k_pos <= q_pos)
+    s = torch.where(mask[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+              kv_len: Optional[int] = None, scale: Optional[float] = None):
+    """Flash attention with GQA (``ops.attention`` of the reference): q
+    (B, Sq, H, hd), k/v (B, Sk, KV, hd) with H a multiple of KV.  The KV
+    heads are repeated over their query groups and the heads flattened
+    into ``flash_attention_bh``'s leading axis.  Returns (B, Sq, H, hd)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    if H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} KV heads")
+    if H != KV:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    Sk = k.shape[1]
+
+    def flat(t, S):
+        return t.transpose(1, 2).reshape(B * H, S, hd).contiguous()
+    o = flash_attention_bh(flat(q, Sq), flat(k, Sk), flat(v, Sk),
+                           causal=causal, q_offset=q_offset, kv_len=kv_len,
+                           scale=scale)
+    return o.reshape(B, H, Sq, hd).transpose(1, 2).to(q.dtype)

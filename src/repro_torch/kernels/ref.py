@@ -1,5 +1,5 @@
-"""Loop-per-lane oracles for the paged kernels and the SSD scan, ported
-from ``repro/kernels/ref.py`` (``ref_paged_decode``, ``ref_paged_prefill``,
+"""Oracles for every kernel, ported from ``repro/kernels/ref.py``
+(``ref_attention_bh``, ``ref_paged_decode``, ``ref_paged_prefill``,
 ``ref_mla_paged_prefill`` and ``ref_ssd``).
 
 They are the slowest, most obviously right versions: one lane at a time,
@@ -14,6 +14,28 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+
+
+def ref_attention_bh(q, k, v, *, causal=True, q_offset=0, kv_len=None,
+                     scale=None):
+    """Dense attention, one (bh) row block at a time.  q: (BH, Sq, hd);
+    k/v: (BH, Sk, hd); key j is visible to row i iff j < kv_len and, when
+    causal, j <= q_offset + i."""
+    BH, Sq, hd = q.shape
+    Sk = k.shape[1]
+    kv_len = Sk if kv_len is None else kv_len
+    scale = hd ** -0.5 if scale is None else scale
+    q_pos = q_offset + torch.arange(Sq)[:, None]
+    k_pos = torch.arange(Sk)[None, :]
+    mask = k_pos < kv_len
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    out = []
+    for b in range(BH):
+        s = (q[b].float() @ k[b].float().T) * scale
+        p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+        out.append(p @ v[b].float())
+    return torch.stack(out).to(q.dtype)
 
 
 def ref_paged_decode(q, k_pages, v_pages, block_table, seq_lens, *,

@@ -1,8 +1,13 @@
 """Model zoo of the port: dense GQA decoders (``attn`` blocks),
-DeepSeek-V2 (``mla`` / ``mla_moe`` blocks) and Mamba2 (``ssm`` blocks)."""
+cross-attending decoders (``cross_attn`` blocks: whisper with its encoder
+in ``encdec.py``, the llama-3.2-vision VLM), DeepSeek-V2 (``mla`` /
+``mla_moe`` blocks) and Mamba2 (``ssm`` blocks)."""
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import (encdec_forward, encoder_forward,
+                                       init_encdec_params, init_encoder)
 from repro_torch.models.transformer import (init_paged_cache, init_params,
                                             logits_fn, model_forward)
 
 __all__ = ["ModelConfig", "init_params", "init_paged_cache", "model_forward",
-           "logits_fn"]
+           "logits_fn", "init_encoder", "encoder_forward",
+           "init_encdec_params", "encdec_forward"]

@@ -1,9 +1,11 @@
-"""Self-attention mixers over paged KV (port of
-``repro/models/attention.py``): GQA (RoPE, qk-norm, sliding window) and
-MLA (DeepSeek-V2 multi-head latent attention, ``mla_forward``).
+"""Attention mixers (port of ``repro/models/attention.py``): GQA
+self-attention over paged KV (RoPE, qk-norm, sliding window),
+cross-attention (``cross_attn_forward``) and MLA (DeepSeek-V2 multi-head
+latent attention, ``mla_forward``).
 
 Two execution modes share ``attn_forward``:
-  * full causal (``cache=None``): plain masked attention over the chunk;
+  * no cache (``cache=None``): causal, or bidirectional with
+    ``causal=False``, attention over the chunk;
   * paged (``cache = {"k_pages", "v_pages"}``): page pools addressed by
     per-lane block tables.  A multi-token chunk goes to the fused prefill
     kernel (B2, ``kernels/paged_prefill.py``), which writes the chunk's KV
@@ -20,7 +22,13 @@ was given.  Every pool the engine owns ends in one WRITE-OFF page
 rows there.  JAX drops them with ``mode="drop"``; torch has no such mode,
 and routing them to "the old value" would race with lane 0's real write,
 since padded decode lanes repeat lane 0's slot.  The write-off page keeps
-the scatter free of host syncs.  Cross-attention is not ported.
+the scatter free of host syncs.
+
+No-cache attention (plain generation, whisper's encoder) and every
+cross-attention (``cross_attn_forward``: whisper's decoder, the VLM's image
+layers) run through the dense flash attention kernel (B6,
+``kernels/flash_attention.py``), causal or bidirectional; a windowed
+no-cache call keeps the masked ``sdpa`` here, since B6 has no window.
 
 ``OP_STATS`` keeps the reference's keys, but the port runs eagerly and
 counts per call, where JAX counts once per traced program.
@@ -31,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention import attention
 from repro_torch.kernels.mla_paged_prefill import mla_paged_prefill_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
@@ -77,7 +86,11 @@ def paged_gather(pages, block_table):
 
 
 # ------------------------------ init ----------------------------------- #
-def init_attn(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
+def init_attn(gen, cfg: ModelConfig, dtype=torch.float32, device=None,
+              cross: bool = False):
+    """GQA weights with the reference's shapes and scales, from ``gen``; a
+    cross-attention block (``cross``) has no q/k norm and a ``gate``
+    scalar (the VLM's tanh gate, 0 at init)."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def normal(*shape):
@@ -92,9 +105,11 @@ def init_attn(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
         p["bk"] = torch.zeros(kv, hd, dtype=dtype, device=device)
         p["bv"] = torch.zeros(kv, hd, dtype=dtype, device=device)
         p["bo"] = torch.zeros(d, dtype=dtype, device=device)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
         p["k_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
+    if cross:
+        p["gate"] = torch.zeros((), dtype=torch.float32, device=device)
     return p
 
 
@@ -129,14 +144,16 @@ def causal_mask(B, Sq, Sk, pos0, kv_len, window: Optional[int] = None):
 
 # --------------------------- self-attention ----------------------------- #
 def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
-                 pos0=None, block_tables=None, chunk_len=None, verify=False):
+                 pos0=None, block_tables=None, chunk_len=None, verify=False,
+                 causal: bool = True):
     """Returns (ctx (B, Sq, H, hd), cache).
 
-    cache: None (full causal, nothing kept) or dict(k_pages, v_pages) page
-    pools addressed through ``block_tables`` and updated in place.  pos0:
-    (B,) write offsets; chunk_len: (B,) true (unpadded) chunk lengths;
-    verify: the chunk is a speculative-decoding verify window (same
-    function, own kernel and ``OP_STATS`` key)."""
+    cache: None (no cache kept: causal, or bidirectional with
+    ``causal=False`` as in an encoder) or dict(k_pages, v_pages) page pools
+    addressed through ``block_tables`` and updated in place.  pos0: (B,)
+    write offsets; chunk_len: (B,) true (unpadded) chunk lengths; verify:
+    the chunk is a speculative-decoding verify window (same function, own
+    kernel and ``OP_STATS`` key)."""
     B, Sq, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"].reshape(d, h * hd)).reshape(B, Sq, h, hd)
@@ -153,9 +170,12 @@ def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
     window = cfg.sliding_window
 
     if cache is None:
-        zeros = torch.zeros(B, dtype=torch.int32, device=x.device)
-        full = torch.full((B,), Sq, dtype=torch.int32, device=x.device)
-        return sdpa(q, k, v, causal_mask(B, Sq, Sq, zeros, full, window)), None
+        if causal and window is not None:
+            zeros = torch.zeros(B, dtype=torch.int32, device=x.device)
+            full = torch.full((B,), Sq, dtype=torch.int32, device=x.device)
+            return sdpa(q, k, v,
+                        causal_mask(B, Sq, Sq, zeros, full, window)), None
+        return attention(q, k, v, causal=causal), None
     if "k_pages" not in cache:
         raise NotImplementedError("only paged KV caches are ported")
 
@@ -194,6 +214,39 @@ def attn_output(p, ctx):
     if "bo" in p:
         out = out + p["bo"]
     return out
+
+
+# --------------------------- cross-attention ---------------------------- #
+def cross_attn_forward(p, x, enc_kv, gated: bool = False):
+    """Attention of the decoder's rows over encoder (or image) states, all
+    of them visible: B6 with ``causal=False`` and ``kv_len`` the encoder
+    length.  enc_kv: dict(k, v) from ``project_cross_kv``, (B, Sk, KV, hd).
+    ``gated``: the VLM's ``tanh(gate)`` scales the output.  (The
+    reference's optional per-lane ``enc_len`` mask has no caller there
+    and is not ported.)"""
+    B, Sq, d = x.shape
+    h, hd = p["wq"].shape[1], p["wq"].shape[2]
+    q = (x @ p["wq"].reshape(d, h * hd)).reshape(B, Sq, h, hd)
+    if "bq" in p:
+        q = q + p["bq"]
+    k, v = enc_kv["k"].to(q.dtype), enc_kv["v"].to(q.dtype)
+    ctx = attention(q, k, v, causal=False, kv_len=k.shape[1])
+    out = attn_output(p, ctx)
+    if gated and "gate" in p:
+        out = torch.tanh(p["gate"]) * out
+    return out
+
+
+def project_cross_kv(p, states):
+    """Cross-attention K/V of encoder or image states (B, T, D) ->
+    dict(k, v) of (B, T, KV, hd)."""
+    B, T, d = states.shape
+    kv, hd = p["wk"].shape[1], p["wk"].shape[2]
+    k = (states @ p["wk"].reshape(d, kv * hd)).reshape(B, T, kv, hd)
+    v = (states @ p["wv"].reshape(d, kv * hd)).reshape(B, T, kv, hd)
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return {"k": k, "v": v}
 
 
 # ------------------------------- MLA ------------------------------------ #

@@ -1,5 +1,5 @@
-"""Decoder stack for ``attn``, ``mla``, ``mla_moe`` and ``ssm`` models
-(port of ``repro/models/transformer.py``).
+"""Decoder stack for ``attn``, ``cross_attn``, ``mla``, ``mla_moe`` and
+``ssm`` models (port of ``repro/models/transformer.py``).
 
 Parameters keep the JAX pytree's layout: ``cfg.block_pattern`` is grouped
 into homogeneous segments and each segment's block parameters are stacked
@@ -7,9 +7,12 @@ on a leading layer axis (unstacked when the segment has one layer).  Where
 JAX runs ``lax.scan`` over a segment, this module loops over the layer
 index in Python; each layer reads and writes its own slice of the stacked
 page pools (or SSM lane rows) in place.  Block kinds: ``attn`` (GQA +
-dense MLP), ``mla`` (MLA + dense MLP), ``mla_moe`` (MLA + MoE FFN,
+dense MLP), ``cross_attn`` (GQA, then cross-attention over encoder or
+image states, then a dense MLP: whisper's decoder, the VLM's image
+layers), ``mla`` (MLA + dense MLP), ``mla_moe`` (MLA + MoE FFN,
 DeepSeek-V2) and ``ssm`` (a Mamba2 mixer, no FFN half); any other kind
-raises ``NotImplementedError``.
+raises ``NotImplementedError``.  Learned positions (``cfg.learned_pos``,
+whisper) are added to the embeddings, clipped to the table.
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (attn_forward, attn_output,
-                                          init_attn, init_mla, mla_forward)
+                                          cross_attn_forward, init_attn,
+                                          init_mla, mla_forward,
+                                          project_cross_kv)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed,
                                        init_embed, init_mlp, init_norm,
@@ -26,17 +31,16 @@ from repro_torch.models.moe import init_moe, moe_forward
 from repro_torch.models.ssm import (init_ssm, ssm_decode_step, ssm_forward,
                                     write_lane_rows)
 
-PORTED_KINDS = ("attn", "mla", "mla_moe", "ssm")
+PORTED_KINDS = ("attn", "cross_attn", "mla", "mla_moe", "ssm")
 MLA_KINDS = ("mla", "mla_moe")
 MOE_KINDS = ("mla_moe",)
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     bad = sorted({k for k in cfg.block_pattern if k not in PORTED_KINDS})
-    if bad or cfg.learned_pos or cfg.encoder is not None:
+    if bad:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {bad or cfg.block_pattern[:1]} "
-            f"(or learned positions / encoder) are not yet ported")
+            f"{cfg.name}: block kinds {bad} are not yet ported")
 
 
 # ------------------------------ blocks --------------------------------- #
@@ -50,6 +54,9 @@ def init_block(gen, kind: str, cfg: ModelConfig, dtype=torch.float32,
         p["attn"] = init_mla(gen, cfg, dtype, device)
     else:
         p["attn"] = init_attn(gen, cfg, dtype, device)
+    if kind == "cross_attn":
+        p["norm_x"] = init_norm(cfg.d_model, cfg.norm, device)
+        p["cross"] = init_attn(gen, cfg, dtype, device, cross=True)
     p["norm2"] = init_norm(cfg.d_model, cfg.norm, device)
     if kind in MOE_KINDS:
         p["moe"] = init_moe(gen, cfg, dtype, device)
@@ -61,10 +68,13 @@ def init_block(gen, kind: str, cfg: ModelConfig, dtype=torch.float32,
 
 def block_forward(p, kind: str, cfg: ModelConfig, x, *, positions,
                   cache=None, pos0=None, block_tables=None, chunk_len=None,
-                  verify=False, moe_cf=None):
+                  verify=False, moe_cf=None, enc_kv=None):
     """One block: pre-norm attention (GQA or MLA) then a pre-norm dense MLP
-    or MoE FFN, or a pre-norm Mamba2 mixer.  MLA takes no ``verify`` flag:
-    its verify window is a chunked prefill, as in the reference.
+    or MoE FFN, or a pre-norm Mamba2 mixer.  A ``cross_attn`` block adds a
+    pre-norm cross-attention over ``enc_kv`` (dict(k, v), this layer's
+    projection of the encoder states) after the self-attention residual,
+    gated by ``tanh(gate)`` in a VLM.  MLA takes no ``verify`` flag: its
+    verify window is a chunked prefill, as in the reference.
 
     An ``ssm`` block with a cache takes a decode step when S == 1, else a
     prefill chunk, and stores its new lane rows into ``cache`` in place; a
@@ -94,6 +104,10 @@ def block_forward(p, kind: str, cfg: ModelConfig, x, *, positions,
                               chunk_len=chunk_len, verify=verify)
         y = attn_output(p["attn"], ctx)
     x = x + y.to(x.dtype)
+    if kind == "cross_attn":
+        hx = apply_norm(p["norm_x"], x, cfg.norm)
+        x = x + cross_attn_forward(p["cross"], hx, enc_kv,
+                                   gated=cfg.arch_type == "vlm")
     h2 = apply_norm(p["norm2"], x, cfg.norm)
     if kind in MOE_KINDS:
         y2, _ = moe_forward(p["moe"], h2, cfg, capacity_factor=moe_cf)
@@ -137,6 +151,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     if not cfg.tie_embeddings:
         params["unembed"] = init_unembed(gen, cfg.vocab, cfg.d_model, dtype,
                                          device)
+    if cfg.learned_pos:
+        params["pos_embed"] = torch.randn(
+            cfg.learned_pos, cfg.d_model, generator=gen, dtype=dtype,
+            device=device) * 0.02
     segs = []
     for kind, n in cfg.segments():
         block = init_block(gen, kind, cfg, dtype, device)
@@ -202,10 +220,15 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 # ---------------------------- full forward ----------------------------- #
 def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
                   block_tables=None, chunk_len=None, verify=False,
-                  moe_cf=None):
+                  moe_cf=None, enc_states=None):
     """Returns (hidden (B, S, D), cache).
 
-    ``cache=None`` is full causal attention over ``tokens``.  With paged
+    ``cache=None`` is full causal attention over ``tokens`` (through B6,
+    or the masked ``sdpa`` for a sliding window).
+    ``enc_states`` (B, T, D): the encoder output (whisper) or image
+    embeddings (VLM) that every ``cross_attn`` layer attends to; each such
+    layer projects its own K/V from them on every call, as the reference
+    does.  With paged
     pools from ``init_paged_cache``, the S new tokens of each lane are
     written at offset ``pos0`` (B,) through ``block_tables`` (B, max_pages)
     — only the first ``chunk_len`` (B,) of them — and the pools are
@@ -223,6 +246,9 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
     if pos0 is None:
         pos0 = torch.zeros(B, dtype=torch.int32, device=x.device)
     positions = pos0[:, None] + torch.arange(S, device=x.device)[None, :]
+    if cfg.learned_pos:
+        x = x + params["pos_embed"][
+            positions.clamp(0, cfg.learned_pos - 1).long()]
     for i, (kind, n) in enumerate(cfg.segments()):
         seg_p = params["segments"][i]["p"]
         seg_c = None
@@ -233,10 +259,16 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
             c = None
             if seg_c is not None:
                 c = seg_c if n == 1 else {k: t[l] for k, t in seg_c.items()}
+            enc_kv = None
+            if kind == "cross_attn":
+                if enc_states is None:
+                    raise ValueError(f"{cfg.name}: cross_attn layers need "
+                                     "enc_states")
+                enc_kv = project_cross_kv(p["cross"], enc_states)
             x = block_forward(p, kind, cfg, x, positions=positions, cache=c,
                               pos0=pos0, block_tables=block_tables,
                               chunk_len=chunk_len, verify=verify,
-                              moe_cf=moe_cf)
+                              moe_cf=moe_cf, enc_kv=enc_kv)
     return apply_norm(params["final_norm"], x, cfg.norm), cache
 
 

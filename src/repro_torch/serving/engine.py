@@ -15,6 +15,13 @@ The engine executes planner ``Batch`` objects:
   * SSM models (Mamba2) keep per-slot lane rows instead of pages: each
     call reads them gathered to its lanes (``kv.lane_cache``) and scatters
     the live lanes' rows back (``kv.absorb``).
+  * Encoder or image conditioning (whisper, the VLM): a request admitted
+    with ``enc_states`` (1, T, D) keeps them in its context; every call
+    stacks its lanes' states (zeros for lanes without, and for padded
+    lanes) and each ``cross_attn`` layer attends to them.  Conditioned
+    and unconditioned chunks never share a prefill group, and a
+    conditioned prompt never shares prefix pages (its KV depends on more
+    than its tokens).
   * With a draft model (``draft=(cfg, params)``), a batch planned with
     ``spec_step > 0`` runs its decodes one request at a time through
     ``serving/spec_decode.SpecDecoder``: draft steps, then one verify
@@ -41,10 +48,10 @@ loops, and ``spec_catch_up_calls`` counts the draft's catch-up prefills
 (each step launches the decode kernel once per layer, each catch-up the
 prefill kernel).
 
-Not ported yet: mesh-sharded serving (``EngineConfig.mesh``), encoder /
-image conditioning, the host spill tier, and speculative decoding over an
-SSM model (rollback by truncation cannot roll back lane state); asking for
-any of them raises ``NotImplementedError``.  Prefix matching is always
+Not ported yet: mesh-sharded serving (``EngineConfig.mesh``), the host
+spill tier, and speculative decoding over an SSM model (rollback by
+truncation cannot roll back lane state); asking for any of them raises
+``NotImplementedError``.  Prefix matching is always
 token-level and admission always reserves the full expected context (the
 reference's ``token_level_prefix=False`` and
 ``prefix_aware_admission=True`` are not ported).
@@ -107,6 +114,7 @@ class RequestCtx:
     history: list = dataclasses.field(default_factory=list)
     replay: int = 0
     recompute: bool = False
+    enc_states: Optional[torch.Tensor] = None    # VLM / enc-dec conditioning
 
 
 class ServingEngine:
@@ -162,7 +170,7 @@ class ServingEngine:
 
     # ------------------------- device programs -------------------------- #
     def _prefill_forward(self, cache, tokens, pos0, true_len, bt,
-                         sample_rows):
+                         sample_rows, enc_states=None):
         """One lane-batched chunk group: every lane writes its chunk's KV
         into its own pages and the token at its last REAL position is
         sampled.  Only that hidden row per lane goes through the unembed,
@@ -170,7 +178,7 @@ class ServingEngine:
         lanes whose sample is kept; only they draw random numbers."""
         h, _ = model_forward(self.params, self.cfg, tokens, cache=cache,
                              pos0=pos0, block_tables=bt, chunk_len=true_len,
-                             moe_cf=self._moe_cf)
+                             moe_cf=self._moe_cf, enc_states=enc_states)
         idx = (true_len.long() - 1).clamp(min=0)
         last = h[torch.arange(h.shape[0], device=h.device), idx]   # (B, D)
         if self.ecfg.temperature <= 0.0:
@@ -182,18 +190,20 @@ class ServingEngine:
             toks[rows] = sample(lg, self.gen, self.ecfg.temperature)
         return toks
 
-    def _verify_forward(self, cache, tokens, pos0, true_len, bt):
+    def _verify_forward(self, cache, tokens, pos0, true_len, bt,
+                        enc_states=None):
         """Spec-decode verify: one pass over [last, drafts...] through the
         verify kernel; the greedy target token at every row, on the
         device (the caller reads it once)."""
         h, _ = model_forward(self.params, self.cfg, tokens, cache=cache,
                              pos0=pos0, block_tables=bt, chunk_len=true_len,
-                             verify=True, moe_cf=self._moe_cf)
+                             verify=True, moe_cf=self._moe_cf,
+                             enc_states=enc_states)
         return torch.argmax(logits_fn(self.params, self.cfg, h[0]),
                             dim=-1).to(torch.int32)
 
     def _decode_loop(self, cache, tokens0, pos0, steps, eos, bt,
-                     n_steps: int):
+                     n_steps: int, enc_states=None):
         """All n_steps decode steps of a batch group, with no host sync
         (beyond the MoE layers' expert counts, module docstring).
         Per-lane step budgets (``steps``) and EOS stop lanes early; frozen
@@ -201,7 +211,9 @@ class ServingEngine:
         to the model as ``chunk_len``: page writes of frozen lanes go to
         the write-off page, and SSM layers write back
         ``where(active, new, old)`` into the lane rows, as the reference's
-        ``_decode_scan`` does for every lane-row leaf."""
+        ``_decode_scan`` does for every lane-row leaf.  ``enc_states`` go to
+        every step: the cross-attention layers project them again in each
+        step, as the reference's scan does."""
         B = tokens0.shape[0]
         dev = tokens0.device
         tok, pos = tokens0, pos0
@@ -212,7 +224,7 @@ class ServingEngine:
             h, _ = model_forward(self.params, self.cfg, tok[:, None],
                                  cache=cache, pos0=pos, block_tables=bt,
                                  chunk_len=active.to(torch.int32),
-                                 moe_cf=self._moe_cf)
+                                 moe_cf=self._moe_cf, enc_states=enc_states)
             logits = logits_fn(self.params, self.cfg, h[:, -1])
             nxt = sample(logits, self.gen, self.ecfg.temperature)
             emitted[:, i] = torch.where(active, nxt, -1)
@@ -222,9 +234,13 @@ class ServingEngine:
         return emitted
 
     # ------------------------------------------------------------------ #
-    def _share_tokens(self, tokens):
-        """Prefix-sharing key for an admission, or None with sharing off."""
-        return tokens if self.ecfg.share_prefix else None
+    def _share_tokens(self, tokens, enc_states):
+        """Prefix-sharing key for an admission, or None when sharing is off
+        or unsound for this request (with encoder conditioning the prompt's
+        KV depends on more than its tokens)."""
+        if not self.ecfg.share_prefix or enc_states is not None:
+            return None
+        return tokens
 
     def _consume_hit(self, ctx: RequestCtx, hit: int) -> int:
         """Apply an admission-time prefix hit: ``hit`` leading pending
@@ -245,16 +261,20 @@ class ServingEngine:
                     enc_states=None) -> bool:
         """Admit a request: a sequence slot + pages for the expected
         context; a prompt longer than max_len is rejected.  Cached leading
-        pages are mapped in and their tokens never re-prefill."""
-        if enc_states is not None:
-            raise NotImplementedError("encoder conditioning is not yet ported")
+        pages are mapped in and their tokens never re-prefill.
+        ``enc_states`` (1, T, D): the request's encoder output or image
+        embeddings, moved to the engine's device as float32."""
         if len(prompt) > self.ecfg.max_len:
             return False
+        if enc_states is not None:
+            enc_states = torch.as_tensor(enc_states, dtype=torch.float32,
+                                         device=self.device)
         if not self.kv.admit(rid, expected_total,
-                             tokens=self._share_tokens(prompt)):
+                             tokens=self._share_tokens(prompt, enc_states)):
             return False
         ctx = RequestCtx(rid=rid, prompt=list(prompt),
-                         pending=list(prompt), generated=[])
+                         pending=list(prompt), generated=[],
+                         enc_states=enc_states)
         self.reqs[rid] = ctx
         self._consume_hit(ctx, self.kv.length(rid))
         return True
@@ -291,7 +311,8 @@ class ServingEngine:
             return False
         ctx = self.reqs[rid]
         hit = self.kv.resume(rid, expected_total,
-                             tokens=self._share_tokens(ctx.pending))
+                             tokens=self._share_tokens(ctx.pending,
+                                                       ctx.enc_states))
         if hit is None:
             return False
         self._consume_hit(ctx, hit)
@@ -311,7 +332,8 @@ class ServingEngine:
         if len(ctx.pending) > self.ecfg.max_len:
             return False
         if not self.kv.admit(rid, expected_total,
-                             tokens=self._share_tokens(ctx.pending)):
+                             tokens=self._share_tokens(ctx.pending,
+                                                       ctx.enc_states)):
             return False
         self.reqs[rid] = ctx
         self._consume_hit(ctx, self.kv.length(rid))
@@ -399,7 +421,8 @@ class ServingEngine:
     def _group_prefills(self, entries, on_pressure=None):
         """Reserve pages (and run the CoW barrier) for EVERY chunk first,
         so a failure leaves every prompt retryable; then consume the chunks
-        and group same-bucket ones, at most 8 lanes per call."""
+        and group same-bucket ones (conditioned and unconditioned chunks
+        apart), at most 8 lanes per call."""
         recs = []
         for rid, n in entries:
             ctx = self.reqs[rid]
@@ -415,9 +438,12 @@ class ServingEngine:
             self.reqs[rid].pending = self.reqs[rid].pending[len(chunk):]
         groups: dict = {}
         for rec in recs:
-            groups.setdefault(_bucket(len(rec[1])), []).append(rec)
+            rid, chunk, _ = rec
+            key = (_bucket(len(chunk)),
+                   self.reqs[rid].enc_states is not None)
+            groups.setdefault(key, []).append(rec)
         out = []
-        for Lp, g in groups.items():
+        for (Lp, _), g in groups.items():
             for i in range(0, len(g), 8):
                 out.append((Lp, g[i:i + 8]))
         return out
@@ -451,7 +477,7 @@ class ServingEngine:
             cache, torch.from_numpy(toks).to(dev),
             torch.from_numpy(pos0).to(dev),
             torch.from_numpy(true_len).to(dev), self.kv.table_rows(slots_p),
-            sample_rows)
+            sample_rows, self._gather_enc(rids, B))
         self.counters["prefill_fused_ops"] += (
             _attn.OP_STATS["fused_prefill"] - fused0)
         self.kv.absorb(slots, cache)
@@ -532,7 +558,8 @@ class ServingEngine:
         emitted = self._decode_loop(
             cache, dev(starts + [0] * pad), dev(self.kv.seq_len[slots_p].tolist()),
             dev([steps_of[r] for r in live] + [0] * pad),
-            dev(eos + [-1] * pad), self.kv.table_rows(slots_p), n_steps)
+            dev(eos + [-1] * pad), self.kv.table_rows(slots_p), n_steps,
+            self._gather_enc(live, B))
         self.kv.absorb(slots, cache)
         self.counters["decode_calls"] += 1
         self.counters["decode_steps"] += n_steps
@@ -550,6 +577,18 @@ class ServingEngine:
             if ctx.eos is not None and toks and toks[-1] == ctx.eos:
                 ctx.done = True
         return out
+
+    def _gather_enc(self, rids, B):
+        """The lanes' encoder states stacked to (B, T, D), zeros for lanes
+        without and for the B - len(rids) padded lanes; None when no lane
+        has any."""
+        encs = [self.reqs[r].enc_states for r in rids]
+        if all(e is None for e in encs):
+            return None
+        ref = next(e for e in encs if e is not None)
+        stack = [e if e is not None else torch.zeros_like(ref) for e in encs]
+        stack += [torch.zeros_like(ref)] * (B - len(stack))
+        return torch.cat(stack, dim=0)
 
     def _last_token(self, rid: int) -> int:
         ctx = self.reqs[rid]

@@ -189,7 +189,8 @@ class SpecDecoder:
         fused0 = _attn.OP_STATS["fused_verify"]
         ttoks = eng._verify_forward(
             eng.kv.lane_cache([tslot]), torch.from_numpy(buf).to(eng.device),
-            dev([tpos]), dev([L]), eng.kv.table_rows([tslot]))
+            dev([tpos]), dev([L]), eng.kv.table_rows([tslot]),
+            eng.reqs[rid].enc_states)
         eng.counters["verify_fused_ops"] += (
             _attn.OP_STATS["fused_verify"] - fused0)
         eng.kv.seq_len[tslot] += L

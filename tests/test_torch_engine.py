@@ -146,9 +146,12 @@ def test_unported_engine_options_raise(reference):
     with pytest.raises(NotImplementedError):
         ServingEngine(cfg, params, EngineConfig(mesh=object(), **ECFG),
                       device="cpu")
+    # encoder conditioning is ported: the request is admitted with its
+    # states and shares no prefix pages
     eng = _port(params)
-    with pytest.raises(NotImplementedError):
-        eng.add_request(1, P1, 48, enc_states=torch.zeros(1, 4, 8))
+    assert eng.add_request(1, P1, 48, enc_states=torch.zeros(1, 4, 8))
+    assert eng.reqs[1].enc_states.shape == (1, 4, 8)
+    assert eng._share_tokens(P1, eng.reqs[1].enc_states) is None
 
 
 def test_sampled_stream_does_not_depend_on_prefill_split(reference):
