@@ -10,14 +10,20 @@ script exits non-zero before the final line:
 2. One phase per kernel: the CUDA kernel against its plain PyTorch version
    on the same inputs on the card, at the main path's shapes (smollm-135m:
    8 lanes, 9 query / 3 KV heads, head dim 64, page 16, contexts up to
-   about 2k, prefill chunks of 512) and at head dim 32 and 128 (qwen3-1.7b,
-   GQA 2, sliding window 4096 over a 6000-token context), with masked
-   lanes and mid-page chunk starts.  Outputs agree within 1e-4 on valid
-   rows, pools are bit-equal after the write, poisoned pages unchanged.
-   At the main shapes each version is timed with CUDA events (the L2 cache
-   flushed before every launch), beside the least time the card could take
-   and one PyTorch ``scaled_dot_product_attention`` call over the gathered
-   K/V (the yardstick; the port never calls it).  The verify kernel (B3)
+   about 2k, prefill chunks of 512; and the replay's commonest shapes, one
+   lane decoding over 1861 keys and one lane's 8-row prefill bucket with 2
+   live rows after 477 keys), at head dim 32 and 128 (qwen3-1.7b, GQA 2,
+   sliding window 4096 over a 6000-token context) and at whisper's decoder
+   (GQA 1, a 28-page table), with masked lanes, mid-page chunk starts, and
+   both one block per query tile and keys split over blocks with a merge
+   launch.  Outputs agree within 1e-4 on valid rows, pools are bit-equal
+   after the write, poisoned pages unchanged.  At the timed shapes each
+   version is timed with CUDA events around the call (the L2 cache flushed
+   before every launch; the wrapper's host time included), the kernel also
+   by ``torch.profiler`` (its own launches' device time, split and merge
+   summed), beside the least time the card could take and one PyTorch
+   ``scaled_dot_product_attention`` call over the gathered K/V (the
+   yardstick; the port never calls it).  The verify kernel (B3)
    is held the same way at qwen3-1.7b's heads (16 query / 8 KV, head dim
    128; one lane, an 8- or 16-row window with 1 to 9 live rows, histories
    of 0 to about 2000 keys, a 4096-token window over 6000 keys) and at
@@ -32,8 +38,12 @@ script exits non-zero before the final line:
    at their own lengths on full-width smollm-135m (random weights from the
    seed, float32).  The kernel launch counts are zeroed just before and read
    just after: every decode step must launch the decode kernel once per
-   layer, every prefill group the prefill kernel once per layer, B6 and the
-   plain versions never.
+   layer, every prefill group the prefill kernel once per layer (a call
+   counts once, with or without its merge launch), B6 and the plain
+   versions never.  The line lists the shapes the replay gave B2 and B1
+   ((B, S) buckets, live rows and pos0 of the prefill groups; batch and
+   longest seq_len of the decode steps), which must include the replay
+   shapes of step 2.
 5. Speculative decoding at the full width of qwen3-1.7b (28 layers, random
    weights from the seed): three prompts decoded by spec cycles of draft
    length 1, 3 and 8, with the 1-layer draft of the reference's tests and
@@ -180,6 +190,57 @@ def time_ms(fn) -> float:
     return total / N_TIMED
 
 
+# the CUDA kernels of each port kernel (split and merge launches), by a
+# substring of their names in the profiler
+KERNEL_NAMES = {
+    "paged_decode_attention": ("paged_decode_kernel", "split_merge_kernel"),
+    "paged_prefill_attention": ("paged_prefill_kernel", "split_merge_kernel"),
+    "paged_verify_attention": ("paged_verify_split_kernel",
+                               "split_merge_kernel"),
+    "mla_paged_prefill_attention": ("mla_prefill_kernel",),
+    "ssd_scan": ("ssd_kernel",),
+    "flash_attention_bh": ("flash_attention_kernel",),
+}
+
+
+def cuda_events(trace, names=None) -> list:
+    """The CUDA events of a ``torch.profiler`` trace whose names hold one
+    of ``names`` (every CUDA event when names is None)."""
+    return [e for e in trace.key_averages()
+            if getattr(e, "device_type", None) == torch.profiler.DeviceType.CUDA
+            and (names is None or any(n in e.key for n in names))]
+
+
+def cuda_ms(trace, names=None) -> float:
+    """Self device time in ms of ``cuda_events(trace, names)``."""
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in cuda_events(trace, names)) / 1e3
+
+
+def device_ms(fn, kernel: str):
+    """The kernel's own device time per call, without the wrapper's host
+    time: ``torch.profiler`` over N_TIMED calls, each after the L2 flush,
+    summing the self device time of the launches named in KERNEL_NAMES
+    (a key split's merge launch included).  Returns (ms, {launch name: ms});
+    ms is None if the profiler saw no such launch (then "not measured")."""
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.empty(50_000_000, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    prof = torch.profiler
+    with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as tr:
+        for _ in range(N_TIMED):
+            _FLUSH.zero_()
+            fn()
+        torch.cuda.synchronize()
+    parts = {n: cuda_ms(tr, (n,)) / N_TIMED for n in KERNEL_NAMES[kernel]}
+    parts = {n: t for n, t in parts.items() if t > 0}
+    total = sum(parts.values())
+    return (total if total > 0 else None), parts
+
+
 def bound(n_bytes: float, n_flops: float):
     t_b, t_f = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOP_PER_S
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
@@ -201,17 +262,27 @@ def pages_visited(lo_pos, hi_pos, page):
 
 
 # ---------------------------- decode phase ----------------------------- #
+# "main" keeps the shape PRs 11-15 timed; "replay" is the smollm replay's
+# commonest decode step (one lane; 1861 keys, the median over the one-lane
+# steps of a CPU rehearsal of the replay at the card's engine config; the
+# main path checks that it ran one-lane steps); "whisper" is
+# whisper-large-v3's decoder self-attention (G 1 over a 448-token table).
 DECODE_CASES = [   # name, B, H, KVH, hd, page, max_pages, lens, window
     ("main", 8, 9, 3, 64, 16, 256,
      [1, 17, 333, 780, 1024, 1500, 1999, 2048], None),
+    ("replay", 1, 9, 3, 64, 16, 256, [1861], None),
     ("hd32", 8, 6, 2, 32, 8, 64, [1, 8, 9, 100, 200, 300, 500, 512], None),
     ("hd128_window", 4, 16, 8, 128, 16, 400, [6000, 4097, 4096, 37], 4096),
+    ("whisper", 8, 20, 20, 64, 16, 28, [1, 15, 16, 17, 100, 250, 447, 448],
+     None),
 ]
+DECODE_TIMED = ("main", "replay")
 
 
 def decode_phase(pa):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
     for name, B, H, KVH, hd, page, max_pages, lens, window in DECODE_CASES:
         kp, vp, table = pools_and_tables(gen, B, KVH, hd, page, max_pages)
@@ -244,10 +315,11 @@ def decode_phase(pa):
         rec = {"phase": "kernel", "kernel": "paged_decode_attention",
                "case": name, "B": B, "H": H, "KVH": KVH, "hd": hd,
                "page": page, "seq_lens": lens, "window": window,
+               "splits": pa.n_splits(B, KVH, page, max_pages, window, n_sms),
                "max_abs_err": err, "poisoned_err": perr, "ok": ok}
-        if name == "main":
+        if name in DECODE_TIMED:
             rec.update(decode_timing(pa, q, kp, vp, table, sl, lens, window))
-            results = rec
+            results[name] = rec
         emit(rec)
         if not ok:
             raise SystemExit(f"paged_decode_attention disagrees ({name})")
@@ -283,6 +355,8 @@ def decode_timing(pa, q, kp, vp, table, sl, lens, window):
     F = torch.nn.functional
     kernel_ms = time_ms(lambda: pa.paged_decode_attention(
         q, kp, vp, table, sl, window=window))
+    kernel_dev_ms, dev_parts = device_ms(lambda: pa.paged_decode_attention(
+        q, kp, vp, table, sl, window=window), "paged_decode_attention")
     plain_ms = time_ms(lambda: pa.paged_decode_plain(
         q, kp, vp, table, sl, scale=scale, window=window))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -299,8 +373,10 @@ def decode_timing(pa, q, kp, vp, table, sl, lens, window):
         n_bytes += 4 * 2 * (n - lo) * KVH * hd
         n_flops += 4 * H * hd * (n - lo)
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+    return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
+            "device_ms_parts": dev_parts, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_call": "scaled_dot_product_attention over K/V gathered "
                             "up to the longest lane"}
 
@@ -308,9 +384,18 @@ def decode_timing(pa, q, kp, vp, table, sl, lens, window):
 # -------------------- prefill and verify phases ------------------------ #
 # B2 (fused prefill) and B3 (fused verify) compute the same function of the
 # same arguments; one phase holds each against its plain version.
+# "main" keeps the shape PRs 11-15 timed; "replay" is the smollm replay's
+# commonest prefill group (one lane, an 8-row bucket: 849 of 1156 groups
+# in a CPU rehearsal of the replay at the card's engine config, with 2.3
+# live rows on average after a median 477 keys of history; the main path
+# checks that it ran one-lane 8-row groups); "g1" is whisper-large-v3's
+# decoder (20 query over 20 KV heads, a 448-token table).
 PREFILL_CASES = [  # name, B, S, H, KVH, hd, page, max_pages, pos0, clen, win
     ("main", 8, 512, 9, 3, 64, 16, 256,
      [0, 0, 7, 512, 1000, 1480, 0, 0], [512, 300, 512, 512, 488, 512, 1, 0],
+     None),
+    ("replay", 1, 8, 9, 3, 64, 16, 256, [477], [2], None),
+    ("g1", 4, 64, 20, 20, 64, 16, 28, [0, 100, 37, 380], [64, 30, 64, 0],
      None),
     ("hd32", 8, 64, 6, 2, 32, 8, 32,
      [0, 3, 8, 100, 77, 0, 0, 0], [64, 64, 64, 1, 40, 0, 0, 0], None),
@@ -337,27 +422,36 @@ VERIFY_CASES = [
 ]
 
 
+PREFILL_TIMED = ("main", "replay")
+
+
 def prefill_phase(pp):
-    return chunk_phase("paged_prefill_attention", pp.paged_prefill_attention,
-                       pp.paged_prefill_plain, PREFILL_CASES, seed=2)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return chunk_phase(
+        "paged_prefill_attention", pp.paged_prefill_attention,
+        pp.paged_prefill_plain, PREFILL_CASES, seed=2, timed=PREFILL_TIMED,
+        extra=lambda B, S, H, KVH, page, max_pages, window: {
+            "splits": pp.n_splits(B, S, H // KVH, KVH, page, max_pages,
+                                  window, n_sms)})
 
 
 def verify_phase(pv):
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     return chunk_phase(
         "paged_verify_attention", pv.paged_verify_attention,
-        pv.paged_verify_plain, VERIFY_CASES, seed=3,
-        extra=lambda B, KVH, page, max_pages, window: {
+        pv.paged_verify_plain, VERIFY_CASES, seed=3, timed=("main",),
+        extra=lambda B, S, H, KVH, page, max_pages, window: {
             "splits": pv.n_splits(B, KVH, page, max_pages, window, n_sms)})
 
 
-def chunk_phase(kernel_name, kernel, plain, cases, seed, extra=None):
+def chunk_phase(kernel_name, kernel, plain, cases, seed, timed, extra=None):
     """Each case: the kernel against its plain version on the same pools,
     with every key no live row may see poisoned (unmapped pages; in each
     lane's pages the positions at or past pos0, whose keys come from
     k_new / v_new, and those below the widest window).  Outputs agree on
     valid rows, pools bit-equal, pages outside the write set unchanged,
-    padded rows zeros.  The "main" case is timed."""
+    padded rows zeros.  The cases named in ``timed`` are timed; returns
+    their records by name."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     results = {}
@@ -415,15 +509,15 @@ def chunk_phase(kernel_name, kernel, plain, cases, seed, extra=None):
                "page": page, "pos0": pos0, "chunk_len": clen,
                "window": window}
         if extra is not None:
-            rec.update(extra(B, KVH, page, max_pages, window))
+            rec.update(extra(B, S, H, KVH, page, max_pages, window))
         rec.update({"max_abs_err": err, "pools_bit_equal": pools_equal,
                     "unwritten_pages_unchanged": untouched,
                     "padded_rows_zero": padded_zero, "ok": ok})
-        if name == "main":
+        if name in timed:
             rec.update(chunk_timing(kernel_name, kernel, plain, q, kn, vn,
                                     kp, vp, table, p0, cl, pos0, clen,
                                     window))
-            results = rec
+            results[name] = rec
         emit(rec)
         if not ok:
             raise SystemExit(f"{kernel_name} disagrees ({name})")
@@ -454,6 +548,8 @@ def chunk_timing(kernel_name, kernel, plain, q, kn, vn, kp, vp, table, p0,
     mask = mask[:, None]
     kernel_ms = time_ms(lambda: kernel(q, kn, vn, kp, vp, table, p0, cl,
                                        window=window))
+    kernel_dev_ms, dev_parts = device_ms(lambda: kernel(
+        q, kn, vn, kp, vp, table, p0, cl, window=window), kernel_name)
     plain_ms = time_ms(lambda: plain(q, kn, vn, kp, vp, table, p0, cl,
                                      scale=scale, window=window))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -478,8 +574,10 @@ def chunk_timing(kernel_name, kernel, plain, q, kn, vn, kp, vp, table, p0,
             vis = qp + 1 if window is None else min(qp + 1, window)
             n_flops += 4 * H * hd * vis
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+    return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
+            "device_ms_parts": dev_parts, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_call": "scaled_dot_product_attention over K/V gathered "
                             "up to the longest lane (write not included)"}
 
@@ -941,6 +1039,9 @@ def mla_timing(mk, ql, qr, cn, rn, cp, rp, table, p0, cl, pos0, clen, scale):
     mask = (mask | (k_pos == 0))[:, None]    # padded rows finite; unread
     kernel_ms = time_ms(lambda: mk.mla_paged_prefill_attention(
         ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale))
+    kernel_dev_ms, dev_parts = device_ms(lambda: mk.mla_paged_prefill_attention(
+        ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale),
+        "mla_paged_prefill_attention")
     plain_ms = time_ms(lambda: mk.mla_paged_prefill_plain(
         ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -961,8 +1062,10 @@ def mla_timing(mk, ql, qr, cn, rn, cp, rp, table, p0, cl, pos0, clen, scale):
         n_flops += (2 * (r + rope) + 2 * r) * H * sum(p + i + 1
                                                       for i in range(n))
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+    return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
+            "device_ms_parts": dev_parts, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_call": "scaled_dot_product_attention, keys [ckv | "
                             "krope] and values ckv gathered up to the "
                             "longest lane, expanded to H heads (write not "
@@ -1211,6 +1314,8 @@ def ssd_timing(sk, xh, dt, A, Bm, Cm, h0, chunk):
     N = Bm.shape[-1]
     kernel_ms = time_ms(lambda: sk.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk,
                                             init_state=h0))
+    kernel_dev_ms, dev_parts = device_ms(lambda: sk.ssd_scan(
+        xh, dt, A, Bm, Cm, chunk=chunk, init_state=h0), "ssd_scan")
     plain_ms = time_ms(lambda: sk.ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk,
                                                     h0))
     # bytes: x and dt, A, B and C read once, y written once, the initial
@@ -1225,8 +1330,9 @@ def ssd_timing(sk, xh, dt, A, Bm, Cm, h0, chunk):
     n_flops = B * nc * (H * (P * L * (L + 1) + 4 * L * N * P)
                         + N * L * (L + 1))
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+    return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
+            "device_ms_parts": dev_parts, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_call": "none: no single PyTorch call computes "
                             "chunked SSD"}
 
@@ -1406,12 +1512,8 @@ def ssm_decode_breakdown(cfg, params, eng):
         with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as tr:
             step()
             torch.cuda.synchronize()
-        ev = [e for e in tr.key_averages()
-              if getattr(e, "device_type", None) == prof.DeviceType.CUDA]
-        out["profiled_device_ops"] = sum(e.count for e in ev)
-        out["profiled_device_ms"] = sum(
-            getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0)) for e in ev) / 1e3
+        out["profiled_device_ops"] = sum(e.count for e in cuda_events(tr))
+        out["profiled_device_ms"] = cuda_ms(tr)
     return out
 
 
@@ -1515,6 +1617,9 @@ def flash_timing(fa, qf, kf, vf, causal, q_offset, kv_len):
     lim = Sk if kv_len is None else kv_len
     kernel_ms = time_ms(lambda: fa.flash_attention_bh(
         qf, kf, vf, causal=causal, q_offset=q_offset, kv_len=kv_len))
+    kernel_dev_ms, dev_parts = device_ms(lambda: fa.flash_attention_bh(
+        qf, kf, vf, causal=causal, q_offset=q_offset, kv_len=kv_len),
+        "flash_attention_bh")
     plain_ms = time_ms(lambda: fa.flash_attention_plain(
         qf, kf, vf, causal=causal, q_offset=q_offset, kv_len=lim,
         scale=scale))
@@ -1525,8 +1630,10 @@ def flash_timing(fa, qf, kf, vf, causal, q_offset, kv_len):
     n_bytes = 4 * BH * hd * (2 * Sq + 2 * max(n_vis))
     n_flops = 4 * hd * BH * sum(n_vis)
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+    return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
+            "device_ms_parts": dev_parts, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_call": "scaled_dot_product_attention on (1, BH, S, hd)"}
 
 
@@ -1737,6 +1844,104 @@ class SpanTimer:
             self.count[name] = self.count.get(name, 0) + 1
 
 
+class ShapeLog:
+    """The shapes the replay gives B2 and B1, read off the engine's two
+    device programs: per prefill group its (B, S) bucket, each real lane's
+    live rows and pos0; per decode loop its batch bucket B, its steps and
+    the longest lane's seq_len at its first step.  Reading the group's
+    small position tensors is one extra host sync per group."""
+
+    def __init__(self, eng):
+        self.prefill: dict[str, int] = {}      # "B/S" -> groups
+        self.live: list[int] = []              # live rows per real lane
+        self.pos0: list[int] = []
+        self.decode: dict[str, int] = {}       # "B" -> decode steps
+        self.longest: dict[str, list] = {}     # "B" -> longest seq_len
+        prefill_forward, decode_loop = eng._prefill_forward, eng._decode_loop
+
+        def prefill(cache, tokens, pos0, true_len, *rest):
+            key = f"{tokens.shape[0]}/{tokens.shape[1]}"
+            self.prefill[key] = self.prefill.get(key, 0) + 1
+            for p, n in zip(pos0.tolist(), true_len.tolist()):
+                if n:
+                    self.live.append(n)
+                    self.pos0.append(p)
+            return prefill_forward(cache, tokens, pos0, true_len, *rest)
+
+        def decode(cache, tokens0, pos0, steps, eos, bt, n_steps, *rest):
+            key = str(tokens0.shape[0])
+            self.decode[key] = self.decode.get(key, 0) + n_steps
+            self.longest.setdefault(key, []).append(int(pos0.max()) + 1)
+            return decode_loop(cache, tokens0, pos0, steps, eos, bt, n_steps,
+                               *rest)
+        eng._prefill_forward, eng._decode_loop = prefill, decode
+
+    def summary(self) -> dict:
+        def spread(v):
+            v = sorted(v)
+            return [v[0], v[len(v) // 2], v[-1]] if v else None
+        return {"prefill_buckets": self.prefill,
+                "prefill_live_rows_mean":
+                    sum(self.live) / max(len(self.live), 1),
+                "prefill_pos0_min_median_max": spread(self.pos0),
+                "decode_batch_steps": self.decode,
+                "decode_longest_seq_len_min_median_max": {
+                    k: spread(v) for k, v in self.longest.items()}}
+
+
+def main_step_breakdown(cfg, params, eng):
+    """A decode step and a prefill group through ``model_forward`` and the
+    unembedding, at the shapes the kernel phases time: the decode steps of
+    the "main" B1 case (eight lanes, at position 1000 here) and of the
+    replay's commonest shape (one lane over 1861 keys), and one prefill
+    group of the replay's commonest shape (one lane, 8 rows, 2 live at
+    position 477).  Decode steps run with chunk_len 0, so their page
+    writes go to the write-off page.  CUDA events around the call (the
+    host's dispatch included), and ``torch.profiler``'s device time of all
+    the call's kernels and of B1's or B2's own.  The device is idle for
+    the rest of the call."""
+    from repro_torch.models import logits_fn, model_forward
+
+    dev = eng.device
+    width = eng.kv.max_pages_per_seq
+
+    def shape(B, S, pos0, live):
+        table = (torch.arange(B * width, device=dev, dtype=torch.int32)
+                 % eng.ecfg.total_pages).reshape(B, width)
+        return (torch.ones(B, S, dtype=torch.long, device=dev),
+                torch.full((B,), pos0, dtype=torch.int32, device=dev),
+                torch.full((B,), live, dtype=torch.int32, device=dev), table)
+    (_, dB, *_, (d_len,), _), = [
+        cs for cs in DECODE_CASES if cs[0] == "replay"]
+    (_, pB, pS, *_, (p_pos0,), (p_live,), _), = [
+        cs for cs in PREFILL_CASES if cs[0] == "replay"]
+    out = {}
+    prof = torch.profiler
+    with torch.no_grad():
+        for name, (tok, pos0, clen, table), kernel in (
+                ("decode_B8_pos1000", shape(8, 1, 1000, 0),
+                 "paged_decode_attention"),
+                (f"decode_B{dB}_pos{d_len - 1}", shape(dB, 1, d_len - 1, 0),
+                 "paged_decode_attention"),
+                (f"prefill_B{pB}_S{pS}_live{p_live}_pos{p_pos0}",
+                 shape(pB, pS, p_pos0, p_live), "paged_prefill_attention")):
+            def call():
+                hid, _ = model_forward(params, cfg, tok, cache=eng.kv.pools,
+                                       pos0=pos0, block_tables=table,
+                                       chunk_len=clen)
+                return logits_fn(params, cfg, hid[:, -1])
+            call_ms = time_ms(call)
+            with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as tr:
+                call()
+                torch.cuda.synchronize()
+            total = cuda_ms(tr)
+            out[name] = {"call_ms": call_ms, "device_ms": total,
+                         "device_ops": sum(e.count for e in cuda_events(tr)),
+                         "kernel_device_ms": cuda_ms(tr, KERNEL_NAMES[kernel]),
+                         "device_idle_share": 1 - total / call_ms}
+    return out
+
+
 def main_path(pa, pp, fa, seed: int):
     from repro_torch.launch import serve
     args = serve.parse_args(["--time-scale", "1.0", "--max-requests", "16",
@@ -1744,6 +1949,7 @@ def main_path(pa, pp, fa, seed: int):
     fe, eng = serve.build(args)
     timer = SpanTimer()
     eng.tracer = timer
+    shapes = ShapeLog(eng)
     torch.cuda.reset_peak_memory_stats()
     for c in (pa.COUNTS, pp.COUNTS, fa.COUNTS):
         c["kernel"] = c["plain"] = 0
@@ -1752,8 +1958,13 @@ def main_path(pa, pp, fa, seed: int):
                 "flash": dict(fa.COUNTS)}
     s, c = fe.stats, eng.counters
     L = eng.cfg.n_layers
+    # the replay ran the shapes the kernel phases timed as "replay"
+    (_, pB, pS, *_), = [cs for cs in PREFILL_CASES if cs[0] == "replay"]
+    (_, dB, *_), = [cs for cs in DECODE_CASES if cs[0] == "replay"]
     checks = {
         "served_all": s.served == s.submitted == 16,
+        "timed_prefill_bucket_ran": f"{pB}/{pS}" in shapes.prefill,
+        "timed_decode_batch_ran": str(dB) in shapes.decode,
         "tokens_out": s.tokens_out > 0,
         "decode_launches":
             launches["decode"]["kernel"] == L * c["decode_steps"],
@@ -1768,6 +1979,8 @@ def main_path(pa, pp, fa, seed: int):
           "tokens_out": s.tokens_out, "prefill_calls": c["prefill_calls"],
           "decode_calls": c["decode_calls"], "decode_steps": c["decode_steps"],
           "decode_tokens": c["decode_tokens"], "launches": launches,
+          "shapes": shapes.summary(),
+          "step_breakdown": main_step_breakdown(eng.cfg, eng.params, eng),
           "wall_s": wall, "span_s": timer.seconds, "spans": timer.count,
           "outside_spans_s": wall - sum(timer.seconds.values()),
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1850,19 +2063,20 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "device_ms": rec["device_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
     emit({"kernels": [
         entry("paged_decode_attention", "src/repro_torch/csrc/paged_decode.cu",
-              "src/repro/kernels/paged_attention.py:73", dec,
+              "src/repro/kernels/paged_attention.py:73", dec["main"],
               launches["decode"]["kernel"]),
         entry("paged_prefill_attention",
               "src/repro_torch/csrc/paged_prefill.cu",
-              "src/repro/kernels/paged_prefill.py:125", pre,
+              "src/repro/kernels/paged_prefill.py:125", pre["main"],
               launches["prefill"]["kernel"]),
         entry("paged_verify_attention",
               "src/repro_torch/csrc/paged_verify.cu",
-              "src/repro/kernels/paged_prefill.py:308", ver,
+              "src/repro/kernels/paged_prefill.py:308", ver["main"],
               spec["verify"]["kernel"]),
         entry("mla_paged_prefill_attention",
               "src/repro_torch/csrc/mla_paged_prefill.cu",

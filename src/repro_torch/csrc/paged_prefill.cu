@@ -1,49 +1,163 @@
-// Fused chunked-prefill paged attention for Hopper (sm_90a), float32.
+// Fused chunked-prefill paged attention for Hopper (sm_90a), float32 data,
+// products on the tensor cores in 3xTF32.
 //
 // Replaces: src/repro/kernels/paged_prefill.py, paged_prefill_attention
-// (Pallas body _prefill_kernel).  One launch per layer per prefill group
+// (Pallas body _prefill_kernel).  One call per layer per prefill group
 // does what the unfused path spreads over three ops:
-//   phase 1  writes the chunk's K/V rows into the lane's pool pages
-//            (row i lands at position pos0[b] + i, only for i < chunk_len[b];
-//            a lane with chunk_len 0 writes nothing), in place;
-//   phase 2  runs causal (and sliding-window) flash attention for the
-//            chunk's queries over the paged history plus the chunk itself.
+//   1. writes the chunk's K/V rows into the lane's pool pages (row i lands
+//      at position pos0[b] + i, only for i < chunk_len[b]; a lane with
+//      chunk_len 0 writes nothing), in place;
+//   2. runs causal (and sliding-window) flash attention for the chunk's
+//      queries over the paged history plus the chunk itself.
 //
-// What bounds it on an H100: at the main path's shapes (chunks of hundreds
-// of tokens over a history of up to a few thousand) the work is
-// O(S * kv_len * H * hd) flops on O((S + kv_len) * KVH * hd) bytes, well
-// above the float32 ridge, so it is bound by operations: float32 FMAs
-// outside the tensor cores in this simple version (67 TFLOP/s peak).
+// What bounds it on an H100: at long chunks (hundreds of rows over a
+// history of up to a few thousand keys) operations: 4 * hd flops per
+// visible (query head, key) pair on O((S + kv_len) * KVH * hd) bytes.  At
+// the few-row chunks the serving replay mostly runs (one lane, an 8-row
+// bucket with 2 live rows on average, over a few hundred keys) the work is
+// small and the time is how many SMs the launch keeps busy.
 //
-// What the design does about it: the grid is (lane, KV head, query tile),
-// so a 512-token chunk spreads over 32 tiles per (lane, KV head) instead of
-// one block, and each tile stops its key loop at its own last query
-// (causal), skipping the upper triangle.  Each block holds the whole GQA
-// group of its query positions, so a staged K/V block serves G heads.
-// Tensor-core (wgmma, tf32/bf16) products are work for a later version.
+// What the design does about it:
+// - Tensor cores: Q·Kᵀ and P·V are mma.sync.m16n8k8 TF32 products with
+//   fp32 accumulators.  TF32 alone keeps about three digits, so each fp32
+//   operand x is split into big = tf32(x) (cvt.rna.tf32.f32) and small =
+//   tf32(x - big) and the kernel sums small·big + big·small + big·big
+//   (3xTF32).  x - big is exact in fp32 and handed to the tensor core as
+//   it is; the tensor core reads it as TF32 by dropping its low 13 bits
+//   (truncation, no second cvt: 10% of the kernel's time at the timed
+//   shape on an H100).  The error left is the dropped small·small term
+//   and that truncation, below 2^-20 of each product; the fp32
+//   accumulation of the sums costs more.
+//   mma.sync, not wgmma: wgmma's TF32 form wants both operands K-major in
+//   shared memory, so V would have to be staged transposed, and the
+//   fragments of mma.sync let the softmax run on the score registers.
+// - A block is one (lane, KV head, 128-row query tile, key split).  Its
+//   query rows are the (position, group member) pairs of the KV head's GQA
+//   group, position-major, so every staged K/V row serves the G heads that
+//   share it.  Eight warps own 16 rows each (eight rather than four: 7%
+//   faster at the timed shape on an H100, 32% at head dim 128).  Causal
+//   query tiles are launched last first, so the blocks that walk the most
+//   keys start first.
+// - Key tiles of 64 (four 16-key pages) are staged in shared memory by
+//   16-byte cp.async copies, double-buffered: tile t + 1 is in flight while
+//   tile t is computed.  Rows are padded to hd + 4 floats: 16-byte aligned,
+//   and the fragment reads of Q, K (rows g, columns t) and V (rows 2t,
+//   columns g) fall on 32 different banks.  The fp32 tiles are split into
+//   big / small as fragments are read, so hd 128 still fits two stages.
+// - The online softmax runs on the score fragments: a row's max is a
+//   two-step quad shuffle, its denominator is summed per thread and
+//   reduced once at the end, and no barrier is taken per key.  Its
+//   exponentials are __expf (a few ulp; 8% faster than expf at the timed
+//   shape on an H100).  The score fragment (C layout) feeds P·V as the A
+//   operand with no data movement:
+//   the 8 keys of a k-step are taken in the order 0, 2, 4, 6, 1, 3, 5, 7,
+//   so the thread that holds scores (g, 2t) and (g, 2t + 1) holds exactly
+//   A's (g, t) and (g, t + 4); V's fragment reads rows 2t and 2t + 1 to
+//   match.
+// - Key split for few rows: when the query tiles alone leave the card
+//   under-filled, the wrapper also splits each tile's key range over
+//   n_split blocks (host-side, without a sync); each takes a balanced
+//   share of the tile's 64-key tiles on the device, writes its partial
+//   (m, l, acc) (l = 0 when its share is empty), and split_merge.cuh's
+//   launch merges them.  With one split the block writes the output.
+// - Causal key tiles past a tile's last live query are never visited, nor
+//   window tiles before its first visible key.
 //
 // The hazard the TPU kernel avoided by program order within a lane
 // (paged_prefill.py, "Pallas guarantees program order within a lane"):
-// here the tiles of one lane run in parallel, so no block ever reads a
-// page position that another block may be writing.  Keys at positions
-// below pos0 (the history) are read from the pages, which this launch
-// never writes; keys of the chunk itself (positions >= pos0) are read
-// straight from k_new / v_new.  Each tile writes only its own positions,
-// and only its own KV head's slice of each page, so writes are disjoint.
-// Pages written by different lanes are exclusive after the engine's
-// copy-on-write barrier (PagedKVManager.ensure_writable).
+// here the blocks of one lane run in parallel, so no block ever reads a
+// page position that this launch writes.  Keys at positions below pos0
+// (the history) are read from the pages, which this launch never writes;
+// keys of the chunk itself (positions >= pos0) are read from k_new / v_new.
+// Each chunk row is written once, for its own KV head, by split 0 of the
+// query tile that holds the row's first group member.  Pages written for
+// different lanes are exclusive after the engine's copy-on-write barrier
+// (PagedKVManager.ensure_writable).
 //
-// Output rows at i >= chunk_len[b] (padding) are written as zeros.  Masked
-// scores are NEG_INF = -1e30 and the denominator is floored at 1e-30, as
-// in the TPU kernel.
+// Output rows at i >= chunk_len[b] (padding) are zeros.  Masked scores are
+// NEG_INF = -1e30 and contribute exactly 0; the denominator is floored at
+// 1e-30, as in the TPU kernel.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "split_merge.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
+using repro_split::kNegInf;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBM = 16 * kWarps;  // query rows per block
+constexpr int kBN = 64;           // keys per tile
 
-__global__ void paged_prefill_kernel(
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small: big rounded to TF32, small = x - big exact in fp32, read
+// as TF32 (its low 13 bits dropped) by the tensor core
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[n] += a·b[n] for N independent n-tiles in 3xTF32 (small·big +
+// big·small + big·big), the A fragment given as (big, small) and each B
+// fragment as two fp32 values b[n][0..1].  The three passes run over all N
+// accumulators in turn, so consecutive mma.sync are independent and their
+// latencies overlap.
+template <int N>
+__device__ __forceinline__ void mma3(float (&d)[N][4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4],
+                                     const float (&b)[N][2]) {
+  uint32_t bb[N][2], bs[N][2];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    split(b[n][0], bb[n][0], bs[n][0]);
+    split(b[n][1], bb[n][1], bs[n][1]);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n], as, bb[n][0], bb[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n], ab, bs[n][0], bs[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n], ab, bb[n][0], bb[n][1]);
+}
+
+// 16-byte asynchronous copy; src_bytes 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+                                           bool pred) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const float* __restrict__ q,        // (B, S, H, hd)
     const float* __restrict__ k_new,    // (B, S, KVH, hd)
     const float* __restrict__ v_new,
@@ -52,166 +166,309 @@ __global__ void paged_prefill_kernel(
     const int* __restrict__ block_table,  // (B, max_pages)
     const int* __restrict__ pos0_arr,     // (B,)
     const int* __restrict__ clen_arr,     // (B,)
-    float* __restrict__ out,              // (B, S, H, hd)
-    int S, int H, int KVH, int hd, int page, int max_pages, float scale,
-    int window, int tq) {
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int t0 = blockIdx.z * tq;       // first query position of the tile
+    float* __restrict__ out,              // (B, S, H, hd)      one split
+    float* __restrict__ m_ws,             // (B, KVH, n_split, S * G)
+    float* __restrict__ l_ws,
+    float* __restrict__ acc_ws,           // (B, KVH, n_split, S * G, hd)
+    int S, int H, int KVH, int page, int max_pages, float scale, int window,
+    int n_split) {
+  constexpr int ST = HD + 4;   // shared row stride in floats
+  constexpr int C4 = HD / 4;   // 16-byte chunks per row
+  constexpr int NK = HD / 8;   // k-steps of Q·Kᵀ, n-tiles of P·V
+  constexpr int NJ = kBN / 8;  // n-tiles of Q·Kᵀ, k-steps of P·V
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // kBM x ST
+  float* k_s = q_s + kBM * ST;                    // 2 x kBN x ST
+  float* v_s = k_s + 2 * kBN * ST;                // 2 x kBN x ST
+
+  const int b = blockIdx.x, kvh = blockIdx.y;
+  // the last query tiles see the most keys: they are launched first
+  const int n_qt = gridDim.z / n_split;
+  const int qt = n_qt - 1 - (int)blockIdx.z / n_split;
+  const int split_id = blockIdx.z % n_split;
   const int G = H / KVH;
-  const int tid = threadIdx.x;
-  const int R = tq * G;                 // query rows (position-major)
-  const int ks = hd + 1;
-  const int pos0 = pos0_arr[b];
-  const int n_tok = clen_arr[b];
-  const long long row = (long long)KVH * hd;   // floats per token slot
-  const int t_end = min(t0 + tq, S);           // tile's positions [t0, t_end)
-  const int n_live = max(min(t_end, n_tok) - t0, 0);  // unpadded positions
+  const int R = S * G;                     // rows of the (lane, KV head)
+  const int r0 = qt * kBM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int pos0 = pos0_arr[b], n_tok = clen_arr[b];
+  const long long row = (long long)KVH * HD;       // floats per token slot
+  const int r_end = min(r0 + kBM, R);
+  const int live_end = min(r_end, n_tok * G);      // live rows: [r0, live_end)
+  const bool direct = n_split == 1;
 
-  // ---- phase 1: this tile's chunk rows into the pages (own head only) ----
-  for (int e = tid; e < n_live * hd; e += kThreads) {
-    const int i = t0 + e / hd, d = e % hd;
-    const int pos = pos0 + i;
-    const int slot = pos / page;
-    if (slot >= max_pages) continue;
-    const long long pid = block_table[(long long)b * max_pages + slot];
-    const long long dst = (pid * page + pos % page) * row + (long long)kvh * hd + d;
-    const long long src = ((long long)b * S + i) * row + (long long)kvh * hd + d;
-    k_pages[dst] = k_new[src];
-    v_pages[dst] = v_new[src];
+  // ---- 1. chunk rows into the pages: split 0 of the row's tile ----
+  if (split_id == 0) {
+    const int i_lo = (r0 + G - 1) / G;
+    const int i_hi = min((r0 + kBM + G - 1) / G, n_tok);
+    for (int e = tid; e < (i_hi - i_lo) * C4; e += kThreads) {
+      const int i = i_lo + e / C4, c = e % C4;
+      const int pos = pos0 + i;
+      if (pos / page >= max_pages) continue;
+      const long long pid = block_table[(long long)b * max_pages + pos / page];
+      const long long dst = (pid * page + pos % page) * row + (long long)kvh * HD;
+      const long long src = ((long long)b * S + i) * row + (long long)kvh * HD;
+      reinterpret_cast<float4*>(k_pages + dst)[c] =
+          reinterpret_cast<const float4*>(k_new + src)[c];
+      reinterpret_cast<float4*>(v_pages + dst)[c] =
+          reinterpret_cast<const float4*>(v_new + src)[c];
+    }
   }
 
-  // ---- zero the padded rows of this tile ----
-  for (int e = tid; e < (t_end - t0 - n_live) * G * hd; e += kThreads) {
-    const int r = e / hd, d = e % hd;
-    const int i = t0 + n_live + r / G, g = r % G;
-    out[(((long long)b * S + i) * H + (long long)kvh * G + g) * hd + d] = 0.f;
+  // ---- padded rows of this tile are zeros (the merge writes them when
+  //      the keys are split) ----
+  if (direct) {
+    for (int e = tid; e < (r_end - max(live_end, r0)) * HD; e += kThreads) {
+      const int r = max(live_end, r0) + e / HD, d = e % HD;
+      out[(((long long)b * S + r / G) * H + (long long)kvh * G + r % G) * HD + d] = 0.f;
+    }
   }
-  if (n_live == 0) return;
+  if (live_end <= r0) return;
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                 // R * hd
-  float* acc = q_s + R * hd;         // R * hd
-  float* k_s = acc + R * hd;         // page * (hd + 1)
-  float* v_s = k_s + page * ks;      // page * hd
-  float* s_s = v_s + page * hd;      // R * page
-  float* m_s = s_s + R * page;       // R
-  float* l_s = m_s + R;              // R
-  float* a_s = l_s + R;              // R
+  // ---- the key range of the tile's live rows, and this split's share ----
+  const int q_first = pos0 + r0 / G;
+  const int q_last = pos0 + (live_end - 1) / G;
+  const int k_lo = window > 0 ? max(q_first - window + 1, 0) : 0;
+  const int k_hi = q_last + 1;
+  const int n_tiles = (k_hi - k_lo + kBN - 1) / kBN;
+  const int t_lo = (int)((long long)split_id * n_tiles / n_split);
+  const int t_hi = (int)((long long)(split_id + 1) * n_tiles / n_split);
 
-  const int R_live = n_live * G;
-  for (int e = tid; e < R_live * hd; e += kThreads) {
-    const int r = e / hd, d = e % hd;
-    const int i = t0 + r / G, g = r % G;
-    q_s[e] = q[(((long long)b * S + i) * H + (long long)kvh * G + g) * hd + d];
-    acc[e] = 0.f;
-  }
-  for (int r = tid; r < R_live; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-
-  // key range: the tile's first query sees back to q_pos - window + 1, its
-  // last live query up to pos0 + t0 + n_live - 1
-  const int q_first = pos0 + t0;
-  const int q_last = pos0 + t0 + n_live - 1;
-  int lo = 0;
-  if (window > 0) {
-    const int first_key = q_first - window + 1;
-    lo = first_key > 0 ? first_key / page : 0;
-  }
-  int hi = q_last / page + 1;
-  if (hi > max_pages) hi = max_pages;
-  const int kv_len = pos0 + n_tok;
-
-  for (int pg = lo; pg < hi; ++pg) {
-    const long long pid = block_table[(long long)b * max_pages + pg];
-    __syncthreads();  // previous block's k_s / v_s / s_s consumed
-    for (int e = tid; e < page * hd; e += kThreads) {
-      const int p = e / hd, d = e % hd;
-      const int pos = pg * page + p;
-      float kv = 0.f, vv = 0.f;
-      if (pos < pos0) {  // history: pages this launch never writes
-        const long long off = (pid * page + p) * row + (long long)kvh * hd + d;
-        kv = k_pages[off];
-        vv = v_pages[off];
-      } else if (pos < kv_len) {  // the chunk itself: from k_new / v_new
-        const long long off =
-            ((long long)b * S + (pos - pos0)) * row + (long long)kvh * hd + d;
-        kv = k_new[off];
-        vv = v_new[off];
+  // a tile's kBN key rows: kTPK threads per row, each issuing its share of
+  // the row's 16-byte copies after one block-table lookup
+  constexpr int kTPK = kThreads / kBN;  // threads per key row
+  static_assert(kTPK * kBN == kThreads && C4 % kTPK == 0, "tile split");
+  const int ld_p = tid / kTPK;
+  const int ld_c = (tid % kTPK) * (C4 / kTPK);
+  auto load_tile = [&](int t, int buf) {
+    const int pos = k_lo + t * kBN + ld_p;
+    const float* ks = k_new;
+    const float* vs = v_new;
+    bool pred = false;
+    if (pos < pos0) {              // history: pages this launch never writes
+      const int slot = pos / page;
+      if (slot < max_pages) {
+        const long long pid = block_table[(long long)b * max_pages + slot];
+        const long long off = (pid * page + (pos - slot * page)) * row +
+                              (long long)kvh * HD + 4 * ld_c;
+        ks = k_pages + off;
+        vs = v_pages + off;
+        pred = true;
       }
-      k_s[p * ks + d] = kv;
-      v_s[e] = vv;
+    } else if (pos < k_hi) {       // the chunk itself: from k_new / v_new
+      const long long off = ((long long)b * S + (pos - pos0)) * row +
+                            (long long)kvh * HD + 4 * ld_c;
+      ks = k_new + off;
+      vs = v_new + off;
+      pred = true;
     }
-    __syncthreads();
-    for (int e = tid; e < R_live * page; e += kThreads) {
-      const int r = e / page, p = e % page;
-      const float* qr = q_s + r * hd;
-      const float* kr = k_s + p * ks;
-      float dot = 0.f;
-      for (int d = 0; d < hd; ++d) dot += qr[d] * kr[d];
-      const int k_pos = pg * page + p;
-      const int q_pos = q_first + r / G;
-      bool valid = (k_pos < kv_len) && (k_pos <= q_pos);
-      if (window > 0) valid = valid && (k_pos > q_pos - window);
-      s_s[e] = valid ? dot * scale : kNegInf;
+    float* kd = k_s + buf * kBN * ST + ld_p * ST + 4 * ld_c;
+    float* vd = v_s + buf * kBN * ST + ld_p * ST + 4 * ld_c;
+#pragma unroll
+    for (int c = 0; c < C4 / kTPK; ++c) {
+      cp_async16(kd + 4 * c, ks + (pred ? 4 * c : 0), pred);
+      cp_async16(vd + 4 * c, vs + (pred ? 4 * c : 0), pred);
     }
+  };
+
+  // query rows, zeros past the live rows; with the first key tile
+  for (int e = tid; e < kBM * C4; e += kThreads) {
+    const int rr = e / C4, c = e % C4;
+    const int r = r0 + rr;
+    const float* src = q;
+    if (r < live_end)
+      src = q + (((long long)b * S + r / G) * H + (long long)kvh * G + r % G) * HD + 4 * c;
+    cp_async16(q_s + rr * ST + 4 * c, src, r < live_end);
+  }
+  if (t_lo < t_hi) load_tile(t_lo, 0);
+  cp_async_commit();
+
+  // this thread's two rows: wr + gq and wr + gq + 8 of the tile
+  const int wr = warp * 16;
+  const bool warp_live = r0 + wr < live_end;
+  const int qpos0 = pos0 + (r0 + wr + gq) / G;
+  const int qpos1 = pos0 + (r0 + wr + gq + 8) / G;
+  float o[NK][4];
+#pragma unroll
+  for (int n = 0; n < NK; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int buf = (t - t_lo) & 1;
+    if (t + 1 < t_hi) load_tile(t + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_1();               // tile t (and the queries) landed
     __syncthreads();
-    for (int r = tid; r < R_live; r += kThreads) {
-      float* sr = s_s + r * page;
-      const float m_old = m_s[r];
-      float m_new = m_old;
-      for (int p = 0; p < page; ++p) m_new = fmaxf(m_new, sr[p]);
-      float sum = 0.f;
-      for (int p = 0; p < page; ++p) {
-        const float e = expf(sr[p] - m_new);
-        sr[p] = e;
-        sum += e;
+    if (warp_live) {
+      const float* kt = k_s + buf * kBN * ST;
+      const float* vt = v_s + buf * kBN * ST;
+      const float* qw = q_s + wr * ST;
+      // S = Q Kᵀ over this tile: 16 rows x kBN keys, NJ n-tiles of 8 keys
+      float s[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t ab[4], as[4];
+        split(qw[gq * ST + 8 * kk + tq], ab[0], as[0]);
+        split(qw[(gq + 8) * ST + 8 * kk + tq], ab[1], as[1]);
+        split(qw[gq * ST + 8 * kk + tq + 4], ab[2], as[2]);
+        split(qw[(gq + 8) * ST + 8 * kk + tq + 4], ab[3], as[3]);
+        float kb2[NJ][2];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float* kr = kt + (8 * j + gq) * ST + 8 * kk + tq;
+          kb2[j][0] = kr[0];
+          kb2[j][1] = kr[4];
+        }
+        mma3<NJ>(s, ab, as, kb2);
       }
-      const float alpha = expf(m_old - m_new);
-      a_s[r] = alpha;
-      m_s[r] = m_new;
-      l_s[r] = l_s[r] * alpha + sum;
+      // mask, scale, online softmax on the fragments
+      const int kb = k_lo + t * kBN;
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = kb + 8 * j + 2 * tq + (e & 1);
+          const int qpos = e < 2 ? qpos0 : qpos1;
+          const bool valid =
+              kpos <= qpos && (window <= 0 || kpos > qpos - window);
+          s[j][e] = valid ? s[j][e] * scale : kNegInf;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float al0 = __expf(m0 - mx0), al1 = __expf(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= al0;
+      l1 *= al1;
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        o[n][0] *= al0;
+        o[n][1] *= al0;
+        o[n][2] *= al1;
+        o[n][3] *= al1;
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float p0 = s[j][0] > 0.5f * kNegInf ? __expf(s[j][0] - mx0) : 0.f;
+        const float p1 = s[j][1] > 0.5f * kNegInf ? __expf(s[j][1] - mx0) : 0.f;
+        const float p2 = s[j][2] > 0.5f * kNegInf ? __expf(s[j][2] - mx1) : 0.f;
+        const float p3 = s[j][3] > 0.5f * kNegInf ? __expf(s[j][3] - mx1) : 0.f;
+        l0 += p0 + p1;
+        l1 += p2 + p3;
+        // A fragment of P over keys 8j + (0, 2, 4, 6, 1, 3, 5, 7)
+        uint32_t ab[4], as[4];
+        split(p0, ab[0], as[0]);
+        split(p2, ab[1], as[1]);
+        split(p1, ab[2], as[2]);
+        split(p3, ab[3], as[3]);
+        const float* v0 = vt + (8 * j + 2 * tq) * ST + gq;
+#pragma unroll
+        for (int n0 = 0; n0 < NK; n0 += 4) {   // 4 output n-tiles at a time
+          float vb2[4][2];
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            vb2[n][0] = v0[8 * (n0 + n)];
+            vb2[n][1] = v0[ST + 8 * (n0 + n)];
+          }
+          mma3<4>(*reinterpret_cast<float(*)[4][4]>(&o[n0]), ab, as, vb2);
+        }
+      }
     }
-    __syncthreads();
-    for (int e = tid; e < R_live * hd; e += kThreads) {
-      const int r = e / hd, d = e % hd;
-      const float* pr = s_s + r * page;
-      float pv = 0.f;
-      for (int p = 0; p < page; ++p) pv += pr[p] * v_s[p * hd + d];
-      acc[e] = acc[e] * a_s[r] + pv;
+    __syncthreads();                 // buffer buf free for tile t + 2
+  }
+  cp_async_wait_all();               // an empty share still staged the queries
+
+  if (!warp_live) return;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + wr + gq + 8 * half;
+    if (r >= live_end) continue;
+    const float l = half ? l1 : l0;
+    if (direct) {
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      float* orow = out + (((long long)b * S + r / G) * H + (long long)kvh * G + r % G) * HD;
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+        *reinterpret_cast<float2*>(orow + 8 * n + 2 * tq) =
+            make_float2(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+    } else {
+      const long long w = (((long long)b * KVH + kvh) * n_split + split_id) * R + r;
+      if (tq == 0) {
+        m_ws[w] = half ? m1 : m0;
+        l_ws[w] = l;
+      }
+      float* arow = acc_ws + w * HD;
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+        *reinterpret_cast<float2*>(arow + 8 * n + 2 * tq) =
+            make_float2(o[n][2 * half], o[n][2 * half + 1]);
     }
   }
-  __syncthreads();
-  for (int e = tid; e < R_live * hd; e += kThreads) {
-    const int r = e / hd, d = e % hd;
-    const int i = t0 + r / G, g = r % G;
-    out[(((long long)b * S + i) * H + (long long)kvh * G + g) * hd + d] =
-        acc[e] / fmaxf(l_s[r], 1e-30f);
+}
+
+template <int HD>
+int launch(const float* q, const float* k_new, const float* v_new,
+           float* k_pages, float* v_pages, const int* block_table,
+           const int* pos0, const int* chunk_len, float* out, float* m_ws,
+           float* l_ws, float* acc_ws, int B, int S, int H, int KVH, int page,
+           int max_pages, float scale, int window, int n_split,
+           cudaStream_t st) {
+  constexpr size_t smem = sizeof(float) * (size_t)(kBM + 4 * kBN) * (HD + 4);
+  static bool attr_set = false;
+  if (smem > 48 * 1024 && !attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
   }
+  const int n_qt = (S * (H / KVH) + kBM - 1) / kBM;
+  paged_prefill_kernel<HD><<<dim3(B, KVH, n_qt * n_split), kThreads, smem, st>>>(
+      q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len, out,
+      m_ws, l_ws, acc_ws, S, H, KVH, page, max_pages, scale, window, n_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  return repro_split::launch_split_merge(m_ws, l_ws, acc_ws, chunk_len, out, B,
+                                         S, H, KVH, HD, n_split, st);
 }
 
 }  // namespace
 
+// Returns 0 or a CUDA error code; cudaErrorInvalidValue (1) for a head dim
+// other than 32, 64 or 128 (the wrapper refuses it first).
 extern "C" int repro_paged_prefill_f32(
     const float* q, const float* k_new, const float* v_new, float* k_pages,
     float* v_pages, const int* block_table, const int* pos0,
-    const int* chunk_len, float* out, int B, int S, int H, int KVH, int hd,
-    int page, int max_pages, float scale, int window, int tq, void* stream) {
-  const int G = H / KVH;
-  const int R = tq * G;
-  const size_t smem = sizeof(float) *
-      (size_t)(2 * R * hd + page * (hd + 1) + page * hd + R * page + 3 * R);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    const int* chunk_len, float* out, float* m_ws, float* l_ws,
+    float* acc_ws, int B, int S, int H, int KVH, int hd, int page,
+    int max_pages, float scale, int window, int n_split, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (hd) {
+    case 32:
+      return launch<32>(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
+                        chunk_len, out, m_ws, l_ws, acc_ws, B, S, H, KVH,
+                        page, max_pages, scale, window, n_split, st);
+    case 64:
+      return launch<64>(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
+                        chunk_len, out, m_ws, l_ws, acc_ws, B, S, H, KVH,
+                        page, max_pages, scale, window, n_split, st);
+    case 128:
+      return launch<128>(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
+                         chunk_len, out, m_ws, l_ws, acc_ws, B, S, H, KVH,
+                         page, max_pages, scale, window, n_split, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  dim3 grid(B, KVH, (S + tq - 1) / tq);
-  paged_prefill_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len, out,
-      S, H, KVH, hd, page, max_pages, scale, window, tq);
-  return (int)cudaGetLastError();
 }

@@ -22,8 +22,8 @@
 // once (every staged K/V row serves all of them), walks its own balanced
 // range of history pages in tiles of 32 keys (one warp's width, so the
 // online-softmax update of a row is one warp reduction) and writes its
-// partial (m, l, acc) to scratch.  A second launch, one block per (lane,
-// row, query head), merges the splits and writes `out`.  The wrapper picks
+// partial (m, l, acc) to scratch.  A second launch (split_merge.cuh, shared
+// with B1 and B2) merges the splits and writes `out`.  The wrapper picks
 // the split count so that about two blocks per SM are in flight, capped by
 // the pages a lane can hold; a block whose range is empty writes l = 0 and
 // the merge skips it.
@@ -42,23 +42,16 @@
 // so a split that sees no valid key for a row carries l = 0.
 #include <cuda_runtime.h>
 
+#include "split_merge.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using repro_split::kNegInf;
+using repro_split::warp_max;
+using repro_split::warp_sum;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTK = 32;  // keys per tile: one per lane of a warp
-constexpr int kMergeThreads = 128;
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __global__ void paged_verify_split_kernel(
     const float* __restrict__ q,        // (B, S, H, hd)
@@ -120,11 +113,13 @@ __global__ void paged_verify_split_kernel(
   const int n_keys = n_hist + (own ? n_tok : 0);
   const int R_live = n_tok * G;          // live rows, position-major
 
-  if (n_keys == 0) {
+  if (n_keys == 0) {  // the merge reads acc with weight 0: write zeros
     for (int r = tid; r < R_live; r += kThreads) {
       m_ws[ws_base + r] = kNegInf;
       l_ws[ws_base + r] = 0.f;
     }
+    for (int e = tid; e < R_live * hd; e += kThreads)
+      acc_ws[ws_base * hd + e] = 0.f;
     return;
   }
 
@@ -231,69 +226,6 @@ __global__ void paged_verify_split_kernel(
     acc_ws[ws_base * hd + e] = acc[e];
 }
 
-// out[b, i, h, :] = sum_s acc_s * exp(m_s - M) / max(sum_s l_s * exp(m_s - M),
-// 1e-30) over the splits s with l_s > 0, M = max m_s; rows i >= chunk_len
-// are zeros.  One block per (lane, row, query head): the splits' (m, l)
-// are reduced across the block's threads, then each thread sums its
-// output columns over the splits (loads independent, coalesced over hd).
-__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = is_max ? warp_max(v) : warp_sum(v);
-  __syncthreads();                       // red free from a previous use
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = red[0];
-  for (int w = 1; w < kMergeThreads / 32; ++w)
-    v = is_max ? fmaxf(v, red[w]) : v + red[w];
-  return v;
-}
-
-__global__ void paged_verify_merge_kernel(
-    const float* __restrict__ m_ws, const float* __restrict__ l_ws,
-    const float* __restrict__ acc_ws, const int* __restrict__ clen_arr,
-    float* __restrict__ out,              // (B, S, H, hd)
-    int S, int H, int KVH, int hd, int n_split) {
-  const int b = blockIdx.x;
-  const int i = blockIdx.y;
-  const int h = blockIdx.z;
-  const int tid = threadIdx.x;
-  float* ob = out + (((long long)b * S + i) * H + h) * hd;
-  if (i >= clen_arr[b]) {
-    for (int d = tid; d < hd; d += kMergeThreads) ob[d] = 0.f;
-    return;
-  }
-  const int G = H / KVH;
-  const int R = S * G;
-  const long long base =
-      ((long long)b * KVH + h / G) * n_split * R + (long long)i * G + h % G;
-  extern __shared__ float w_s[];         // n_split weights
-  __shared__ float red[kMergeThreads / 32];
-  float m_max = kNegInf;
-  for (int s = tid; s < n_split; s += kMergeThreads) {
-    const long long w = base + (long long)s * R;
-    if (l_ws[w] > 0.f) m_max = fmaxf(m_max, m_ws[w]);
-  }
-  m_max = block_reduce(m_max, red, true);
-  float l_sum = 0.f;
-  for (int s = tid; s < n_split; s += kMergeThreads) {
-    const long long w = base + (long long)s * R;
-    const float l = l_ws[w];
-    const float c = l > 0.f ? expf(m_ws[w] - m_max) : 0.f;
-    w_s[s] = c;
-    l_sum += l * c;
-  }
-  l_sum = block_reduce(l_sum, red, false);  // its barriers publish w_s
-  const float inv = 1.f / fmaxf(l_sum, 1e-30f);
-  for (int d = tid; d < hd; d += kMergeThreads) {
-    float a = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float c = w_s[s];
-      if (c > 0.f) a += acc_ws[(base + (long long)s * R) * hd + d] * c;
-    }
-    ob[d] = a * inv;
-  }
-}
-
 }  // namespace
 
 extern "C" int repro_paged_verify_f32(
@@ -318,8 +250,6 @@ extern "C" int repro_paged_verify_f32(
       l_ws, acc_ws, S, H, KVH, hd, page, max_pages, scale, window, n_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_verify_merge_kernel<<<dim3(B, S, H), kMergeThreads,
-                              sizeof(float) * n_split, st>>>(
-      m_ws, l_ws, acc_ws, chunk_len, out, S, H, KVH, hd, n_split);
-  return (int)cudaGetLastError();
+  return repro_split::launch_split_merge(m_ws, l_ws, acc_ws, chunk_len, out,
+                                        B, S, H, KVH, hd, n_split, st);
 }

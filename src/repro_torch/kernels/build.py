@@ -6,8 +6,10 @@ loaded with ``ctypes``.  Nothing includes PyTorch's headers, so a build
 takes seconds.  The build runs at first use (never at import: the CPU
 tests import every module on machines with no ``nvcc``), from the sources
 in the checkout only, into ``build/repro_torch_kernels/`` at the root of
-the checkout.  A library is named after a hash of its source and flags,
-so an edited source is rebuilt and a stale library is never loaded.
+the checkout.  A library is named after a hash of its source, of every
+header under ``csrc/`` that it includes (``#include "x.cuh"``, followed
+recursively) and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all
 of them; ``chip_smoke.py`` calls it to build the kernels in parallel.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,9 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "paged_decode": ("repro_paged_decode_f32",
-                     [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+                     [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P]),
     "paged_prefill": ("repro_paged_prefill_f32",
-                      [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
+                      [_P] * 12 + [_I] * 7 + [_F, _I, _I, _P]),
     "paged_verify": ("repro_paged_verify_f32",
                      [_P] * 12 + [_I] * 7 + [_F, _I, _I, _P]),
     "mla_paged_prefill": ("repro_mla_paged_prefill_f32",
@@ -44,7 +47,8 @@ SIGNATURES = {
                         [_P] * 4 + [_I] * 7 + [_F, _P]),
 }
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[str, object] = {}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -58,10 +62,23 @@ def _nvcc() -> str:
                        "on a machine with the CUDA toolkit")
 
 
+def _sources(path: Path, seen: list) -> list:
+    """``path`` and every header under its directory that it includes,
+    directly or through another header, each once, in include order."""
+    if path in seen or not path.exists():
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu", []):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -100,14 +117,15 @@ def build_all() -> dict:
 
 
 def load(name: str):
-    """The exported launcher of ``csrc/<name>.cu``, building it if needed."""
-    fn_name, argtypes = SIGNATURES[name]
-    lib = _LIBS.get(name)
-    if lib is None:
+    """The exported launcher of ``csrc/<name>.cu``, building it if needed.
+    Its C signature is set once, when the library is loaded; later calls
+    return the same configured function."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn_name, argtypes = SIGNATURES[name]
         _finish(name, _start(name))
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _LIBS[name] = lib
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        fn = getattr(ctypes.CDLL(str(_lib_path(name))), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
     return fn

@@ -9,12 +9,17 @@ addressed by a block table; with ``window`` the query at position
 ``paged_decode_attention`` dispatches on the device of its inputs, never
 on what happens to be installed: CPU tensors run the plain version, CUDA
 tensors launch the hand-written kernel in ``csrc/paged_decode.cu`` (or
-raise), anything else raises.  ``COUNTS["kernel"]`` counts CUDA launches
-and ``COUNTS["plain"]`` calls of the plain version, so a run can show which
-of the two its main path went through.
+raise), anything else raises.  ``COUNTS["kernel"]`` counts calls that
+launched the kernel (one per call, whether the call splits the keys and
+adds a merge launch or not) and ``COUNTS["plain"]`` calls of the plain
+version, so a run can show which of the two its main path went through.
+
+The kernel splits each lane's pages over ``n_splits`` blocks per (lane,
+KV head) and merges the splits in a second launch.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -22,6 +27,37 @@ import torch
 NEG_INF = -1e30
 
 COUNTS = {"kernel": 0, "plain": 0}
+
+# blocks in flight the split count aims at, per SM of the card
+BLOCKS_PER_SM = 2
+# head dims the CUDA kernel is built for, and its largest GQA group
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUP = 8
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of ``dev``, asked of CUDA once."""
+    n = _SMS.get(dev.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(dev).multi_processor_count
+        _SMS[dev.index] = n
+    return n
+
+
+def n_splits(B: int, KVH: int, page: int, max_pages: int,
+             window: Optional[int], n_sms: int) -> int:
+    """Key splits per (lane, KV head): about ``BLOCKS_PER_SM`` blocks per
+    SM in flight, capped by the pages a lane can hold (the table width, or
+    the pages a window of ``window`` keys can touch).  The host does not
+    know the lanes' lengths without a sync; each split takes a balanced
+    share of its lane's own pages on the device, and a split whose share is
+    empty writes l = 0."""
+    cap = max_pages
+    if window is not None:
+        cap = min(cap, (window - 1 + page - 1) // page + 1)
+    return max(1, min(math.ceil(BLOCKS_PER_SM * n_sms / (B * KVH)), cap))
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *,
@@ -53,6 +89,34 @@ def check_tensor(name, t, dtype, device, ndim):
             f"(contiguous={t.is_contiguous()})")
 
 
+def check_head_dim(kernel: str, hd: int) -> None:
+    """Refuse a head dim the CUDA kernel is not built for, before launching."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{kernel}: the CUDA kernel takes head dims "
+                         f"{HEAD_DIMS}, not {hd}")
+
+
+def check_aligned(kernel: str, *ts) -> None:
+    """16-byte loads need 16-byte aligned rows (hd is a multiple of 4)."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{kernel}: tensors must start 16-byte aligned")
+
+
+def split_workspace(B: int, KVH: int, ns: int, R: int, hd: int, dev, *,
+                    direct: bool = True):
+    """Scratch for the partial (m, l, acc) of R query rows per (lane, KV
+    head) and key split (``csrc/split_merge.cuh``'s layout): the tensors,
+    which the caller keeps alive until the launch is queued, and their
+    pointers.  With one split and ``direct`` (the kernel then writes the
+    output itself) there is no scratch: null pointers."""
+    if ns == 1 and direct:
+        return [], [None] * 3
+    m = torch.empty((B, KVH, ns, R), dtype=torch.float32, device=dev)
+    ws = [m, torch.empty_like(m),
+          torch.empty((B, KVH, ns, R, hd), dtype=torch.float32, device=dev)]
+    return ws, [t.data_ptr() for t in ws]
+
+
 def _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window):
     from repro_torch.kernels import build
     dev = q.device
@@ -66,12 +130,21 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window):
     if hd_k != hd or v_pages.shape != k_pages.shape \
             or block_table.shape[0] != B or seq_lens.shape[0] != B:
         raise ValueError("paged_decode_attention: inconsistent shapes")
+    G = H // KVH
+    check_head_dim("paged_decode_attention", hd)
+    if G > MAX_GROUP:
+        raise ValueError(f"paged_decode_attention: the CUDA kernel takes GQA "
+                         f"groups of at most {MAX_GROUP}, not {G}")
+    check_aligned("paged_decode_attention", q, k_pages, v_pages)
+    max_pages = block_table.shape[1]
+    ns = n_splits(B, KVH, page, max_pages, window, sm_count(dev))
     out = torch.empty_like(q)
+    _ws, ws = split_workspace(B, KVH, ns, G, hd, dev)
     fn = build.load("paged_decode")
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            B, H, KVH, hd, page, block_table.shape[1], scale,
-            -1 if window is None else int(window),
+            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), *ws,
+            B, H, KVH, hd, page, max_pages, scale,
+            -1 if window is None else int(window), ns,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {rc}")

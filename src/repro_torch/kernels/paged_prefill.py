@@ -15,19 +15,47 @@ lane's history, which no caller reads.
 
 Dispatch is by the inputs' device, as in ``paged_attention.py``:
 CPU → plain version, CUDA → ``csrc/paged_prefill.cu`` or raise.
+``COUNTS["kernel"]`` counts calls that launched the kernel, one per call
+whatever number of launches (a key split adds a merge launch).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.paged_attention import NEG_INF, check_tensor
+from repro_torch.kernels.paged_attention import (
+    BLOCKS_PER_SM, NEG_INF, check_aligned, check_head_dim, check_tensor,
+    sm_count, split_workspace)
 
 COUNTS = {"kernel": 0, "plain": 0}
 
-# query positions per block of the CUDA kernel's (lane, KV head, tile) grid
-TILE_Q = 16
+# the CUDA kernel's tiles: query rows ((position, group member) pairs of
+# one KV head, position-major) per block, and keys per staged tile
+ROWS_PER_BLOCK = 128
+KEY_TILE = 64
+
+
+def n_splits(B: int, S: int, G: int, KVH: int, page: int, max_pages: int,
+             window: Optional[int], n_sms: int) -> int:
+    """Key splits per (lane, KV head, query tile).  One when the query
+    tiles alone give every SM a block (long chunks: there the merge launch
+    costs more than the split gains); otherwise enough for about
+    ``BLOCKS_PER_SM`` blocks per SM, capped by the key tiles one query
+    tile can see (the table width, or a window plus the chunk).  The host
+    does not know the lanes' positions without a sync; each split takes a
+    balanced share of its tile's key range on the device, and a split whose
+    share is empty writes l = 0."""
+    target = BLOCKS_PER_SM * n_sms
+    tiles = B * KVH * math.ceil(S * G / ROWS_PER_BLOCK)
+    if tiles >= n_sms:
+        return 1
+    keys = max_pages * page
+    if window is not None:
+        keys = min(keys, window + S - 1)
+    cap = math.ceil(keys / KEY_TILE)
+    return max(1, min(math.ceil(target / tiles), cap))
 
 
 def paged_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_table,
@@ -71,15 +99,20 @@ def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
             or block_table.shape[0] != B or pos0.shape[0] != B \
             or chunk_len.shape[0] != B:
         raise ValueError("paged_prefill_attention: inconsistent shapes")
-    if (H // KVH) * TILE_Q > 256:
-        raise ValueError("paged_prefill_attention: GQA group too large")
+    G = H // KVH
+    check_head_dim("paged_prefill_attention", hd)
+    check_aligned("paged_prefill_attention", q, k_new, v_new, k_pages,
+                  v_pages)
+    max_pages = block_table.shape[1]
+    ns = n_splits(B, S, G, KVH, page, max_pages, window, sm_count(dev))
     out = torch.empty_like(q)
+    _ws, ws = split_workspace(B, KVH, ns, S * G, hd, dev)
     fn = build.load("paged_prefill")
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
-            pos0.data_ptr(), chunk_len.data_ptr(), out.data_ptr(),
-            B, S, H, KVH, hd, page, block_table.shape[1], scale,
-            -1 if window is None else int(window), TILE_Q,
+            pos0.data_ptr(), chunk_len.data_ptr(), out.data_ptr(), *ws,
+            B, S, H, KVH, hd, page, max_pages, scale,
+            -1 if window is None else int(window), ns,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_prefill kernel launch failed: CUDA error {rc}")

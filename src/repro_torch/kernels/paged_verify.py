@@ -15,18 +15,17 @@ or raise.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.paged_attention import check_tensor
+# B3 splits keys as B1 does: about two blocks per SM, capped by the pages
+# a lane can hold
+from repro_torch.kernels.paged_attention import (
+    check_aligned, check_tensor, n_splits, sm_count, split_workspace)
 from repro_torch.kernels.paged_prefill import prefill_math
 
 COUNTS = {"kernel": 0, "plain": 0}
-
-# blocks in flight the split count aims at, per SM of the card
-BLOCKS_PER_SM = 2
 
 
 def paged_verify_attention(q, k_new, v_new, k_pages, v_pages, block_table,
@@ -51,18 +50,6 @@ def paged_verify_attention(q, k_new, v_new, k_pages, v_pages, block_table,
                    chunk_len, scale, window)
 
 
-def n_splits(B: int, KVH: int, page: int, max_pages: int,
-             window: Optional[int], n_sms: int) -> int:
-    """Key splits per (lane, KV head): about ``BLOCKS_PER_SM`` blocks per
-    SM in flight, capped by the history pages a lane can hold (the table
-    width, or the window's pages).  The host does not know the lanes'
-    positions without a sync; a split whose range is empty exits early."""
-    cap = max_pages
-    if window is not None:
-        cap = min(cap, (window - 1 + page - 1) // page + 1)
-    return max(1, min(math.ceil(BLOCKS_PER_SM * n_sms / (B * KVH)), cap))
-
-
 def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
             scale, window):
     from repro_torch.kernels import build
@@ -82,23 +69,20 @@ def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
             or block_table.shape[0] != B or pos0.shape[0] != B \
             or chunk_len.shape[0] != B:
         raise ValueError("paged_verify_attention: inconsistent shapes")
-    if hd % 4 or any(t.data_ptr() % 16 for t in (q, k_new, v_new, k_pages,
-                                                  v_pages)):
+    if hd % 4:
         raise ValueError("paged_verify_attention: rows must be float4-aligned")
+    check_aligned("paged_verify_attention", q, k_new, v_new, k_pages, v_pages)
     # a window whose G * S query rows do not fit one block's shared memory
     # is refused by the launch (cudaFuncSetAttribute), reported below
-    ns = n_splits(B, KVH, page, block_table.shape[1], window,
-                  torch.cuda.get_device_properties(dev).multi_processor_count)
-    R = S * (H // KVH)
-    m_ws = torch.empty((B, KVH, ns, R), dtype=torch.float32, device=dev)
-    l_ws = torch.empty_like(m_ws)
-    acc_ws = torch.empty((B, KVH, ns, R, hd), dtype=torch.float32, device=dev)
+    ns = n_splits(B, KVH, page, block_table.shape[1], window, sm_count(dev))
+    # the split kernel writes its partials even with one split
+    _ws, ws = split_workspace(B, KVH, ns, S * (H // KVH), hd, dev,
+                              direct=False)
     out = torch.empty_like(q)
     fn = build.load("paged_verify")
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
-            pos0.data_ptr(), chunk_len.data_ptr(), m_ws.data_ptr(),
-            l_ws.data_ptr(), acc_ws.data_ptr(), out.data_ptr(),
+            pos0.data_ptr(), chunk_len.data_ptr(), *ws, out.data_ptr(),
             B, S, H, KVH, hd, page, block_table.shape[1], scale,
             -1 if window is None else int(window), ns,
             torch.cuda.current_stream(dev).cuda_stream)

@@ -74,10 +74,16 @@ def _run(eng, batch_cls, kinds, preempt=False):
     return streams
 
 
+# the reference init jitted: one compile for the whole tree instead of one
+# per eager op (seconds per model); its values agree with the eager init's
+# to an ulp, and both sides of every comparison get the same numbers
+_jax_init = jax.jit(jmodels.init_params, static_argnums=(1,))
+
+
 @pytest.fixture(scope="module")
 def reference():
     jcfg = jcfgs.get_reduced(ARCH)
-    jparams = jmodels.init_params(jax.random.PRNGKey(0), jcfg)
+    jparams = _jax_init(jax.random.PRNGKey(0), jcfg)
     eng = jengine.ServingEngine(jcfg, jparams, jengine.EngineConfig(
         share_prefix=True, **ECFG))
     kinds = {"P": jslo.StageKind.PREFILL, "D": jslo.StageKind.DECODE}

@@ -275,3 +275,286 @@ def test_verify_split_count():
     assert pv.n_splits(1, 8, 16, 400, 40, 132) == 4    # 39 keys: 4 pages
     assert pv.n_splits(8, 32, 16, 64, None, 132) == 2
     assert pv.n_splits(64, 32, 16, 64, None, 132) == 1
+
+
+def test_split_workspace():
+    """Scratch in csrc/split_merge.cuh's layout.  With one split B1 and B2
+    write the output themselves and get none; B3's split kernel always
+    writes partials, so it asks for scratch (direct=False)."""
+    shapes = [(2, 3, 5, 8), (2, 3, 5, 8), (2, 3, 5, 8, 64)]
+    ws, ptrs = pa.split_workspace(2, 3, 5, 8, 64, "cpu")
+    assert [tuple(t.shape) for t in ws] == shapes
+    assert ptrs == [t.data_ptr() for t in ws]
+    assert pa.split_workspace(2, 3, 1, 8, 64, "cpu") == ([], [None] * 3)
+    ws, ptrs = pa.split_workspace(2, 3, 1, 8, 64, "cpu", direct=False)
+    assert [tuple(t.shape) for t in ws] == [s[:2] + (1,) + s[3:]
+                                            for s in shapes]
+    assert ptrs == [t.data_ptr() for t in ws]
+
+
+# ------------------- the CUDA kernels' decompositions ------------------- #
+# The kernels themselves run only on the card; these tests hold their
+# host-side split counts and emulate, in float64 torch, the way they cut
+# the work (key splits, query tiles, the merge) and the 3xTF32 products.
+def test_decode_split_count():
+    """B1: about two blocks per SM, capped by the pages a lane can hold
+    (the table width, or the pages a window touches)."""
+    assert pa.n_splits(8, 3, 16, 256, None, 132) == 11
+    assert pa.n_splits(1, 3, 16, 256, None, 132) == 88
+    assert pa.n_splits(1, 3, 16, 28, None, 132) == 28
+    assert pa.n_splits(8, 20, 16, 28, None, 132) == 2
+    assert pa.n_splits(4, 8, 16, 400, 4096, 132) == 9
+    assert pa.n_splits(1, 8, 16, 400, 40, 132) == 4    # 39 keys: 4 pages
+    assert pa.n_splits(64, 32, 16, 64, None, 132) == 1
+
+
+def test_prefill_split_count():
+    """B2: no split when the query tiles give every SM a block, else
+    enough splits for about two blocks per SM, capped by the key tiles a
+    query tile can see."""
+    assert pp.n_splits(8, 512, 3, 3, 16, 256, None, 132) == 1
+    assert pp.n_splits(1, 8, 3, 3, 16, 256, None, 132) == 64
+    assert pp.n_splits(1, 8, 3, 3, 16, 16, None, 132) == 4
+    assert pp.n_splits(4, 64, 1, 20, 16, 28, None, 132) == 4
+    assert pp.n_splits(1, 16, 2, 8, 16, 400, 100, 132) == 2  # 115 keys
+    assert pp.n_splits(4, 512, 2, 8, 16, 400, 4096, 132) == 1
+    assert pp.n_splits(1, 512, 2, 8, 16, 400, 4096, 132) == 5
+    assert pp.n_splits(8, 64, 3, 2, 8, 32, None, 132) == 4
+
+
+def _partial(q, k, v, valid):
+    """One split's (m, l, acc) for query rows q (R, hd) over keys k/v
+    (T, hd) with validity (R, T): masked keys contribute exactly 0; a row
+    with no valid key keeps m = NEG_INF, l = 0, acc = 0."""
+    s = torch.where(valid, q @ k.T, pa.NEG_INF)
+    m = s.max(-1).values if s.shape[1] else torch.full(
+        (q.shape[0],), pa.NEG_INF, dtype=q.dtype)
+    p = torch.where(valid, torch.exp(s - m[:, None]), 0.0)
+    return m, p.sum(-1), p @ v
+
+
+def _merge(parts):
+    """The merge launch (csrc/split_merge.cuh): splits with l > 0 only."""
+    m = torch.stack([p[0] for p in parts])                  # (ns, R)
+    l = torch.stack([p[1] for p in parts])
+    acc = torch.stack([p[2] for p in parts])                # (ns, R, hd)
+    mx = torch.where(l > 0, m, pa.NEG_INF).max(0).values
+    c = torch.where(l > 0, torch.exp(m - mx), 0.0)
+    den = (l * c).sum(0).clamp(min=1e-30)
+    return (acc * c[..., None]).sum(0) / den[..., None]
+
+
+def _split_decode(q, kp, vp, table, seq_lens, scale, window, ns):
+    """csrc/paged_decode.cu's decomposition: per (lane, KV head) the pages
+    [lo, ceil(seq_len / page)) are cut into ns balanced shares, each share
+    a partial over its keys, then merged."""
+    B, H, hd = q.shape
+    _, page, KVH, _ = kp.shape
+    G = H // KVH
+    out = torch.empty(B, H, hd, dtype=torch.float64)
+    for b in range(B):
+        n = int(seq_lens[b])
+        key_lo = max(n - window, 0) if window else 0
+        pg_lo = key_lo // page
+        n_pg = max(min((n + page - 1) // page, table.shape[1]) - pg_lo, 0)
+        for h in range(KVH):
+            qg = q[b, h * G:(h + 1) * G].double() * scale
+            parts = []
+            for s in range(ns):
+                lo = pg_lo + s * n_pg // ns
+                hi = pg_lo + (s + 1) * n_pg // ns
+                start = max(key_lo, lo * page)
+                pos = torch.arange(start, max(start, min(n, hi * page)))
+                rows = table[b].long()[pos // page] * page + pos % page
+                k = kp.reshape(-1, KVH, hd)[rows, h].double()
+                v = vp.reshape(-1, KVH, hd)[rows, h].double()
+                parts.append(_partial(qg, k, v, torch.ones(
+                    G, len(pos), dtype=torch.bool)))
+            out[b, h * G:(h + 1) * G] = _merge(parts)
+    return out
+
+
+@pytest.mark.parametrize("H,KV,hd,page,lens,window", [
+    (9, 3, 64, 16, [1, 17, 200], None),
+    (4, 4, 32, 8, [5, 64, 33], None),
+    (8, 4, 128, 16, [100, 60, 16], 40),
+])
+def test_decode_split_decomposition(H, KV, hd, page, lens, window):
+    """Every split count from 1 to past the longest lane's pages (so that
+    some shares are empty) gives the plain version's result within 1e-5."""
+    B, max_pages = len(lens), 14
+    q, _, _, kp, vp, table = _inputs(11, B, 1, H, KV, hd, page, max_pages)
+    q, kp, vp, table = _t(q[:, 0], kp, vp, table)
+    sl = torch.tensor(lens, dtype=torch.int32)
+    want = pa.paged_decode_plain(q, kp, vp, table, sl, scale=hd ** -0.5,
+                                 window=window).double()
+    for ns in range(1, max(lens) // page + 4):
+        got = _split_decode(q, kp, vp, table, sl, hd ** -0.5, window, ns)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL,
+                                   rtol=0)
+
+
+def _split_prefill(q, kn, vn, kp, vp, table, pos0, clen, scale, window, ns):
+    """csrc/paged_prefill.cu's decomposition: per (lane, KV head) the S*G
+    rows (position-major) are cut into tiles of ROWS_PER_BLOCK; a tile's
+    key range [k_lo, q_last] is cut into KEY_TILE-key tiles shared out
+    over ns splits; history keys come from the pages as they were before
+    the launch, the chunk's keys from k_new / v_new; split 0 of the tile
+    holding a position's first row writes it.  Returns (out, k_pages,
+    v_pages), the pools updated in place."""
+    B, S, H, hd = q.shape
+    _, page, KVH, _ = kp.shape
+    G = H // KVH
+    R, BM, BN = S * G, pp.ROWS_PER_BLOCK, pp.KEY_TILE
+    kp0, vp0 = kp.clone(), vp.clone()
+    out = torch.zeros(B, S, H, hd, dtype=torch.float64)
+    writes = {}
+    for b in range(B):
+        p0, n_tok = int(pos0[b]), int(clen[b])
+        for h in range(KVH):
+            for r0 in range(0, R, BM):
+                live_end = min(r0 + BM, R, n_tok * G)
+                for i in range(-(-r0 // G), min(-(-(r0 + BM) // G), n_tok)):
+                    writes[(b, i, h)] = writes.get((b, i, h), 0) + 1
+                    slot = int(table[b, (p0 + i) // page])
+                    kp[slot, (p0 + i) % page, h] = kn[b, i, h]
+                    vp[slot, (p0 + i) % page, h] = vn[b, i, h]
+                if live_end <= r0:
+                    continue
+                rows = torch.arange(r0, live_end)
+                qpos = p0 + rows // G
+                k_lo = max(int(qpos[0]) - window + 1, 0) if window else 0
+                k_hi = int(qpos[-1]) + 1
+                n_tiles = -(-(k_hi - k_lo) // BN)
+                qr = q[b, rows // G, h * G + rows % G].double() * scale
+                parts = []
+                for s in range(ns):
+                    t_lo, t_hi = s * n_tiles // ns, (s + 1) * n_tiles // ns
+                    kpos = torch.arange(k_lo + t_lo * BN,
+                                        min(k_lo + t_hi * BN, k_hi))
+                    hist = kpos < p0
+                    slots = table[b].long()[kpos.clamp(max=p0 - 1).clamp(
+                        min=0) // page]
+                    off = kpos.clamp(min=0) % page
+                    k = torch.where(hist[:, None], kp0[slots, off, h],
+                                    kn[b, (kpos - p0).clamp(min=0), h])
+                    v = torch.where(hist[:, None], vp0[slots, off, h],
+                                    vn[b, (kpos - p0).clamp(min=0), h])
+                    valid = kpos[None] <= qpos[:, None]
+                    if window:
+                        valid &= kpos[None] > qpos[:, None] - window
+                    parts.append(_partial(qr, k.double(), v.double(), valid))
+                out[b, rows // G, h * G + rows % G] = _merge(parts)
+    assert all(c == 1 for c in writes.values())      # one writer per row
+    return out, kp, vp
+
+
+@pytest.mark.parametrize("S,H,KV,hd,page,pos0,clen,window", [
+    (8, 9, 3, 64, 16, [477, 30], [2, 0], None),     # the replay's bucket
+    (64, 9, 3, 64, 16, [0, 100], [64, 30], None),   # rows straddle tiles
+    (64, 4, 4, 32, 8, [37, 3], [64, 1], None),      # G 1
+    (32, 8, 4, 128, 16, [150, 0], [20, 32], 40),    # G 2, a window
+])
+def test_prefill_split_decomposition(S, H, KV, hd, page, pos0, clen, window):
+    """The kernel's tiling and key splits (1 to more key tiles than a
+    query tile sees) give the plain version's output within 1e-5 and its
+    pools bit for bit, each chunk row written once."""
+    B, max_pages = 2, 40
+    q, kn, vn, kp, vp, table = _t(*_inputs(12, B, S, H, KV, hd, page,
+                                           max_pages))
+    p0 = torch.tensor(pos0, dtype=torch.int32)
+    cl = torch.tensor(clen, dtype=torch.int32)
+    want, wkp, wvp = pp.prefill_math(q, kn, vn, kp.clone(), vp.clone(),
+                                     table, p0, cl, scale=hd ** -0.5,
+                                     window=window)
+    for ns in (1, 2, 3, 7):
+        got, gkp, gvp = _split_prefill(q, kn, vn, kp.clone(), vp.clone(),
+                                       table, p0, cl, hd ** -0.5, window, ns)
+        torch.testing.assert_close(gkp, wkp, rtol=0, atol=0)
+        torch.testing.assert_close(gvp, wvp, rtol=0, atol=0)
+        np.testing.assert_allclose(got.numpy(), want.double().numpy(),
+                                   atol=ATOL, rtol=0)
+
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32: round to nearest (ties away from zero) to 10
+    mantissa bits, i.e. the low 13 bits of the float32 cleared."""
+    bits = x.float().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """What the tensor core reads of a float32 operand: its low 13 bits
+    dropped."""
+    return (x.float().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _product_3xtf32(a, b):
+    """a @ b as csrc/paged_prefill.cu computes it: big = rna(x), small =
+    x - big (exact), read as TF32 by truncation; small·big + big·small +
+    big·big, each product of TF32 values exact, summed in float32."""
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    as_, bs = _tf32_trunc(a - ab), _tf32_trunc(b - bb)
+    return ((as_.double() @ bb.double()).float()
+            + (ab.double() @ bs.double()).float()
+            + (ab.double() @ bb.double()).float())
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_3xtf32_products_hold_the_card_check(hd):
+    """At B2's head dims, scores q·kᵀ (q, k standard normal: |s| up to about
+    4 sqrt(hd)) and the attention output P·V from 3xTF32 products stay
+    within 2e-5 of float64 (the card check allows 1e-4), while one TF32
+    product (the tensor core's plain mode) misses 1e-4."""
+    rng = np.random.default_rng(hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal((64, hd)).astype(
+        np.float32)) for _ in range(3))
+    exact = q.double() @ k.double().T
+    s3 = _product_3xtf32(q, k.T)
+    one = (_tf32_rna(q).double() @ _tf32_rna(k).double().T)
+    assert (s3.double() - exact).abs().max() < 2e-5
+    assert (one - exact).abs().max() > 1e-4
+    p = torch.softmax(exact * hd ** -0.5, -1)
+    o_exact = p @ v.double()
+    o3 = _product_3xtf32(p.float(), v)
+    assert (o3.double() - o_exact).abs().max() < 2e-5
+
+
+def test_lib_path_hashes_included_headers(tmp_path, monkeypatch):
+    """An edited header that a source includes (directly or through
+    another header) changes the source's library path; a header it does
+    not include does not."""
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    (tmp_path / "c.cuh").write_text("int c;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build._lib_path("k")
+    (tmp_path / "c.cuh").write_text("int c2;\n")
+    assert build._lib_path("k") == first
+    (tmp_path / "b.cuh").write_text("int b2;\n")
+    second = build._lib_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint k2;\n')
+    assert build._lib_path("k") not in (first, second)
+
+
+def test_load_configures_each_launcher_once(monkeypatch):
+    """``build.load`` loads a library and sets its C signature once; later
+    calls return the same configured function with no file or CUDA
+    work."""
+    from repro_torch.kernels import build
+    loads = []
+
+    class Lib:
+        def __init__(self, path):
+            loads.append(path)
+            self.repro_paged_decode_f32 = type("Fn", (), {})()
+    monkeypatch.setattr(build, "_FNS", {})
+    monkeypatch.setattr(build, "_start", lambda name: None)
+    monkeypatch.setattr(build.ctypes, "CDLL", Lib)
+    fn = build.load("paged_decode")
+    assert build.load("paged_decode") is fn and len(loads) == 1
+    assert fn.argtypes == build.SIGNATURES["paged_decode"][1]
+    assert fn.restype is build.ctypes.c_int

@@ -27,9 +27,15 @@ PAGE, N_PAGES, MAX_PAGES = 8, 24, 12
 _jax_forward = jax.jit(jmodels.model_forward, static_argnums=(1,))
 
 
+# the reference init jitted: one compile for the whole tree instead of one
+# per eager op (seconds per model); its values agree with the eager init's
+# to an ulp, and both sides of every comparison get the same numbers
+_jax_init = jax.jit(jmodels.init_params, static_argnums=(1,))
+
+
 def _jax_model(arch):
     jcfg = jcfgs.get_reduced(arch)
-    jparams = jmodels.init_params(jax.random.PRNGKey(0), jcfg)
+    jparams = _jax_init(jax.random.PRNGKey(0), jcfg)
     tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
                                         device="cpu")
     return jcfg, jparams, get_reduced(arch), tparams

@@ -135,9 +135,15 @@ def _perturbed(tree):
                    ).astype(a.dtype) if a.ndim >= 2 else a, tree)
 
 
+# the reference init jitted: one compile for the whole tree instead of one
+# per eager op (seconds per model); its values agree with the eager init's
+# to an ulp, and both sides of every comparison get the same numbers
+_jax_init = jax.jit(jmodels.init_params, static_argnums=(1,))
+
+
 def _init(jcfg, seed):
     return jax.tree.map(np.asarray,
-                        jmodels.init_params(jax.random.PRNGKey(seed), jcfg))
+                        _jax_init(jax.random.PRNGKey(seed), jcfg))
 
 
 @pytest.fixture(scope="module")
