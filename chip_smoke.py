@@ -1,6 +1,9 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
   python3 chip_smoke.py            # from the root of a checkout, one GPU
+  python3 chip_smoke.py --parent DIR   # also time DIR's B6 and B4 beside
+                                       # this tree's (DIR: another checkout)
+  python3 chip_smoke.py --split-sweep  # only B6's and B4's split sweeps
 
 Phases, each printed as one JSON line; any failed check raises and the
 script exits non-zero before the final line:
@@ -23,7 +26,9 @@ script exits non-zero before the final line:
    by ``torch.profiler`` (its own launches' device time, split and merge
    summed), beside the least time the card could take and one PyTorch
    ``scaled_dot_product_attention`` call over the gathered K/V (the
-   yardstick; the port never calls it).  The verify kernel (B3)
+   yardstick; the port never calls it), timed both ways too (its device
+   time: every kernel of the call but the L2 flush's fill).  The verify
+   kernel (B3)
    is held the same way at qwen3-1.7b's heads (16 query / 8 KV, head dim
    128; one lane, an 8- or 16-row window with 1 to 9 live rows, histories
    of 0 to about 2000 keys, a 4096-token window over 6000 keys) and at
@@ -63,10 +68,13 @@ script exits non-zero before the final line:
    widths (128 heads, latent rank 512, rope 64, page 16): a chunk that
    straddles pages from a mid-page start, a chunk from position 0, masked
    and partial lanes, a long history, every unreachable row and unmapped
-   page poisoned.  Outputs agree within 1e-4 on valid rows, pools
-   bit-equal, unwritten pages unchanged, padded rows zeros.  Timed at the
-   mla replay's prefill shape (one lane, a 16-row bucket with 15 live rows
-   after 120 tokens of history) and at a 256-token chunk.
+   page poisoned, and chunks of few rows whose keys the kernel splits over
+   blocks (one with a split whose share is empty).  Outputs agree within
+   1e-4 on valid rows, pools bit-equal, unwritten pages unchanged, padded
+   rows zeros; each line names the key splits.  Timed at the mla replay's
+   prefill shape (one lane, a 16-row bucket with 15 live rows after 120
+   tokens of history; 2 key splits) and at a 256-token chunk (none).
+   With ``--parent`` the other tree's B4 is checked and timed beside it.
 8. DeepSeek-V2 at full width cut to three layers (``mla``, ``mla_moe``,
    ``mla_moe``; random weights from the seed, 34.8 GiB in float32): three
    greedy streams of the engine against plain full-causal generation, as
@@ -94,19 +102,27 @@ script exits non-zero before the final line:
     shape must be among the prefill groups.
 13. The dense flash attention kernel (B6) against its plain version
     through the GQA wrapper ``attention``: one whisper encoder layer (20
-    heads, 1500 x 1500 frames, head dim 64, bidirectional), a cross
-    decode step of 8 lanes (Sq 1 over 1500 keys), cross prefill chunks of
-    16 and 128 rows, causal from q_offset 0 and beyond with kv_len < Sk,
-    head dim 32 and 128 (llama-3.2-vision's cross shape: 32 query / 8 KV
-    heads over 1600 image tokens; qwen3-1.7b's no-cache causal shape),
-    Sq and Sk no multiples of the tile; outputs within 1e-4, keys no row
-    may see poisoned.  Timed at the encoder and the cross-decode shape.
+    heads, 1500 x 1500 frames, head dim 64, bidirectional), cross decode
+    steps of 8 lanes and of one lane (Sq 1 over 1500 keys), cross prefill
+    chunks of 16, 32 and 128 rows, causal from q_offset 0 and beyond with
+    kv_len < Sk, head dim 32 and 128 (llama-3.2-vision's cross shape: 32
+    query / 8 KV heads over 1600 image tokens; qwen3-1.7b's no-cache
+    causal shape), Sq and Sk no multiples of the tile; outputs within
+    1e-4, keys no row may see poisoned.  Each line names the regime the
+    wrapper chose: warps per 16-row group (8 at one row, 1 from 65 rows)
+    and key splits (none when the query tiles give every SM a block).
+    Timed at the encoder and the 8-lane cross-decode shape and at the
+    whisper replay's commonest cross shapes (one lane's decode step and
+    its 16-row prefill bucket); with ``--parent`` the other tree's B6 is
+    checked and timed beside it.
 14. whisper-large-v3 at its published width and depth (32 encoder and 32
     decoder layers, random weights from the seed, 5.9 GiB in float32):
     each request's frames come from a numpy seed and go through
-    ``encoder_forward`` on the card; three greedy streams of the engine,
-    each lane with its own encoder states, against plain generation
-    (``model_forward(cache=None, enc_states=...)``) under the tie rule.
+    ``encoder_forward`` on the card (B6 in its 128-row regime); three
+    greedy streams of the engine, each lane with its own encoder states
+    (B6 over few rows, keys split, at every cross layer), against plain
+    generation (``model_forward(cache=None, enc_states=...)``) under the
+    tie rule.
 15. The whisper path: ``ServingFrontend`` with ``SLOsServeScheduler``
     serves 8 chatbot requests (lengths scaled by 0.25, 2/s, max_len 448),
     each submitted with ``enc_states`` from ``encoder_forward``.  Counts
@@ -114,9 +130,14 @@ script exits non-zero before the final line:
     B6 once per encoder layer per encoder call and once per decoder layer
     per prefill group and per decode step, B2 once per layer per prefill
     group, B1 once per layer per decode step, B3-B5 never, plain versions
-    never.  Then one decode step of eight lanes is timed whole and by part
-    (one layer's cross K/V projection, which the reference's design
-    repeats in every step, its cross-attention, its self-attention).
+    never.  The line lists the (BH, Sq, Sk) of every B6 call, which must
+    include the replay shapes step 13 timed.  Then one decode step of
+    eight lanes is timed whole and by part (one layer's cross K/V
+    projection, which the reference's design repeats in every step, its
+    cross-attention, its self-attention).  With ``--parent`` the replay
+    then runs four more times, with the other tree's B6 wrapper and
+    kernel and with this tree's in turns, each with a one-lane decode
+    step timed (the ``whisper_ab`` line).
 16. The kernels line (B1 and B2 launches from step 4, B3's from step 6,
     B4's from step 9, B5's from step 12, B6's from step 15), the card
     line, and ``{"ok": true, "device": ...}``.
@@ -129,8 +150,12 @@ It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import gc
+import importlib.util
+import io
 import json
 import subprocess
 import sys
@@ -142,6 +167,7 @@ import torch
 LIMIT = 1e-4                   # max |kernel - plain| on valid rows
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 N_TIMED = 20
 
 
@@ -166,20 +192,28 @@ def card_line() -> str:
 
 # ------------------------------ timing --------------------------------- #
 _FLUSH = None
+# the name the profiler gives the flush's fill (float64: nothing timed
+# here fills float64, so every other kernel of a timed call is counted)
+FLUSH_KERNEL = "FillFunctor<double>"
+
+
+def flush_l2() -> None:
+    """A 200 MB write that evicts the 50 MB L2 cache (the main path reads
+    each layer's pages cold)."""
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.empty(25_000_000, dtype=torch.float64, device="cuda")
+    _FLUSH.fill_(1.0)
 
 
 def time_ms(fn) -> float:
-    """Mean device time of ``fn`` over N_TIMED launches, each after a
-    200 MB write that evicts the 50 MB L2 cache (the main path reads each
-    layer's pages cold)."""
-    global _FLUSH
-    if _FLUSH is None:
-        _FLUSH = torch.empty(50_000_000, dtype=torch.float32, device="cuda")
+    """Mean time of ``fn`` over N_TIMED launches, each after the L2 flush,
+    by CUDA events around the call (the host's dispatch included)."""
     for _ in range(3):
         fn()
     total = 0.0
     for _ in range(N_TIMED):
-        _FLUSH.zero_()
+        flush_l2()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -197,53 +231,198 @@ KERNEL_NAMES = {
     "paged_prefill_attention": ("paged_prefill_kernel", "split_merge_kernel"),
     "paged_verify_attention": ("paged_verify_split_kernel",
                                "split_merge_kernel"),
-    "mla_paged_prefill_attention": ("mla_prefill_kernel",),
+    "mla_paged_prefill_attention": ("mla_prefill_kernel",
+                                    "split_merge_kernel"),
     "ssd_scan": ("ssd_kernel",),
-    "flash_attention_bh": ("flash_attention_kernel",),
+    "flash_attention_bh": ("flash_attention_kernel", "split_merge_kernel"),
 }
 
 
-def cuda_events(trace, names=None) -> list:
-    """The CUDA events of a ``torch.profiler`` trace whose names hold one
-    of ``names`` (every CUDA event when names is None)."""
-    return [e for e in trace.key_averages()
-            if getattr(e, "device_type", None) == torch.profiler.DeviceType.CUDA
-            and (names is None or any(n in e.key for n in names))]
-
-
-def cuda_ms(trace, names=None) -> float:
-    """Self device time in ms of ``cuda_events(trace, names)``."""
-    return sum(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-               for e in cuda_events(trace, names)) / 1e3
-
-
-def device_ms(fn, kernel: str):
-    """The kernel's own device time per call, without the wrapper's host
-    time: ``torch.profiler`` over N_TIMED calls, each after the L2 flush,
-    summing the self device time of the launches named in KERNEL_NAMES
-    (a key split's merge launch included).  Returns (ms, {launch name: ms});
-    ms is None if the profiler saw no such launch (then "not measured")."""
-    global _FLUSH
-    if _FLUSH is None:
-        _FLUSH = torch.empty(50_000_000, dtype=torch.float32, device="cuda")
+def cuda_profile(fn, n: int = N_TIMED, flush: bool = True):
+    """``torch.profiler``'s reading of n calls of ``fn`` (each after the L2
+    flush when ``flush``): {kernel name: (launches per call, mean device ms
+    per launch, launches recorded)}, the flush's own fill left out.  The
+    profiler does not record every launch (19 of 20 flushes in one
+    reading on an H100), so a kernel's time is its mean over the launches
+    it recorded times its launches per call, ceil(recorded / n), never its
+    recorded total over n.  None if the profiler saw no device time, or
+    with ``flush`` no flush (then its fill could not be told apart: "not
+    measured")."""
     fn()
     torch.cuda.synchronize()
     prof = torch.profiler
     with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as tr:
-        for _ in range(N_TIMED):
-            _FLUSH.zero_()
+        for _ in range(n):
+            if flush:
+                flush_l2()
             fn()
         torch.cuda.synchronize()
-    parts = {n: cuda_ms(tr, (n,)) / N_TIMED for n in KERNEL_NAMES[kernel]}
-    parts = {n: t for n, t in parts.items() if t > 0}
+    out, flushes = {}, 0
+    for e in tr.key_averages():
+        if getattr(e, "device_type", None) != prof.DeviceType.CUDA \
+                or e.count == 0:
+            continue
+        if flush and FLUSH_KERNEL in e.key:
+            flushes += e.count
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        out[e.key] = (-(-e.count // n), us / 1e3 / e.count, e.count)
+    if not out or (flush and flushes == 0):
+        return None
+    return out
+
+
+def cuda_sum(reading, names=None):
+    """(device ms, launches) per call of the kernels of a ``cuda_profile``
+    reading whose names hold one of ``names`` (all of them when None);
+    (None, None) when there is no reading."""
+    if reading is None:
+        return None, None
+    picked = [v for k, v in reading.items()
+              if names is None or any(n in k for n in names)]
+    return sum(c * ms for c, ms, _ in picked), sum(c for c, _, _ in picked)
+
+
+def device_ms(fn, kernel: str):
+    """The kernel's own device time per call, without the wrapper's host
+    time: the launches named in KERNEL_NAMES (a key split's merge
+    included) in a ``cuda_profile`` of N_TIMED calls.  Returns (ms,
+    {launch name: ms}, {launch name: launches recorded of N_TIMED}); ms is
+    None if the profiler saw no such launch (then "not measured")."""
+    reading = cuda_profile(fn)
+    parts, seen = {}, {}
+    for n in KERNEL_NAMES[kernel]:
+        ms, _ = cuda_sum(reading, (n,))
+        if ms:
+            parts[n] = ms
+            seen[n] = sum(v[2] for k, v in reading.items() if n in k)
     total = sum(parts.values())
-    return (total if total > 0 else None), parts
+    return (total if total > 0 else None), parts, seen
+
+
+def library_device_ms(fn):
+    """The device time per call of every kernel a library call launches
+    (the flush's fill left out), from a ``cuda_profile`` of N_TIMED calls:
+    the yardstick read the same way as ``device_ms`` reads a kernel."""
+    return cuda_sum(cuda_profile(fn))[0]
+
+
+class ParentKernels:
+    """B6 and B4 as another tree of the repo builds them (``--parent DIR``,
+    DIR a checkout such as a ``git archive`` of the parent commit), timed
+    beside this tree's at the same inputs in the same run.  They are
+    called through the C interfaces they had before their tensor-core
+    redesign (no split scratch, no regime arguments)."""
+    _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    SIGNATURES = {
+        "flash_attention": ("repro_flash_attention_f32",
+                            [_P] * 4 + [_I] * 7 + [_F, _P]),
+        "mla_paged_prefill": ("repro_mla_paged_prefill_f32",
+                              [_P] * 10 + [_I] * 7 + [_F, _P]),
+    }
+
+    def __init__(self, root: str):
+        from repro_torch.kernels import build
+        out = build.BUILD_DIR.parent / "parent_kernels"
+        out.mkdir(parents=True, exist_ok=True)
+        self.root = Path(root).resolve()
+        csrc = self.root / "src" / "repro_torch" / "csrc"
+        procs = {name: subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o",
+             str(out / f"lib{name}.so"), str(csrc / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name in self.SIGNATURES}
+        self.fns, self.ptxas = {}, {}
+        for name, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise SystemExit(
+                    f"parent csrc/{name}.cu does not build:\n{log}")
+            self.ptxas[name] = [ln.strip() for ln in log.splitlines()
+                                if "registers" in ln or "spill" in ln]
+            fn_name, argtypes = self.SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), fn_name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            self.fns[name] = fn
+
+    @contextlib.contextmanager
+    def b6_wrapper(self):
+        """The other tree's B6 wrapper module (its
+        ``kernels/flash_attention.py``), launching its kernel, in place of
+        this tree's for every model attention call while the context
+        lasts.  Yields the module (its ``COUNTS`` count the launches)."""
+        from repro_torch.kernels import build
+        from repro_torch.models import attention as model_attention
+        spec = importlib.util.spec_from_file_location(
+            "parent_flash_attention",
+            self.root / "src" / "repro_torch" / "kernels" /
+            "flash_attention.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        saved = build.load("flash_attention"), model_attention.attention
+        build._FNS["flash_attention"] = self.fns["flash_attention"]
+        model_attention.attention = mod.attention
+        try:
+            yield mod
+        finally:
+            build._FNS["flash_attention"], model_attention.attention = saved
+
+    @staticmethod
+    def _measure(call, kernel, err):
+        call()
+        torch.cuda.synchronize()
+        dev, _, seen = device_ms(call, kernel)
+        return {"ms": time_ms(call), "device_ms": dev,
+                "device_launches_seen": seen, "max_abs_err": err()}
+
+    def flash(self, qf, kf, vf, causal, q_offset, kv_len, want):
+        BH, Sq, hd = qf.shape
+        Sk = kf.shape[1]
+        out = torch.empty_like(qf)
+        fn = self.fns["flash_attention"]
+
+        def call():
+            rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                    out.data_ptr(), BH, Sq, Sk, hd, int(causal), q_offset,
+                    Sk if kv_len is None else kv_len, hd ** -0.5,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"parent flash_attention: CUDA error {rc}")
+        return self._measure(call, "flash_attention_bh",
+                             lambda: (out - want).abs().max().item())
+
+    def mla(self, ql, qr, cn, rn, cp, rp, table, p0, cl, scale, want, valid):
+        B, S, H, r = ql.shape
+        _, page, rope = rp.shape
+        out = torch.empty_like(ql)
+        fn = self.fns["mla_paged_prefill"]
+
+        def call():
+            rc = fn(ql.data_ptr(), qr.data_ptr(), cn.data_ptr(), rn.data_ptr(),
+                    cp.data_ptr(), rp.data_ptr(), table.data_ptr(),
+                    p0.data_ptr(), cl.data_ptr(), out.data_ptr(), B, S, H, r,
+                    rope, page, table.shape[1], scale,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"parent mla_paged_prefill: CUDA error {rc}")
+        return self._measure(call, "mla_paged_prefill_attention",
+                             lambda: (out - want).abs()[valid].max().item())
 
 
 def bound(n_bytes: float, n_flops: float):
     t_b, t_f = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOP_PER_S
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def tf32x3_floor_ms(n_bytes: float, n_flops: float) -> float:
+    """The least time of the same work done as 3xTF32 tensor-core products
+    (three TF32 products per float32 one, at the tensor cores' dense TF32
+    peak) or by moving its bytes, whichever is longer: the floor of the
+    tensor-core kernels (B2, B4, B6), beside the float32 bound."""
+    return max(n_bytes / HBM_BYTES_PER_S,
+               3 * n_flops / TF32_FLOP_PER_S) * 1e3
 
 
 # ------------------------------ inputs --------------------------------- #
@@ -355,12 +534,19 @@ def decode_timing(pa, q, kp, vp, table, sl, lens, window):
     F = torch.nn.functional
     kernel_ms = time_ms(lambda: pa.paged_decode_attention(
         q, kp, vp, table, sl, window=window))
-    kernel_dev_ms, dev_parts = device_ms(lambda: pa.paged_decode_attention(
-        q, kp, vp, table, sl, window=window), "paged_decode_attention")
+    kernel_dev_ms, dev_parts, dev_seen = device_ms(
+        lambda: pa.paged_decode_attention(q, kp, vp, table, sl,
+                                          window=window),
+        "paged_decode_attention")
     plain_ms = time_ms(lambda: pa.paged_decode_plain(
         q, kp, vp, table, sl, scale=scale, window=window))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, k, v, attn_mask=mask, scale=scale))
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, scale=scale)
+
+    library_ms = time_ms(library)
+    library_dev_ms = library_device_ms(library)
     # bytes: q read and out written once, seq_lens, and per lane the table
     # entries of the pages it visits and the K/V rows of the keys it sees
     # (one KV head's row is hd contiguous floats, so no whole pages);
@@ -374,8 +560,10 @@ def decode_timing(pa, q, kp, vp, table, sl, lens, window):
         n_flops += 4 * H * hd * (n - lo)
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
-            "device_ms_parts": dev_parts, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
+            "device_ms_parts": dev_parts, "device_launches_seen": dev_seen,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": library_dev_ms,
+            "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_call": "scaled_dot_product_attention over K/V gathered "
                             "up to the longest lane"}
@@ -548,12 +736,17 @@ def chunk_timing(kernel_name, kernel, plain, q, kn, vn, kp, vp, table, p0,
     mask = mask[:, None]
     kernel_ms = time_ms(lambda: kernel(q, kn, vn, kp, vp, table, p0, cl,
                                        window=window))
-    kernel_dev_ms, dev_parts = device_ms(lambda: kernel(
+    kernel_dev_ms, dev_parts, dev_seen = device_ms(lambda: kernel(
         q, kn, vn, kp, vp, table, p0, cl, window=window), kernel_name)
     plain_ms = time_ms(lambda: plain(q, kn, vn, kp, vp, table, p0, cl,
                                      scale=scale, window=window))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, k, v, attn_mask=mask, scale=scale))
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, scale=scale)
+
+    library_ms = time_ms(library)
+    library_dev_ms = library_device_ms(library)
     # bytes: out written in full (padded rows are zeros), pos0 and
     # chunk_len, and per real lane its valid q / k_new / v_new rows, the
     # table entries of the pages it visits, the visible history read once
@@ -575,8 +768,10 @@ def chunk_timing(kernel_name, kernel, plain, q, kn, vn, kp, vp, table, p0,
             n_flops += 4 * H * hd * vis
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
-            "device_ms_parts": dev_parts, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
+            "device_ms_parts": dev_parts, "device_launches_seen": dev_seen,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": library_dev_ms,
+            "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_call": "scaled_dot_product_attention over K/V gathered "
                             "up to the longest lane (write not included)"}
@@ -929,24 +1124,31 @@ MLA_H, MLA_R, MLA_ROPE = 128, 512, 64
 # name, B, S, page, max_pages, pos0, chunk_len.  "main" is the mla
 # replay's prefill shape: its planner cuts prompts into chunks of 9 to 15
 # tokens (one lane, the 16-row bucket) at positions up to about 250
-# (rehearsed on the CPU at reduced width with the same engine and trace).
+# (rehearsed on the CPU at reduced width with the same engine and trace;
+# the replay checks that it ran this exact chunk, so it is also the
+# replay's row).  "split_empty_share" and "few_rows_split4" split the keys
+# as "main" does, one with a split whose share of the keys is empty.
 MLA_CASES = [
     ("main", 1, 16, 16, 64, [120], [15]),
     ("straddle_midpage", 2, 64, 16, 64, [8, 37], [64, 50]),
     ("pos0_zero_256", 1, 256, 16, 32, [0], [256]),
     ("masked_partial", 4, 32, 16, 64, [37, 0, 300, 0], [32, 0, 17, 0]),
     ("long_history", 2, 16, 16, 80, [1000, 497], [16, 9]),
+    ("split_empty_share", 1, 16, 16, 64, [0], [5]),
+    ("few_rows_split4", 1, 8, 16, 64, [300], [7]),
 ]
 MLA_TIMED = ("main", "pos0_zero_256")
 
 
-def mla_prefill_phase(mk):
+def mla_prefill_phase(mk, parent=None):
     """B4 against its plain version on the same pools at full-width heads,
     with every key no live row may see poisoned: unmapped pages, and in
     each live lane's pages the positions at or past pos0 (the chunk's keys
-    come from ckv_new / krope_new)."""
+    come from ckv_new / krope_new).  Each line names the key splits the
+    wrapper chose."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     H, r, rope = MLA_H, MLA_R, MLA_ROPE
     scale = (128 + rope) ** -0.5          # (qk_nope + rope)^-0.5
     results = {}
@@ -1001,12 +1203,16 @@ def mla_prefill_phase(mk):
         rec = {"phase": "kernel", "kernel": "mla_paged_prefill_attention",
                "case": name, "B": B, "S": S, "H": H, "r": r, "rope": rope,
                "page": page, "pos0": pos0, "chunk_len": clen,
+               "splits": mk.n_splits(B, S, H, page, max_pages, n_sms),
                "max_abs_err": err, "pools_bit_equal": pools_equal,
                "unwritten_pages_unchanged": untouched,
                "padded_rows_zero": padded_zero, "ok": ok}
         if name in MLA_TIMED:
             rec.update(mla_timing(mk, ql, qr, cn, rn, cp, rp, table, p0, cl,
                                   pos0, clen, scale))
+            if parent is not None:
+                rec["parent"] = parent.mla(ql, qr, cn, rn, cp, rp, table, p0,
+                                           cl, scale, want, valid)
         if name == "main":
             results = rec
         emit(rec)
@@ -1039,13 +1245,19 @@ def mla_timing(mk, ql, qr, cn, rn, cp, rp, table, p0, cl, pos0, clen, scale):
     mask = (mask | (k_pos == 0))[:, None]    # padded rows finite; unread
     kernel_ms = time_ms(lambda: mk.mla_paged_prefill_attention(
         ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale))
-    kernel_dev_ms, dev_parts = device_ms(lambda: mk.mla_paged_prefill_attention(
-        ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale),
+    kernel_dev_ms, dev_parts, dev_seen = device_ms(
+        lambda: mk.mla_paged_prefill_attention(
+            ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale),
         "mla_paged_prefill_attention")
     plain_ms = time_ms(lambda: mk.mla_paged_prefill_plain(
         ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, scale=scale))
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale)
+
+    library_ms = time_ms(library)
+    library_dev_ms = library_device_ms(library)
     # bytes: out written in full (padded rows are zeros), pos0 / chunk_len,
     # and per live lane its live q_lat / q_rope / ckv_new / krope_new rows,
     # the table entries of the pages it visits, the history's latent rows
@@ -1063,9 +1275,12 @@ def mla_timing(mk, ql, qr, cn, rn, cp, rp, table, p0, cl, pos0, clen, scale):
                                                       for i in range(n))
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
-            "device_ms_parts": dev_parts, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
+            "device_ms_parts": dev_parts, "device_launches_seen": dev_seen,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": library_dev_ms,
+            "bound_ms": bound_ms,
             "bound_by": bound_by,
+            "tf32x3_floor_ms": tf32x3_floor_ms(n_bytes, n_flops),
             "library_call": "scaled_dot_product_attention, keys [ckv | "
                             "krope] and values ckv gathered up to the "
                             "longest lane, expanded to H heads (write not "
@@ -1314,7 +1529,7 @@ def ssd_timing(sk, xh, dt, A, Bm, Cm, h0, chunk):
     N = Bm.shape[-1]
     kernel_ms = time_ms(lambda: sk.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk,
                                             init_state=h0))
-    kernel_dev_ms, dev_parts = device_ms(lambda: sk.ssd_scan(
+    kernel_dev_ms, dev_parts, dev_seen = device_ms(lambda: sk.ssd_scan(
         xh, dt, A, Bm, Cm, chunk=chunk, init_state=h0), "ssd_scan")
     plain_ms = time_ms(lambda: sk.ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk,
                                                     h0))
@@ -1331,8 +1546,10 @@ def ssd_timing(sk, xh, dt, A, Bm, Cm, h0, chunk):
                         + N * L * (L + 1))
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
-            "device_ms_parts": dev_parts, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "device_ms_parts": dev_parts, "device_launches_seen": dev_seen,
+            "plain_ms": plain_ms,
+            "library_ms": None, "library_device_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_call": "none: no single PyTorch call computes "
                             "chunked SSD"}
 
@@ -1508,12 +1725,8 @@ def ssm_decode_breakdown(cfg, params, eng):
             out[name] = time_ms(fn)
         out["mixer_share_of_step"] = (cfg.n_layers * out["mixer_layer_ms"]
                                       / out["step_ms"])
-        prof = torch.profiler
-        with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as tr:
-            step()
-            torch.cuda.synchronize()
-        out["profiled_device_ops"] = sum(e.count for e in cuda_events(tr))
-        out["profiled_device_ms"] = cuda_ms(tr)
+        out["profiled_device_ms"], out["profiled_device_ops"] = cuda_sum(
+            cuda_profile(step, n=1, flush=False))
     return out
 
 
@@ -1522,25 +1735,37 @@ WHISPER_ARCH = "whisper-large-v3"
 # name, B, Sq, Sk, H, KV, hd, causal, q_offset, kv_len, through the GQA
 # wrapper (B6 runs on (B H, Sq, hd)).  "encoder" is one whisper encoder
 # layer for one request, "cross_decode" one cross-attention layer of an
-# eight-lane decode step; the cross prefill chunks are the replay's 16-row
-# bucket over three lanes and a 128-row one; then causal from q_offset 0,
-# a chunk at an offset whose last rows meet kv_len < Sk, head dim 32,
-# head dim 128 at llama-3.2-vision's cross shape and at qwen3-1.7b's
-# no-cache causal shape, and Sq, Sk and kv_len that are no multiples of
-# the tiles.
+# eight-lane decode step; "replay_cross_decode" and "replay_cross_prefill"
+# are the whisper replay's commonest cross-attention shapes (a CPU
+# rehearsal of the replay at the card's engine config: 168 of its 306
+# decode steps had one lane, 72 of its 89 prefill groups were one lane's
+# 16-row bucket; the replay checks that it ran them); the cross prefill
+# chunks are the 16-row bucket over three lanes, a 32-row one and a
+# 128-row one; then causal from q_offset 0 (once with keys split, the
+# first query tile's share of one split empty), a chunk at an offset whose
+# last rows meet kv_len < Sk, head dim 32 (once over 160 heads of 20 rows,
+# 4 warps to a row group), head dim 128 at llama-3.2-vision's cross shape
+# and at qwen3-1.7b's no-cache causal shape, and Sq, Sk and kv_len that
+# are no multiples of the tiles.
 FLASH_CASES = [
     ("encoder", 1, 1500, 1500, 20, 20, 64, False, 0, None),
     ("cross_decode", 8, 1, 1500, 20, 20, 64, False, 0, None),
+    ("replay_cross_decode", 1, 1, 1500, 20, 20, 64, False, 0, None),
+    ("replay_cross_prefill", 1, 16, 1500, 20, 20, 64, False, 0, None),
     ("cross_prefill_16", 3, 16, 1500, 20, 20, 64, False, 0, None),
+    ("cross_prefill_32", 2, 32, 1500, 20, 20, 64, False, 0, None),
     ("cross_prefill_128", 1, 128, 1500, 20, 20, 64, False, 0, None),
     ("causal_q0", 1, 300, 300, 20, 20, 64, True, 0, None),
+    ("causal_split_empty", 1, 700, 700, 4, 4, 64, True, 0, None),
     ("causal_offset_kv_len", 2, 77, 500, 4, 4, 64, True, 200, 260),
     ("hd32_causal", 2, 45, 101, 6, 2, 32, True, 56, 101),
+    ("hd32_many_heads", 8, 20, 200, 20, 20, 32, True, 180, None),
     ("hd128_vlm_cross", 2, 37, 1600, 32, 8, 128, False, 0, None),
     ("hd128_qwen3_causal", 1, 200, 200, 16, 8, 128, True, 0, None),
     ("ragged", 2, 65, 129, 3, 3, 64, False, 0, 100),
 ]
-FLASH_TIMED = ("encoder", "cross_decode")
+FLASH_TIMED = ("encoder", "cross_decode", "replay_cross_decode",
+               "replay_cross_prefill")
 
 
 def flat_heads(q, k, v):
@@ -1562,13 +1787,15 @@ def visible_keys(Sq, Sk, causal, q_offset, kv_len):
             for i in range(Sq)]
 
 
-def flash_phase(fa):
+def flash_phase(fa, parent=None):
     """B6 through its GQA wrapper against its plain version on the same
     flattened inputs; then the keys no row may see (past kv_len, past the
     last row's causal limit) are set to 1e4 and the kernel's output must
-    not move.  Outputs within 1e-4, finite."""
+    not move.  Outputs within 1e-4, finite.  Each line names the regime
+    the wrapper chose (warps per 16-row group, key splits)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(8)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
     for (name, B, Sq, Sk, H, KV, hd, causal, q_offset,
          kv_len) in FLASH_CASES:
@@ -1578,10 +1805,10 @@ def flash_phase(fa):
         kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
         got = fa.attention(q, k, v, **kw)
         qf, kf, vf = flat_heads(q, k, v)
-        want = fa.flash_attention_plain(
+        want_flat = fa.flash_attention_plain(
             qf, kf, vf, causal=causal, q_offset=q_offset,
             kv_len=Sk if kv_len is None else kv_len, scale=hd ** -0.5)
-        want = want.reshape(B, H, Sq, hd).transpose(1, 2)
+        want = want_flat.reshape(B, H, Sq, hd).transpose(1, 2)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         seen = max(visible_keys(Sq, Sk, causal, q_offset, kv_len))
@@ -1593,10 +1820,15 @@ def flash_phase(fa):
         rec = {"phase": "kernel", "kernel": "flash_attention_bh", "case": name,
                "B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
                "BH": B * H, "causal": causal, "q_offset": q_offset,
-               "kv_len": kv_len, "keys_poisoned": Sk - seen,
+               "kv_len": kv_len, "warps_per_rows": fa.warps_per_rows(Sq),
+               "splits": fa.n_splits(B * H, Sq, seen, n_sms),
+               "keys_poisoned": Sk - seen,
                "max_abs_err": err, "poisoned_err": perr, "ok": ok}
         if name in FLASH_TIMED:
             rec.update(flash_timing(fa, qf, kf, vf, causal, q_offset, kv_len))
+            if parent is not None:
+                rec["parent"] = parent.flash(qf, kf, vf, causal, q_offset,
+                                             kv_len, want_flat)
             results[name] = rec
         emit(rec)
         if not ok:
@@ -1617,24 +1849,96 @@ def flash_timing(fa, qf, kf, vf, causal, q_offset, kv_len):
     lim = Sk if kv_len is None else kv_len
     kernel_ms = time_ms(lambda: fa.flash_attention_bh(
         qf, kf, vf, causal=causal, q_offset=q_offset, kv_len=kv_len))
-    kernel_dev_ms, dev_parts = device_ms(lambda: fa.flash_attention_bh(
-        qf, kf, vf, causal=causal, q_offset=q_offset, kv_len=kv_len),
+    kernel_dev_ms, dev_parts, dev_seen = device_ms(
+        lambda: fa.flash_attention_bh(qf, kf, vf, causal=causal,
+                                      q_offset=q_offset, kv_len=kv_len),
         "flash_attention_bh")
     plain_ms = time_ms(lambda: fa.flash_attention_plain(
         qf, kf, vf, causal=causal, q_offset=q_offset, kv_len=lim,
         scale=scale))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qf[None], kf[None], vf[None], attn_mask=mask, scale=scale))
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qf[None], kf[None], vf[None], attn_mask=mask, scale=scale)
+
+    library_ms = time_ms(library)
+    library_dev_ms = library_device_ms(library)
     # bytes: q read and out written once, each visible key's K and V rows
     # read once; flops: 4 hd per visible (row, key) pair
     n_bytes = 4 * BH * hd * (2 * Sq + 2 * max(n_vis))
     n_flops = 4 * hd * BH * sum(n_vis)
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
-            "device_ms_parts": dev_parts, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
+            "device_ms_parts": dev_parts, "device_launches_seen": dev_seen,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": library_dev_ms,
+            "bound_ms": bound_ms,
             "bound_by": bound_by,
+            "tf32x3_floor_ms": tf32x3_floor_ms(n_bytes, n_flops),
             "library_call": "scaled_dot_product_attention on (1, BH, S, hd)"}
+
+
+# the shapes that chose B6's and B4's key-split counts: B6 over 1500 keys
+# at head dim 64, (BH, Sq): whisper's cross-decode of 1 and 8 lanes, one
+# lane's 16-, 32- and 128-row buckets, three lanes' 16-row one, the
+# encoder; B4 at 128 heads, (S, pos0, chunk_len, max_pages): the mla
+# replay's chunk, an 8-row one, a 256-token chunk
+SWEEP_FLASH = [(20, 1), (160, 1), (20, 16), (60, 16), (40, 32), (20, 128),
+               (20, 1500)]
+SWEEP_MLA = [(16, 120, 15, 64), (8, 300, 7, 64), (256, 0, 256, 32)]
+
+
+def split_sweep(fa, mk):
+    """Device time of B6 and B4 at every key-split count from 1 up (to 14,
+    or 3 where the wrapper chooses none), each count forced on the
+    wrapper, beside the count the wrapper chooses (``--split-sweep``)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+
+    def sweep(module, call, counts, kernel):
+        chosen = module.n_splits
+        res = {}
+        try:
+            for ns in counts:
+                module.n_splits = lambda *_, ns=ns: ns
+                res[ns] = device_ms(call, kernel)[0]
+        finally:
+            module.n_splits = chosen
+        return res
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for BH, Sq in SWEEP_FLASH:
+        q = torch.randn(BH, Sq, 64, generator=gen, device="cuda")
+        k = torch.randn(BH, 1500, 64, generator=gen, device="cuda")
+        v = torch.randn(BH, 1500, 64, generator=gen, device="cuda")
+        own = fa.n_splits(BH, Sq, 1500, n_sms)
+        emit({"phase": "split_sweep", "kernel": "flash_attention_bh",
+              "BH": BH, "Sq": Sq, "Sk": 1500, "hd": 64,
+              "warps_per_rows": fa.warps_per_rows(Sq), "chosen": own,
+              "device_ms": sweep(fa, lambda: fa.flash_attention_bh(
+                  q, k, v, causal=False),
+                  range(1, 4 if own == 1 else 15), "flash_attention_bh")})
+    for S, p0, n, max_pages in SWEEP_MLA:
+        H, r, rope, page = MLA_H, MLA_R, MLA_ROPE, 16
+        cp = torch.randn(max_pages + 5, page, r, generator=gen, device="cuda")
+        rp = torch.randn(max_pages + 5, page, rope, generator=gen,
+                         device="cuda")
+        table = torch.arange(max_pages, dtype=torch.int32,
+                             device="cuda")[None].contiguous()
+        ql = torch.randn(1, S, H, r, generator=gen, device="cuda")
+        qr = torch.randn(1, S, H, rope, generator=gen, device="cuda")
+        cn = torch.randn(1, S, r, generator=gen, device="cuda")
+        rn = torch.randn(1, S, rope, generator=gen, device="cuda")
+        pos0 = torch.tensor([p0], dtype=torch.int32, device="cuda")
+        clen = torch.tensor([n], dtype=torch.int32, device="cuda")
+        own = mk.n_splits(1, S, H, page, max_pages, n_sms)
+        emit({"phase": "split_sweep", "kernel": "mla_paged_prefill_attention",
+              "S": S, "H": H, "pos0": p0, "chunk_len": n, "chosen": own,
+              "device_ms": sweep(mk, lambda: mk.mla_paged_prefill_attention(
+                  ql, qr, cn, rn, cp, rp, table, pos0, clen,
+                  scale=(128 + rope) ** -0.5),
+                  range(1, 4 if own == 1 else 7),
+                  "mla_paged_prefill_attention")})
 
 
 def whisper_model(seed: int):
@@ -1680,7 +1984,8 @@ WHISPER_REPLAY = ["--scenario", "chatbot", "--rate", "2.0",
                   "--duration", "10"]
 
 
-def whisper_replay_phase(cfg, params, kernels, seed: int):
+def whisper_replay_phase(cfg, params, kernels, seed: int,
+                         breakdown_lanes: int = 8):
     """The whisper path end to end: ``ServingFrontend`` with the launcher's
     scheduler and virtual perf model over ``ServingEngine`` on full-width
     whisper (page 16, 8 slots, max_len 448, whisper's decoder context),
@@ -1705,6 +2010,16 @@ def whisper_replay_phase(cfg, params, kernels, seed: int):
     frames = {r.rid: whisper_frames(cfg, seed + 1, r.rid) for r in reqs}
     timer = SpanTimer()
     eng.tracer = timer
+    # the (BH, Sq, Sk) of every B6 call of the run: "BH/Sq/Sk" -> calls
+    fa = kernels["flash"]
+    shapes: dict[str, int] = {}
+    flash_bh = fa.flash_attention_bh
+
+    def seen_flash(q, k, v, **kw):
+        key = f"{q.shape[0]}/{q.shape[1]}/{k.shape[1]}"
+        shapes[key] = shapes.get(key, 0) + 1
+        return flash_bh(q, k, v, **kw)
+    fa.flash_attention_bh = seen_flash
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in kernels.values():
@@ -1718,10 +2033,15 @@ def whisper_replay_phase(cfg, params, kernels, seed: int):
     encoder_s = time.perf_counter() - t0
     wall = serve.replay(fe)
     launches = {k: dict(m.COUNTS) for k, m in kernels.items()}
+    fa.flash_attention_bh = flash_bh
     peak = torch.cuda.max_memory_allocated() / 2**30
     s, c = fe.stats, eng.counters
     L, Le = cfg.n_layers, cfg.encoder.n_layers
     n_cross = sum(kind == "cross_attn" for kind in cfg.block_pattern)
+    # the shapes the B6 phase timed as the replay's commonest
+    timed = {name: f"{B * H}/{Sq}/{Sk}"
+             for name, B, Sq, Sk, H, *_ in FLASH_CASES
+             if name in ("replay_cross_decode", "replay_cross_prefill")}
     checks = {
         "served_all": s.served == s.submitted == 8,
         "tokens_out": s.tokens_out > 0,
@@ -1735,6 +2055,10 @@ def whisper_replay_phase(cfg, params, kernels, seed: int):
         "no_other_kernel": all(launches[k]["kernel"] == 0
                                for k in ("verify", "mla_prefill", "ssd")),
         "no_plain": not any(v["plain"] for v in launches.values()),
+        "flash_shapes_counted":
+            sum(shapes.values()) == launches["flash"]["kernel"],
+        "timed_cross_decode_ran": timed["replay_cross_decode"] in shapes,
+        "timed_cross_prefill_ran": timed["replay_cross_prefill"] in shapes,
     }
     rec = {"phase": "whisper_replay", "model": cfg.name, "layers": L,
            "encoder_layers": Le, "submitted": s.submitted,
@@ -1744,7 +2068,11 @@ def whisper_replay_phase(cfg, params, kernels, seed: int):
            "counters": {k: c[k] for k in (
                "prefill_calls", "decode_calls", "decode_steps",
                "decode_tokens", "prefill_fused_ops")},
-           "launches": launches, "wall_s": wall, "span_s": timer.seconds,
+           "launches": launches,
+           "flash_shapes": dict(sorted(shapes.items(),
+                                       key=lambda kv: -kv[1])),
+           "timed_flash_shapes": timed,
+           "wall_s": wall, "span_s": timer.seconds,
            "spans": timer.count,
            "outside_spans_s": wall - sum(timer.seconds.values()),
            "prefill_group_ms": (1e3 * timer.seconds.get("prefill", 0.0)
@@ -1753,29 +2081,31 @@ def whisper_replay_phase(cfg, params, kernels, seed: int):
                               / max(c["decode_steps"], 1)),
            "peak_mem_gib": peak, "checks": checks}
     eng.tracer = None
-    rec["decode_breakdown"] = whisper_decode_breakdown(cfg, params, eng,
-                                                       frames)
+    rec["decode_breakdown"] = whisper_decode_breakdown(
+        cfg, params, eng, frames, lanes=breakdown_lanes)
     emit(rec)
     if not all(checks.values()):
         raise SystemExit(f"whisper replay checks failed: {checks}")
     return launches
 
 
-def whisper_decode_breakdown(cfg, params, eng, frames):
-    """Device time of one decode step of eight lanes over the replay's
+def whisper_decode_breakdown(cfg, params, eng, frames, lanes: int = 8):
+    """Device time of one decode step of ``lanes`` lanes over the replay's
     table width (every lane at position 400; chunk_len 0, so every write
     goes to the write-off page and the pools keep their state), whole and
     by part: the first layer's cross K/V projection of the eight lanes'
     encoder states (the reference's design repeats it in every step of
     every layer), its cross-attention (q projection, B6, output
     projection), its self-attention (the page write and B1), the
-    unembedding."""
+    unembedding; and the step's device time and B6's own (its split
+    kernel; the merge launches are B1's and B6's together) from the
+    profiler."""
     from repro_torch.models import (attention, encoder_forward, logits_fn,
                                     model_forward)
     from repro_torch.models.layers import apply_norm
 
     dev = torch.device("cuda")
-    B, width = 8, eng.kv.max_pages_per_seq
+    B, width = lanes, eng.kv.max_pages_per_seq
     table = (torch.arange(B * width, device=dev, dtype=torch.int32)
              % eng.ecfg.total_pages).reshape(B, width)
     pos0 = torch.full((B,), 400, dtype=torch.int32, device=dev)
@@ -1815,11 +2145,42 @@ def whisper_decode_breakdown(cfg, params, eng, frames):
     with torch.no_grad():
         for name, fn in parts.items():
             out[name] = time_ms(fn)
+        reading = cuda_profile(step, n=1, flush=False)
+    out["step_device_ms"], out["step_device_ops"] = cuda_sum(reading)
+    out["step_b6_device_ms"] = cuda_sum(reading,
+                                        ("flash_attention_kernel",))[0]
     out["cross_kv_projection_share_of_step"] = (
         cfg.n_layers * out["cross_kv_projection_ms"] / out["step_ms"])
     out["cross_attention_share_of_step"] = (
         cfg.n_layers * out["cross_attention_ms"] / out["step_ms"])
     return out
+
+
+def whisper_ab_phase(cfg, params, kernels, parent, seed: int):
+    """With ``--parent``: the whisper replay with the other tree's B6 (its
+    wrapper module and kernel) and with this tree's, in turns (other,
+    this, this, other) in this process, each with a one-lane decode step
+    timed whole (CUDA events) and read by the profiler: the end-to-end
+    A/B of a B6 change on one host."""
+    turns = []
+    for turn in ("parent", "this", "this", "parent"):
+        ctx = parent.b6_wrapper() if turn == "parent" \
+            else contextlib.nullcontext(kernels["flash"])
+        with ctx as flash:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                whisper_replay_phase(cfg, params, dict(kernels, flash=flash),
+                                     seed, breakdown_lanes=1)
+        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        b = rec["decode_breakdown"]
+        turns.append({"b6": turn, "wall_s": rec["wall_s"],
+                      "span_s": rec["span_s"], "encoder_s": rec["encoder_s"],
+                      "checks_ok": all(rec["checks"].values()),
+                      "one_lane_step_ms": b["step_ms"],
+                      "one_lane_step_device_ms": b["step_device_ms"],
+                      "one_lane_step_b6_device_ms": b["step_b6_device_ms"]})
+        free_device_memory()
+    emit({"phase": "whisper_ab", "turns": turns})
 
 
 # ----------------------------- main path ------------------------------- #
@@ -1916,7 +2277,6 @@ def main_step_breakdown(cfg, params, eng):
     (_, pB, pS, *_, (p_pos0,), (p_live,), _), = [
         cs for cs in PREFILL_CASES if cs[0] == "replay"]
     out = {}
-    prof = torch.profiler
     with torch.no_grad():
         for name, (tok, pos0, clen, table), kernel in (
                 ("decode_B8_pos1000", shape(8, 1, 1000, 0),
@@ -1931,14 +2291,14 @@ def main_step_breakdown(cfg, params, eng):
                                        chunk_len=clen)
                 return logits_fn(params, cfg, hid[:, -1])
             call_ms = time_ms(call)
-            with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as tr:
-                call()
-                torch.cuda.synchronize()
-            total = cuda_ms(tr)
+            reading = cuda_profile(call, n=1, flush=False)
+            total, ops = cuda_sum(reading)
             out[name] = {"call_ms": call_ms, "device_ms": total,
-                         "device_ops": sum(e.count for e in cuda_events(tr)),
-                         "kernel_device_ms": cuda_ms(tr, KERNEL_NAMES[kernel]),
-                         "device_idle_share": 1 - total / call_ms}
+                         "device_ops": ops,
+                         "kernel_device_ms": cuda_sum(
+                             reading, KERNEL_NAMES[kernel])[0],
+                         "device_idle_share": (None if total is None
+                                               else 1 - total / call_ms)}
     return out
 
 
@@ -1990,7 +2350,19 @@ def main_path(pa, pp, fa, seed: int):
     return launches
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one "
+                                 "NVIDIA card.")
+    ap.add_argument("--parent", metavar="DIR", default=None,
+                    help="another checkout of the repo (for example a git "
+                         "archive of the parent commit): its B6 and B4 are "
+                         "built and timed beside this tree's at the timed "
+                         "shapes")
+    ap.add_argument("--split-sweep", action="store_true",
+                    help="only build the kernels and time B6 and B4 at "
+                         "every key-split count at the shapes that chose "
+                         "their counts (no check phases, no final line)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2013,9 +2385,16 @@ def main() -> int:
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in info["ptxas"].items()}
+    if args.split_sweep:
+        emit({"phase": "setup", "gpu": card, "build_s": info["seconds"]})
+        split_sweep(fa, mk)
+        return 0
+    parent = None if args.parent is None else ParentKernels(args.parent)
     emit({"phase": "setup", "gpu": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": info["seconds"],
-          "ptxas": ptxas})
+          "ptxas": ptxas,
+          "parent": None if parent is None else {"dir": args.parent,
+                                                 "ptxas": parent.ptxas}})
     dec = decode_phase(pa)
     pre = prefill_phase(pp)
     ver = verify_phase(pv)
@@ -2026,7 +2405,7 @@ def main() -> int:
     free_device_memory()
     spec = spec_replay_phase(pa, pp, pv, fa, seed)
     free_device_memory()
-    mla = mla_prefill_phase(mk)
+    mla = mla_prefill_phase(mk, parent)
     free_device_memory()
     cfg, params = mla_model(seed)
     mla_stream_phase(cfg, params, seed)
@@ -2046,14 +2425,17 @@ def main() -> int:
                       "mla_prefill": mk, "ssd": sk, "flash": fa}, seed)
     del params
     free_device_memory()
-    flash = flash_phase(fa)
+    flash = flash_phase(fa, parent)
     free_device_memory()
     cfg, params = whisper_model(seed)
     whisper_stream_phase(cfg, params, seed)
     free_device_memory()
-    whisper_launches = whisper_replay_phase(
-        cfg, params, {"decode": pa, "prefill": pp, "verify": pv,
-                      "mla_prefill": mk, "ssd": sk, "flash": fa}, seed)
+    kernels = {"decode": pa, "prefill": pp, "verify": pv, "mla_prefill": mk,
+               "ssd": sk, "flash": fa}
+    whisper_launches = whisper_replay_phase(cfg, params, kernels, seed)
+    if parent is not None:
+        free_device_memory()
+        whisper_ab_phase(cfg, params, kernels, parent, seed)
     del params
     free_device_memory()
     torch.cuda.synchronize()
@@ -2065,7 +2447,8 @@ def main() -> int:
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "device_ms": rec["device_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "library_device_ms": rec["library_device_ms"]}
     emit({"kernels": [
         entry("paged_decode_attention", "src/repro_torch/csrc/paged_decode.cu",
               "src/repro/kernels/paged_attention.py:73", dec["main"],
@@ -2097,4 +2480,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,259 +1,396 @@
-// Dense flash attention for Hopper (sm_90a), float32.
+// Dense flash attention for Hopper (sm_90a), float32 data, products on the
+// tensor cores in 3xTF32.
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_bh
 // (Pallas body _flash_kernel).  Heads are pre-flattened and GQA
 // pre-expanded by the caller: q (BH, Sq, hd), k/v (BH, Sk, hd), out
 // (BH, Sq, hd).  Key j is visible to query row i iff j < kv_len and, when
-// causal, j <= q_offset + i.  Masked scores are NEG_INF = -1e30, the
-// softmax denominator is floored at 1e-30, accumulation is float32, as in
-// the TPU kernel.  Sq and Sk need not be multiples of any tile (whisper's
-// encoder has 1500 frames); the TPU wrapper pads to 128-row blocks, this
-// kernel masks the ragged edge itself.
+// causal, j <= q_offset + i.  Masked scores are NEG_INF = -1e30 and
+// contribute exactly 0, the softmax denominator is floored at 1e-30,
+// accumulation is float32, as in the TPU kernel.  Sq and Sk need not be
+// multiples of any tile (whisper's encoder has 1500 frames = 23 x 64 + 28);
+// the TPU wrapper pads to 128-row blocks, this kernel masks the ragged
+// edges itself.  A row with no visible key gets zeros.
 //
 // What bounds it on an H100: operations at the encoder's shape (Sq = Sk =
 // 1500, hd 64: 4 hd flops per visible (row, key) pair, 576 flops a byte
 // of q/k/v/out), bytes at a cross-attention decode step (Sq 1: every key
 // and value is read once for one row).
 //
-// The design: one 128-thread block per (bh, query tile of 4R rows); each
-// of the 4 warps owns R rows.  Key tiles of 64 keys are staged in shared
-// memory (K with a padded row stride so that 32 lanes reading 32 keys at
-// one depth hit 32 banks); each lane scores 2 keys for all R rows, reading
-// the queries as broadcasts, then the warp runs the online softmax of its
-// rows (max by shuffles; the denominator is kept per lane and summed once
-// at the end, since every lane rescales by the same factor), writes the
-// tile's probabilities to shared memory and accumulates P.V with each lane
-// owning hd / 32 output columns.  R is 16 for long query blocks (64 rows),
-// 4 for prefill chunks of 16 to 63 rows, 1 for decode.  With causal
-// masking, key tiles past the block's last visible key are skipped; keys
-// past the tile's last live key are not accumulated (their probability is
-// exactly 0, so the sum is the same).  CUDA cores only: no tensor cores,
-// no library call.
+// What the design does about it:
+// - Tensor cores: Q·Kᵀ and P·V are mma.sync.m16n8k8 TF32 products in
+//   3xTF32, as in B2 (csrc/paged_prefill.cu; helpers in mma_tf32.cuh).
+//   The score fragment feeds P·V as the A operand with no data movement.
+// - A block has 8 warps and stages 64-key K/V tiles by 16-byte cp.async,
+//   double-buffered (tile t + 1 in flight while tile t is computed), rows
+//   padded to hd + 4 floats so that the fragment reads fall on 32 banks.
+//   Keys past the tile range are zero-filled, never read.
+// - Two regimes, by rows (template KW, warps per row group):
+//   * many rows (Sq > 64; the encoder, long cross-prefill chunks): KW 1,
+//     8 warps x 16 rows = 128 query rows of one bh per block, each warp
+//     over every key of the tile (12 query tiles x 20 heads = 240 blocks
+//     at the encoder's shape);
+//   * few rows (cross-decode, Sq 1; short cross-prefill chunks): 16 x
+//     8 / KW rows per block, KW = 2, 4 or 8 warps sharing a row group,
+//     each over its own 64 / KW keys of every tile, so every warp has work
+//     even at Sq 1.  The KW partial (m, l, acc) of a row group are merged
+//     in shared memory at the end.
+// - Key split: where it shortens the grid (the wrapper's n_splits: one
+//   lane's cross-decode step, 20 blocks alone, takes 6 splits; the
+//   encoder none), each tile's key range is split over n_split blocks;
+//   each takes a balanced share of the tile's 64-key tiles, writes its
+//   partial (m, l, acc) (l = 0 and acc zeros when its share is empty),
+//   and split_merge.cuh's launch merges them into out, seen as (B = BH,
+//   S = Sq, H = 1, hd).  With one split the block writes the output.
+// - Causal: query tiles are launched last first across all bh (they see
+//   the most keys), and key tiles past a tile's last visible key are never
+//   visited.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_tf32.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBlockK = 64;
+using repro_mma::cp_async16;
+using repro_mma::cp_async_commit;
+using repro_mma::cp_async_wait_1;
+using repro_mma::cp_async_wait_all;
+using repro_mma::load_a;
+using repro_mma::mma3;
+using repro_mma::p_fragment;
+using repro_mma::quad_max;
+using repro_mma::quad_sum;
+using repro_split::kNegInf;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBN = 64;           // keys per tile
 
-template <int HD, int R>
-constexpr size_t smem_floats() {
-  // q tile, K tile (padded), V tile, per-warp probabilities
-  return (size_t)kWarps * R * HD + (size_t)kBlockK * (HD + 1) +
-         (size_t)kBlockK * HD + (size_t)kWarps * R * kBlockK;
+template <int HD, int KW>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (size_t)(16 * (kWarps / KW) + 4 * kBN) * (HD + 4);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int HD, int R>
+template <int HD, int KW>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const float* __restrict__ q,    // (BH, Sq, HD)
     const float* __restrict__ k,    // (BH, Sk, HD)
     const float* __restrict__ v,    // (BH, Sk, HD)
-    float* __restrict__ out,        // (BH, Sq, HD)
-    int Sq, int Sk, int causal, int q_offset, int kv_len, float scale) {
-  constexpr int BQ = kWarps * R;
-  constexpr int KS = HD + 1;      // padded K row stride
-  constexpr int DPL = HD / 32;    // output columns per lane
-
+    float* __restrict__ out,        // (BH, Sq, HD)             one split
+    float* __restrict__ m_ws,       // (BH, n_split, Sq)
+    float* __restrict__ l_ws,
+    float* __restrict__ acc_ws,     // (BH, n_split, Sq, HD)
+    int Sq, int Sk, int causal, int q_offset, int kv_len, float scale,
+    int n_split) {
+  constexpr int ST = HD + 4;        // shared row stride in floats
+  constexpr int C4 = HD / 4;        // 16-byte chunks per row
+  constexpr int NK = HD / 8;        // k-steps of Q·Kᵀ, n-tiles of P·V
+  constexpr int RW = kWarps / KW;   // row groups of 16 per block
+  constexpr int BM = 16 * RW;       // query rows per block
+  constexpr int NJ = kBN / 8 / KW;  // a warp's n-tiles of a key tile
+  constexpr int NP = NJ <= 2 ? 2 : 1;  // Q·Kᵀ accumulators by k-step parity
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // BQ * HD
-  float* k_s = q_s + BQ * HD;                     // kBlockK * KS
-  float* v_s = k_s + kBlockK * KS;                // kBlockK * HD
-  float* p_s = v_s + kBlockK * HD;                // BQ * kBlockK
+  float* q_s = reinterpret_cast<float*>(smem4);  // BM x ST
+  float* k_s = q_s + BM * ST;                     // 2 x kBN x ST
+  float* v_s = k_s + 2 * kBN * ST;                // 2 x kBN x ST
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BQ;
-  const long long bh = blockIdx.y;
+  const long long bh = blockIdx.x;
+  const int n_qt = gridDim.y / n_split;
+  const int qt = n_qt - 1 - (int)blockIdx.y / n_split;
+  const int split_id = blockIdx.y % n_split;
+  const int r0 = qt * BM;
+  const int r_end = min(r0 + BM, Sq);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rw = warp / KW, kw = warp % KW;
   const float* qb = q + bh * Sq * HD;
   const float* kb = k + bh * Sk * HD;
   const float* vb = v + bh * Sk * HD;
-  float* ob = out + bh * Sq * HD;
 
-  // the query tile, rows past Sq as zeros
-  for (int e = tid * 4; e < BQ * HD; e += kThreads * 4) {
-    const int r = e / HD, d = e - r * HD;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < Sq)
-      val = *reinterpret_cast<const float4*>(qb + (long long)(q0 + r) * HD +
-                                             d);
-    *reinterpret_cast<float4*>(q_s + e) = val;
-  }
+  // the keys any row of this tile may see: [0, k_hi), and this split's
+  // share of its 64-key tiles
+  const int n_k = min(kv_len, Sk);
+  const int k_hi = causal ? min(n_k, q_offset + r_end) : n_k;
+  const int n_tiles = k_hi > 0 ? (k_hi + kBN - 1) / kBN : 0;
+  const int t_lo = (int)((long long)split_id * n_tiles / n_split);
+  const int t_hi = (int)((long long)(split_id + 1) * n_tiles / n_split);
 
-  // keys any row of this block may see: [0, n_keys)
-  int n_keys = kv_len < Sk ? kv_len : Sk;
-  const int last_row = (q0 + BQ < Sq ? q0 + BQ : Sq) - 1;
-  if (causal && q_offset + last_row + 1 < n_keys)
-    n_keys = q_offset + last_row + 1;
-
-  // per row: keys j < lim are visible
-  int lim[R];
-  float m[R], l[R], acc[R][DPL];
+  // a tile's kBN key rows: kTPK threads per row, each issuing its share of
+  // the row's 16-byte copies
+  constexpr int kTPK = kThreads / kBN;
+  static_assert(kTPK * kBN == kThreads && C4 % kTPK == 0, "tile split");
+  const int ld_p = tid / kTPK;
+  const int ld_c = (tid % kTPK) * (C4 / kTPK);
+  auto load_tile = [&](int t, int buf) {
+    const int pos = t * kBN + ld_p;
+    const bool pred = pos < k_hi;
+    const long long off = pred ? (long long)pos * HD + 4 * ld_c : 0;
+    float* kd = k_s + buf * kBN * ST + ld_p * ST + 4 * ld_c;
+    float* vd = v_s + buf * kBN * ST + ld_p * ST + 4 * ld_c;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = q0 + warp * R + r;
-    int lr = kv_len < Sk ? kv_len : Sk;
-    if (causal && q_offset + row + 1 < lr) lr = q_offset + row + 1;
-    lim[r] = lr;
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-  }
-  const float* qw = q_s + warp * R * HD;
-  float* pw = p_s + warp * R * kBlockK;
+    for (int c = 0; c < C4 / kTPK; ++c) {
+      cp_async16(kd + 4 * c, kb + off + (pred ? 4 * c : 0), pred);
+      cp_async16(vd + 4 * c, vb + off + (pred ? 4 * c : 0), pred);
+    }
+  };
 
-  for (int k0 = 0; k0 < n_keys; k0 += kBlockK) {
-    const int live = (n_keys - k0 < kBlockK) ? n_keys - k0 : kBlockK;
-    __syncthreads();  // the previous tile is consumed (and q_s is written)
-    for (int e = tid * 4; e < kBlockK * HD; e += kThreads * 4) {
-      const int p = e / HD, d = e - p * HD;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (p < live) {
-        const long long off = (long long)(k0 + p) * HD + d;
-        kv = *reinterpret_cast<const float4*>(kb + off);
-        vv = *reinterpret_cast<const float4*>(vb + off);
+  // query rows, zeros past Sq; with the first key tile
+  for (int e = tid; e < BM * C4; e += kThreads) {
+    const int rr = e / C4, c = e % C4;
+    const bool live = r0 + rr < Sq;
+    cp_async16(q_s + rr * ST + 4 * c,
+               live ? qb + (long long)(r0 + rr) * HD + 4 * c : qb, live);
+  }
+  if (t_lo < t_hi) load_tile(t_lo, 0);
+  cp_async_commit();
+
+  // this thread's two rows: wr + gq and wr + gq + 8 of the tile, and the
+  // keys each may see: [0, lim)
+  const int wr = rw * 16;
+  const int lim0 = causal ? min(n_k, q_offset + r0 + wr + gq + 1) : n_k;
+  const int lim1 = causal ? min(n_k, q_offset + r0 + wr + gq + 9) : n_k;
+  float o[NK][4];
+#pragma unroll
+  for (int n = 0; n < NK; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const bool warp_live = r0 + wr < r_end;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int buf = (t - t_lo) & 1;
+    if (t + 1 < t_hi) load_tile(t + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_1();               // tile t (and the queries) landed
+    __syncthreads();
+    if (warp_live) {
+      // this warp's keys of the tile: n-tiles kw * NJ + [0, NJ)
+      const float* kt = k_s + buf * kBN * ST + kw * NJ * 8 * ST;
+      const float* vt = v_s + buf * kBN * ST + kw * NJ * 8 * ST;
+      const float* qw = q_s + wr * ST;
+      float sp[NP][NJ][4];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          sp[p][j][0] = sp[p][j][1] = sp[p][j][2] = sp[p][j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t ab[4], as[4];
+        load_a(qw, ST, 8 * kk, gq, tq, ab, as);
+        float kb2[NJ][2];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float* kr = kt + (8 * j + gq) * ST + 8 * kk + tq;
+          kb2[j][0] = kr[0];
+          kb2[j][1] = kr[4];
+        }
+        mma3<NJ>(sp[kk % NP], ab, as, kb2);
       }
-      float* kr = k_s + p * KS + d;
-      kr[0] = kv.x;
-      kr[1] = kv.y;
-      kr[2] = kv.z;
-      kr[3] = kv.w;
-      *reinterpret_cast<float4*>(v_s + e) = vv;
+      // mask, scale, online softmax on the fragments
+      const int kb0 = t * kBN + kw * NJ * 8;
+      float s[NJ][4];
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = NP == 2 ? sp[0][j][e] + sp[NP - 1][j][e] : sp[0][j][e];
+          const int kpos = kb0 + 8 * j + 2 * tq + (e & 1);
+          s[j][e] = kpos < (e < 2 ? lim0 : lim1) ? x * scale : kNegInf;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float al0 = __expf(m0 - mx0), al1 = __expf(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= al0;
+      l1 *= al1;
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        o[n][0] *= al0;
+        o[n][1] *= al0;
+        o[n][2] *= al1;
+        o[n][3] *= al1;
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float p0 = s[j][0] > 0.5f * kNegInf ? __expf(s[j][0] - mx0) : 0.f;
+        const float p1 = s[j][1] > 0.5f * kNegInf ? __expf(s[j][1] - mx0) : 0.f;
+        const float p2 = s[j][2] > 0.5f * kNegInf ? __expf(s[j][2] - mx1) : 0.f;
+        const float p3 = s[j][3] > 0.5f * kNegInf ? __expf(s[j][3] - mx1) : 0.f;
+        l0 += p0 + p1;
+        l1 += p2 + p3;
+        uint32_t ab[4], as[4];
+        p_fragment(p0, p1, p2, p3, ab, as);
+        const float* v0 = vt + (8 * j + 2 * tq) * ST + gq;
+#pragma unroll
+        for (int n0 = 0; n0 < NK; n0 += 4) {   // 4 output n-tiles at a time
+          float vb2[4][2];
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            vb2[n][0] = v0[8 * (n0 + n)];
+            vb2[n][1] = v0[ST + 8 * (n0 + n)];
+          }
+          mma3<4>(*reinterpret_cast<float(*)[4][4]>(&o[n0]), ab, as, vb2);
+        }
+      }
+    }
+    __syncthreads();                 // buffer buf free for tile t + 2
+  }
+  cp_async_wait_all();               // an empty share still staged the queries
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+
+  if (KW > 1) {
+    // merge the KW partials of each row group in shared memory (the key
+    // tiles are consumed): every warp leaves its (m, l, acc) fragments,
+    // the row group's first warp folds in the others in a fixed order
+    __syncthreads();
+    float* xw = k_s + warp * (NK * 4 + 4) * 32;
+    if (warp_live && kw > 0) {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xw[(n * 4 + e) * 32 + lane] = o[n][e];
+      xw[(NK * 4 + 0) * 32 + lane] = m0;
+      xw[(NK * 4 + 1) * 32 + lane] = m1;
+      xw[(NK * 4 + 2) * 32 + lane] = l0;
+      xw[(NK * 4 + 3) * 32 + lane] = l1;
     }
     __syncthreads();
-
-    // scores of keys k0 + lane and k0 + lane + 32 for the warp's R rows
-    float s0[R], s1[R];
+    if (kw > 0 || !warp_live) return;
+#pragma unroll 1
+    for (int w = 1; w < KW; ++w) {
+      const float* xo = xw + w * (NK * 4 + 4) * 32;
+      const float mb0 = xo[(NK * 4 + 0) * 32 + lane];
+      const float mb1 = xo[(NK * 4 + 1) * 32 + lane];
+      const float n0 = fmaxf(m0, mb0), n1 = fmaxf(m1, mb1);
+      const float ca0 = __expf(m0 - n0), cb0 = __expf(mb0 - n0);
+      const float ca1 = __expf(m1 - n1), cb1 = __expf(mb1 - n1);
+      l0 = l0 * ca0 + xo[(NK * 4 + 2) * 32 + lane] * cb0;
+      l1 = l1 * ca1 + xo[(NK * 4 + 3) * 32 + lane] * cb1;
+      m0 = n0;
+      m1 = n1;
 #pragma unroll
-    for (int r = 0; r < R; ++r) s0[r] = s1[r] = 0.f;
-    const float* k0r = k_s + lane * KS;
-    const float* k1r = k_s + (lane + 32) * KS;
-#pragma unroll 2
-    for (int d = 0; d < HD; d += 4) {
-      float ka[4], kc[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        ka[c] = k0r[d + c];
-        kc[c] = k1r[d + c];
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 qd = *reinterpret_cast<const float4*>(qw + r * HD + d);
-        s0[r] += qd.x * ka[0] + qd.y * ka[1] + qd.z * ka[2] + qd.w * ka[3];
-        s1[r] += qd.x * kc[0] + qd.y * kc[1] + qd.z * kc[2] + qd.w * kc[3];
-      }
-    }
-
-    // online softmax of each row over this tile
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int j0 = k0 + lane, j1 = k0 + lane + 32;
-      const float a0 = j0 < lim[r] ? s0[r] * scale : kNegInf;
-      const float a1 = j1 < lim[r] ? s1[r] * scale : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(a0, a1)));
-      const float alpha = expf(m[r] - m_new);
-      const float p0 = expf(a0 - m_new), p1 = expf(a1 - m_new);
-      l[r] = l[r] * alpha + (p0 + p1);
-      m[r] = m_new;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-      pw[r * kBlockK + lane] = p0;
-      pw[r * kBlockK + lane + 32] = p1;
-    }
-    __syncwarp();
-    for (int j = 0; j < live; ++j) {
-      float vv[DPL];
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) vv[i] = v_s[j * HD + lane + 32 * i];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float p = pw[r * kBlockK + j];
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[r][i] += p * vv[i];
+      for (int n = 0; n < NK; ++n) {
+        o[n][0] = o[n][0] * ca0 + xo[(n * 4 + 0) * 32 + lane] * cb0;
+        o[n][1] = o[n][1] * ca0 + xo[(n * 4 + 1) * 32 + lane] * cb0;
+        o[n][2] = o[n][2] * ca1 + xo[(n * 4 + 2) * 32 + lane] * cb1;
+        o[n][3] = o[n][3] * ca1 + xo[(n * 4 + 3) * 32 + lane] * cb1;
       }
     }
+  } else if (!warp_live) {
+    return;
   }
 
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float lsum = warp_sum(l[r]);
-    const int row = q0 + warp * R + r;
-    if (row < Sq) {
-      const float den = fmaxf(lsum, 1e-30f);
-      float* orow = ob + (long long)row * HD;
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + wr + gq + 8 * half;
+    if (r >= r_end) continue;
+    const float l = half ? l1 : l0;
+    if (n_split == 1) {
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      float* orow = out + (bh * Sq + r) * HD;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) orow[lane + 32 * i] = acc[r][i] / den;
+      for (int n = 0; n < NK; ++n)
+        *reinterpret_cast<float2*>(orow + 8 * n + 2 * tq) =
+            make_float2(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+    } else {
+      const long long w = (bh * n_split + split_id) * Sq + r;
+      if (tq == 0) {
+        m_ws[w] = half ? m1 : m0;
+        l_ws[w] = l;
+      }
+      float* arow = acc_ws + w * HD;
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+        *reinterpret_cast<float2*>(arow + 8 * n + 2 * tq) =
+            make_float2(o[n][2 * half], o[n][2 * half + 1]);
     }
   }
 }
 
-template <int HD, int R>
+template <int HD, int KW>
 int launch(const float* q, const float* k, const float* v, float* out,
-           int BH, int Sq, int Sk, int causal, int q_offset, int kv_len,
-           float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<HD, R>();
-  if (smem > 48 * 1024) {
+           float* m_ws, float* l_ws, float* acc_ws, int BH, int Sq, int Sk,
+           int causal, int q_offset, int kv_len, float scale, int n_split,
+           cudaStream_t st) {
+  constexpr size_t smem = smem_bytes<HD, KW>();
+  // the attribute belongs to the instantiation: set it once, not on
+  // every launch (as B2 does)
+  static bool attr_set = false;
+  if (smem > 48 * 1024 && !attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<HD, R>,
+        flash_attention_kernel<HD, KW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
+    attr_set = true;
   }
-  constexpr int BQ = kWarps * R;
-  dim3 grid((Sq + BQ - 1) / BQ, BH);
-  flash_attention_kernel<HD, R><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, Sq, Sk, causal, q_offset, kv_len, scale);
-  return (int)cudaGetLastError();
+  constexpr int BM = 16 * (kWarps / KW);
+  const int n_qt = (Sq + BM - 1) / BM;
+  if ((long long)n_qt * n_split > 65535) return (int)cudaErrorInvalidValue;
+  flash_attention_kernel<HD, KW><<<dim3(BH, n_qt * n_split), kThreads, smem,
+                                   st>>>(q, k, v, out, m_ws, l_ws, acc_ws, Sq,
+                                         Sk, causal, q_offset, kv_len, scale,
+                                         n_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  return repro_split::launch_split_merge(m_ws, l_ws, acc_ws, nullptr, out, BH,
+                                         Sq, 1, 1, HD, n_split, st);
 }
 
 template <int HD>
-int launch_rows(const float* q, const float* k, const float* v, float* out,
-                int BH, int Sq, int Sk, int causal, int q_offset, int kv_len,
-                float scale, cudaStream_t stream) {
-  if (Sq >= 64)
-    return launch<HD, 16>(q, k, v, out, BH, Sq, Sk, causal, q_offset, kv_len,
-                          scale, stream);
-  if (Sq >= 16)
-    return launch<HD, 4>(q, k, v, out, BH, Sq, Sk, causal, q_offset, kv_len,
-                         scale, stream);
-  return launch<HD, 1>(q, k, v, out, BH, Sq, Sk, causal, q_offset, kv_len,
-                       scale, stream);
+int launch_kw(const float* q, const float* k, const float* v, float* out,
+              float* m_ws, float* l_ws, float* acc_ws, int BH, int Sq, int Sk,
+              int causal, int q_offset, int kv_len, float scale, int n_split,
+              int kw, cudaStream_t st) {
+  switch (kw) {
+    case 1:
+      return launch<HD, 1>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
+                           causal, q_offset, kv_len, scale, n_split, st);
+    case 2:
+      return launch<HD, 2>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
+                           causal, q_offset, kv_len, scale, n_split, st);
+    case 4:
+      return launch<HD, 4>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
+                           causal, q_offset, kv_len, scale, n_split, st);
+    case 8:
+      return launch<HD, 8>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
+                           causal, q_offset, kv_len, scale, n_split, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Returns a cudaError_t (0 on success); cudaErrorInvalidValue for a head
-// dim other than 32, 64 or 128 or a grid the card cannot launch.
+// kw: warps per row group (1, 2, 4 or 8; the wrapper's warps_per_rows);
+// n_split: key splits per query tile (the wrapper's n_splits), with
+// m_ws / l_ws (BH, n_split, Sq) and acc_ws (BH, n_split, Sq, hd) when it is
+// above 1 (null otherwise).  Returns a cudaError_t (0 on success);
+// cudaErrorInvalidValue for a head dim other than 32, 64 or 128, a kw
+// outside 1/2/4/8 or a grid the card cannot launch.
 extern "C" int repro_flash_attention_f32(
-    const float* q, const float* k, const float* v, float* out, int BH,
-    int Sq, int Sk, int hd, int causal, int q_offset, int kv_len,
-    float scale, void* stream) {
-  if (BH <= 0 || Sq <= 0 || BH > 65535) return (int)cudaErrorInvalidValue;
+    const float* q, const float* k, const float* v, float* out, float* m_ws,
+    float* l_ws, float* acc_ws, int BH, int Sq, int Sk, int hd, int causal,
+    int q_offset, int kv_len, float scale, int kw, int n_split,
+    void* stream) {
+  if (BH <= 0 || Sq <= 0 || n_split < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
     case 32:
-      return launch_rows<32>(q, k, v, out, BH, Sq, Sk, causal, q_offset,
-                             kv_len, scale, s);
+      return launch_kw<32>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
+                           causal, q_offset, kv_len, scale, n_split, kw, s);
     case 64:
-      return launch_rows<64>(q, k, v, out, BH, Sq, Sk, causal, q_offset,
-                             kv_len, scale, s);
+      return launch_kw<64>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
+                           causal, q_offset, kv_len, scale, n_split, kw, s);
     case 128:
-      return launch_rows<128>(q, k, v, out, BH, Sq, Sk, causal, q_offset,
-                              kv_len, scale, s);
+      return launch_kw<128>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
+                            causal, q_offset, kv_len, scale, n_split, kw, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,4 +1,5 @@
-// Fused MLA latent-page chunked prefill for Hopper (sm_90a), float32.
+// Fused MLA latent-page chunked prefill for Hopper (sm_90a), float32 data,
+// products on the tensor cores in 3xTF32.
 //
 // Replaces: src/repro/kernels/paged_prefill.py, mla_paged_prefill_attention
 // (Pallas body _mla_prefill_kernel).  One launch per MLA layer per prefill
@@ -16,90 +17,96 @@
 // What bounds it on an H100: every (query row, visible key) pair costs
 // 2 * (r + rope) + 2 * r = 2176 flops at deepseek-v2's widths (r 512,
 // rope 64), while each key is 2304 bytes shared by all 128 heads and every
-// query position of the chunk, so the work sits far above the float32
-// ridge: it is bound by operations, float32 FMAs outside the tensor cores
-// in this version (67 TFLOP/s peak).
+// query position of the chunk: a GEMM-shaped problem (M = S * H rows,
+// K = 576, N = 512) far above the float32 ridge, bound by operations.
 //
 // What the design does about it:
-//  * Rows are folded position-major (row i * H + h is position i, head h)
-//    and a block takes 16 consecutive rows, so the rows of a block share
-//    one causal limit (deepseek's 128 heads give 8 blocks per position)
-//    and the grid (lane, row tile) has thousands of blocks per chunk.
-//  * A block stages 16 keys at a time (16 x 576 floats = 36 KB of shared
-//    memory) and every one of its 16 rows uses them: each key is loaded
-//    from device memory or L2 once per block, not once per row.
-//  * The queries and the accumulators live in REGISTERS, not in shared
-//    memory.  A warp owns 4 rows; lane l holds, for each of its 4 rows,
-//    the latent columns j * 128 + 4 l + [0, 4) (j < 4) and the rope columns
-//    2 l + [0, 2) of the query (72 floats) and the same latent columns of
-//    the accumulator (64 floats).  A row's 512-float accumulator is thus
-//    spread over the 32 lanes of its warp, 16 floats each.  Shared memory
-//    would cost two extra loads per FMA (the accumulator and the query are
-//    touched for every key); registers cost nothing per use, and the key
-//    tile is the only operand read from shared memory.  About 190
-//    registers a thread, so two 128-thread blocks per SM.
-//  * Scores: each lane forms partial dot products over its 18 columns for
-//    4 rows x 8 keys, then one reduce-scatter of the 32 partials over the
-//    warp (31 shuffles) leaves lane l with the full score of row l / 8,
-//    key l % 8.  The online-softmax update of a row runs on its 8 lanes.
-//  * Tensor cores (wgmma) and TMA loads of the key tiles are later work.
+//  * Tensor cores: both products are mma.sync.m16n8k8 TF32 in 3xTF32
+//    (helpers in mma_tf32.cuh, as in B2), and one staged key tile serves
+//    both, since the value is the key's first r columns (ckv): logits
+//    rows x 576 against keys x 576, context P against keys x 512.
+//  * Rows are folded position-major (row i * H + h is position i, head h),
+//    so the rows of a block share a causal limit when H is a multiple of
+//    the block's 32 rows (deepseek's 128 heads: 4 blocks per position).
+//  * A block is 8 warps: 2 row groups of 16 rows x 4 warps.  A row's
+//    accumulator is 512 floats, so the 4 warps of a row group split the
+//    512 output columns, 128 each (64 accumulator floats a lane).  The
+//    logits of a row group's 16 rows x 32 keys are formed once, shared out
+//    as 2 key halves x 2 depth halves (288 columns) over the same 4 warps,
+//    and handed over through shared memory: every warp sums the two depth
+//    halves in the same order and runs the same online softmax on the
+//    whole 16 x 32 tile, so the 4 copies of a row's (m, l) agree exactly.
+//  * Key tiles of 32 keys x 576 floats (74 KB) are staged by 16-byte
+//    cp.async, double-buffered; with the 32 query rows that is 226 KB of
+//    the 227 KB a block can have, so one block per SM.  Rows are padded
+//    to 580 floats so that the fragment reads fall on 32 banks.
+//  * Key split for few rows: when the row tiles give under one block per
+//    SM (the replay's one-lane 16-row bucket: 64 blocks), the wrapper also
+//    splits each tile's key range over n_split blocks; each takes a
+//    balanced share of the tile's 32-key tiles, writes its partial
+//    (m, l, acc) (l = 0 and acc zeros when its share is empty), and
+//    split_merge.cuh's launch merges them (KVH 1, G = H, hd = r; it writes
+//    the padded rows' zeros).  With one split the block writes the output.
+//  * Causal row tiles are launched last first (they see the most keys);
+//    key tiles past a tile's last live row are never visited.
 //
 // The hazard the TPU kernel avoided by program order within a lane: here
 // the row tiles of one lane run in parallel, so no block reads a position
 // that another block may be writing.  Keys below pos0 (the history) are
 // read from the pages, which this launch never writes at those positions;
-// keys of the chunk itself come straight from ckv_new / krope_new.  The
-// lane's blocks share the writes, position i going to block i mod the
-// number of blocks, so every row is written exactly once.  Pages written by
-// different lanes are exclusive after the engine's copy-on-write barrier
-// (PagedKVManager.ensure_writable); a masked lane (chunk_len 0) aliases
-// another lane's table and writes nothing.
+// keys of the chunk itself come straight from ckv_new / krope_new.  Each
+// chunk row is written once, by split 0 of the row tile that holds the
+// position's first row.  Pages written by different lanes are exclusive
+// after the engine's copy-on-write barrier (PagedKVManager.ensure_writable);
+// a masked lane (chunk_len 0) aliases another lane's table and writes
+// nothing.
 //
 // Output rows at i >= chunk_len[b] (padding, masked lanes) are zeros.
-// Masked scores are NEG_INF = -1e30 and contribute an exact 0 (their
-// probability is set to 0, never computed), and the denominator is
-// floored at 1e-30, as in the TPU kernel.  scale is an argument
-// ((qk_nope + rope)^-0.5 for deepseek-v2).
+// Masked scores are NEG_INF = -1e30 and contribute an exact 0, and the
+// denominator is floored at 1e-30, as in the TPU kernel.  scale is an
+// argument ((qk_nope + rope)^-0.5 for deepseek-v2).
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_tf32.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using repro_mma::cp_async16;
+using repro_mma::cp_async_commit;
+using repro_mma::cp_async_wait_1;
+using repro_mma::cp_async_wait_all;
+using repro_mma::load_a;
+using repro_mma::mma3;
+using repro_mma::p_fragment;
+using repro_mma::quad_max;
+using repro_mma::quad_sum;
+using repro_split::kNegInf;
+
 constexpr int kR = 512;                  // kv_lora_rank the kernel is built for
 constexpr int kRope = 64;                // qk_rope_head_dim
 constexpr int kD = kR + kRope;           // floats per staged key
-constexpr int kLat = kR / 128;           // float4 latent chunks per lane
-constexpr int kWarps = 4;
+constexpr int kST = kD + 4;              // shared row stride in floats
+constexpr int kC4 = kD / 4;              // 16-byte chunks per row
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRows = kWarps * kRowsPerWarp;   // query rows per block
-constexpr int kKeys = 16;                // keys per staged tile
-constexpr int kSub = 8;                  // keys per score reduce-scatter
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRG = 2;                   // row groups of 16 per block
+constexpr int kRows = 16 * kRG;          // query rows per block
+constexpr int kCW = kWarps / kRG;        // warps per row group
+constexpr int kKeys = 32;                // keys per staged tile
+constexpr int kNJ = kKeys / 8;           // n-tiles of a key tile
+constexpr int kKS = kD / 8 / 2;          // a warp's Q·Kᵀ k-steps (depth half)
+constexpr int kNO = kR / 8 / kCW;        // a warp's P·V n-tiles (128 columns)
+constexpr int kTPK = kThreads / kKeys;   // loader threads per key row
+constexpr size_t kSmem =
+    sizeof(float) * ((size_t)(kRows + 2 * kKeys) * kST + kRG * kCW * 2 * 4 * 32);
 
-static_assert(kRowsPerWarp * kSub == 32, "one score per lane after reduce");
-static_assert(kKeys == 2 * kSub, "two reduce-scatters per key tile");
-static_assert(kRope == 64, "rope columns are one float2 per lane");
+static_assert(kCW == 4, "2 key halves x 2 depth halves per row group");
+static_assert(kC4 % kTPK == 0, "a key row's chunks share out evenly");
+static_assert(kSmem <= 232448, "one block per SM");
 
-// One step of the reduce-scatter: lanes with bit `half` set keep the upper
-// half of the values and send the lower half to their partner, and the
-// other way round; afterwards v[0, half) holds sums over both lanes.
-template <int half>
-__device__ __forceinline__ void reduce_scatter_step(float (&v)[32], int lane) {
-  const bool upper = (lane & half) != 0;
-#pragma unroll
-  for (int j = 0; j < half; ++j) {
-    const float send = upper ? v[j] : v[j + half];
-    const float keep = upper ? v[j + half] : v[j];
-    v[j] = keep + __shfl_xor_sync(kFull, send, half);
-  }
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__global__ void __launch_bounds__(kThreads, 2) mla_prefill_kernel(
+__global__ void __launch_bounds__(kThreads, 1) mla_prefill_kernel(
     const float* __restrict__ q_lat,      // (B, S, H, kR)
     const float* __restrict__ q_rope,     // (B, S, H, kRope)
     const float* __restrict__ ckv_new,    // (B, S, kR)
@@ -109,216 +116,288 @@ __global__ void __launch_bounds__(kThreads, 2) mla_prefill_kernel(
     const int* __restrict__ block_table,  // (B, max_pages)
     const int* __restrict__ pos0_arr,     // (B,)
     const int* __restrict__ clen_arr,     // (B,)
-    float* __restrict__ out,              // (B, S, H, kR)
-    int S, int H, int page, int max_pages, float scale) {
-  __shared__ __align__(16) float k_s[kKeys * kD];
-  __shared__ float p_s[kWarps * kRowsPerWarp * kKeys];
+    float* __restrict__ out,              // (B, S, H, kR)      one split
+    float* __restrict__ m_ws,             // (B, n_split, S * H)
+    float* __restrict__ l_ws,
+    float* __restrict__ acc_ws,           // (B, n_split, S * H, kR)
+    int S, int H, int page, int max_pages, float scale, int n_split) {
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // kRows x kST
+  float* k_s = q_s + kRows * kST;                 // 2 x kKeys x kST
+  float* x_s = k_s + 2 * kKeys * kST;             // partial logits
 
   const int b = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int pos0 = pos0_arr[b];
-  const int n_tok = clen_arr[b];
-  const long long n_rows = (long long)S * H;
+  const int n_rt = gridDim.y;
+  const int rt = n_rt - 1 - (int)blockIdx.y;      // last row tiles first
+  const int split_id = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int pos0 = pos0_arr[b], n_tok = clen_arr[b];
+  const int R = S * H;
+  const int r0 = rt * kRows;
+  const int r_end = min(r0 + kRows, R);
+  const int live_end = min(r_end, n_tok * H);    // live rows: [r0, live_end)
   const int* table = block_table + (long long)b * max_pages;
+  const bool direct = n_split == 1;
 
-  // ---- phase 1: the chunk's latent rows into the pages, shared out ----
-  for (int i = blockIdx.y; i < n_tok; i += gridDim.y) {
-    const int pos = pos0 + i;
-    const int slot = pos / page;
-    if (slot >= max_pages) break;
-    const long long dst = (long long)table[slot] * page + pos % page;
-    const long long src = (long long)b * S + i;
-    for (int e = tid; e < kD / 4; e += kThreads) {
-      float4* d = e < kR / 4
-          ? reinterpret_cast<float4*>(ckv_pages + dst * kR) + e
-          : reinterpret_cast<float4*>(krope_pages + dst * kRope) + (e - kR / 4);
-      *d = e < kR / 4 ? ld4(ckv_new + src * kR + 4 * e)
-                      : ld4(krope_new + src * kRope + 4 * (e - kR / 4));
+  // ---- phase 1: chunk rows into the pages, by split 0 of the row tile
+  //      holding the position's first row ----
+  if (split_id == 0) {
+    const int i_lo = (r0 + H - 1) / H;
+    const int i_hi = min((r0 + kRows + H - 1) / H, n_tok);
+    for (int e = tid; e < (i_hi - i_lo) * kC4; e += kThreads) {
+      const int i = i_lo + e / kC4, c = e % kC4;
+      const int pos = pos0 + i;
+      if (pos / page >= max_pages) continue;
+      const long long dst = (long long)table[pos / page] * page + pos % page;
+      const long long src = (long long)b * S + i;
+      if (c < kR / 4)
+        reinterpret_cast<float4*>(ckv_pages + dst * kR)[c] =
+            reinterpret_cast<const float4*>(ckv_new + src * kR)[c];
+      else
+        reinterpret_cast<float4*>(krope_pages + dst * kRope)[c - kR / 4] =
+            reinterpret_cast<const float4*>(krope_new + src * kRope)[c - kR / 4];
     }
   }
 
-  // ---- this block's rows ----
-  const long long row0 = (long long)blockIdx.y * kRows;
-  const long long row_end = row0 + kRows < n_rows ? row0 + kRows : n_rows;
-  float* out_b = out + (long long)b * n_rows * kR;
-  if (row0 / H >= n_tok) {  // no live row: padding, or a masked lane
-    for (long long e = tid; e < (row_end - row0) * (kR / 4); e += kThreads)
-      reinterpret_cast<float4*>(out_b + row0 * kR)[e] =
+  // ---- padded rows of this tile are zeros (the merge writes them when
+  //      the keys are split) ----
+  float* out_b = out + (long long)b * R * kR;
+  if (direct) {
+    const int z0 = max(live_end, r0);
+    for (int e = tid; e < (r_end - z0) * (kR / 4); e += kThreads)
+      reinterpret_cast<float4*>(out_b + (long long)z0 * kR)[e] =
           make_float4(0.f, 0.f, 0.f, 0.f);
-    return;
   }
-  int i_last = (int)((row_end - 1) / H);
-  if (i_last > n_tok - 1) i_last = n_tok - 1;
-  const int kv_len = pos0 + n_tok;
-  const int key_end = pos0 + i_last + 1;  // keys [0, key_end) are visible
+  if (live_end <= r0) return;
 
-  float4 ql[kRowsPerWarp][kLat];
-  float2 qr[kRowsPerWarp];
-  float4 acc[kRowsPerWarp][kLat];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const long long row = row0 + warp * kRowsPerWarp + rr;
-    const bool live = row < row_end && row / H < n_tok;
-    const long long q_off = (long long)b * n_rows + row;
-#pragma unroll
-    for (int j = 0; j < kLat; ++j) {
-      ql[rr][j] = live ? ld4(q_lat + q_off * kR + j * 128 + 4 * lane)
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
-      acc[rr][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // ---- the key range of the tile's live rows, and this split's share ----
+  const int k_hi = pos0 + (live_end - 1) / H + 1;  // keys [0, k_hi)
+  const int n_tiles = (k_hi + kKeys - 1) / kKeys;
+  const int t_lo = (int)((long long)split_id * n_tiles / n_split);
+  const int t_hi = (int)((long long)(split_id + 1) * n_tiles / n_split);
+
+  // kTPK loader threads per key row, each with kC4 / kTPK chunks strided
+  // by kTPK (neighbouring threads on neighbouring 16 bytes): chunks
+  // c < kR / 4 come from the ckv row, the rest from the krope row
+  const int ld_row = tid / kTPK, ld_c = tid % kTPK;
+  auto load_tile = [&](int t, int buf) {
+    const int pos = t * kKeys + ld_row;
+    const float* cs = ckv_new;
+    const float* rs = krope_new;
+    bool pred = false;
+    if (pos < pos0) {              // history: pages this launch never writes
+      const long long row = (long long)table[pos / page] * page + pos % page;
+      cs = ckv_pages + row * kR;
+      rs = krope_pages + row * kRope;
+      pred = true;
+    } else if (pos < k_hi) {       // the chunk itself: from the new rows
+      const long long src = (long long)b * S + (pos - pos0);
+      cs = ckv_new + src * kR;
+      rs = krope_new + src * kRope;
+      pred = true;
     }
-    qr[rr] = live ? *reinterpret_cast<const float2*>(q_rope + q_off * kRope
-                                                     + 2 * lane)
-                  : make_float2(0.f, 0.f);
+    float* d = k_s + (buf * kKeys + ld_row) * kST;
+#pragma unroll
+    for (int j = 0; j < kC4 / kTPK; ++j) {
+      const int c = ld_c + kTPK * j;
+      const float* src = c < kR / 4 ? cs + 4 * c : rs + 4 * (c - kR / 4);
+      cp_async16(d + 4 * c, pred ? src : ckv_new, pred);
+    }
+  };
+
+  // query rows [q_lat | q_rope], zeros past the live rows; with the first
+  // key tile
+  for (int e = tid; e < kRows * kC4; e += kThreads) {
+    const int rr = e / kC4, c = e % kC4;
+    const long long row = (long long)b * R + r0 + rr;
+    const bool live = r0 + rr < live_end;
+    const float* src = c < kR / 4 ? q_lat + row * kR + 4 * c
+                                  : q_rope + row * kRope + 4 * (c - kR / 4);
+    cp_async16(q_s + rr * kST + 4 * c, live ? src : q_lat, live);
   }
-  // the row whose softmax state this lane keeps (lane / 8 of the warp's 4)
-  const long long my_row = row0 + warp * kRowsPerWarp + lane / kSub;
-  const bool my_live = my_row < row_end && my_row / H < n_tok;
-  const int my_qpos = pos0 + (int)(my_row / H);
-  float m_run = kNegInf, l_run = 0.f;
-  float* p_w = p_s + warp * kRowsPerWarp * kKeys;
+  if (t_lo < t_hi) load_tile(t_lo, 0);
+  cp_async_commit();
 
-  for (int t0 = 0; t0 < key_end; t0 += kKeys) {
-    __syncthreads();  // the previous tile's keys are consumed
-    for (int e = tid; e < kKeys * (kD / 4); e += kThreads) {
-      const int k = e / (kD / 4), c4 = e % (kD / 4);
-      const int pos = t0 + k;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (pos < pos0) {  // history: positions this launch never writes
-        const long long row = (long long)table[pos / page] * page + pos % page;
-        v = c4 < kR / 4 ? ld4(ckv_pages + row * kR + 4 * c4)
-                        : ld4(krope_pages + row * kRope + 4 * (c4 - kR / 4));
-      } else if (pos < kv_len) {  // the chunk itself: from the new rows
-        const long long src = (long long)b * S + (pos - pos0);
-        v = c4 < kR / 4 ? ld4(ckv_new + src * kR + 4 * c4)
-                        : ld4(krope_new + src * kRope + 4 * (c4 - kR / 4));
-      }
-      reinterpret_cast<float4*>(k_s + k * kD)[c4] = v;
-    }
+  // warp roles: row group rg; for the logits key half kn and depth half
+  // kd; for the context output columns [128 cw, 128 cw + 128)
+  const int rg = warp / kCW, cw = warp % kCW;
+  const int kn = cw >> 1, kd = cw & 1;
+  const int wr = rg * 16;
+  const bool warp_live = r0 + wr < live_end;
+  const int qpos0 = pos0 + (r0 + wr + gq) / H;     // this thread's two rows
+  const int qpos1 = pos0 + (r0 + wr + gq + 8) / H;
+  float* xg = x_s + rg * kCW * 2 * 4 * 32;          // the row group's partials
+  float o[kNO][4];
+#pragma unroll
+  for (int n = 0; n < kNO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int buf = (t - t_lo) & 1;
+    if (t + 1 < t_hi) load_tile(t + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_1();               // tile t (and the queries) landed
     __syncthreads();
-
-    // scores: lane ends with row lane / 8, keys sb * 8 + lane % 8
-    float s_mine[2];
-    bool valid[2];
+    const float* kt = k_s + buf * kKeys * kST;
+    if (warp_live) {
+      // partial logits: 16 rows x keys 16 kn + [0, 16) over depth
+      // 288 kd + [0, 288), accumulated by k-step parity
+      float sp[2][2][4];
 #pragma unroll
-    for (int sb = 0; sb < 2; ++sb) {
-      float v[32];
+      for (int p = 0; p < 2; ++p)
 #pragma unroll
-      for (int kk = 0; kk < kSub; ++kk) {
-        const float* kr = k_s + (sb * kSub + kk) * kD;
-        float4 kv[kLat];
-#pragma unroll
-        for (int j = 0; j < kLat; ++j) kv[j] = ld4(kr + j * 128 + 4 * lane);
-        const float2 kp = *reinterpret_cast<const float2*>(kr + kR + 2 * lane);
-#pragma unroll
-        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-          float d = qr[rr].x * kp.x;
-          d = fmaf(qr[rr].y, kp.y, d);
-#pragma unroll
-          for (int j = 0; j < kLat; ++j) {
-            d = fmaf(ql[rr][j].x, kv[j].x, d);
-            d = fmaf(ql[rr][j].y, kv[j].y, d);
-            d = fmaf(ql[rr][j].z, kv[j].z, d);
-            d = fmaf(ql[rr][j].w, kv[j].w, d);
-          }
-          v[rr * kSub + kk] = d;
-        }
-      }
-      reduce_scatter_step<16>(v, lane);
-      reduce_scatter_step<8>(v, lane);
-      reduce_scatter_step<4>(v, lane);
-      reduce_scatter_step<2>(v, lane);
-      reduce_scatter_step<1>(v, lane);
-      const int k_pos = t0 + sb * kSub + lane % kSub;
-      valid[sb] = my_live && k_pos <= my_qpos && k_pos < kv_len;
-      s_mine[sb] = valid[sb] ? v[0] * scale : kNegInf;
-    }
-
-    // online softmax of each row over its 8 lanes
-    float mx = fmaxf(s_mine[0], s_mine[1]);
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 4));
-    const float m_new = fmaxf(m_run, mx);
-    const float p0 = valid[0] ? expf(s_mine[0] - m_new) : 0.f;
-    const float p1 = valid[1] ? expf(s_mine[1] - m_new) : 0.f;
-    float sum = p0 + p1;
-    sum += __shfl_xor_sync(kFull, sum, 1);
-    sum += __shfl_xor_sync(kFull, sum, 2);
-    sum += __shfl_xor_sync(kFull, sum, 4);
-    const float alpha = expf(m_run - m_new);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    p_w[(lane / kSub) * kKeys + lane % kSub] = p0;
-    p_w[(lane / kSub) * kKeys + kSub + lane % kSub] = p1;
-    __syncwarp();
-
-    // context: acc = acc * alpha + p . ckv over the tile
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const float a = __shfl_sync(kFull, alpha, rr * kSub);
-#pragma unroll
-      for (int j = 0; j < kLat; ++j) {
-        acc[rr][j].x *= a;
-        acc[rr][j].y *= a;
-        acc[rr][j].z *= a;
-        acc[rr][j].w *= a;
-      }
-    }
+        for (int j = 0; j < 2; ++j)
+          sp[p][j][0] = sp[p][j][1] = sp[p][j][2] = sp[p][j][3] = 0.f;
+      const float* qw = q_s + wr * kST;
+      const float* kr = kt + (16 * kn + gq) * kST + tq;
 #pragma unroll 4
-    for (int k = 0; k < kKeys; ++k) {
-      const float* kr = k_s + k * kD;
-      float4 cv[kLat];
+      for (int kk = kd * kKS; kk < (kd + 1) * kKS; ++kk) {
+        uint32_t ab[4], as[4];
+        load_a(qw, kST, 8 * kk, gq, tq, ab, as);
+        float kb2[2][2];
 #pragma unroll
-      for (int j = 0; j < kLat; ++j) cv[j] = ld4(kr + j * 128 + 4 * lane);
+        for (int j = 0; j < 2; ++j) {
+          kb2[j][0] = kr[8 * j * kST + 8 * kk];
+          kb2[j][1] = kr[8 * j * kST + 8 * kk + 4];
+        }
+        mma3<2>(sp[kk & 1], ab, as, kb2);
+      }
+      float* xw = xg + cw * 2 * 4 * 32;
 #pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float p = p_w[rr * kKeys + k];
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int j = 0; j < kLat; ++j) {
-          acc[rr][j].x = fmaf(p, cv[j].x, acc[rr][j].x);
-          acc[rr][j].y = fmaf(p, cv[j].y, acc[rr][j].y);
-          acc[rr][j].z = fmaf(p, cv[j].z, acc[rr][j].z);
-          acc[rr][j].w = fmaf(p, cv[j].w, acc[rr][j].w);
+        for (int e = 0; e < 4; ++e)
+          xw[(j * 4 + e) * 32 + lane] = sp[0][j][e] + sp[1][j][e];
+    }
+    __syncthreads();                 // the partial logits are in x_s
+    if (warp_live) {
+      // the whole 16 x 32 tile: key n-tile j from key half j / 2, the two
+      // depth halves summed in the same order by every warp
+      const int kb0 = t * kKeys;
+      float s[kNJ][4];
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) {
+        const float* x0 = xg + ((j >> 1) * 2) * 2 * 4 * 32 + (j & 1) * 4 * 32;
+        const float* x1 = x0 + 2 * 4 * 32;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = kb0 + 8 * j + 2 * tq + (e & 1);
+          const float x = x0[e * 32 + lane] + x1[e * 32 + lane];
+          s[j][e] = kpos <= (e < 2 ? qpos0 : qpos1) ? x * scale : kNegInf;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float al0 = __expf(m0 - mx0), al1 = __expf(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= al0;
+      l1 *= al1;
+#pragma unroll
+      for (int n = 0; n < kNO; ++n) {
+        o[n][0] *= al0;
+        o[n][1] *= al0;
+        o[n][2] *= al1;
+        o[n][3] *= al1;
+      }
+      // context: P (16 x 32) against the tile's ckv columns
+      // [128 cw, 128 cw + 128)
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) {
+        const float p0 = s[j][0] > 0.5f * kNegInf ? __expf(s[j][0] - mx0) : 0.f;
+        const float p1 = s[j][1] > 0.5f * kNegInf ? __expf(s[j][1] - mx0) : 0.f;
+        const float p2 = s[j][2] > 0.5f * kNegInf ? __expf(s[j][2] - mx1) : 0.f;
+        const float p3 = s[j][3] > 0.5f * kNegInf ? __expf(s[j][3] - mx1) : 0.f;
+        l0 += p0 + p1;
+        l1 += p2 + p3;
+        uint32_t ab[4], as[4];
+        p_fragment(p0, p1, p2, p3, ab, as);
+        const float* v0 = kt + (8 * j + 2 * tq) * kST + 128 * cw + gq;
+#pragma unroll
+        for (int n0 = 0; n0 < kNO; n0 += 4) {   // 4 output n-tiles at a time
+          float vb2[4][2];
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            vb2[n][0] = v0[8 * (n0 + n)];
+            vb2[n][1] = v0[kST + 8 * (n0 + n)];
+          }
+          mma3<4>(*reinterpret_cast<float(*)[4][4]>(&o[n0]), ab, as, vb2);
         }
       }
     }
-    __syncwarp();  // p_w is rewritten by the next tile
+    __syncthreads();                 // buffer buf and x_s free again
   }
+  cp_async_wait_all();               // an empty share still staged the queries
 
-  // ---- epilogue: normalise live rows, zero the padded ones ----
+  if (!warp_live) return;
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const float l = __shfl_sync(kFull, l_run, rr * kSub);
-    const long long row = row0 + warp * kRowsPerWarp + rr;
-    if (row >= row_end) continue;
-    const bool live = row / H < n_tok;
-    const float inv = live ? 1.f / fmaxf(l, 1e-30f) : 0.f;
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + wr + gq + 8 * half;
+    if (r >= live_end) continue;
+    const float l = half ? l1 : l0;
+    const int col = 128 * cw + 2 * tq;
+    if (direct) {
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      float* orow = out_b + (long long)r * kR + col;
 #pragma unroll
-    for (int j = 0; j < kLat; ++j) {
-      float4 o = acc[rr][j];
-      o.x *= inv;
-      o.y *= inv;
-      o.z *= inv;
-      o.w *= inv;
-      *reinterpret_cast<float4*>(out_b + row * kR + j * 128 + 4 * lane) = o;
+      for (int n = 0; n < kNO; ++n)
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            make_float2(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+    } else {
+      const long long w = ((long long)b * n_split + split_id) * R + r;
+      if (cw == 0 && tq == 0) {
+        m_ws[w] = half ? m1 : m0;
+        l_ws[w] = l;
+      }
+      float* arow = acc_ws + w * kR + col;
+#pragma unroll
+      for (int n = 0; n < kNO; ++n)
+        *reinterpret_cast<float2*>(arow + 8 * n) =
+            make_float2(o[n][2 * half], o[n][2 * half + 1]);
     }
   }
 }
 
 }  // namespace
 
+// n_split: key splits per row tile (the wrapper's n_splits), with m_ws /
+// l_ws (B, n_split, S * H) and acc_ws (B, n_split, S * H, r) when it is
+// above 1 (null otherwise).  Returns 0 or a CUDA error code;
+// cudaErrorInvalidValue for latent widths other than r 512, rope 64 or a
+// grid the card cannot launch.
 extern "C" int repro_mla_paged_prefill_f32(
     const float* q_lat, const float* q_rope, const float* ckv_new,
     const float* krope_new, float* ckv_pages, float* krope_pages,
     const int* block_table, const int* pos0, const int* chunk_len, float* out,
-    int B, int S, int H, int r, int rope, int page, int max_pages, float scale,
+    float* m_ws, float* l_ws, float* acc_ws, int B, int S, int H, int r,
+    int rope, int page, int max_pages, float scale, int n_split,
     void* stream) {
   const long long tiles = ((long long)S * H + kRows - 1) / kRows;
-  if (r != kR || rope != kRope || tiles > 65535)
+  if (r != kR || rope != kRope || tiles > 65535 || n_split < 1 ||
+      n_split > 65535)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(B, (unsigned)tiles);
-  mla_prefill_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  cudaStream_t st = (cudaStream_t)stream;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mla_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  mla_prefill_kernel<<<dim3(B, (unsigned)tiles, n_split), kThreads, kSmem,
+                       st>>>(
       q_lat, q_rope, ckv_new, krope_new, ckv_pages, krope_pages, block_table,
-      pos0, chunk_len, out, S, H, page, max_pages, scale);
-  return (int)cudaGetLastError();
+      pos0, chunk_len, out, m_ws, l_ws, acc_ws, S, H, page, max_pages, scale,
+      n_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  return repro_split::launch_split_merge(m_ws, l_ws, acc_ws, chunk_len, out,
+                                         B, S, H, 1, kR, n_split, st);
 }

@@ -19,7 +19,8 @@
 //
 // What the design does about it:
 // - Tensor cores: Q·Kᵀ and P·V are mma.sync.m16n8k8 TF32 products with
-//   fp32 accumulators.  TF32 alone keeps about three digits, so each fp32
+//   fp32 accumulators (the helpers, shared with B4 and B6, are in
+//   mma_tf32.cuh).  TF32 alone keeps about three digits, so each fp32
 //   operand x is split into big = tf32(x) (cvt.rna.tf32.f32) and small =
 //   tf32(x - big) and the kernel sums small·big + big·small + big·big
 //   (3xTF32).  x - big is exact in fp32 and handed to the tensor core as
@@ -80,81 +81,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
 #include "split_merge.cuh"
 
 namespace {
 
+using repro_mma::cp_async16;
+using repro_mma::cp_async_commit;
+using repro_mma::cp_async_wait_1;
+using repro_mma::cp_async_wait_all;
+using repro_mma::mma3;
+using repro_mma::split;
 using repro_split::kNegInf;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBM = 16 * kWarps;  // query rows per block
 constexpr int kBN = 64;           // keys per tile
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small: big rounded to TF32, small = x - big exact in fp32, read
-// as TF32 (its low 13 bits dropped) by the tensor core
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = tf32(x);
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d[n] += a·b[n] for N independent n-tiles in 3xTF32 (small·big +
-// big·small + big·big), the A fragment given as (big, small) and each B
-// fragment as two fp32 values b[n][0..1].  The three passes run over all N
-// accumulators in turn, so consecutive mma.sync are independent and their
-// latencies overlap.
-template <int N>
-__device__ __forceinline__ void mma3(float (&d)[N][4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4],
-                                     const float (&b)[N][2]) {
-  uint32_t bb[N][2], bs[N][2];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    split(b[n][0], bb[n][0], bs[n][0]);
-    split(b[n][1], bb[n][1], bs[n][1]);
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma(d[n], as, bb[n][0], bb[n][1]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma(d[n], ab, bs[n][0], bs[n][1]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma(d[n], ab, bb[n][0], bb[n][1]);
-}
-
-// 16-byte asynchronous copy; src_bytes 0 fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
-                                           bool pred) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(

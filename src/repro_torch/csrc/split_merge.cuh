@@ -1,7 +1,9 @@
 // Merge of key-split partial attention results, shared by the paged decode
 // (B1, csrc/paged_decode.cu), fused paged prefill (B2,
-// csrc/paged_prefill.cu) and paged verify (B3, csrc/paged_verify.cu)
-// kernels.
+// csrc/paged_prefill.cu), paged verify (B3, csrc/paged_verify.cu), MLA
+// latent-page prefill (B4, csrc/mla_paged_prefill.cu; KVH 1, G = H,
+// hd = r) and dense flash attention (B6, csrc/flash_attention.cu; B = BH,
+// S = Sq, H = KVH = 1) kernels.
 //
 // A kernel that splits each (lane, KV head)'s keys over n_split blocks
 // writes, per split s and per query row r of the (lane, KV head) group,

@@ -41,10 +41,10 @@ SIGNATURES = {
     "paged_verify": ("repro_paged_verify_f32",
                      [_P] * 12 + [_I] * 7 + [_F, _I, _I, _P]),
     "mla_paged_prefill": ("repro_mla_paged_prefill_f32",
-                          [_P] * 10 + [_I] * 7 + [_F, _P]),
+                          [_P] * 13 + [_I] * 7 + [_F, _I, _P]),
     "ssd_scan": ("repro_ssd_scan_f32", [_P] * 8 + [_I] * 6 + [_P]),
     "flash_attention": ("repro_flash_attention_f32",
-                        [_P] * 4 + [_I] * 7 + [_F, _P]),
+                        [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P]),
 }
 
 _FNS: dict[str, object] = {}

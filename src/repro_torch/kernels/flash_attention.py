@@ -14,20 +14,77 @@ plain version the mean of V.
 
 Dispatch is by the inputs' device, as in ``paged_attention.py``: CPU →
 ``flash_attention_plain``, CUDA → ``csrc/flash_attention.cu`` or raise.
-The kernel takes head dims 32, 64 and 128.
+The kernel takes head dims 32, 64 and 128.  ``COUNTS["kernel"]`` counts
+calls that launched the kernel, one per call whether or not a key split
+adds a merge launch.
+
+The wrapper picks the kernel's regime from the shape: ``warps_per_rows``
+(how many of a block's 8 warps share a 16-row group, each over its own
+keys of every tile) from Sq, and ``n_splits`` (key splits per query tile,
+merged by ``csrc/split_merge.cuh``) from the query tiles, the longest
+row's keys and the SM count.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.paged_attention import NEG_INF, check_tensor
+from repro_torch.kernels.paged_attention import (
+    NEG_INF, check_aligned, check_tensor, sm_count, split_workspace)
 
 COUNTS = {"kernel": 0, "plain": 0}
 
 # the head dims csrc/flash_attention.cu is compiled for
 KERNEL_HEAD_DIMS = (32, 64, 128)
+# the CUDA kernel's tiles: warps per block, query rows per warp's row
+# group, keys per staged tile
+WARPS, ROW_GROUP, KEY_TILE = 8, 16, 64
+
+
+def warps_per_rows(Sq: int) -> int:
+    """Warps of a block that share one 16-row group (1, 2, 4 or 8): as
+    many as the rows leave idle, so that every warp has work even at Sq 1
+    (each takes its own 64 / kw keys of every tile); 1 from 65 rows up,
+    where a block holds 128 rows."""
+    groups = math.ceil(Sq / ROW_GROUP)
+    kw = WARPS
+    while kw > 1 and groups > WARPS // kw:
+        kw //= 2
+    return kw
+
+
+def rows_per_block(Sq: int) -> int:
+    return ROW_GROUP * WARPS // warps_per_rows(Sq)
+
+
+def longest_row_keys(Sq: int, Sk: int, causal: bool, q_offset: int,
+                     kv_len: int) -> int:
+    """The most keys any query row sees."""
+    n = min(kv_len, Sk)
+    return min(n, q_offset + Sq) if causal else n
+
+
+@functools.lru_cache(maxsize=None)
+def n_splits(BH: int, Sq: int, n_keys: int, n_sms: int) -> int:
+    """Key splits per query tile: the count that makes the least of waves
+    of blocks (one block per SM at a time) times the key tiles a block
+    walks plus one (a block's own cost: staging its queries, merging its
+    warps, writing its partials), over the longest row's ``n_keys``, the
+    fewest splits on a tie.  On an H100 this picks the best, or within 5%
+    of the best, of 1 to 14 splits over 1500 keys at 20, 40, 60 and 160
+    heads of 1 to 128 rows (6 for one lane's cross-decode step, 4 for
+    eight lanes', 2 at 60 heads of 16 rows), and none for the encoder's
+    240 tiles, which 2 or 3 splits slow by 20% (PERF.md, PR 17).  A split
+    whose share of a tile's keys is empty writes l = 0.  Cached: it runs on
+    every launch (12896 in the whisper replay of ``chip_smoke.py``)."""
+    tiles = BH * math.ceil(Sq / rows_per_block(Sq))
+    key_tiles = max(math.ceil(n_keys / KEY_TILE), 1)
+    return min(range(1, key_tiles + 1),
+               key=lambda ns: (math.ceil(tiles * ns / n_sms)
+                               * (math.ceil(key_tiles / ns) + 1), ns))
 
 
 def flash_attention_bh(q, k, v, *, causal: bool = True, q_offset: int = 0,
@@ -61,10 +118,15 @@ def _launch(q, k, v, causal, q_offset, kv_len, scale):
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention_bh: the kernel takes head dims "
                          f"{KERNEL_HEAD_DIMS}, got {hd}")
+    check_aligned("flash_attention_bh", q, k, v)
+    kw = warps_per_rows(Sq)
+    ns = n_splits(BH, Sq, longest_row_keys(Sq, Sk, causal, q_offset, kv_len),
+                  sm_count(dev))
     out = torch.empty_like(q)
+    _ws, ws = split_workspace(BH, 1, ns, Sq, hd, dev)
     fn = build.load("flash_attention")
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq,
-            Sk, hd, int(causal), q_offset, kv_len, scale,
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *ws,
+            BH, Sq, Sk, hd, int(causal), q_offset, kv_len, scale, kw, ns,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(

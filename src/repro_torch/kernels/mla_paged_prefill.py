@@ -19,18 +19,43 @@ over the lane's history, which no caller reads.
 Dispatch is by the inputs' device, as in ``paged_attention.py``:
 CPU → plain version, CUDA → ``csrc/mla_paged_prefill.cu`` or raise.  The
 kernel is built for deepseek-v2's latent widths (r 512, rope 64); other
-widths raise on the card.
+widths raise on the card.  ``COUNTS["kernel"]`` counts calls that
+launched the kernel, one per call whether or not a key split adds a merge
+launch.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.kernels.paged_attention import NEG_INF, check_tensor
+from repro_torch.kernels.paged_attention import (
+    NEG_INF, check_aligned, check_tensor, sm_count, split_workspace)
 
 COUNTS = {"kernel": 0, "plain": 0}
 
 # the latent widths csrc/mla_paged_prefill.cu is compiled for
 KERNEL_RANK, KERNEL_ROPE = 512, 64
+# the CUDA kernel's tiles: query rows ((position, head) pairs,
+# position-major) per block, and keys per staged tile
+ROWS_PER_BLOCK = 32
+KEY_TILE = 32
+
+
+def n_splits(B: int, S: int, H: int, page: int, max_pages: int,
+             n_sms: int) -> int:
+    """Key splits per row tile.  A block takes 226 KB of shared memory, so
+    one runs per SM: one split when the row tiles alone give every SM a
+    block (a 256-token chunk: 1024 tiles), otherwise as many as keep the
+    grid within one block per SM (the replay's one-lane 16-row bucket: 64
+    tiles, 2 splits), capped by the key tiles of the table width.  The
+    host does not know the lanes' positions without a sync; each split
+    takes a balanced share of its tile's key range on the device, and a
+    split whose share is empty writes l = 0."""
+    tiles = B * math.ceil(S * H / ROWS_PER_BLOCK)
+    if tiles >= n_sms:
+        return 1
+    return max(1, min(n_sms // tiles, math.ceil(max_pages * page / KEY_TILE)))
 
 
 def mla_paged_prefill_attention(q_lat, q_rope, ckv_new, krope_new, ckv_pages,
@@ -77,13 +102,18 @@ def _launch(q_lat, q_rope, ckv_new, krope_new, ckv_pages, krope_pages,
         raise ValueError(
             f"mla_paged_prefill_attention: the kernel takes r {KERNEL_RANK} "
             f"and rope {KERNEL_ROPE}, got r {r} and rope {rope}")
+    check_aligned("mla_paged_prefill_attention", q_lat, q_rope, ckv_new,
+                  krope_new, ckv_pages, krope_pages)
+    max_pages = block_table.shape[1]
+    ns = n_splits(B, S, H, page, max_pages, sm_count(dev))
     out = torch.empty_like(q_lat)
+    _ws, ws = split_workspace(B, 1, ns, S * H, r, dev)
     fn = build.load("mla_paged_prefill")
     rc = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv_new.data_ptr(),
             krope_new.data_ptr(), ckv_pages.data_ptr(), krope_pages.data_ptr(),
             block_table.data_ptr(), pos0.data_ptr(), chunk_len.data_ptr(),
-            out.data_ptr(), B, S, H, r, rope, page, block_table.shape[1],
-            scale, torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), *ws, B, S, H, r, rope, page, max_pages, scale, ns,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"mla_paged_prefill kernel launch failed: CUDA error {rc}")

@@ -2,7 +2,9 @@
 against the JAX
 package: the same numpy-seeded inputs go through the JAX Pallas kernels in
 interpret mode, the JAX oracles, and the port's plain versions (what the
-wrappers run for CPU tensors) and loop oracles.
+wrappers run for CPU tensors) and loop oracles.  The CUDA kernels' host-side
+regime and split choices and their decompositions of the work (B1, B2, B4,
+B6) and 3xTF32 products are emulated here in float64 / float32 torch.
 
 Tolerances: outputs are float32 and agree to atol 1e-5 on valid rows (the
 sums run in another order than XLA's); page pools after a write are
@@ -21,6 +23,11 @@ from repro.kernels.ref import ref_paged_decode as jax_ref_decode  # noqa: E402
 from repro.kernels.ref import ref_paged_prefill as jax_ref_prefill  # noqa: E402
 from repro.kernels.paged_prefill import (                       # noqa: E402
     paged_verify_attention as jax_paged_verify)
+from repro.kernels.flash_attention import (                     # noqa: E402
+    flash_attention_bh as jax_flash_bh)
+from repro.kernels.ref import ref_mla_paged_prefill as jax_ref_mla  # noqa: E402
+from repro_torch.kernels import flash_attention as fa          # noqa: E402
+from repro_torch.kernels import mla_paged_prefill as mk        # noqa: E402
 from repro_torch.kernels import paged_attention as pa          # noqa: E402
 from repro_torch.kernels import paged_prefill as pp            # noqa: E402
 from repro_torch.kernels import paged_verify as pv             # noqa: E402
@@ -518,6 +525,249 @@ def test_3xtf32_products_hold_the_card_check(hd):
     o_exact = p @ v.double()
     o3 = _product_3xtf32(p.float(), v)
     assert (o3.double() - o_exact).abs().max() < 2e-5
+
+
+def _attention_3xtf32(q, k, v, scale):
+    """Attention as the tensor-core kernels compute it: scores from 3xTF32
+    products, the softmax in float32, P·V from 3xTF32 products."""
+    p = torch.softmax(_product_3xtf32(q, k.T) * scale, -1)
+    return _product_3xtf32(p, v)
+
+
+def _attention_f64(q, k, v, scale):
+    p = torch.softmax((q.double() @ k.double().T) * scale, -1)
+    return p @ v.double()
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_3xtf32_holds_the_card_check(hd):
+    """B6's products at its head dims over whisper's 1500 encoder frames:
+    a 16-row query tile's output from 3xTF32 scores and P·V stays within
+    2e-5 of float64 (the card check allows 1e-4)."""
+    rng = np.random.default_rng(100 + hd)
+    q = torch.from_numpy(rng.standard_normal((16, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1500, hd)).astype(
+        np.float32)) for _ in range(2))
+    got = _attention_3xtf32(q, k, v, hd ** -0.5)
+    assert (got.double() - _attention_f64(q, k, v, hd ** -0.5)).abs().max() \
+        < 2e-5
+
+
+@pytest.mark.parametrize("n_keys", [135, 256])
+def test_mla_3xtf32_holds_the_card_check(n_keys):
+    """B4's products at deepseek-v2's widths: 576-wide logits ([q_lat |
+    q_rope] against [ckv | krope]) and the 512-wide context against ckv,
+    over the replay's 135 keys and a 256-token chunk, within 2e-5 of
+    float64 (the card check allows 1e-4); the logits are summed from two
+    288-column depth halves, as the kernel's warps form them."""
+    rng = np.random.default_rng(n_keys)
+    q = torch.from_numpy(rng.standard_normal((16, 576)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((n_keys, 576)).astype(
+        np.float32))
+    scale = 192 ** -0.5
+    s = (_product_3xtf32(q[:, :288], k[:, :288].T)
+         + _product_3xtf32(q[:, 288:], k[:, 288:].T))
+    got = _product_3xtf32(torch.softmax(s * scale, -1), k[:, :512])
+    want = _attention_f64(q, k, k[:, :512], scale)
+    assert (got.double() - want).abs().max() < 2e-5
+
+
+def test_flash_regime_and_split_count():
+    """B6: warps sharing a 16-row group by Sq (every warp busy down to one
+    row); key splits that make the least of waves of blocks times (key
+    tiles per block + 1), the fewest on a tie: none for the encoder."""
+    assert [fa.warps_per_rows(s) for s in (1, 16, 17, 32, 33, 64, 65, 1500)] \
+        == [8, 8, 4, 4, 2, 2, 1, 1]
+    assert [fa.rows_per_block(s) for s in (1, 20, 40, 1500)] \
+        == [16, 32, 64, 128]
+    assert fa.n_splits(20, 1500, 1500, 132) == 1        # encoder, 240 tiles
+    assert fa.n_splits(160, 1, 1500, 132) == 4          # 8-lane decode step
+    assert fa.n_splits(20, 1, 1500, 132) == 6           # 1-lane decode step
+    assert fa.n_splits(20, 16, 1500, 132) == 6          # 1-lane prefill bucket
+    assert fa.n_splits(20, 128, 1500, 132) == 6         # 20 128-row tiles
+    assert fa.n_splits(60, 16, 1500, 132) == 2
+    assert fa.n_splits(40, 32, 1500, 132) == 3
+    assert fa.n_splits(4, 700, 700, 132) == 4
+    assert fa.n_splits(160, 20, 200, 132) == 2
+    assert fa.n_splits(1280, 1, 1500, 132) == 1
+    assert fa.n_splits(20, 1, 64, 132) == 1             # one key tile
+    assert fa.n_splits(20, 1, 0, 132) == 1
+    assert fa.longest_row_keys(77, 500, True, 200, 260) == 260
+    assert fa.longest_row_keys(45, 101, True, 20, 101) == 65
+    assert fa.longest_row_keys(1, 1500, False, 0, 9999) == 1500
+
+
+def test_mla_split_count():
+    """B4: one block per SM at most (226 KB of shared memory each): no
+    split from 132 row tiles up, else as many splits as fit in one wave,
+    capped by the 32-key tiles of the table width."""
+    assert mk.n_splits(1, 16, 128, 16, 64, 132) == 2     # the replay: 64 tiles
+    assert mk.n_splits(1, 8, 128, 16, 64, 132) == 4
+    assert mk.n_splits(1, 256, 128, 16, 32, 132) == 1
+    assert mk.n_splits(2, 16, 128, 16, 80, 132) == 1     # 128 tiles
+    assert mk.n_splits(1, 1, 128, 16, 2, 132) == 1       # capped: 1 key tile
+    assert mk.n_splits(1, 1, 16, 16, 64, 132) == 32
+
+
+def _fold(parts):
+    """The in-block merge of B6's warps that share a row group, in warp
+    order: rescale both (m, l, acc) to the larger m and add."""
+    m, l, acc = parts[0]
+    for mb, lb, accb in parts[1:]:
+        mx = torch.maximum(m, mb)
+        ca, cb = torch.exp(m - mx), torch.exp(mb - mx)
+        m, l, acc = mx, l * ca + lb * cb, acc * ca[:, None] + accb * cb[:, None]
+    return m, l, acc
+
+
+def _split_flash(q, k, v, causal, q_offset, kv_len, ns, kw):
+    """csrc/flash_attention.cu's decomposition: query tiles of 16 * 8 / kw
+    rows; a tile's key range [0, k_hi) cut into 64-key tiles shared out
+    over ns splits; in a split, warp w of a row group takes keys
+    [w * 64 / kw, (w + 1) * 64 / kw) of every tile, and the kw partials are
+    folded in warp order; the splits then merged as split_merge.cuh does."""
+    BH, Sq, hd = q.shape
+    Sk = k.shape[1]
+    BM, BN = 16 * 8 // kw, fa.KEY_TILE
+    n_k = min(kv_len, Sk)
+    out = torch.empty(BH, Sq, hd, dtype=torch.float64)
+    for bh in range(BH):
+        for r0 in range(0, Sq, BM):
+            rows = torch.arange(r0, min(r0 + BM, Sq))
+            lim = (torch.clamp(q_offset + rows + 1, max=n_k) if causal
+                   else torch.full_like(rows, n_k))
+            k_hi = int(lim.max())
+            n_tiles = -(-k_hi // BN) if k_hi > 0 else 0
+            qr = q[bh, rows].double() * (hd ** -0.5)
+            parts = []
+            for s in range(ns):
+                t_lo, t_hi = s * n_tiles // ns, (s + 1) * n_tiles // ns
+                warps = []
+                for w in range(kw):
+                    kpos = torch.cat([torch.arange(t * BN + w * BN // kw,
+                                                   t * BN + (w + 1) * BN // kw)
+                                      for t in range(t_lo, t_hi)]
+                                     + [torch.arange(0)])
+                    kpos = kpos[kpos < k_hi]      # the rest are zero-filled
+                    warps.append(_partial(qr, k[bh, kpos].double(),
+                                          v[bh, kpos].double(),
+                                          kpos[None] < lim[:, None]))
+                parts.append(_fold(warps))
+            out[bh, rows] = _merge(parts)
+    return out
+
+
+@pytest.mark.parametrize("BH,Sq,Sk,hd,causal,q_offset,kv_len", [
+    (2, 1, 150, 32, False, 0, 120),         # cross-decode, kv_len < Sk
+    (1, 77, 200, 64, True, 100, 150),       # causal at an offset, kv_len
+    (1, 150, 150, 32, True, 0, None),       # two query tiles, ragged
+])
+def test_flash_split_decomposition(BH, Sq, Sk, hd, causal, q_offset, kv_len):
+    """Each warps-per-group count, with key splits from 1 to more than the
+    key tiles (so that some shares are empty), and the wrapper's own choice
+    give the JAX Pallas kernel's output (interpret mode) within 1e-5."""
+    rng = np.random.default_rng(Sq + Sk)
+    q, k, v = (rng.standard_normal((BH, n, hd)).astype(np.float32)
+               for n in (Sq, Sk, Sk))
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    want = np.asarray(jax_flash_bh(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), block_q=Sq, block_k=Sk,
+                                   interpret=True, **kw))
+    q, k, v = _t(q, k, v)
+    kv_len = Sk if kv_len is None else kv_len
+    own = (fa.n_splits(BH, Sq, fa.longest_row_keys(Sq, Sk, causal, q_offset,
+                                                   kv_len), 132),
+           fa.warps_per_rows(Sq))
+    for ns, warps in ((1, 1), (3, 4), (7, 8), own):
+        got = _split_flash(q, k, v, causal, q_offset, kv_len, ns, warps)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+def _split_mla(ql, qr, cn, rn, cp, rp, table, pos0, clen, scale, ns):
+    """csrc/mla_paged_prefill.cu's decomposition: the S*H rows (position-
+    major) cut into tiles of ROWS_PER_BLOCK; a tile's key range [0, last
+    live row's position] cut into KEY_TILE-key tiles shared out over ns
+    splits, the logits summed from two 288-column depth halves; history
+    keys from the pages as they were before the launch, the chunk's from
+    ckv_new / krope_new; split 0 of the tile holding a position's first row
+    writes it.  Returns (out, ckv_pages, krope_pages), the pools updated in
+    place."""
+    B, S, H, r = ql.shape
+    page = cp.shape[1]
+    R, BM, BN = S * H, mk.ROWS_PER_BLOCK, mk.KEY_TILE
+    cp0, rp0 = cp.clone(), rp.clone()
+    out = torch.zeros(B, S, H, r, dtype=torch.float64)
+    writes = {}
+    for b in range(B):
+        p0, n_tok = int(pos0[b]), int(clen[b])
+        for r0 in range(0, R, BM):
+            live_end = min(r0 + BM, R, n_tok * H)
+            for i in range(-(-r0 // H), min(-(-(r0 + BM) // H), n_tok)):
+                writes[(b, i)] = writes.get((b, i), 0) + 1
+                slot = int(table[b, (p0 + i) // page])
+                cp[slot, (p0 + i) % page] = cn[b, i]
+                rp[slot, (p0 + i) % page] = rn[b, i]
+            if live_end <= r0:
+                continue
+            rows = torch.arange(r0, live_end)
+            qpos = p0 + rows // H
+            k_hi = int(qpos[-1]) + 1
+            n_tiles = -(-k_hi // BN)
+            q = torch.cat([ql[b, rows // H, rows % H],
+                           qr[b, rows // H, rows % H]], -1).double()
+            parts = []
+            for s in range(ns):
+                kpos = torch.arange(s * n_tiles // ns * BN,
+                                    min((s + 1) * n_tiles // ns * BN, k_hi))
+                hist = kpos < p0
+                slots = table[b].long()[kpos.clamp(max=max(p0 - 1, 0)) // page]
+                off = kpos % page
+                new = (kpos - p0).clamp(min=0)
+                kf = torch.cat([
+                    torch.where(hist[:, None], cp0[slots, off], cn[b, new]),
+                    torch.where(hist[:, None], rp0[slots, off], rn[b, new])],
+                    -1).double()
+                valid = kpos[None] <= qpos[:, None]
+                sc = (q[:, :288] @ kf[:, :288].T + q[:, 288:] @ kf[:, 288:].T)
+                sc = torch.where(valid, sc * scale, pa.NEG_INF)
+                m = sc.max(-1).values if len(kpos) else torch.full(
+                    (len(rows),), pa.NEG_INF, dtype=torch.float64)
+                p = torch.where(valid, torch.exp(sc - m[:, None]), 0.0)
+                parts.append((m, p.sum(-1), p @ kf[:, :r]))
+            out[b, rows // H, rows % H] = _merge(parts)
+    assert all(c == 1 for c in writes.values())      # one writer per row
+    return out, cp, rp
+
+
+def test_mla_split_decomposition():
+    """The kernel's row tiles and key splits (1 to more than the key tiles,
+    so that some shares are empty) give the JAX oracle's output within
+    1e-5 on valid rows and its pools bit for bit, each chunk row written
+    once.  The mla replay's lane (15 live rows of a 16-row bucket from
+    mid-page position 120) at 24 heads, so that row tiles straddle
+    positions, beside a masked lane."""
+    B, S, H, page, pos0, clen = 2, 16, 24, 16, [120, 0], [15, 0]
+    r, rope, max_pages = 512, 64, 10
+    rng = np.random.default_rng(S * H)
+    f = lambda *sh: rng.standard_normal(sh).astype(np.float32)
+    n_pages = B * max_pages + 2
+    table = rng.permutation(n_pages)[:B * max_pages].reshape(
+        B, max_pages).astype(np.int32)
+    args = (f(B, S, H, r), f(B, S, H, rope), f(B, S, r), f(B, S, rope),
+            f(n_pages, page, r), f(n_pages, page, rope), table)
+    p0 = np.array(pos0, np.int32)
+    cl = np.array(clen, np.int32)
+    scale = 192 ** -0.5
+    want, wcp, wrp = jax_ref_mla(*map(jnp.asarray, args), p0, cl,
+                                 scale=scale)
+    valid = np.arange(S)[None] < cl[:, None]
+    for ns in (1, 2, 3, 7, mk.n_splits(B, S, H, page, max_pages, 132)):
+        got, gcp, grp = _split_mla(*_t(*args, p0, cl), scale, ns)
+        np.testing.assert_array_equal(gcp.numpy(), np.asarray(wcp))
+        np.testing.assert_array_equal(grp.numpy(), np.asarray(wrp))
+        np.testing.assert_allclose(got.numpy()[valid], np.asarray(want)[valid],
+                                   atol=ATOL, rtol=0)
+        assert not got.numpy()[~valid].any()
 
 
 def test_lib_path_hashes_included_headers(tmp_path, monkeypatch):
