@@ -1,9 +1,10 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
   python3 chip_smoke.py            # from the root of a checkout, one GPU
-  python3 chip_smoke.py --parent DIR   # also time DIR's B6 and B4 beside
+  python3 chip_smoke.py --parent DIR   # also time DIR's B5 and B3 beside
                                        # this tree's (DIR: another checkout)
-  python3 chip_smoke.py --split-sweep  # only B6's and B4's split sweeps
+  python3 chip_smoke.py --split-sweep  # only B6's, B4's and B3's split
+                                       # sweeps and B5's regime sweep
 
 Phases, each printed as one JSON line; any failed check raises and the
 script exits non-zero before the final line:
@@ -33,7 +34,9 @@ script exits non-zero before the final line:
    128; one lane, an 8- or 16-row window with 1 to 9 live rows, histories
    of 0 to about 2000 keys, a 4096-token window over 6000 keys) and at
    smollm's group with a masked lane, and timed at the spec replay's shape
-   (an 8-row window with 2 live rows: the last token and one draft).
+   (an 8-row window with 2 live rows: the last token and one draft) and
+   over 1995 keys; with ``--parent`` the other tree's B3 is checked and
+   timed beside it (its split and merge launches apart).
 3. Greedy streams of the full-width engine against plain full-causal
    generation on the card: three requests of different prompt lengths in
    one padded prefill group, mid-page second chunks, and padded decode
@@ -74,7 +77,6 @@ script exits non-zero before the final line:
    rows zeros; each line names the key splits.  Timed at the mla replay's
    prefill shape (one lane, a 16-row bucket with 15 live rows after 120
    tokens of history; 2 key splits) and at a 256-token chunk (none).
-   With ``--parent`` the other tree's B4 is checked and timed beside it.
 8. DeepSeek-V2 at full width cut to three layers (``mla``, ``mla_moe``,
    ``mla_moe``; random weights from the seed, 34.8 GiB in float32): three
    greedy streams of the engine against plain full-causal generation, as
@@ -89,8 +91,12 @@ script exits non-zero before the final line:
     heads, head dim 64, state 128): one chunk of 8, 16, 32 (from a carried
     state, lanes padded with dt = 0) and 200 tokens, four 128-token chunks
     carried, a nonzero initial state, lanes of 1 and 4; y and the final
-    state within 1e-4, a lane of length 0 keeps its state exactly.  Timed
-    at the ssm replay's commonest prefill shape and at a 512-token chunk.
+    state within 1e-4, a lane of length 0 keeps its state exactly; each
+    line names whether C.B^T came from the workspace launch and the
+    workspace's size.  Timed at the ssm replay's commonest prefill shape,
+    at 512 tokens in chunks of 128 and at a 763-token prompt as one
+    chunk; with ``--parent`` the other tree's
+    B5 is checked and timed beside it.
 11. mamba2-2.7b at its published width and depth (64 layers, random
     weights from the seed, 10.5 GiB in float32): three greedy streams of a
     two-slot engine against plain full-causal generation, the third in the
@@ -99,7 +105,16 @@ script exits non-zero before the final line:
     chatbot requests (lengths scaled by 0.25, 2/s) on mamba2 with 4 slots.
     Counts zeroed just before and read just after: B5 launches once per
     layer per prefill group, B1-B4 never, plain versions never; the timed
-    shape must be among the prefill groups.
+    shape must be among the prefill groups.  Then B5 is checked and timed
+    at the replay's commonest prefill group above 32 tokens (or, as the
+    replay runs none, its commonest other than the timed 32-token one),
+    as the replay ran it (``ssd_replay_group``).  The replay's line also
+    splits one prefill group at the timed shape into host and device time
+    (``prefill_breakdown``).  With ``--parent`` the replay then runs eight
+    more times, with the other tree's B5 wrapper and kernel and with this
+    tree's in turns, other-this-this-other and then this-other-other-this
+    (the ``ssm_ab`` line: spans, prefill-group time and each turn's
+    ``prefill_breakdown``).
 13. The dense flash attention kernel (B6) against its plain version
     through the GQA wrapper ``attention``: one whisper encoder layer (20
     heads, 1500 x 1500 frames, head dim 64, bidirectional), cross decode
@@ -113,8 +128,7 @@ script exits non-zero before the final line:
     and key splits (none when the query tiles give every SM a block).
     Timed at the encoder and the 8-lane cross-decode shape and at the
     whisper replay's commonest cross shapes (one lane's decode step and
-    its 16-row prefill bucket); with ``--parent`` the other tree's B6 is
-    checked and timed beside it.
+    its 16-row prefill bucket).
 14. whisper-large-v3 at its published width and depth (32 encoder and 32
     decoder layers, random weights from the seed, 5.9 GiB in float32):
     each request's frames come from a numpy seed and go through
@@ -134,10 +148,7 @@ script exits non-zero before the final line:
     include the replay shapes step 13 timed.  Then one decode step of
     eight lanes is timed whole and by part (one layer's cross K/V
     projection, which the reference's design repeats in every step, its
-    cross-attention, its self-attention).  With ``--parent`` the replay
-    then runs four more times, with the other tree's B6 wrapper and
-    kernel and with this tree's in turns, each with a one-lane decode
-    step timed (the ``whisper_ab`` line).
+    cross-attention, its self-attention).
 16. The kernels line (B1 and B2 launches from step 4, B3's from step 6,
     B4's from step 9, B5's from step 12, B6's from step 15), the card
     line, and ``{"ok": true, "device": ...}``.
@@ -157,6 +168,7 @@ import gc
 import importlib.util
 import io
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -229,11 +241,10 @@ def time_ms(fn) -> float:
 KERNEL_NAMES = {
     "paged_decode_attention": ("paged_decode_kernel", "split_merge_kernel"),
     "paged_prefill_attention": ("paged_prefill_kernel", "split_merge_kernel"),
-    "paged_verify_attention": ("paged_verify_split_kernel",
-                               "split_merge_kernel"),
+    "paged_verify_attention": ("paged_verify", "split_merge_kernel"),
     "mla_paged_prefill_attention": ("mla_prefill_kernel",
                                     "split_merge_kernel"),
-    "ssd_scan": ("ssd_kernel",),
+    "ssd_scan": ("ssd_kernel", "ssd_cb_kernel"),
     "flash_attention_bh": ("flash_attention_kernel", "split_merge_kernel"),
 }
 
@@ -309,17 +320,16 @@ def library_device_ms(fn):
 
 
 class ParentKernels:
-    """B6 and B4 as another tree of the repo builds them (``--parent DIR``,
-    DIR a checkout such as a ``git archive`` of the parent commit), timed
-    beside this tree's at the same inputs in the same run.  They are
-    called through the C interfaces they had before their tensor-core
-    redesign (no split scratch, no regime arguments)."""
+    """B5 and B3 as another tree of the repo builds them (``--parent DIR``,
+    DIR a checkout such as a ``git archive`` of the parent commit), called
+    through that tree's own wrapper modules and the C interfaces they have
+    there (before their redesign: B5 without the C.B^T workspace, B3 with its merge as a second launch), and timed beside this
+    tree's at the same inputs in the same run."""
     _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     SIGNATURES = {
-        "flash_attention": ("repro_flash_attention_f32",
-                            [_P] * 4 + [_I] * 7 + [_F, _P]),
-        "mla_paged_prefill": ("repro_mla_paged_prefill_f32",
-                              [_P] * 10 + [_I] * 7 + [_F, _P]),
+        "ssd_scan": ("repro_ssd_scan_f32", [_P] * 8 + [_I] * 6 + [_P]),
+        "paged_verify": ("repro_paged_verify_f32",
+                         [_P] * 12 + [_I] * 7 + [_F, _I, _I, _P]),
     }
 
     def __init__(self, root: str):
@@ -347,68 +357,49 @@ class ParentKernels:
             self.fns[name] = fn
 
     @contextlib.contextmanager
-    def b6_wrapper(self):
-        """The other tree's B6 wrapper module (its
-        ``kernels/flash_attention.py``), launching its kernel, in place of
-        this tree's for every model attention call while the context
-        lasts.  Yields the module (its ``COUNTS`` count the launches)."""
+    def wrapper(self, name: str):
+        """The other tree's wrapper module ``kernels/<name>.py``, launching
+        its kernel, while the context lasts (this tree's module is left as
+        it is; the other tree's launcher stands in ``build._FNS[name]``).
+        Yields the module (its ``COUNTS`` count the launches)."""
         from repro_torch.kernels import build
-        from repro_torch.models import attention as model_attention
         spec = importlib.util.spec_from_file_location(
-            "parent_flash_attention",
-            self.root / "src" / "repro_torch" / "kernels" /
-            "flash_attention.py")
+            f"parent_{name}",
+            self.root / "src" / "repro_torch" / "kernels" / f"{name}.py")
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        saved = build.load("flash_attention"), model_attention.attention
-        build._FNS["flash_attention"] = self.fns["flash_attention"]
-        model_attention.attention = mod.attention
+        saved = build.load(name)
+        build._FNS[name] = self.fns[name]
         try:
             yield mod
         finally:
-            build._FNS["flash_attention"], model_attention.attention = saved
+            build._FNS[name] = saved
 
-    @staticmethod
-    def _measure(call, kernel, err):
-        call()
-        torch.cuda.synchronize()
-        dev, _, seen = device_ms(call, kernel)
-        return {"ms": time_ms(call), "device_ms": dev,
-                "device_launches_seen": seen, "max_abs_err": err()}
+    def _measure(self, name, call, kernel, err):
+        """ms, device ms (with its parts: B3's split and merge launches)
+        and the error against the plain version of ``call(module)``."""
+        with self.wrapper(name) as mod:
+            out = call(mod)
+            torch.cuda.synchronize()
+            dev, parts, seen = device_ms(lambda: call(mod), kernel)
+            return {"ms": time_ms(lambda: call(mod)), "device_ms": dev,
+                    "device_ms_parts": parts, "device_launches_seen": seen,
+                    "max_abs_err": err(out)}
 
-    def flash(self, qf, kf, vf, causal, q_offset, kv_len, want):
-        BH, Sq, hd = qf.shape
-        Sk = kf.shape[1]
-        out = torch.empty_like(qf)
-        fn = self.fns["flash_attention"]
+    def verify(self, q, kn, vn, kp, vp, table, p0, cl, window, want, valid):
+        kp, vp = kp.clone(), vp.clone()
+        return self._measure(
+            "paged_verify", lambda m: m.paged_verify_attention(
+                q, kn, vn, kp, vp, table, p0, cl, window=window)[0],
+            "paged_verify_attention",
+            lambda got: (got - want).abs()[valid].max().item())
 
-        def call():
-            rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-                    out.data_ptr(), BH, Sq, Sk, hd, int(causal), q_offset,
-                    Sk if kv_len is None else kv_len, hd ** -0.5,
-                    torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"parent flash_attention: CUDA error {rc}")
-        return self._measure(call, "flash_attention_bh",
-                             lambda: (out - want).abs().max().item())
-
-    def mla(self, ql, qr, cn, rn, cp, rp, table, p0, cl, scale, want, valid):
-        B, S, H, r = ql.shape
-        _, page, rope = rp.shape
-        out = torch.empty_like(ql)
-        fn = self.fns["mla_paged_prefill"]
-
-        def call():
-            rc = fn(ql.data_ptr(), qr.data_ptr(), cn.data_ptr(), rn.data_ptr(),
-                    cp.data_ptr(), rp.data_ptr(), table.data_ptr(),
-                    p0.data_ptr(), cl.data_ptr(), out.data_ptr(), B, S, H, r,
-                    rope, page, table.shape[1], scale,
-                    torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(
-                    f"parent mla_paged_prefill: CUDA error {rc}")
-        return self._measure(call, "mla_paged_prefill_attention",
-                             lambda: (out - want).abs()[valid].max().item())
+    def ssd(self, xh, dt, A, Bm, Cm, h0, chunk, wy, wh):
+        return self._measure(
+            "ssd_scan", lambda m: m.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk,
+                                             init_state=h0),
+            "ssd_scan", lambda got: max((got[0] - wy).abs().max().item(),
+                                        (got[1] - wh).abs().max().item()))
 
 
 def bound(n_bytes: float, n_flops: float):
@@ -611,6 +602,8 @@ VERIFY_CASES = [
 
 
 PREFILL_TIMED = ("main", "replay")
+# B3 is timed at the spec replay's window and over a 2000-key history
+VERIFY_TIMED = ("main", "hist2000")
 
 
 def prefill_phase(pp):
@@ -623,23 +616,26 @@ def prefill_phase(pp):
                                   window, n_sms)})
 
 
-def verify_phase(pv):
+def verify_phase(pv, parent=None):
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     return chunk_phase(
         "paged_verify_attention", pv.paged_verify_attention,
-        pv.paged_verify_plain, VERIFY_CASES, seed=3, timed=("main",),
+        pv.paged_verify_plain, VERIFY_CASES, seed=3, timed=VERIFY_TIMED,
         extra=lambda B, S, H, KVH, page, max_pages, window: {
-            "splits": pv.n_splits(B, KVH, page, max_pages, window, n_sms)})
+            "splits": pv.n_splits(B, KVH, page, max_pages, window, n_sms)},
+        parent=None if parent is None else parent.verify)
 
 
-def chunk_phase(kernel_name, kernel, plain, cases, seed, timed, extra=None):
+def chunk_phase(kernel_name, kernel, plain, cases, seed, timed, extra=None,
+                parent=None):
     """Each case: the kernel against its plain version on the same pools,
     with every key no live row may see poisoned (unmapped pages; in each
     lane's pages the positions at or past pos0, whose keys come from
     k_new / v_new, and those below the widest window).  Outputs agree on
     valid rows, pools bit-equal, pages outside the write set unchanged,
-    padded rows zeros.  The cases named in ``timed`` are timed; returns
-    their records by name."""
+    padded rows zeros.  The cases named in ``timed`` are timed, and with
+    ``parent`` (``ParentKernels.verify``) the other tree's kernel beside;
+    returns their records by name."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     results = {}
@@ -705,6 +701,9 @@ def chunk_phase(kernel_name, kernel, plain, cases, seed, timed, extra=None):
             rec.update(chunk_timing(kernel_name, kernel, plain, q, kn, vn,
                                     kp, vp, table, p0, cl, pos0, clen,
                                     window))
+            if parent is not None:
+                rec["parent"] = parent(q, kn, vn, kp, vp, table, p0, cl,
+                                       window, want, valid)
             results[name] = rec
         emit(rec)
         if not ok:
@@ -1140,7 +1139,7 @@ MLA_CASES = [
 MLA_TIMED = ("main", "pos0_zero_256")
 
 
-def mla_prefill_phase(mk, parent=None):
+def mla_prefill_phase(mk):
     """B4 against its plain version on the same pools at full-width heads,
     with every key no live row may see poisoned: unmapped pages, and in
     each live lane's pages the positions at or past pos0 (the chunk's keys
@@ -1210,9 +1209,6 @@ def mla_prefill_phase(mk, parent=None):
         if name in MLA_TIMED:
             rec.update(mla_timing(mk, ql, qr, cn, rn, cp, rp, table, p0, cl,
                                   pos0, clen, scale))
-            if parent is not None:
-                rec["parent"] = parent.mla(ql, qr, cn, rn, cp, rp, table, p0,
-                                           cl, scale, want, valid)
         if name == "main":
             results = rec
         emit(rec)
@@ -1452,7 +1448,9 @@ SSM_H, SSM_P, SSM_N = 80, 64, 128
 # replay's commonest prefill shape: one lane, a 32-token bucket with 17
 # live rows, from the lane's carried state (rehearsed on the CPU at
 # reduced width with the same engine, scheduler and trace: 33 of its 61
-# groups).  "S512_c128" carries the state over four 128-token chunks.
+# groups).  "S512_c128" carries the state over four 128-token chunks;
+# "S763_one_chunk" is a chatbot prompt of the trace's mean length as plain
+# generation runs it, one chunk (the longest C.B^T workspace of the cases).
 SSD_CASES = [
     ("main", 1, 32, 32, True, [17]),
     ("S8", 1, 8, 8, False, None),
@@ -1461,8 +1459,9 @@ SSD_CASES = [
     ("S200_one_chunk", 1, 200, 200, False, None),
     ("init_state_B4", 4, 64, 64, True, None),
     ("padded_lanes", 4, 16, 16, True, [16, 11, 0, 0]),
+    ("S763_one_chunk", 1, 763, 763, False, None),
 ]
-SSD_TIMED = ("main", "S512_c128")
+SSD_TIMED = ("main", "S512_c128", "S763_one_chunk")
 
 
 def ssd_inputs(gen, B, S, clen, with_init):
@@ -1486,15 +1485,17 @@ def ssd_inputs(gen, B, S, clen, with_init):
     return xh, dt, A, Bm, Cm, h0
 
 
-def ssd_phase(sk):
+def ssd_phase(sk, parent=None, cases=SSD_CASES, timed=SSD_TIMED, seed=6):
     """B5 against its plain version on the same inputs at mamba2's widths
     (80 heads, head dim 64, state 128): y and the final state within 1e-4
     (and allclose at rtol 1e-4), finite.  A lane with chunk_len 0 must
-    keep its initial state exactly."""
+    keep its initial state exactly.  The cases named in ``timed`` are
+    timed, and with ``parent`` the other tree's kernel beside; returns the
+    record of the first."""
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(6)
+    gen.manual_seed(seed)
     results = {}
-    for name, B, S, chunk, with_init, clen in SSD_CASES:
+    for name, B, S, chunk, with_init, clen in cases:
         xh, dt, A, Bm, Cm, h0 = ssd_inputs(gen, B, S, clen, with_init)
         y, hT = sk.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk, init_state=h0)
         wy, wh = sk.ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk, h0)
@@ -1510,13 +1511,19 @@ def ssd_phase(sk):
         rec = {"phase": "kernel", "kernel": "ssd_scan", "case": name,
                "B": B, "S": S, "chunk": chunk, "H": SSM_H, "P": SSM_P,
                "N": SSM_N, "init_state": with_init, "chunk_len": clen,
+               "cb_workspace": sk.cb_workspace(chunk),
+               "workspace_mib": (4 * sk.workspace_floats(B, S, chunk) / 2**20
+                                 if sk.cb_workspace(chunk) else 0.0),
                "max_abs_err": max(err_y, err_h), "max_abs_err_y": err_y,
                "max_abs_err_state": err_h, "max_abs_y": wy.abs().max().item(),
                "max_abs_state": wh.abs().max().item(),
                "padded_lanes_keep_state": kept, "ok": ok}
-        if name in SSD_TIMED:
+        if name in timed:
             rec.update(ssd_timing(sk, xh, dt, A, Bm, Cm, h0, chunk))
-        if name == "main":
+            if parent is not None:
+                rec["parent"] = parent.ssd(xh, dt, A, Bm, Cm, h0, chunk, wy,
+                                           wh)
+        if not results:
             results = rec
         emit(rec)
         if not ok:
@@ -1627,13 +1634,13 @@ def ssm_replay_phase(cfg, params, kernels, seed: int):
     timer = SpanTimer()
     eng.tracer = timer
     groups: dict[str, int] = {}
-    exact: list = []
+    exact: dict[str, list] = {}      # "B/S" -> each group's live rows
     prefill_forward = eng._prefill_forward
 
     def seen_prefill(cache, tokens, pos0, true_len, *rest):
         key = f"{tokens.shape[0]}/{tokens.shape[1]}"
         groups[key] = groups.get(key, 0) + 1
-        exact.append(true_len.tolist())
+        exact.setdefault(key, []).append(tuple(true_len.tolist()))
         return prefill_forward(cache, tokens, pos0, true_len, *rest)
     eng._prefill_forward = seen_prefill
     torch.cuda.synchronize()
@@ -1643,6 +1650,7 @@ def ssm_replay_phase(cfg, params, kernels, seed: int):
     wall = serve.replay(fe)
     launches = {k: dict(m.COUNTS) for k, m in kernels.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
+    del eng._prefill_forward
     s, c = fe.stats, eng.counters
     L = cfg.n_layers
     main = next(case for case in SSD_CASES if case[0] == "main")
@@ -1664,7 +1672,7 @@ def ssm_replay_phase(cfg, params, kernels, seed: int):
                "prefill_calls", "decode_calls", "decode_steps",
                "decode_tokens")},
            "prefill_groups": groups, "timed_prefill_shape": timed,
-           "timed_exact_ran": main[5] in exact,
+           "timed_exact_ran": tuple(main[5]) in exact.get(timed, []),
            "launches": launches, "wall_s": wall, "span_s": timer.seconds,
            "spans": timer.count,
            "outside_spans_s": wall - sum(timer.seconds.values()),
@@ -1674,11 +1682,109 @@ def ssm_replay_phase(cfg, params, kernels, seed: int):
                               / max(c["decode_steps"], 1)),
            "peak_mem_gib": peak, "checks": checks}
     eng.tracer = None
+    rec["prefill_breakdown"] = ssm_prefill_breakdown(eng)
     rec["decode_breakdown"] = ssm_decode_breakdown(cfg, params, eng)
     emit(rec)
     if not all(checks.values()):
         raise SystemExit(f"ssm replay checks failed: {checks}")
-    return launches
+    return launches, groups, exact
+
+
+def ssm_prefill_breakdown(eng):
+    """One prefill group at the B5 phase's timed shape (one lane, a
+    32-token bucket with 17 live rows, from slot 0's state) as the engine
+    runs it (the lane rows' gather and ``_prefill_forward``; its new rows
+    are dropped): CUDA events around the call (the host's dispatch
+    included), and ``torch.profiler``'s device time of all the call's
+    kernels and of B5's own, so the group's time splits into the device's
+    and the host's."""
+    (_, B, S, _, _, (live,)), = [c for c in SSD_CASES if c[0] == "main"]
+    dev, slots = eng.device, [0] * B
+    tok = torch.ones(B, S, dtype=torch.long, device=dev)
+    pos0 = torch.zeros(B, dtype=torch.int32, device=dev)
+    clen = torch.full((B,), live, dtype=torch.int32, device=dev)
+    table = eng.kv.table_rows(slots)
+
+    def call():
+        return eng._prefill_forward(eng.kv.lane_cache(slots), tok, pos0,
+                                    clen, table, [])
+    with torch.no_grad():
+        call_ms = time_ms(call)
+        reading = cuda_profile(call, n=1, flush=False)
+    total, ops = cuda_sum(reading)
+    return {"B": B, "S": S, "live": live, "call_ms": call_ms,
+            "device_ms": total, "device_ops": ops,
+            "ssd_device_ms": cuda_sum(reading, KERNEL_NAMES["ssd_scan"])[0],
+            "host_ms": None if total is None else call_ms - total}
+
+
+SSM_AB_TURNS = ("parent", "this", "this", "parent",
+                "this", "parent", "parent", "this")
+
+
+def ssm_ab_phase(cfg, params, kernels, parent, seed: int):
+    """With ``--parent``: the ssm replay with the other tree's B5 (its
+    wrapper module and kernel) and with this tree's, in turns in this
+    process (SSM_AB_TURNS: other, this, this, other, and then the same
+    swapped, so a drift over the process that favours a turn's place
+    shows as the two halves disagreeing): the end-to-end A/B of a B5
+    change on one host, read off the prefill span that B5 runs in, and
+    each turn's ``prefill_breakdown``."""
+    from repro_torch.models import ssm
+    turns = []
+    for turn in SSM_AB_TURNS:
+        ctx = parent.wrapper("ssd_scan") if turn == "parent" \
+            else contextlib.nullcontext(kernels["ssd"])
+        out = io.StringIO()
+        with ctx as sk:
+            saved, ssm._ssd = ssm._ssd, sk
+            try:
+                with contextlib.redirect_stdout(out):
+                    ssm_replay_phase(cfg, params, dict(kernels, ssd=sk), seed)
+            finally:
+                ssm._ssd = saved
+        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        turns.append({"b5": turn, "wall_s": rec["wall_s"],
+                      "prefill_s": rec["span_s"].get("prefill"),
+                      "decode_s": rec["span_s"].get("decode"),
+                      "prefill_group_ms": rec["prefill_group_ms"],
+                      "ssd_launches": rec["launches"]["ssd"]["kernel"],
+                      "tokens_out": rec["tokens_out"],
+                      "prefill_breakdown": rec["prefill_breakdown"],
+                      "checks_ok": all(rec["checks"].values())})
+        free_device_memory()
+    half = len(turns) // 2
+    mean = {f"{tree}_{part}": statistics.fmean(
+        t["prefill_s"] for t in turns[lo:lo + half] if t["b5"] == tree)
+        for tree in ("parent", "this")
+        for part, lo in (("first_half", 0), ("second_half", half))}
+    emit({"phase": "ssm_ab", "turns": turns, "mean_prefill_s": mean})
+
+
+def ssd_replay_group_phase(sk, cfg, groups, exact, parent=None):
+    """B5 checked and timed (``ssd_phase``) at a second shape the ssm
+    replay ran, as it ran it: its (B, S) bucket, the model's chunk
+    (``ssm_forward``'s rule), its commonest live rows, from a carried
+    state.  The shape is the replay's commonest prefill group above 32
+    tokens, or, when the replay runs none (its scheduler's chunks of this
+    trace stop at 32: 1/32, 1/16, 2/8 and 1/8 on an H100), its commonest
+    group other than the 32-token one the B5 phase timed."""
+    main = next(case for case in SSD_CASES if case[0] == "main")
+    timed = f"{main[1]}/{main[2]}"
+    long = {k: n for k, n in groups.items() if int(k.split("/")[1]) > 32}
+    pool = long or {k: n for k, n in groups.items() if k != timed}
+    key = max(pool, key=pool.get)
+    B, S = map(int, key.split("/"))
+    lives = exact[key]
+    live = list(max(set(lives), key=lives.count))
+    chunk = min(cfg.ssm.chunk_size, S)
+    if S % chunk:
+        chunk = S
+    ssd_phase(sk, parent, cases=[("replay_group", B, S, chunk, True, live)],
+              timed=("replay_group",), seed=7)
+    emit({"phase": "ssd_replay_group", "group": key, "groups": pool[key],
+          "above_32_tokens": bool(long), "prefill_groups": groups,
+          "chunk": chunk, "chunk_len": live})
 
 
 def ssm_decode_breakdown(cfg, params, eng):
@@ -1787,7 +1893,7 @@ def visible_keys(Sq, Sk, causal, q_offset, kv_len):
             for i in range(Sq)]
 
 
-def flash_phase(fa, parent=None):
+def flash_phase(fa):
     """B6 through its GQA wrapper against its plain version on the same
     flattened inputs; then the keys no row may see (past kv_len, past the
     last row's causal limit) are set to 1e4 and the kernel's output must
@@ -1826,9 +1932,6 @@ def flash_phase(fa, parent=None):
                "max_abs_err": err, "poisoned_err": perr, "ok": ok}
         if name in FLASH_TIMED:
             rec.update(flash_timing(fa, qf, kf, vf, causal, q_offset, kv_len))
-            if parent is not None:
-                rec["parent"] = parent.flash(qf, kf, vf, causal, q_offset,
-                                             kv_len, want_flat)
             results[name] = rec
         emit(rec)
         if not ok:
@@ -1886,12 +1989,20 @@ def flash_timing(fa, qf, kf, vf, causal, q_offset, kv_len):
 SWEEP_FLASH = [(20, 1), (160, 1), (20, 16), (60, 16), (40, 32), (20, 128),
                (20, 1500)]
 SWEEP_MLA = [(16, 120, 15, 64), (8, 300, 7, 64), (256, 0, 256, 32)]
+# B3 at its timed cases' shapes; B5 at the ssm replay's chunk, a 64-token
+# chunk, 512 tokens in chunks of 128 and a 763-token prompt as one chunk
+SWEEP_VERIFY = ("main", "hist2000")
+SWEEP_VERIFY_COUNTS = (1, 2, 4, 8, 12, 16, 24, 33, 48, 66)
+SWEEP_SSD = [("main", 1, 32, 32), ("S64", 1, 64, 64),
+             ("S512_c128", 1, 512, 128), ("S763_one_chunk", 1, 763, 763)]
 
 
-def split_sweep(fa, mk):
+def split_sweep(fa, mk, pv, sk):
     """Device time of B6 and B4 at every key-split count from 1 up (to 14,
-    or 3 where the wrapper chooses none), each count forced on the
-    wrapper, beside the count the wrapper chooses (``--split-sweep``)."""
+    or 3 where the wrapper chooses none), of B3 at the split counts of
+    SWEEP_VERIFY_COUNTS, each count forced on the wrapper, beside the
+    count the wrapper chooses; and of B5 with and without the C.B^T
+    workspace (``--split-sweep``)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(10)
 
@@ -1939,6 +2050,36 @@ def split_sweep(fa, mk):
                   scale=(128 + rope) ** -0.5),
                   range(1, 4 if own == 1 else 7),
                   "mla_paged_prefill_attention")})
+    for name, B, S, H, KVH, hd, page, max_pages, pos0, clen, window in [
+            c for c in VERIFY_CASES if c[0] in SWEEP_VERIFY]:
+        kp, vp, table = pools_and_tables(gen, B, KVH, hd, page, max_pages)
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda")
+        kn = torch.randn(B, S, KVH, hd, generator=gen, device="cuda")
+        vn = torch.randn(B, S, KVH, hd, generator=gen, device="cuda")
+        p0 = torch.tensor(pos0, dtype=torch.int32, device="cuda")
+        cl = torch.tensor(clen, dtype=torch.int32, device="cuda")
+        emit({"phase": "split_sweep", "kernel": "paged_verify_attention",
+              "case": name, "pos0": pos0, "chunk_len": clen,
+              "chosen": pv.n_splits(B, KVH, page, max_pages, window, n_sms),
+              "device_ms": sweep(pv, lambda: pv.paged_verify_attention(
+                  q, kn, vn, kp, vp, table, p0, cl, window=window),
+                  SWEEP_VERIFY_COUNTS, "paged_verify_attention")})
+    chosen = sk.cb_workspace
+    for name, B, S, chunk in SWEEP_SSD:
+        xh, dt, A, Bm, Cm, h0 = ssd_inputs(gen, B, S, None, True)
+        res = {}
+        try:
+            for ws in (False, True):
+                sk.cb_workspace = lambda *_, ws=ws: ws
+                res["ws" if ws else "block"] = device_ms(
+                    lambda: sk.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk,
+                                        init_state=h0), "ssd_scan")[0]
+        finally:
+            sk.cb_workspace = chosen
+        emit({"phase": "split_sweep", "kernel": "ssd_scan", "case": name,
+              "B": B, "S": S, "chunk": chunk,
+              "chosen": "ws" if sk.cb_workspace(chunk) else "block",
+              "device_ms": res})
 
 
 def whisper_model(seed: int):
@@ -1984,8 +2125,7 @@ WHISPER_REPLAY = ["--scenario", "chatbot", "--rate", "2.0",
                   "--duration", "10"]
 
 
-def whisper_replay_phase(cfg, params, kernels, seed: int,
-                         breakdown_lanes: int = 8):
+def whisper_replay_phase(cfg, params, kernels, seed: int):
     """The whisper path end to end: ``ServingFrontend`` with the launcher's
     scheduler and virtual perf model over ``ServingEngine`` on full-width
     whisper (page 16, 8 slots, max_len 448, whisper's decoder context),
@@ -2081,16 +2221,16 @@ def whisper_replay_phase(cfg, params, kernels, seed: int,
                               / max(c["decode_steps"], 1)),
            "peak_mem_gib": peak, "checks": checks}
     eng.tracer = None
-    rec["decode_breakdown"] = whisper_decode_breakdown(
-        cfg, params, eng, frames, lanes=breakdown_lanes)
+    rec["decode_breakdown"] = whisper_decode_breakdown(cfg, params, eng,
+                                                       frames)
     emit(rec)
     if not all(checks.values()):
         raise SystemExit(f"whisper replay checks failed: {checks}")
     return launches
 
 
-def whisper_decode_breakdown(cfg, params, eng, frames, lanes: int = 8):
-    """Device time of one decode step of ``lanes`` lanes over the replay's
+def whisper_decode_breakdown(cfg, params, eng, frames):
+    """Device time of one decode step of eight lanes over the replay's
     table width (every lane at position 400; chunk_len 0, so every write
     goes to the write-off page and the pools keep their state), whole and
     by part: the first layer's cross K/V projection of the eight lanes'
@@ -2105,7 +2245,7 @@ def whisper_decode_breakdown(cfg, params, eng, frames, lanes: int = 8):
     from repro_torch.models.layers import apply_norm
 
     dev = torch.device("cuda")
-    B, width = lanes, eng.kv.max_pages_per_seq
+    B, width = 8, eng.kv.max_pages_per_seq
     table = (torch.arange(B * width, device=dev, dtype=torch.int32)
              % eng.ecfg.total_pages).reshape(B, width)
     pos0 = torch.full((B,), 400, dtype=torch.int32, device=dev)
@@ -2154,33 +2294,6 @@ def whisper_decode_breakdown(cfg, params, eng, frames, lanes: int = 8):
     out["cross_attention_share_of_step"] = (
         cfg.n_layers * out["cross_attention_ms"] / out["step_ms"])
     return out
-
-
-def whisper_ab_phase(cfg, params, kernels, parent, seed: int):
-    """With ``--parent``: the whisper replay with the other tree's B6 (its
-    wrapper module and kernel) and with this tree's, in turns (other,
-    this, this, other) in this process, each with a one-lane decode step
-    timed whole (CUDA events) and read by the profiler: the end-to-end
-    A/B of a B6 change on one host."""
-    turns = []
-    for turn in ("parent", "this", "this", "parent"):
-        ctx = parent.b6_wrapper() if turn == "parent" \
-            else contextlib.nullcontext(kernels["flash"])
-        with ctx as flash:
-            out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                whisper_replay_phase(cfg, params, dict(kernels, flash=flash),
-                                     seed, breakdown_lanes=1)
-        rec = json.loads(out.getvalue().strip().splitlines()[-1])
-        b = rec["decode_breakdown"]
-        turns.append({"b6": turn, "wall_s": rec["wall_s"],
-                      "span_s": rec["span_s"], "encoder_s": rec["encoder_s"],
-                      "checks_ok": all(rec["checks"].values()),
-                      "one_lane_step_ms": b["step_ms"],
-                      "one_lane_step_device_ms": b["step_device_ms"],
-                      "one_lane_step_b6_device_ms": b["step_b6_device_ms"]})
-        free_device_memory()
-    emit({"phase": "whisper_ab", "turns": turns})
 
 
 # ----------------------------- main path ------------------------------- #
@@ -2355,13 +2468,16 @@ def main(argv=()) -> int:
                                  "NVIDIA card.")
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="another checkout of the repo (for example a git "
-                         "archive of the parent commit): its B6 and B4 are "
+                         "archive of the parent commit): its B5 and B3 are "
                          "built and timed beside this tree's at the timed "
-                         "shapes")
+                         "shapes, and the ssm replay runs with its B5 and "
+                         "this tree's in turns")
     ap.add_argument("--split-sweep", action="store_true",
-                    help="only build the kernels and time B6 and B4 at "
-                         "every key-split count at the shapes that chose "
-                         "their counts (no check phases, no final line)")
+                    help="only build the kernels and time B6, B4 and B3 at "
+                         "every key-split count and B5 with and without "
+                         "its C.B^T workspace, at the "
+                         "shapes that chose them (no check phases, no final "
+                         "line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2387,7 +2503,7 @@ def main(argv=()) -> int:
              for k, v in info["ptxas"].items()}
     if args.split_sweep:
         emit({"phase": "setup", "gpu": card, "build_s": info["seconds"]})
-        split_sweep(fa, mk)
+        split_sweep(fa, mk, pv, sk)
         return 0
     parent = None if args.parent is None else ParentKernels(args.parent)
     emit({"phase": "setup", "gpu": card, "torch": torch.__version__,
@@ -2397,7 +2513,7 @@ def main(argv=()) -> int:
                                                  "ptxas": parent.ptxas}})
     dec = decode_phase(pa)
     pre = prefill_phase(pp)
-    ver = verify_phase(pv)
+    ver = verify_phase(pv, parent)
     stream_phase(seed)
     launches = main_path(pa, pp, fa, seed)
     free_device_memory()
@@ -2405,7 +2521,7 @@ def main(argv=()) -> int:
     free_device_memory()
     spec = spec_replay_phase(pa, pp, pv, fa, seed)
     free_device_memory()
-    mla = mla_prefill_phase(mk, parent)
+    mla = mla_prefill_phase(mk)
     free_device_memory()
     cfg, params = mla_model(seed)
     mla_stream_phase(cfg, params, seed)
@@ -2415,27 +2531,27 @@ def main(argv=()) -> int:
                       "mla_prefill": mk, "flash": fa}, seed)
     del params
     free_device_memory()
-    ssd = ssd_phase(sk)
+    ssd = ssd_phase(sk, parent)
     free_device_memory()
     cfg, params = ssm_model(seed)
     ssm_stream_phase(cfg, params, seed)
     free_device_memory()
-    ssm_launches = ssm_replay_phase(
-        cfg, params, {"decode": pa, "prefill": pp, "verify": pv,
-                      "mla_prefill": mk, "ssd": sk, "flash": fa}, seed)
+    kernels = {"decode": pa, "prefill": pp, "verify": pv, "mla_prefill": mk,
+               "ssd": sk, "flash": fa}
+    ssm_launches, groups, lives = ssm_replay_phase(cfg, params, kernels,
+                                                   seed)
+    ssd_replay_group_phase(sk, cfg, groups, lives, parent)
+    if parent is not None:
+        free_device_memory()
+        ssm_ab_phase(cfg, params, kernels, parent, seed)
     del params
     free_device_memory()
-    flash = flash_phase(fa, parent)
+    flash = flash_phase(fa)
     free_device_memory()
     cfg, params = whisper_model(seed)
     whisper_stream_phase(cfg, params, seed)
     free_device_memory()
-    kernels = {"decode": pa, "prefill": pp, "verify": pv, "mla_prefill": mk,
-               "ssd": sk, "flash": fa}
     whisper_launches = whisper_replay_phase(cfg, params, kernels, seed)
-    if parent is not None:
-        free_device_memory()
-        whisper_ab_phase(cfg, params, kernels, parent, seed)
     del params
     free_device_memory()
     torch.cuda.synchronize()

@@ -1,8 +1,9 @@
-// Tensor-core helpers shared by the kernels that compute float32 attention
-// products on Hopper's tensor cores in 3xTF32: fused paged prefill (B2,
+// Tensor-core helpers shared by the kernels that compute float32 products
+// on Hopper's tensor cores in 3xTF32: fused paged prefill (B2,
 // csrc/paged_prefill.cu), dense flash attention (B6,
-// csrc/flash_attention.cu) and MLA latent-page prefill (B4,
-// csrc/mla_paged_prefill.cu).
+// csrc/flash_attention.cu), MLA latent-page prefill (B4,
+// csrc/mla_paged_prefill.cu) and the chunked SSD scan (B5,
+// csrc/ssd_scan.cu).
 //
 // The products are mma.sync.m16n8k8 TF32 with fp32 accumulators.  TF32
 // alone keeps about three digits, so each fp32 operand x is split into
@@ -11,7 +12,8 @@
 // handed to the tensor core as it is; the tensor core reads it as TF32 by
 // dropping its low 13 bits (truncation, no second cvt).  The error left is
 // the dropped small·small term and that truncation, below 2^-20 of each
-// product; the fp32 accumulation of the sums costs more.
+// product; the fp32 accumulation of the sums costs more, and mma3_acc
+// below keeps that to one k-step's.
 //
 // Fragment layout of m16n8k8 (g = lane / 4, t = lane % 4): A (16 x 8, row)
 // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8,
@@ -66,6 +68,41 @@ __device__ __forceinline__ void mma3(float (&d)[N][4], const uint32_t (&ab)[4],
   for (int n = 0; n < N; ++n) mma(d[n], ab, bs[n][0], bs[n][1]);
 #pragma unroll
   for (int n = 0; n < N; ++n) mma(d[n], ab, bb[n][0], bb[n][1]);
+}
+
+// d[n] += a·b[n] as mma3 computes it, but with this k-step's three products
+// (small·big, big·small, big·big) each in its own zeroed accumulator, added
+// to d by fp32 adds (round to nearest): d += big·big + (small·big +
+// big·small).  mma.sync adds into its accumulator less accurately than
+// round to nearest: summed into d, that can cost about an ulp of d in every
+// product, which matters where d is large and the sum long (B5's outputs
+// reach 100 and more over tens of k-steps, against the card check's
+// 1e-4); here it costs an ulp of one k-step's product.  The 3 N products
+// are independent, so none waits on another.
+template <int N>
+__device__ __forceinline__ void mma3_acc(float (&d)[N][4],
+                                         const uint32_t (&ab)[4],
+                                         const uint32_t (&as)[4],
+                                         const float (&b)[N][2]) {
+  uint32_t bb[N][2], bs[N][2];
+  float z[3][N][4];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    split(b[n][0], bb[n][0], bs[n][0]);
+    split(b[n][1], bb[n][1], bs[n][1]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) z[0][n][e] = z[1][n][e] = z[2][n][e] = 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(z[0][n], as, bb[n][0], bb[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(z[1][n], ab, bs[n][0], bs[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(z[2][n], ab, bb[n][0], bb[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[n][e] += z[2][n][e] + (z[0][n][e] + z[1][n][e]);
 }
 
 // The A fragment of rows (g, g + 8), columns (c + t, c + t + 4) of a

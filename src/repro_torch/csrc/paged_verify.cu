@@ -14,46 +14,103 @@
 // once (2 * n_hist * KVH * hd floats) and does 4 * hd flops per (query
 // head, key), which for G * S <= 48 query rows per KV head stays below the
 // float32 ridge of ~20 flop/byte.  The floor is the history bytes over
-// 3.35 TB/s: about 1.4 us for qwen3-1.7b (8 KV heads, hd 128) at 560 keys.
+// 3.35 TB/s: about 1.3 us for qwen3-1.7b (8 KV heads, hd 128) at 524 keys.
 //
-// What the design does about it: the shape is a few rows over a long
-// history, so the work is split over keys.  Grid (lane, KV head, split):
-// each block stages all G * chunk_len live query rows of its KV-head group
-// once (every staged K/V row serves all of them), walks its own balanced
-// range of history pages in tiles of 32 keys (one warp's width, so the
-// online-softmax update of a row is one warp reduction) and writes its
-// partial (m, l, acc) to scratch.  A second launch (split_merge.cuh, shared
-// with B1 and B2) merges the splits and writes `out`.  The wrapper picks
-// the split count so that about two blocks per SM are in flight, capped by
-// the pages a lane can hold; a block whose range is empty writes l = 0 and
-// the merge skips it.
+// What the design does about it: the shape is a few live rows (chunk_len
+// x G, 4 on the spec replay) over a long history, so the keys are spread
+// over warps and blocks and each key row is read once.
+//  * Grid (lane, KV head, split); 4 warps a block, two blocks an SM, and
+//    as many splits as one wave of blocks holds (the wrapper's n_splits),
+//    so the history's bytes are spread over every SM.  A split takes a
+//    balanced share of its lane's history pages; its keys are cut into
+//    16-key tiles aligned to 16 positions (one page at page 16: one
+//    block-table read per tile) and each warp takes its own tiles.  The
+//    designated split (the last) also takes the window's own keys, in
+//    tiles of 16, straight from k_new / v_new.
+//  * Head dim over lanes: each lane holds a float4 of every live query row
+//    in registers (hd up to 128, any multiple of 4; lanes past hd / 4
+//    idle), loads the same float4 of each key row (512 coalesced bytes a
+//    row at hd 128), and a row's 16 scores of a tile are one transposing
+//    warp-shuffle reduction (16 shuffles, transpose_sum16).  Each
+//    warp keeps its own online softmax (m, l, acc) per row; the rows are
+//    taken 4 at a time (one pass at the replay's 4), and a tile's 16 K and
+//    V rows are loaded at once, with no condition between a load and the
+//    next (a predicated load followed by a select made each wait for the
+//    one before: 9 us a tile on an H100), so one memory latency serves
+//    the tile.
+//  * The block's warps merge their partials through shared memory (4
+//    warps x 4 rows, sized for the rows of a pass, not S x G) and write
+//    the block's partial to scratch.
+//  * One launch: the last block to finish for a (lane, KV head) merges
+//    that pair's splits.  Each block makes its partial visible
+//    (__threadfence) and takes an atomicAdd ticket on the pair's counter;
+//    the block that draws n_split - 1 reads every split's partial through
+//    L2 (a warp per row, its lanes over the splits) and adds them in split
+//    order, so the output's bits do not depend on which block finished
+//    last, and resets the counter to 0 for the next launch.  The
+//    merge's arithmetic is split_merge.cuh's (split_weight,
+//    inv_denominator).  A block whose share is empty carries l = 0 and
+//    the merge skips it.
 //
 // The hazard the TPU kernel avoided by program order within a lane: here
 // the splits of one lane run in parallel.  History keys (positions below
 // pos0) are read from the pages, which this launch never writes; the
-// window's own keys are read straight from k_new / v_new by the one
-// designated split (the last), which also writes them into the pages.  So
-// no block reads a page position that this launch writes.  Pages written
-// for a lane are exclusive to it after the engine's copy-on-write barrier.
+// window's own keys are read straight from k_new / v_new by the designated
+// split, which also writes them into the pages.  So no block reads a page
+// position that this launch writes.  Pages written for a lane are
+// exclusive to it after the engine's copy-on-write barrier.
 //
 // Semantics kept from the TPU kernel: masked scores are NEG_INF = -1e30,
 // the softmax denominator is floored at 1e-30, accumulation is float32.
-// Masked keys contribute exactly 0 (explicitly, not through exp of -1e30),
-// so a split that sees no valid key for a row carries l = 0.
+// Masked keys contribute exactly 0 (explicitly, not through exp of -1e30):
+// a key outside the split's range is never read from its own row.
 #include <cuda_runtime.h>
 
 #include "split_merge.cuh"
 
 namespace {
 
+using repro_split::inv_denominator;
 using repro_split::kNegInf;
+using repro_split::split_weight;
 using repro_split::warp_max;
 using repro_split::warp_sum;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTK = 32;  // keys per tile: one per lane of a warp
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTK = 16;                  // keys per warp tile
+constexpr int kRB = 4;                   // query rows a pass holds
+constexpr int kMaxHd = 128;              // a float4 per lane
 
-__global__ void paged_verify_split_kernel(
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// v[k]: this lane's part of key k's score (its 4 dims), k < 16.  Sums every
+// key over the warp's 32 lanes in 16 shuffles (5 rounds, each halving the
+// keys a lane keeps: 8 + 4 + 2 + 1 + 1), not 16 reductions of 5; lanes 2k
+// and 2k + 1 end with key k's sum.
+__device__ __forceinline__ float transpose_sum16(const float (&v)[kTK],
+                                                 int lane) {
+  float a[8], b[4], c[2];
+  const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4, h1 = lane & 2;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    a[i] = (h4 ? v[i + 8] : v[i]) +
+           __shfl_xor_sync(0xffffffffu, h4 ? v[i] : v[i + 8], 16);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    b[i] = (h3 ? a[i + 4] : a[i]) +
+           __shfl_xor_sync(0xffffffffu, h3 ? a[i] : a[i + 4], 8);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    c[i] = (h2 ? b[i + 2] : b[i]) +
+           __shfl_xor_sync(0xffffffffu, h2 ? b[i] : b[i + 2], 4);
+  float d = (h1 ? c[1] : c[0]) +
+            __shfl_xor_sync(0xffffffffu, h1 ? c[0] : c[1], 2);
+  return d + __shfl_xor_sync(0xffffffffu, d, 1);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) paged_verify_kernel(
     const float* __restrict__ q,        // (B, S, H, hd)
     const float* __restrict__ k_new,    // (B, S, KVH, hd)
     const float* __restrict__ v_new,
@@ -65,24 +122,40 @@ __global__ void paged_verify_split_kernel(
     float* __restrict__ m_ws,             // (B, KVH, n_split, S * G)
     float* __restrict__ l_ws,             // (B, KVH, n_split, S * G)
     float* __restrict__ acc_ws,           // (B, KVH, n_split, S * G, hd)
+    int* __restrict__ counters,           // (B * KVH,), zero between launches
+    float* __restrict__ out,              // (B, S, H, hd)
     int S, int H, int KVH, int hd, int page, int max_pages, float scale,
     int window, int n_split) {
+  __shared__ float m_s[kWarps][kRB];
+  __shared__ float l_s[kWarps][kRB];
+  __shared__ __align__(16) float a_s[kWarps][kRB][kMaxHd];
+  __shared__ int ticket;
+
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int split = blockIdx.z;
   const int G = H / KVH;
+  const int R = S * G;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int ks = hd + 1;                 // padded K row: no bank conflicts
   const int n4 = hd >> 2;                // float4s per row
+  const bool has_dims = lane < n4;
   const int pos0 = pos0_arr[b];
   const int n_tok = clen_arr[b];
-  if (n_tok <= 0) return;                // masked lane: no write, no rows
-  const bool own = split == n_split - 1; // designated split
   const long long row = (long long)KVH * hd;  // floats per token slot
-  const long long ws_base = (((long long)b * KVH + kvh) * n_split + split)
-                            * (long long)(S * G);
+
+  if (n_tok <= 0) {                      // masked lane: no write, zero rows
+    if (split == 0)
+      for (int e = tid; e < S * G * n4; e += kThreads) {
+        const int r = e / n4, d4 = e % n4;
+        const long long o =
+            (((long long)b * S + r / G) * H + (long long)kvh * G + r % G) * hd;
+        reinterpret_cast<float4*>(out + o)[d4] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    return;
+  }
+  const bool own = split == n_split - 1; // designated split
 
   // ---- the window's rows into the pages (designated split, own head) ----
   if (own) {
@@ -109,147 +182,239 @@ __global__ void paged_verify_split_kernel(
   const int my_lo = pg_lo + (int)((long long)split * n_pg / n_split);
   const int my_hi = pg_lo + (int)((long long)(split + 1) * n_pg / n_split);
   const int k_begin = max(h_lo, my_lo * page);
-  const int n_hist = max(min(pos0, my_hi * page) - k_begin, 0);
-  const int n_keys = n_hist + (own ? n_tok : 0);
+  const int k_end = max(min(pos0, my_hi * page), k_begin);
+  const int t_lo = k_begin & ~(kTK - 1);         // 16-aligned first tile
+  const int n_htiles = k_end > k_begin ? (k_end - t_lo + kTK - 1) / kTK : 0;
+  const int n_tiles = n_htiles + (own ? (n_tok + kTK - 1) / kTK : 0);
   const int R_live = n_tok * G;          // live rows, position-major
+  const long long ws_base = (((long long)b * KVH + kvh) * n_split + split)
+                            * (long long)R;
 
-  if (n_keys == 0) {  // the merge reads acc with weight 0: write zeros
-    for (int r = tid; r < R_live; r += kThreads) {
-      m_ws[ws_base + r] = kNegInf;
-      l_ws[ws_base + r] = 0.f;
+  for (int r0 = 0; r0 < R_live; r0 += kRB) {
+    const int nr = min(kRB, R_live - r0);
+    float4 qv[kRB], acc[kRB];
+    float m[kRB], l[kRB], sc[kRB], pr[kRB];
+    int qpos[kRB];
+#pragma unroll
+    for (int r = 0; r < kRB; ++r) {
+      const int rr = r0 + min(r, nr - 1);
+      const int i = rr / G;
+      qpos[r] = pos0 + i;
+      qv[r] = has_dims ? reinterpret_cast<const float4*>(
+                             q + (((long long)b * S + i) * H +
+                                  (long long)kvh * G + rr % G) * hd)[lane]
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+      m[r] = kNegInf;
+      l[r] = 0.f;
     }
-    for (int e = tid; e < R_live * hd; e += kThreads)
-      acc_ws[ws_base * hd + e] = 0.f;
-    return;
-  }
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                     // R * hd
-  float* acc = q_s + S * G * hd;         // R * hd
-  float* v_s = acc + S * G * hd;         // kTK * hd (float4 aligned)
-  float* k_s = v_s + kTK * hd;           // kTK * (hd + 1)
-  float* p_s = k_s + kTK * ks;           // R * kTK
-  float* m_s = p_s + S * G * kTK;        // R
-  float* l_s = m_s + S * G;              // R
-  float* a_s = l_s + S * G;              // R
-
-  for (int e = tid; e < R_live * hd; e += kThreads) {
-    const int r = e / hd, d = e % hd;
-    const int i = r / G, g = r % G;
-    q_s[e] = q[(((long long)b * S + i) * H + (long long)kvh * G + g) * hd + d];
-    acc[e] = 0.f;
-  }
-  for (int r = tid; r < R_live; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < n_keys; t0 += kTK) {
-    __syncthreads();  // previous tile's k_s / v_s / p_s consumed
-    for (int e = tid; e < kTK * n4; e += kThreads) {
-      const int p = e / n4, d4 = e % n4;
-      const int t = t0 + p;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (t < n_hist) {        // history: pages this launch never writes
-        const int pos = k_begin + t;
-        const long long pid =
-            block_table[(long long)b * max_pages + pos / page];
-        const long long off = (pid * page + pos % page) * row + (long long)kvh * hd;
-        kv = reinterpret_cast<const float4*>(k_pages + off)[d4];
-        vv = reinterpret_cast<const float4*>(v_pages + off)[d4];
-      } else if (t < n_keys) { // the window's own keys: from k_new / v_new
-        const long long off =
-            ((long long)b * S + (t - n_hist)) * row + (long long)kvh * hd;
-        kv = reinterpret_cast<const float4*>(k_new + off)[d4];
-        vv = reinterpret_cast<const float4*>(v_new + off)[d4];
-      }
-      float* kd = k_s + p * ks + 4 * d4;
-      kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
-      reinterpret_cast<float4*>(v_s + p * hd)[d4] = vv;
-    }
-    __syncthreads();
-    for (int e = tid; e < R_live * kTK; e += kThreads) {
-      const int r = e / kTK, p = e % kTK;
-      const int t = t0 + p;
-      const int i = r / G;
-      bool valid;
-      if (t < n_hist) {
-        valid = window <= 0 || k_begin + t > pos0 + i - window;
-      } else if (t < n_keys) {
-        const int j = t - n_hist;
-        valid = j <= i && (window <= 0 || j > i - window);
+    for (int tile = warp; tile < n_tiles; tile += kWarps) {
+      // key j = lane / 2 of the tile: its position, whether it is in this
+      // split's range, and the row it is read from: a key out of range
+      // reads the nearest row in range (written, finite data) and weighs 0,
+      // so that no load waits on a condition
+      const bool hist = tile < n_htiles;
+      const int j = lane >> 1;
+      int kpos;
+      bool in_range;
+      long long off;
+      if (hist) {
+        kpos = t_lo + kTK * tile + j;
+        in_range = kpos >= k_begin && kpos < k_end;
+        const int kp = min(max(kpos, k_begin), k_end - 1);
+        off = ((long long)block_table[(long long)b * max_pages + kp / page]
+                   * page + kp % page) * row + (long long)kvh * hd;
       } else {
-        valid = false;
+        const int jj = kTK * (tile - n_htiles) + j;
+        kpos = pos0 + jj;
+        in_range = jj < n_tok;
+        off = ((long long)b * S + min(jj, n_tok - 1)) * row +
+              (long long)kvh * hd;
       }
-      float s = kNegInf;
-      if (valid) {
-        const float* qr = q_s + r * hd;
-        const float* kr = k_s + p * ks;
-        float dot = 0.f;
-        for (int d = 0; d < hd; ++d) dot += qr[d] * kr[d];
-        s = dot * scale;
+      const float* kb = (hist ? k_pages : k_new) + 4 * min(lane, n4 - 1);
+      const float* vb = (hist ? v_pages : v_new) + 4 * min(lane, n4 - 1);
+      // every K and V row of the tile in flight at once (lanes past hd / 4
+      // reread the last float4 and hold q = 0)
+      float4 kv[kTK], vv[kTK];
+#pragma unroll
+      for (int kk = 0; kk < kTK; ++kk) {
+        const long long o = __shfl_sync(0xffffffffu, off, 2 * kk);
+        kv[kk] = *reinterpret_cast<const float4*>(kb + o);
+        vv[kk] = *reinterpret_cast<const float4*>(vb + o);
       }
-      p_s[e] = s;
+
+      // Every row slot runs, live or not (a slot past nr repeats the last
+      // live row and is never written out): no shuffle sits under a
+      // condition the compiler cannot prove uniform, which made it take
+      // its divergent-warp path, 4 us a tile on an H100.
+      // scores: lanes 2k and 2k + 1 hold key k's
+#pragma unroll
+      for (int r = 0; r < kRB; ++r) {
+        float v[kTK];
+#pragma unroll
+        for (int kk = 0; kk < kTK; ++kk) v[kk] = dot4(qv[r], kv[kk]);
+        sc[r] = transpose_sum16(v, lane) * scale;
+      }
+      // online softmax, each row over the tile's 16 keys (each twice)
+#pragma unroll
+      for (int r = 0; r < kRB; ++r) {
+        const bool valid = in_range && kpos <= qpos[r] &&
+                           (window <= 0 || kpos > qpos[r] - window);
+        const float m_new = fmaxf(m[r], warp_max(valid ? sc[r] : kNegInf));
+        const float p = valid ? expf(sc[r] - m_new) : 0.f;
+        const float alpha = expf(m[r] - m_new);
+        l[r] = l[r] * alpha + warp_sum((lane & 1) ? 0.f : p);
+        m[r] = m_new;
+        acc[r].x *= alpha;
+        acc[r].y *= alpha;
+        acc[r].z *= alpha;
+        acc[r].w *= alpha;
+        pr[r] = p;
+      }
+      // acc += p . V
+#pragma unroll
+      for (int kk = 0; kk < kTK; ++kk) {
+#pragma unroll
+        for (int r = 0; r < kRB; ++r) {
+          const float p = __shfl_sync(0xffffffffu, pr[r], 2 * kk);
+          acc[r].x += p * vv[kk].x;
+          acc[r].y += p * vv[kk].y;
+          acc[r].z += p * vv[kk].z;
+          acc[r].w += p * vv[kk].w;
+        }
+      }
+    }
+
+    // ---- the block's partial: its warps merged in warp order ----
+#pragma unroll
+    for (int r = 0; r < kRB; ++r) {
+      if (r < nr) {
+        if (lane == 0) {
+          m_s[warp][r] = m[r];
+          l_s[warp][r] = l[r];
+        }
+        if (has_dims)
+          reinterpret_cast<float4*>(a_s[warp][r])[lane] = acc[r];
+      }
     }
     __syncthreads();
-    for (int r = warp; r < R_live; r += kWarps) {  // one warp per row
-      const float s = p_s[r * kTK + lane];
-      const bool valid = s > 0.5f * kNegInf;
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(valid ? s : kNegInf));
-      const float e = valid ? expf(s - m_new) : 0.f;
-      const float sum = warp_sum(e);
-      p_s[r * kTK + lane] = e;
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[r] = alpha;
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + sum;
+    for (int e = tid; e < nr * n4; e += kThreads) {
+      const int r = e / n4, d4 = e % n4;
+      float mx = kNegInf;
+      for (int w = 0; w < kWarps; ++w)
+        if (l_s[w][r] > 0.f) mx = fmaxf(mx, m_s[w][r]);
+      float den = 0.f;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int w = 0; w < kWarps; ++w) {
+        const float c = split_weight(m_s[w][r], l_s[w][r], mx);
+        const float4 v = reinterpret_cast<const float4*>(a_s[w][r])[d4];
+        den += l_s[w][r] * c;
+        a.x += v.x * c;
+        a.y += v.y * c;
+        a.z += v.z * c;
+        a.w += v.w * c;
+      }
+      const long long w = ws_base + r0 + r;
+      reinterpret_cast<float4*>(acc_ws + w * hd)[d4] = a;
+      if (d4 == 0) {
+        m_ws[w] = mx;
+        l_ws[w] = den;
       }
     }
-    __syncthreads();
-    for (int e = tid; e < R_live * hd; e += kThreads) {
-      const int r = e / hd, d = e % hd;
-      const float* pr = p_s + r * kTK;
-      float pv = 0.f;
-#pragma unroll 8
-      for (int p = 0; p < kTK; ++p) pv += pr[p] * v_s[p * hd + d];
-      acc[e] = acc[e] * a_s[r] + pv;
-    }
+    __syncthreads();                     // m_s, l_s, a_s reused next pass
   }
+
+  // ---- the last block of the (lane, KV head) merges its splits ----
+  __threadfence();                       // this block's partial, visible
   __syncthreads();
-  for (int r = tid; r < R_live; r += kThreads) {
-    m_ws[ws_base + r] = m_s[r];
-    l_ws[ws_base + r] = l_s[r];
+  int* counter = counters + (long long)b * KVH + kvh;
+  if (tid == 0) ticket = atomicAdd(counter, 1);
+  __syncthreads();
+  if (ticket != n_split - 1) return;
+  __threadfence();
+  const long long base = ((long long)b * KVH + kvh) * n_split * (long long)R;
+  for (int e = R_live * n4 + tid; e < R * n4; e += kThreads) {  // padded rows
+    const int r = e / n4, d4 = e % n4;
+    reinterpret_cast<float4*>(out + (((long long)b * S + r / G) * H +
+                                     (long long)kvh * G + r % G) * hd)[d4] =
+        make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  for (int e = tid; e < R_live * hd; e += kThreads)
-    acc_ws[ws_base * hd + e] = acc[e];
+  // one warp per live row: its lanes read the splits' (m, l) at once, then
+  // the row's accumulators are added in split order.  Every split wrote
+  // its rows (zeros where its share was empty), so the loads need no
+  // condition and the weights decide.
+  const int d4 = min(lane, n4 - 1);
+  for (int r = warp; r < R_live; r += kWarps) {
+    const long long w0 = base + r;
+    float ls = 0.f, ms = kNegInf;        // split `lane` of the first 32
+    if (lane < n_split) {
+      ls = __ldcg(l_ws + w0 + (long long)lane * R);
+      ms = __ldcg(m_ws + w0 + (long long)lane * R);
+    }
+    float mx = ls > 0.f ? ms : kNegInf;
+    for (int s = lane + 32; s < n_split; s += 32) {
+      const long long w = w0 + (long long)s * R;
+      if (__ldcg(l_ws + w) > 0.f) mx = fmaxf(mx, __ldcg(m_ws + w));
+    }
+    mx = warp_max(mx);
+    float den = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < n_split; s0 += 32) {
+      if (s0 > 0) {
+        ls = 0.f;
+        ms = kNegInf;
+        if (s0 + lane < n_split) {
+          ls = __ldcg(l_ws + w0 + (long long)(s0 + lane) * R);
+          ms = __ldcg(m_ws + w0 + (long long)(s0 + lane) * R);
+        }
+      }
+      const float c = split_weight(ms, ls, mx);
+      den += ls * c;
+      const int cnt = min(32, n_split - s0);
+#pragma unroll 8
+      for (int k = 0; k < cnt; ++k) {
+        const float ck = __shfl_sync(0xffffffffu, c, k);
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(
+            acc_ws + (w0 + (long long)(s0 + k) * R) * hd) + d4);
+        a.x += v.x * ck;
+        a.y += v.y * ck;
+        a.z += v.z * ck;
+        a.w += v.w * ck;
+      }
+    }
+    const float inv = inv_denominator(warp_sum(den));
+    const int i = r / G;
+    if (has_dims)
+      reinterpret_cast<float4*>(out + (((long long)b * S + i) * H +
+                                       (long long)kvh * G + r % G) * hd)[lane] =
+          make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+  }
+  if (tid == 0) *counter = 0;            // ready for the next launch
 }
 
 }  // namespace
 
+// counters: B * KVH int32, zero before the launch, zero again after it
+// (the wrapper allocates them zeroed once per device).  m_ws / l_ws
+// (B, KVH, n_split, S * G) and acc_ws (B, KVH, n_split, S * G, hd): the
+// splits' partials.  Returns a cudaError_t (0 on success);
+// cudaErrorInvalidValue for a head dim that is no multiple of 4 or above
+// 128, or a grid the card cannot launch.
 extern "C" int repro_paged_verify_f32(
     const float* q, const float* k_new, const float* v_new, float* k_pages,
     float* v_pages, const int* block_table, const int* pos0,
     const int* chunk_len, float* m_ws, float* l_ws, float* acc_ws,
-    float* out, int B, int S, int H, int KVH, int hd, int page,
-    int max_pages, float scale, int window, int n_split, void* stream) {
-  const int G = H / KVH;
-  const int R = S * G;
-  const size_t smem = sizeof(float) *
-      (size_t)(2 * R * hd + kTK * hd + kTK * (hd + 1) + R * kTK + 3 * R);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_verify_split_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cudaStream_t st = (cudaStream_t)stream;
-  paged_verify_split_kernel<<<dim3(B, KVH, n_split), kThreads, smem, st>>>(
+    int* counters, float* out, int B, int S, int H, int KVH, int hd,
+    int page, int max_pages, float scale, int window, int n_split,
+    void* stream) {
+  if (hd % 4 != 0 || hd > kMaxHd || hd <= 0 || B > 65535 || KVH > 65535 ||
+      n_split < 1 || n_split > 65535 || H % KVH != 0)
+    return (int)cudaErrorInvalidValue;
+  paged_verify_kernel<<<dim3(B, KVH, n_split), kThreads, 0,
+                        (cudaStream_t)stream>>>(
       q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len, m_ws,
-      l_ws, acc_ws, S, H, KVH, hd, page, max_pages, scale, window, n_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return repro_split::launch_split_merge(m_ws, l_ws, acc_ws, chunk_len, out,
-                                        B, S, H, KVH, hd, n_split, st);
+      l_ws, acc_ws, counters, out, S, H, KVH, hd, page, max_pages, scale,
+      window, n_split);
+  return (int)cudaGetLastError();
 }

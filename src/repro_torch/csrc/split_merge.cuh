@@ -34,6 +34,18 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The merge's arithmetic, shared with B3's in-kernel merge
+// (csrc/paged_verify.cu): a split's weight exp(m_s - M), 0 for a split that
+// saw no valid key for the row (l_s = 0), and 1 / the merged denominator,
+// floored at 1e-30.
+__device__ __forceinline__ float split_weight(float m, float l, float mx) {
+  return l > 0.f ? expf(m - mx) : 0.f;
+}
+
+__device__ __forceinline__ float inv_denominator(float den) {
+  return 1.f / fmaxf(den, 1e-30f);
+}
+
 // max (is_max) or sum of v over the block; red holds kMergeThreads / 32
 __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -86,11 +98,11 @@ __global__ void __launch_bounds__(kMergeThreads) split_merge_kernel(
   for (int s = tid; s < n_split; s += kMergeThreads) {
     const long long w = base + (long long)s * R;
     const float l = l_ws[w];
-    const float c = l > 0.f ? expf(m_ws[w] - mx) : 0.f;
+    const float c = split_weight(m_ws[w], l, mx);
     w_s[s] = c;
     den += l * c;
   }
-  const float inv = 1.f / fmaxf(block_reduce(den, red, false), 1e-30f);  // publishes w_s
+  const float inv = inv_denominator(block_reduce(den, red, false));  // publishes w_s
   const int c4 = hd / 4;
   const int slices = kMergeThreads / c4;
   const int col = tid % c4, slice = tid / c4;

@@ -39,10 +39,10 @@ SIGNATURES = {
     "paged_prefill": ("repro_paged_prefill_f32",
                       [_P] * 12 + [_I] * 7 + [_F, _I, _I, _P]),
     "paged_verify": ("repro_paged_verify_f32",
-                     [_P] * 12 + [_I] * 7 + [_F, _I, _I, _P]),
+                     [_P] * 13 + [_I] * 7 + [_F, _I, _I, _P]),
     "mla_paged_prefill": ("repro_mla_paged_prefill_f32",
                           [_P] * 13 + [_I] * 7 + [_F, _I, _P]),
-    "ssd_scan": ("repro_ssd_scan_f32", [_P] * 8 + [_I] * 6 + [_P]),
+    "ssd_scan": ("repro_ssd_scan_f32", [_P] * 9 + [_I] * 6 + [_P]),
     "flash_attention": ("repro_flash_attention_f32",
                         [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P]),
 }

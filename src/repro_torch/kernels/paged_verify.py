@@ -7,25 +7,65 @@ token and the draft's ``sl`` proposals) over its paged history.  That is
 the fused chunked prefill's function (``paged_prefill.py``): same
 arguments, same result, pools written in place and returned, output rows
 at ``i >= chunk_len[b]`` zeros.  The shape is what differs, a few rows
-over a long history, so the CUDA kernel (``csrc/paged_verify.cu``) splits
-the history over blocks and merges the splits in a second launch.
+over a long history, so the CUDA kernel (``csrc/paged_verify.cu``) spreads
+the history's 16-key tiles over the warps of ``n_splits`` blocks per
+(lane, KV head), and the last block of each pair to finish merges the
+pair's splits: one launch per call.
 
 Dispatch is by the inputs' device: CPU → plain version, CUDA → the kernel
-or raise.
+or raise.  The kernel takes head dims that are multiples of 4 up to 128.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-# B3 splits keys as B1 does: about two blocks per SM, capped by the pages
-# a lane can hold
 from repro_torch.kernels.paged_attention import (
-    check_aligned, check_tensor, n_splits, sm_count, split_workspace)
+    check_aligned, check_tensor, sm_count, split_workspace)
 from repro_torch.kernels.paged_prefill import prefill_math
 
 COUNTS = {"kernel": 0, "plain": 0}
+
+# the CUDA kernel's tiles: warps per block, keys per warp tile; its widest
+# head dim
+WARPS, KEY_TILE, MAX_HEAD_DIM = 4, 16, 128
+# blocks in flight the split count aims at, per SM: one (the kernel's
+# registers allow two, but more splits only add partials for the merge to
+# read: an H100 sweep put one block per SM first at the spec replay's
+# window and over 2000 keys; PERF.md)
+BLOCKS_PER_SM = 1
+
+# per device: the int32 tickets of the in-kernel merge, one per (lane, KV
+# head), zero between launches (each launch's last block resets its own)
+_COUNTERS: dict = {}
+
+
+def n_splits(B: int, KVH: int, page: int, max_pages: int,
+             window: Optional[int], n_sms: int) -> int:
+    """Key splits per (lane, KV head): at most ``BLOCKS_PER_SM`` blocks per
+    SM in flight (one wave), capped so that a split of the keys a lane can
+    hold (the table width, or the pages a window of ``window`` keys can
+    touch) gives each of a block's warps a 16-key tile.  The host does not
+    know the lanes' lengths without a sync; each split takes a balanced
+    share of its lane's own pages on the device, and a split whose share
+    is empty carries l = 0."""
+    cap = max_pages
+    if window is not None:
+        cap = min(cap, (window - 1 + page - 1) // page + 1)
+    cap = math.ceil(cap * page / (WARPS * KEY_TILE))
+    return max(1, min(BLOCKS_PER_SM * n_sms // (B * KVH), cap))
+
+
+def merge_counters(n: int, dev) -> torch.Tensor:
+    """At least ``n`` zeroed int32 tickets on ``dev``, allocated once (and
+    again only to grow), not per call."""
+    c = _COUNTERS.get(dev)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = c
+    return c
 
 
 def paged_verify_attention(q, k_new, v_new, k_pages, v_pages, block_table,
@@ -69,20 +109,22 @@ def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
             or block_table.shape[0] != B or pos0.shape[0] != B \
             or chunk_len.shape[0] != B:
         raise ValueError("paged_verify_attention: inconsistent shapes")
-    if hd % 4:
-        raise ValueError("paged_verify_attention: rows must be float4-aligned")
+    if hd % 4 or hd > MAX_HEAD_DIM:
+        raise ValueError(f"paged_verify_attention: the CUDA kernel takes "
+                         f"head dims that are multiples of 4 up to "
+                         f"{MAX_HEAD_DIM}, not {hd}")
     check_aligned("paged_verify_attention", q, k_new, v_new, k_pages, v_pages)
-    # a window whose G * S query rows do not fit one block's shared memory
-    # is refused by the launch (cudaFuncSetAttribute), reported below
     ns = n_splits(B, KVH, page, block_table.shape[1], window, sm_count(dev))
-    # the split kernel writes its partials even with one split
+    # every block writes its partial, even with one split
     _ws, ws = split_workspace(B, KVH, ns, S * (H // KVH), hd, dev,
                               direct=False)
+    counters = merge_counters(B * KVH, dev)
     out = torch.empty_like(q)
     fn = build.load("paged_verify")
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
-            pos0.data_ptr(), chunk_len.data_ptr(), *ws, out.data_ptr(),
+            pos0.data_ptr(), chunk_len.data_ptr(), *ws, counters.data_ptr(),
+            out.data_ptr(),
             B, S, H, KVH, hd, page, block_table.shape[1], scale,
             -1 if window is None else int(window), ns,
             torch.cuda.current_stream(dev).cuda_stream)

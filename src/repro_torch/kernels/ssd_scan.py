@@ -13,6 +13,12 @@ Dispatch is by the inputs' device, as in ``paged_attention.py``: CPU →
 ``ssd_chunked_plain``, CUDA → ``csrc/ssd_scan.cu`` or raise.  The kernel
 is built for mamba2's head dim 64 and state width 128 and takes chunks of
 up to ``KERNEL_MAX_CHUNK`` tokens; other widths raise on the card.
+``COUNTS["kernel"]`` counts calls that launched the kernel, one per call
+whether or not the C.B^T workspace adds a first launch.
+
+The wrapper picks the kernel's regime from the chunk length:
+``cb_workspace``, whether a first launch computes C.B^T once per lane and
+chunk for all heads.
 """
 from __future__ import annotations
 
@@ -24,6 +30,30 @@ COUNTS = {"kernel": 0, "plain": 0}
 
 # the widths csrc/ssd_scan.cu is compiled for
 KERNEL_HEAD_DIM, KERNEL_STATE, KERNEL_MAX_CHUNK = 64, 128, 8192
+# chunks longer than this get C.B^T from the workspace launch
+CB_WORKSPACE_ABOVE = 32
+
+
+def cb_workspace(chunk: int) -> bool:
+    """Whether C.B^T comes from a first launch that computes it once per
+    (lane, chunk) for every head, rather than from every block: above 32
+    tokens, where an H100 sweep (PERF.md) put the workspace first (at one
+    lane's 32-token chunk its second launch saves nothing).  The workspace
+    holds Lp floats a token (``workspace_floats``) for the call's length:
+    0.5 KB a token at the model's 128-token chunks, a fortieth of x's 20
+    KB at mamba2's widths; a whole prompt run as one chunk (plain
+    generation of a length the model's chunk does not divide) takes more,
+    2.3 MB a lane at 763 tokens and 256 MiB at 8192 (x there: 160 MiB).
+    Without it, each of a head's four blocks would recompute the chunk's
+    whole triangle of C.B^T."""
+    return chunk > CB_WORKSPACE_ABOVE
+
+
+def workspace_floats(B: int, S: int, chunk: int) -> int:
+    """The C.B^T workspace: an Lp x Lp tile per (lane, chunk), Lp the
+    chunk rounded up to 16 rows."""
+    lp = -(-chunk // 16) * 16
+    return B * (S // chunk) * lp * lp
 
 
 def ssd_scan(xh, dt, A, Bm, Cm, *, chunk: int, init_state=None):
@@ -66,10 +96,13 @@ def _launch(xh, dt, A, Bm, Cm, chunk, init_state):
     y = torch.empty_like(xh)
     final = torch.empty(B, H, P, N, dtype=torch.float32, device=dev)
     h0 = None if init_state is None else init_state.data_ptr()
+    cb = (torch.empty(workspace_floats(B, S, chunk), dtype=torch.float32,
+                      device=dev) if cb_workspace(chunk) else None)
     fn = build.load("ssd_scan")
     rc = fn(xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), h0, y.data_ptr(), final.data_ptr(), B, S, H, P,
-            N, chunk, torch.cuda.current_stream(dev).cuda_stream)
+            Cm.data_ptr(), h0, y.data_ptr(), final.data_ptr(),
+            None if cb is None else cb.data_ptr(), B, S, H, P, N, chunk,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     COUNTS["kernel"] += 1

@@ -3,8 +3,8 @@ against the JAX
 package: the same numpy-seeded inputs go through the JAX Pallas kernels in
 interpret mode, the JAX oracles, and the port's plain versions (what the
 wrappers run for CPU tensors) and loop oracles.  The CUDA kernels' host-side
-regime and split choices and their decompositions of the work (B1, B2, B4,
-B6) and 3xTF32 products are emulated here in float64 / float32 torch.
+regime and split choices and their decompositions of the work (B1-B6) and
+3xTF32 products are emulated here in float64 / float32 torch.
 
 Tolerances: outputs are float32 and agree to atol 1e-5 on valid rows (the
 sums run in another order than XLA's); page pools after a write are
@@ -26,11 +26,13 @@ from repro.kernels.paged_prefill import (                       # noqa: E402
 from repro.kernels.flash_attention import (                     # noqa: E402
     flash_attention_bh as jax_flash_bh)
 from repro.kernels.ref import ref_mla_paged_prefill as jax_ref_mla  # noqa: E402
+import repro.models.ssm as jssm                                 # noqa: E402
 from repro_torch.kernels import flash_attention as fa          # noqa: E402
 from repro_torch.kernels import mla_paged_prefill as mk        # noqa: E402
 from repro_torch.kernels import paged_attention as pa          # noqa: E402
 from repro_torch.kernels import paged_prefill as pp            # noqa: E402
 from repro_torch.kernels import paged_verify as pv             # noqa: E402
+from repro_torch.kernels import ssd_scan as sk                 # noqa: E402
 from repro_torch.kernels.ref import (ref_paged_decode,         # noqa: E402
                                      ref_paged_prefill)
 
@@ -275,19 +277,24 @@ def test_verify_matches_jax(B, S, H, KV, hd, page, max_pages, pos0, clen,
 
 
 def test_verify_split_count():
-    """About two blocks per SM, capped by the pages a lane can hold."""
-    assert pv.n_splits(1, 8, 16, 64, None, 132) == 33
-    assert pv.n_splits(1, 8, 16, 4, None, 132) == 4
-    assert pv.n_splits(1, 8, 16, 400, 4096, 132) == 33
-    assert pv.n_splits(1, 8, 16, 400, 40, 132) == 4    # 39 keys: 4 pages
-    assert pv.n_splits(8, 32, 16, 64, None, 132) == 2
+    """One wave of blocks (one per SM), capped so that a split of the keys
+    a lane can hold gives each of a block's 4 warps a 16-key tile."""
+    assert pv.n_splits(1, 8, 16, 64, None, 132) == 16   # the spec replay
+    assert pv.n_splits(1, 8, 16, 160, None, 132) == 16  # 2000 keys
+    assert pv.n_splits(1, 8, 16, 4, None, 132) == 1     # 64 keys: 1 block
+    assert pv.n_splits(1, 8, 16, 16, None, 132) == 4
+    assert pv.n_splits(1, 8, 16, 400, 4096, 132) == 16
+    assert pv.n_splits(1, 8, 16, 400, 40, 132) == 1     # 39 keys: 4 pages
+    assert pv.n_splits(2, 3, 16, 64, None, 132) == 16   # smollm's group
+    assert pv.n_splits(8, 32, 16, 64, None, 132) == 1
     assert pv.n_splits(64, 32, 16, 64, None, 132) == 1
 
 
 def test_split_workspace():
     """Scratch in csrc/split_merge.cuh's layout.  With one split B1 and B2
-    write the output themselves and get none; B3's split kernel always
-    writes partials, so it asks for scratch (direct=False)."""
+    write the output themselves and get none; every B3 block writes its
+    partial for the in-kernel merge, so it asks for scratch
+    (direct=False)."""
     shapes = [(2, 3, 5, 8), (2, 3, 5, 8), (2, 3, 5, 8, 64)]
     ws, ptrs = pa.split_workspace(2, 3, 5, 8, 64, "cpu")
     assert [tuple(t.shape) for t in ws] == shapes
@@ -808,3 +815,326 @@ def test_load_configures_each_launcher_once(monkeypatch):
     assert build.load("paged_decode") is fn and len(loads) == 1
     assert fn.argtypes == build.SIGNATURES["paged_decode"][1]
     assert fn.restype is build.ctypes.c_int
+
+
+# ------------- B5 and B3 as their redesigned kernels cut them ------------- #
+def _ssd_np(B, S, H, P, N, seed, pad=()):
+    """numpy inputs at mamba2's scales (chip_smoke's ``ssd_inputs``): x, B
+    and C silu outputs of normals, dt = softplus(normal), A =
+    -linspace(1, 16), a state of std 0.3; each (lane, first padded
+    position) of ``pad`` zeroes dt from there, as the engine's bucket
+    padding does."""
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: rng.standard_normal(sh).astype(np.float32)
+    silu = lambda a: (a / (1 + np.exp(-a))).astype(np.float32)
+    xh, Bm, Cm = silu(f(B, S, H, P)), silu(f(B, S, N)), silu(f(B, S, N))
+    dt = np.log1p(np.exp(f(B, S, H))).astype(np.float32)
+    for lane, first in pad:
+        dt[lane, first:] = 0.0
+    A = -np.linspace(1.0, 16.0, H, dtype=np.float32)
+    return xh, dt, A, Bm, Cm, 0.3 * f(B, H, P, N)
+
+
+def _ssd_cut(xh, dt, A, Bm, Cm, chunk, h0, ps, ws):
+    """csrc/ssd_scan.cu's cut of the work, in float64: a block per (lane,
+    head, slice of ``ps`` state rows) walks the chunks in order with its
+    state slice carried; a chunk's rows in 16-row tiles (padded past L,
+    masked), a row group of 4 tiles walking the key tiles up to its last
+    row tile; C.B^T per tile from a per-(lane, chunk) workspace of the
+    lower triangle (``ws``) or recomputed; the incoming state's term from
+    the state at the chunk's start; the state update riding on the last
+    row group's key walk.  Returns (y, final state)."""
+    x, dt, Bm, Cm = (torch.from_numpy(np.asarray(a)).double()
+                     for a in (xh, dt, Bm, Cm))
+    A = torch.from_numpy(np.asarray(A)).double()
+    Bz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    T, W, L = 16, 4, chunk
+    lp = -(-L // T) * T
+    n_t = lp // T
+    pad = lambda a: torch.cat([a, a.new_zeros((lp - L,) + a.shape[1:])])
+    tile = lambda a, i: a[T * i:T * (i + 1)]
+    y = torch.zeros(Bz, S, H, P, dtype=torch.float64)
+    hT = torch.zeros(Bz, H, P, N, dtype=torch.float64)
+    for b in range(Bz):
+        cbw = {}                          # the workspace launch
+        for c in range(S // L):
+            sl = slice(c * L, (c + 1) * L)
+            Cc, Bc = pad(Cm[b, sl]), pad(Bm[b, sl])
+            for r in range(n_t):
+                for kt in range(r + 1):
+                    cbw[c, r, kt] = tile(Cc, r) @ tile(Bc, kt).T
+        for h in range(H):
+            for p0 in range(0, P, ps):
+                hs = (torch.zeros(ps, N, dtype=torch.float64) if h0 is None
+                      else torch.from_numpy(np.asarray(h0)[b, h, p0:p0 + ps])
+                      .double())
+                for c in range(S // L):
+                    sl = slice(c * L, (c + 1) * L)
+                    Cc, Bc = pad(Cm[b, sl]), pad(Bm[b, sl])
+                    xc = pad(x[b, sl, h, p0:p0 + ps])
+                    seg = pad(torch.cumsum(dt[b, sl, h] * A[h], 0))
+                    dtp = pad(dt[b, sl, h])
+                    seg_end = seg[L - 1]
+                    live = torch.arange(lp) < L
+                    ey = torch.where(live, torch.exp(seg), 0.0)
+                    cw = torch.where(live, dtp * torch.exp(seg_end - seg), 0.0)
+                    h_old, hs = hs, hs * torch.exp(seg_end)
+                    for rg in range(-(-n_t // W)):
+                        rows = [r for r in range(W * rg, W * rg + W)
+                                if r < n_t]
+                        ya = {r: torch.zeros(T, ps, dtype=torch.float64)
+                              for r in rows}
+                        for kt in range(rows[-1] + 1):
+                            for r in rows:
+                                if kt > r:
+                                    continue
+                                s = (cbw[c, r, kt] if ws
+                                     else tile(Cc, r) @ tile(Bc, kt).T)
+                                li = torch.arange(T * r, T * r + T)[:, None]
+                                mi = torch.arange(T * kt, T * kt + T)[None]
+                                keep = (mi <= li) & (li < L)
+                                e = torch.where(keep, seg[li] - seg[mi], 0.0)
+                                p = torch.where(
+                                    keep, s * torch.exp(e) * dtp[mi], 0.0)
+                                ya[r] += p @ tile(xc, kt)
+                            if rg == -(-n_t // W) - 1:
+                                hs = hs + (tile(xc, kt) * tile(cw, kt)[:, None]
+                                           ).T @ tile(Bc, kt)
+                        for r in rows:
+                            out = ya[r] + tile(ey, r)[:, None] * (
+                                tile(Cc, r) @ h_old.T)
+                            n = min(T, L - T * r)
+                            y[b, c * L + T * r:c * L + T * r + n, h,
+                              p0:p0 + ps] = out[:n]
+                hT[b, h, p0:p0 + ps] = hs
+    return y, hT
+
+
+_jax_ssd_chunked = jax.jit(jssm.ssd_chunked, static_argnums=(5,))
+
+
+# B, S, H, P, N, chunk, padding, state rows per block, C.B^T workspace
+SSD_CUTS = [
+    (2, 48, 3, 32, 16, 24, (), 16, False),        # ragged L, two chunks
+    (1, 80, 2, 32, 16, 80, ((0, 50),), 16, True), # 5 row tiles: 2 groups
+    (3, 32, 2, 32, 32, 8, ((1, 20), (2, 0)), 16, True),  # a lane all padding
+]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,pad,ps,ws", SSD_CUTS)
+def test_ssd_cut_matches_ssd_chunked(B, S, H, P, N, chunk, pad, ps, ws):
+    """B5's tiles, slices, workspace and carried state give the JAX
+    ``ssd_chunked``'s y and final state from a carried state within 1e-5;
+    a lane of padding keeps its state exactly."""
+    xh, dt, A, Bm, Cm, h0 = _ssd_np(B, S, H, P, N, seed=S + N, pad=pad)
+    wy, wh = _jax_ssd_chunked(*map(jnp.asarray, (xh, dt, A, Bm, Cm)), chunk,
+                              jnp.asarray(h0))
+    got, hT = _ssd_cut(xh, dt, A, Bm, Cm, chunk, h0, ps, ws)
+    np.testing.assert_allclose(got.numpy(), np.asarray(wy), atol=ATOL,
+                               rtol=ATOL)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(wh), atol=ATOL,
+                               rtol=ATOL)
+    for lane, first in pad:
+        if first == 0:
+            assert torch.equal(hT[lane], torch.from_numpy(h0[lane]).double())
+
+
+def test_ssd_cut_matches_pallas_interpret():
+    """From a zero state (the TPU kernel's own function), B5's cut with
+    ragged 24-token chunks gives the JAX Pallas kernel's y in interpret
+    mode within 1e-5."""
+    B, S, H, P, N, chunk, pad, ps, ws = SSD_CUTS[0]
+    xh, dt, A, Bm, Cm, _ = _ssd_np(B, S, H, P, N, seed=S + N, pad=pad)
+    want = np.asarray(ops.ssd(*map(jnp.asarray, (xh, dt, A, Bm, Cm)),
+                              chunk=chunk, interpret=True))
+    got, _ = _ssd_cut(xh, dt, A, Bm, Cm, chunk, None, ps, ws)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=ATOL)
+
+
+def _product_3xtf32_acc(a, b):
+    """a @ b as mma_tf32.cuh's mma3_acc computes it: the operands split
+    as for ``_product_3xtf32`` (big = rna(x), small = x - big read by
+    truncation), each 8-deep k-step's three products formed exactly and
+    summed apart, then added to the float32 accumulator by a float32
+    add."""
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    as_, bs = _tf32_trunc(a - ab), _tf32_trunc(b - bb)
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k in range(0, a.shape[1], 8):
+        ks = slice(k, k + 8)
+        big = (ab[:, ks].double() @ bb[ks].double()).float()
+        small = ((as_[:, ks].double() @ bb[ks].double()).float()
+                 + (ab[:, ks].double() @ bs[ks].double()).float())
+        acc = acc + (big + small)
+    return acc
+
+
+def test_ssd_3xtf32_holds_the_card_check():
+    """B5's four products in 3xTF32 (mma3_acc) at ``S512_c128``'s scale:
+    512 tokens in chunks of 128 from a carried state, mamba2's head dim 64
+    and state 128, the slowest and fastest of the card case's decay
+    rates: y (up to
+    about 125) and the final state within the card's 1e-4 of the plain
+    version, which forms seg, the decay and dt in float32 as the kernel
+    does."""
+    H, P, N, L, S = 2, 64, 128, 128, 512
+    xh, dt, A, Bm, Cm, h0 = _ssd_np(1, S, 80, P, N, seed=5)
+    heads = [0, 79]
+    xh, dt, A, h0 = xh[:, :, heads], dt[:, :, heads], A[heads], h0[:, heads]
+    want_y, want_h = (t.double() for t in sk.ssd_chunked_plain(
+        *_t(xh, dt, A, Bm, Cm), L, _t(h0)[0]))
+    x, d, Bt, Ct = (torch.from_numpy(a[0]) for a in (xh, dt, Bm, Cm))
+    mask = torch.tril(torch.ones(L, L, dtype=torch.bool))
+    err_y = err_h = 0.0
+    for h in range(H):
+        hs = torch.from_numpy(h0[0, h])
+        for c in range(S // L):
+            sl = slice(c * L, (c + 1) * L)
+            seg = torch.cumsum(d[sl, h] * float(A[h]), 0)
+            cb = _product_3xtf32_acc(Ct[sl], Bt[sl].T)
+            decay = torch.exp(torch.where(mask, seg[:, None] - seg[None], 0.))
+            p = torch.where(mask, cb * decay * d[sl, h][None], 0.0)
+            y = (_product_3xtf32_acc(p, x[sl, h])
+                 + torch.exp(seg)[:, None] * _product_3xtf32_acc(Ct[sl], hs.T))
+            w = x[sl, h] * (d[sl, h] * torch.exp(seg[-1] - seg))[:, None]
+            hs = hs * torch.exp(seg[-1]) + _product_3xtf32_acc(w.T, Bt[sl])
+            err_y = max(err_y, (y.double() - want_y[0, sl, h]).abs().max())
+        err_h = max(err_h, (hs.double() - want_h[0, h]).abs().max())
+    assert want_y.abs().max() > 50
+    assert err_y < 1e-4 and err_h < 1e-4
+
+
+def test_ssd_regime():
+    """B5's C.B^T workspace: above 32 tokens (B * chunks * Lp^2 floats,
+    Lp floats a token)."""
+    assert [sk.cb_workspace(n) for n in (8, 32, 33, 128, 763, 8192)] == [
+        False, False, True, True, True, True]
+    assert sk.workspace_floats(1, 512, 128) == 4 * 128 * 128   # 256 KB
+    assert sk.workspace_floats(2, 200, 200) == 2 * 208 * 208
+
+
+def _combine(parts):
+    """B3's merge of partials (a block's warps, then the splits):
+    split_merge.cuh's weights, the sums left unnormalised: (M, den,
+    acc)."""
+    m = torch.stack([p[0] for p in parts])
+    l = torch.stack([p[1] for p in parts])
+    acc = torch.stack([p[2] for p in parts])
+    mx = torch.where(l > 0, m, pa.NEG_INF).max(0).values
+    c = torch.where(l > 0, torch.exp(m - mx), 0.0)
+    return mx, (l * c).sum(0), (acc * c[..., None]).sum(0)
+
+
+def _verify_cut(q, kn, vn, kp, vp, table, pos0, clen, scale, window, ns,
+                order):
+    """csrc/paged_verify.cu's cut of the work, in float64: per (lane, KV
+    head) ``ns`` splits take balanced shares of the history's pages, cut
+    into 16-key tiles aligned to 16 positions (the designated last split
+    also takes the window's own keys from k_new / v_new, in tiles of 16);
+    warp w of a block folds its tiles w, w + 4, ... in order; the block
+    combines its warps; the splits finish in ``order``, each takes a
+    ticket, and the one that draws the last merges every split's partial
+    in split order.  Returns (out, k_pages, v_pages, merger per pair)."""
+    B, S, H, hd = q.shape
+    _, page, KVH, _ = kp.shape
+    G = H // KVH
+    kp0, vp0 = kp.clone(), vp.clone()
+    out = torch.zeros(B, S, H, hd, dtype=torch.float64)
+    mergers = {}
+    for b in range(B):
+        p0, n_tok = int(pos0[b]), int(clen[b])
+        if n_tok == 0:
+            continue
+        for i in range(n_tok):                     # the designated split
+            slot = int(table[b, (p0 + i) // page])
+            kp[slot, (p0 + i) % page] = kn[b, i]
+            vp[slot, (p0 + i) % page] = vn[b, i]
+        h_lo = max(0, p0 - window + 1) if window else 0
+        pg_lo = h_lo // page
+        n_pg = max(-(-p0 // page) - pg_lo, 0)
+        qpos = p0 + torch.arange(n_tok * G) // G
+        for h in range(KVH):
+            rows = torch.arange(n_tok * G)
+            qr = q[b, rows // G, h * G + rows % G].double() * scale
+            blocks = []
+            for s in range(ns):
+                lo = pg_lo + s * n_pg // ns
+                hi = pg_lo + (s + 1) * n_pg // ns
+                k_begin = max(h_lo, lo * page)
+                k_end = max(min(p0, hi * page), k_begin)
+                t_lo = k_begin & ~15
+                tiles = []
+                if k_end > k_begin:
+                    for t0 in range(t_lo, k_end, 16):
+                        kpos = torch.arange(t0, t0 + 16)
+                        inr = (kpos >= k_begin) & (kpos < k_end)
+                        kc = kpos.clamp(k_begin, k_end - 1)
+                        slots = table[b].long()[kc // page]
+                        tiles.append((kpos, inr, kp0[slots, kc % page, h],
+                                      vp0[slots, kc % page, h]))
+                if s == ns - 1:
+                    for j0 in range(0, n_tok, 16):
+                        jj = torch.arange(j0, j0 + 16)
+                        jc = jj.clamp(max=n_tok - 1)
+                        tiles.append((p0 + jj, jj < n_tok, kn[b, jc, h],
+                                      vn[b, jc, h]))
+                warps = []
+                for w in range(pv.WARPS):
+                    part = (torch.full((len(rows),), pa.NEG_INF,
+                                       dtype=torch.float64),
+                            torch.zeros(len(rows), dtype=torch.float64),
+                            torch.zeros(len(rows), hd, dtype=torch.float64))
+                    for kpos, inr, k, v in tiles[w::pv.WARPS]:
+                        valid = inr[None] & (kpos[None] <= qpos[:, None])
+                        if window:
+                            valid &= kpos[None] > qpos[:, None] - window
+                        part = _fold([part, _partial(qr, k.double(),
+                                                     v.double(), valid)])
+                    warps.append(part)
+                blocks.append(_combine(warps))
+            ticket = {s: n for n, s in enumerate(order(ns))}
+            mergers[b, h] = max(ticket, key=ticket.get)
+            mx, den, acc = _combine(blocks)            # in split order
+            out[b, rows // G, h * G + rows % G] = acc / den.clamp(
+                min=1e-30)[:, None]
+    return out, kp, vp, mergers
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,page,max_pages,pos0,clen,window", [
+    (1, 8, 4, 2, 32, 16, 8, [100], [2], None),        # the replay's window
+    (2, 16, 6, 2, 64, 8, 12, [51, 0], [9, 0], 20),    # masked lane, 2 pages
+])                                                    # a tile, a window
+def test_verify_cut_matches_jax(B, S, H, KV, hd, page, max_pages, pos0, clen,
+                                window):
+    """B3's warp tiles, splits (1 to more than the pages, so some shares
+    are empty) and last-block merge give the JAX entry point's output in
+    interpret mode within 1e-5 and its pools bit for bit; the output does
+    not depend on which split finishes last."""
+    q, kn, vn, kp, vp, table = _inputs(hd + S, B, S, H, KV, hd, page,
+                                       max_pages)
+    p0 = np.array(pos0, np.int32)
+    cl = np.array(clen, np.int32)
+    jout, jkp, jvp = jax_paged_verify(
+        *map(jnp.asarray, (q, kn, vn, kp, vp, table, p0, cl)),
+        window=window, interpret=True)
+    q, kn, vn, kp, vp, table = _t(q, kn, vn, kp, vp, table)
+    for ns in (1, 3, max_pages + 2):
+        outs, mergers = [], []
+        for order in (lambda n: range(n), lambda n: range(n - 1, -1, -1)):
+            got, gkp, gvp, merger = _verify_cut(
+                q, kn, vn, kp.clone(), vp.clone(), table, p0, cl,
+                hd ** -0.5, window, ns, order)
+            outs.append(got)
+            mergers.append(merger)
+            np.testing.assert_array_equal(gkp.numpy(), np.asarray(jkp))
+            np.testing.assert_array_equal(gvp.numpy(), np.asarray(jvp))
+        assert torch.equal(outs[0], outs[1])
+        if ns > 1:
+            assert mergers[0] != mergers[1]    # another block merged
+        for b in range(B):
+            n = int(cl[b])
+            np.testing.assert_allclose(outs[0][b, :n].numpy(),
+                                       np.asarray(jout[b, :n]), atol=ATOL,
+                                       rtol=0)
+            assert not outs[0][b, n:].any()
