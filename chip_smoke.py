@@ -52,12 +52,31 @@ script exits non-zero before the final line:
    ((B, S) buckets, live rows and pos0 of the prefill groups; batch and
    longest seq_len of the decode steps), which must include the replay
    shapes of step 2.
-5. Speculative decoding at the full width of qwen3-1.7b (28 layers, random
+5. The multi-replica cluster (§4.2): ``ClusterFrontend.build`` stands up
+   two replicas of the main path's full-width smollm-135m on the card,
+   sharing its parameter tensors and one page budget (256 pages a
+   replica over 384, page 16), with the host spill tier on (64 pages a
+   replica) and ``ClusterTelemetry`` enabled.  Twelve requests at chatbot
+   prompt lengths arrive at once, four long guaranteed ones (all opening
+   with a shared 512-token system prompt, as do four of the first) once
+   best-effort KV is resident, replica 1 drains once its first-wave
+   requests have finished (its chains spill into replica 0's host tier),
+   and two requests then re-send the prompts replica 0 holds there;
+   outputs cut to 32 tokens.  Routing, best-effort demotion, preemption,
+   prefix affinity, spill and prefetch must each happen; the shared
+   budget must equal the replicas' used pages after every step; launch
+   counts zeroed just before and read just after: B1 once per layer per
+   decode step and B2 once per layer per prefill group over every replica
+   that lived, no other kernel, no plain version; every spilled or
+   exported page bit-equal to the page its chain's prefetch lands on;
+   ``ClusterStats`` equal to the telemetry registry; every stream equal to
+   plain generation under the tie rule.
+6. Speculative decoding at the full width of qwen3-1.7b (28 layers, random
    weights from the seed): three prompts decoded by spec cycles of draft
    length 1, 3 and 8, with the 1-layer draft of the reference's tests and
    with the target as its own draft, each stream held against plain
    greedy generation under the same tie rule.
-6. The spec path: ``ServingFrontend`` over ``ServingEngine(draft=...)``
+7. The spec path: ``ServingFrontend`` over ``ServingEngine(draft=...)``
    (the target as its own draft) with a speculation-planning
    ``SLOsServeScheduler`` serves eight requests (prompt 512, output 64) in
    a tight and a loose TPOT tier.  Counts zeroed just before and read just
@@ -67,7 +86,7 @@ script exits non-zero before the final line:
    step, and the plain versions never.  The line lists the verify windows
    the replay ran (rows / live rows), which must include the shape at
    which step 2 timed the verify kernel.
-7. The MLA kernel (B4) against its plain version at deepseek-v2's full
+8. The MLA kernel (B4) against its plain version at deepseek-v2's full
    widths (128 heads, latent rank 512, rope 64, page 16): a chunk that
    straddles pages from a mid-page start, a chunk from position 0, masked
    and partial lanes, a long history, every unreachable row and unmapped
@@ -77,17 +96,17 @@ script exits non-zero before the final line:
    rows zeros; each line names the key splits.  Timed at the mla replay's
    prefill shape (one lane, a 16-row bucket with 15 live rows after 120
    tokens of history; 2 key splits) and at a 256-token chunk (none).
-8. DeepSeek-V2 at full width cut to three layers (``mla``, ``mla_moe``,
+9. DeepSeek-V2 at full width cut to three layers (``mla``, ``mla_moe``,
    ``mla_moe``; random weights from the seed, 34.8 GiB in float32): three
    greedy streams of the engine against plain full-causal generation, as
    in step 3.
-9. The MLA path: ``ServingFrontend`` with ``SLOsServeScheduler`` serves 8
+10. The MLA path: ``ServingFrontend`` with ``SLOsServeScheduler`` serves 8
    chatbot requests (lengths scaled by 0.25, 2/s) on the cut model.
    Counts zeroed just before and read just after: B4 launches once per
    layer per prefill group, B1-B3 never (MLA uses none of them), plain
    versions never.  Then one decode step of eight lanes is timed whole and
    by part (an MLA layer's naive decode, an MoE layer).
-10. The SSD kernel (B5) against its plain version at mamba2's widths (80
+11. The SSD kernel (B5) against its plain version at mamba2's widths (80
     heads, head dim 64, state 128): one chunk of 8, 16, 32 (from a carried
     state, lanes padded with dt = 0) and 200 tokens, four 128-token chunks
     carried, a nonzero initial state, lanes of 1 and 4; y and the final
@@ -97,11 +116,11 @@ script exits non-zero before the final line:
     at 512 tokens in chunks of 128 and at a 763-token prompt as one
     chunk; with ``--parent`` the other tree's
     B5 is checked and timed beside it.
-11. mamba2-2.7b at its published width and depth (64 layers, random
+12. mamba2-2.7b at its published width and depth (64 layers, random
     weights from the seed, 10.5 GiB in float32): three greedy streams of a
     two-slot engine against plain full-causal generation, the third in the
     slot the first one freed (its lane rows zero after the admission).
-12. The SSM path: ``ServingFrontend`` with ``SLOsServeScheduler`` serves 8
+13. The SSM path: ``ServingFrontend`` with ``SLOsServeScheduler`` serves 8
     chatbot requests (lengths scaled by 0.25, 2/s) on mamba2 with 4 slots.
     Counts zeroed just before and read just after: B5 launches once per
     layer per prefill group, B1-B4 never, plain versions never; the timed
@@ -115,7 +134,7 @@ script exits non-zero before the final line:
     tree's in turns, other-this-this-other and then this-other-other-this
     (the ``ssm_ab`` line: spans, prefill-group time and each turn's
     ``prefill_breakdown``).
-13. The dense flash attention kernel (B6) against its plain version
+14. The dense flash attention kernel (B6) against its plain version
     through the GQA wrapper ``attention``: one whisper encoder layer (20
     heads, 1500 x 1500 frames, head dim 64, bidirectional), cross decode
     steps of 8 lanes and of one lane (Sq 1 over 1500 keys), cross prefill
@@ -129,7 +148,7 @@ script exits non-zero before the final line:
     Timed at the encoder and the 8-lane cross-decode shape and at the
     whisper replay's commonest cross shapes (one lane's decode step and
     its 16-row prefill bucket).
-14. whisper-large-v3 at its published width and depth (32 encoder and 32
+15. whisper-large-v3 at its published width and depth (32 encoder and 32
     decoder layers, random weights from the seed, 5.9 GiB in float32):
     each request's frames come from a numpy seed and go through
     ``encoder_forward`` on the card (B6 in its 128-row regime); three
@@ -137,7 +156,7 @@ script exits non-zero before the final line:
     (B6 over few rows, keys split, at every cross layer), against plain
     generation (``model_forward(cache=None, enc_states=...)``) under the
     tie rule.
-15. The whisper path: ``ServingFrontend`` with ``SLOsServeScheduler``
+16. The whisper path: ``ServingFrontend`` with ``SLOsServeScheduler``
     serves 8 chatbot requests (lengths scaled by 0.25, 2/s, max_len 448),
     each submitted with ``enc_states`` from ``encoder_forward``.  Counts
     zeroed just before the encoder calls and read just after the replay:
@@ -145,17 +164,17 @@ script exits non-zero before the final line:
     per prefill group and per decode step, B2 once per layer per prefill
     group, B1 once per layer per decode step, B3-B5 never, plain versions
     never.  The line lists the (BH, Sq, Sk) of every B6 call, which must
-    include the replay shapes step 13 timed.  Then one decode step of
+    include the replay shapes step 14 timed.  Then one decode step of
     eight lanes is timed whole and by part (one layer's cross K/V
     projection, which the reference's design repeats in every step, its
     cross-attention, its self-attention).
-16. The kernels line (B1 and B2 launches from step 4, B3's from step 6,
-    B4's from step 9, B5's from step 12, B6's from step 15), the card
+17. The kernels line (B1 and B2 launches from step 4, B3's from step 7,
+    B4's from step 10, B5's from step 13, B6's from step 16), the card
     line, and ``{"ok": true, "device": ...}``.
 
 Every earlier replay also checks that B6 never launched: only the
-no-cache attention of plain generation (steps 3, 5, 14) and the
-encoder / cross-attention of steps 14-15 run it.
+no-cache attention of plain generation (steps 3, 5, 6, 15) and
+the encoder / cross-attention of steps 15-16 run it.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -2460,6 +2479,313 @@ def main_path(pa, pp, fa, seed: int):
           "checks": checks})
     if not all(checks.values()):
         raise SystemExit(f"main path checks failed: {checks}")
+    return launches, eng.cfg, eng.params
+
+
+# ---------------------------- cluster phase ---------------------------- #
+# Two replicas of full-width smollm-135m on the one card, sharing one page
+# budget below the sum of their pools, so that a burst overflows one
+# replica's fair share.  Requests at chatbot prompt lengths (outputs cut
+# to 32 tokens, so that plain generation can check every stream); the
+# ``shared`` rids open with one 512-token system prompt.  Wave 1 (12)
+# arrives at t = 0; wave 2 (the 4 longest, guaranteed) once best-effort KV
+# is resident, which makes admission preempt it; replica 1 drains once
+# its wave-1 requests have finished, spilling its chains into replica 0's
+# host tier; wave 3 re-sends the ``resend`` prompts of which replica 0
+# then holds the most pages there, served by prefetch.  At 320 pages a
+# replica over 512 this traffic routes, demotes and preempts nothing
+# (``scripts/rehearse_cluster_phase.py`` runs this phase's control flow on
+# the CPU, where it is the same: it depends on page counts and the
+# virtual clock only); 256 over 384 does all.
+CLUSTER = dict(replicas=2, total_pages=384, replica_pages=256, page=16,
+               max_slots=8, max_len=4096, host_spill_pages=64, requests=16,
+               first_wave=12, output=32, system_prompt=512,
+               shared=(0, 2, 4, 6, 12, 13, 14, 15),
+               resend=2, ttft_slowdown=8.0, tpot=0.15, max_steps=3000)
+
+
+def cluster_traffic(vocab: int, seed: int):
+    """{rid: prompt} of the requests: lengths from the chatbot trace's
+    prompt distribution (``core/workload.py``, mean 763) by a numpy seed,
+    the longest ones in the second wave; ``CLUSTER["shared"]`` rids open
+    with the shared system prompt (and are at least one page longer)."""
+    import numpy as np
+    from repro_torch.core.workload import TABLE4
+
+    rng = np.random.default_rng(seed)
+    n, w1, sp = CLUSTER["requests"], CLUSTER["first_wave"], \
+        CLUSTER["system_prompt"]
+    lens = [int(x) for x in TABLE4["chatbot"]["prompt"].sample(rng, n)]
+    order = sorted(range(n), key=lambda i: lens[i])
+    lens = [lens[i] for i in order[:w1]] + [lens[i] for i in order[w1:]]
+    rng.shuffle(lens[:w1])
+    system = rng.integers(1, vocab, sp).tolist()
+    out = {}
+    for rid, L in enumerate(lens):
+        if rid in CLUSTER["shared"]:
+            L = max(L, sp + CLUSTER["page"])
+            out[rid] = system + rng.integers(1, vocab, L - sp).tolist()
+        else:
+            out[rid] = rng.integers(1, vocab, L).tolist()
+    return out
+
+
+class KVCopyLog:
+    """The spill tier's device copies on every replica's manager: CUDA
+    events around each ``flush_prefetch`` that copied and each
+    ``_page_to_host`` (the host's staging between the events included),
+    and the bytes of each published page copied to the host (a spill, or a
+    drain's export to the survivor), read on the card just before the
+    copy, held bit for bit against the page the same chain lands on when
+    its prefetch is flushed (chain hashes are the same on every
+    replica)."""
+
+    def __init__(self, drivers):
+        self.events = {"flush_prefetch": [], "page_to_host": []}
+        self.snaps: dict[int, list] = {}
+        self.compared = self.equal = 0
+        for d in drivers:
+            self._wrap(d.engine.kv)
+
+    @staticmethod
+    def _leaves(kv, p):
+        return [leaf.select(ax, p) for pool, ax in
+                zip(kv.pools, kv._paged_axes()) if ax is not None
+                for leaf in pool["self"].values()]
+
+    def _timed(self, key, fn, *a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*a)
+        e1.record()
+        self.events[key].append((e0, e1))
+        return out
+
+    def _wrap(self, kv):
+        flush, to_host = kv.flush_prefetch, kv._page_to_host
+
+        def spy_to_host(p):
+            # a spill or an export reads a published page: its chain's
+            # bytes, which every later prefetch of the chain must restore
+            key = kv.page_key.get(p)
+            if key is not None and key not in self.snaps:
+                self.snaps[key] = [x.clone() for x in self._leaves(kv, p)]
+            return self._timed("page_to_host", to_host, p)
+
+        def spy_flush():
+            pend = [q for q, _ in kv._pending_prefetch]
+            if not pend:
+                return flush()
+            n = self._timed("flush_prefetch", flush)
+            for q in pend:
+                snap = self.snaps.get(kv.page_key.get(q))
+                if snap is not None:
+                    self.compared += 1
+                    self.equal += all(torch.equal(a, b) for a, b in
+                                      zip(self._leaves(kv, q), snap))
+            return n
+
+        kv.flush_prefetch = spy_flush
+        kv._page_to_host = spy_to_host
+
+    def summary(self) -> dict:
+        torch.cuda.synchronize()
+        return {key: {"calls": len(v),
+                      "ms": sum(a.elapsed_time(b) for a, b in v)}
+                for key, v in self.events.items()}
+
+
+def cluster_phase(cfg, params, kernels, seed: int):
+    """The §4.2 cluster on the card: ``ClusterFrontend.build`` with two
+    replicas of ``cfg`` sharing ``params`` (not copied), one shared page
+    budget, the host spill tier on and ``ClusterTelemetry`` enabled;
+    routing, best-effort demotion, preemption, prefix affinity, spill and
+    prefetch, and a drain that migrates and spills to the survivor.
+    Launch counts zeroed just before the traffic and read just after."""
+    from repro_torch.core.perf_model import cpu_scale_perf_model
+    from repro_torch.core.request import simple_request
+    from repro_torch.core.router import RoutingPolicy
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.serving.cluster import ClusterFrontend
+    from repro_torch.telemetry import ClusterTelemetry, parse_prometheus
+
+    dev = torch.device("cuda")
+    c = CLUSTER
+    torch.cuda.reset_peak_memory_stats()
+    tel = ClusterTelemetry(enabled=True)
+    cl = ClusterFrontend.build(
+        cfg, params, c["replicas"], cpu_scale_perf_model(),
+        sched_cfg=SchedulerConfig(page_size=c["page"],
+                                  prefill_emits_first_token=True),
+        policy=RoutingPolicy(max_hops=1), total_pages=c["total_pages"],
+        replica_pages=c["replica_pages"], page_size=c["page"],
+        max_slots=c["max_slots"], max_len=c["max_len"], seed=seed,
+        host_spill_pages=c["host_spill_pages"], telemetry=tel, device=dev)
+    drivers = list(cl.drivers)          # every replica that ever lived
+    copies = KVCopyLog(drivers)
+    traffic = cluster_traffic(cfg.vocab, seed)
+    reqs, got, hits, where = {}, {}, set(), {}
+
+    def submit(rid, t):
+        reqs[rid] = simple_request(rid, t, prompt=len(traffic[rid]),
+                                   output=c["output"],
+                                   ttft_slowdown=c["ttft_slowdown"],
+                                   tpot=c["tpot"])
+        cl.submit(reqs[rid], prompt=traffic[rid],
+                  on_token=lambda r, toks: got.setdefault(r, []).extend(toks))
+
+    for d in drivers:
+        enqueue = d.enqueue             # the replica a request was routed to
+
+        def spy_enqueue(req, *a, _d=d, _enqueue=enqueue, **k):
+            where[req.rid] = _d.idx
+            return _enqueue(req, *a, **k)
+        d.enqueue = spy_enqueue
+        share = d.engine.kv._share_pages  # requests served via the host tier
+
+        def spy_share(rid, tokens, _kv=d.engine.kv, _share=share):
+            n = _kv.prefetched_pages
+            out = _share(rid, tokens)
+            if _kv.prefetched_pages > n:
+                hits.add(rid)
+            return out
+        d.engine.kv._share_pages = spy_share
+
+    conserved = []
+
+    def step():
+        cl.step()
+        conserved.append(cl.budget.used == sum(
+            d.engine.kv.used_pages for d in cl.drivers))
+
+    for mod in kernels.values():
+        mod.COUNTS["kernel"] = mod.COUNTS["plain"] = 0
+    t0 = time.perf_counter()
+    for rid in range(c["first_wave"]):
+        submit(rid, 0.0)
+    steps = 0
+    while steps < c["max_steps"] and not cl.idle and not any(
+            e.req.kv_resident for d in cl.drivers for e in d.be.entries):
+        step()
+        steps += 1
+    wave2_at = cl.clock
+    for rid in range(c["first_wave"], c["requests"]):
+        submit(rid, cl.clock)
+    drained, migrated, resent = None, [], {}
+    served_by_1 = set()
+    while steps < c["max_steps"] and (not cl.idle or cl.draining
+                                      or (drained is not None
+                                          and not resent)):
+        step()
+        steps += 1
+        served_by_1.update(r for r, i in where.items() if i == 1)
+        mine = [r for r in served_by_1 if r < c["first_wave"]]
+        if drained is None and mine and all(reqs[r].finished for r in mine):
+            migrated = [e.req.rid for e in cl.drivers[1].be.entries]
+            drained = cl.clock
+            cl.drain_replica(1)
+        elif drained is not None and not resent and not cl.draining:
+            # wave 3: the survivor holds replica 1's chains in its host
+            # tier; re-send the prompts with the most pages there
+            kv = cl.drivers[0].engine.kv
+            best = sorted(served_by_1, key=lambda r: (
+                -kv.prefix_discounts(traffic[r])[2], r))[:c["resend"]]
+            for k, r in enumerate(best):
+                resent[c["requests"] + k] = r
+                traffic[c["requests"] + k] = traffic[r]
+                submit(c["requests"] + k, cl.clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: dict(mod.COUNTS) for name, mod in kernels.items()}
+    stats = cl.stats
+    spans: dict[str, float] = {}
+    for r in tel.tracer.records("span"):
+        spans[r["name"]] = spans.get(r["name"], 0.0) + r["dur"]
+    counters = {k: sum(d.engine.counters[k] for d in drivers)
+                for k in ("prefill_calls", "decode_calls", "decode_steps",
+                          "decode_tokens", "preemptions")}
+    kvs = [d.engine.kv for d in drivers]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    parsed = parse_prometheus(tel.prometheus())
+
+    def registry(event):
+        return sum(v for (name, labels), v in parsed.items()
+                   if name == "repro_engine_events_total"
+                   and ("event", event) in labels)
+
+    def routing(outcome):
+        return parsed.get(("repro_routing_total", (("outcome", outcome),)),
+                          0)
+    tel_match = {
+        "routed": routing("routed") == stats.routed,
+        "affinity_routed": routing("affinity") == stats.affinity_routed,
+        "best_effort": routing("best_effort") == stats.best_effort,
+        "dropped": routing("dropped") == stats.dropped,
+        "preempted": registry("preemptions") == stats.preempted,
+        "prefix_hit_tokens":
+            registry("prefix_hit_tokens") == stats.prefix_hit_tokens,
+        **{k: registry(k) == getattr(stats, k)
+           for k in ("prefix_evictions", "spilled_pages", "prefetched_pages",
+                     "host_evictions", "spilled_hit_tokens")},
+        "served": sum(v for (name, _), v in parsed.items()
+                      if name == "repro_requests_finished_total")
+        == stats.served,
+    }
+    L = cfg.n_layers
+    other = [k for k in kernels if k not in ("decode", "prefill")]
+    checks = {
+        "all_terminal": cl.idle and all(r.finished for r in reqs.values()),
+        "served_all": stats.served == stats.submitted
+        == c["requests"] + c["resend"],
+        "routed": stats.routed >= 1,
+        "best_effort": stats.best_effort >= 1,
+        "preempted": stats.preempted >= 1,
+        "affinity_routed": stats.affinity_routed >= 1,
+        "spilled_pages": stats.spilled_pages >= 1,
+        "prefetched_pages": stats.prefetched_pages >= 1,
+        "drained_replica_retired": drained is not None
+        and [d.idx for d in cl.drivers] == [0],
+        "budget_conserved_every_step": all(conserved),
+        "budget_empty_at_end": cl.budget.used == 0,
+        "decode_launches":
+            launches["decode"]["kernel"] == L * counters["decode_steps"],
+        "prefill_launches":
+            launches["prefill"]["kernel"] == L * counters["prefill_calls"],
+        "no_other_kernel": not any(launches[k]["kernel"] for k in other),
+        "no_plain": not any(v["plain"] for v in launches.values()),
+        "spilled_page_bytes_equal": copies.compared >= 1
+        and copies.equal == copies.compared,
+        "telemetry_equals_stats": all(tel_match.values()),
+    }
+    preempted = set().union(*(d.preempted_rids for d in drivers))
+    streams = {}
+    for rid, prompt in sorted(traffic.items()):
+        want, margins = greedy_reference(params, cfg, prompt,
+                                         len(got.get(rid, [])), dev)
+        streams[rid] = {"prompt": len(prompt), "replica": where.get(rid),
+                        **compare_stream(got.get(rid, []), want, margins)}
+        streams[rid]["ok"] = (streams[rid]["ok"]
+                              and len(got.get(rid, [])) == c["output"])
+    checks["streams_match_plain"] = all(s["ok"] for s in streams.values())
+    emit({"phase": "cluster_replay", "model": cfg.name, "layers": L,
+          **{k: v for k, v in c.items() if k != "max_steps"},
+          "steps": steps, "wave2_at": wave2_at, "drained_at": drained,
+          "wall_s": wall, "span_s": spans,
+          "stats": stats.as_dict(), "counters": counters,
+          "spill_pages": stats.spilled_pages,
+          "prefetch_pages": stats.prefetched_pages,
+          "prefetch_flushes": sum(kv.prefetch_flushes for kv in kvs),
+          "kv_copies": copies.summary(),
+          "spilled_pages_compared": copies.compared,
+          "preempted_rids": sorted(preempted), "migrated_rids": migrated,
+          "resent_rids": resent,
+          "spill_hit_rids": sorted(hits), "launches": launches,
+          "peak_mem_gib": peak, "gpu": card_line(),
+          "telemetry_vs_stats": tel_match, "streams": streams,
+          "checks": checks})
+    if not all(checks.values()):
+        raise SystemExit(f"cluster checks failed: {checks}")
     return launches
 
 
@@ -2515,7 +2841,12 @@ def main(argv=()) -> int:
     pre = prefill_phase(pp)
     ver = verify_phase(pv, parent)
     stream_phase(seed)
-    launches = main_path(pa, pp, fa, seed)
+    launches, cfg, params = main_path(pa, pp, fa, seed)
+    free_device_memory()
+    kernels = {"decode": pa, "prefill": pp, "verify": pv, "mla_prefill": mk,
+               "ssd": sk, "flash": fa}
+    cluster_phase(cfg, params, kernels, seed)
+    del params
     free_device_memory()
     spec_stream_phase(seed)
     free_device_memory()
@@ -2536,8 +2867,6 @@ def main(argv=()) -> int:
     cfg, params = ssm_model(seed)
     ssm_stream_phase(cfg, params, seed)
     free_device_memory()
-    kernels = {"decode": pa, "prefill": pp, "verify": pv, "mla_prefill": mk,
-               "ssd": sk, "flash": fa}
     ssm_launches, groups, lives = ssm_replay_phase(cfg, params, kernels,
                                                    seed)
     ssd_replay_group_phase(sk, cfg, groups, lives, parent)

@@ -48,9 +48,15 @@ loops, and ``spec_catch_up_calls`` counts the draft's catch-up prefills
 (each step launches the decode kernel once per layer, each catch-up the
 prefill kernel).
 
-Not ported yet: mesh-sharded serving (``EngineConfig.mesh``), the host
-spill tier, and speculative decoding over an SSM model (rollback by
-truncation cannot roll back lane state); asking for any of them raises
+The host spill tier (``EngineConfig.host_spill_pages > 0``,
+``serving/kvcache.py``) is ported; its default stays 0, where the
+reference reads ``REPRO_HOST_SPILL[_PAGES]`` from the environment (the
+port reads no environment default yet).  Admissions queue the H2D copies
+of spilled prefix pages and ``execute()`` flushes them first.
+
+Not ported yet: mesh-sharded serving (``EngineConfig.mesh``) and
+speculative decoding over an SSM model (rollback by truncation cannot
+roll back lane state); asking for either raises
 ``NotImplementedError``.  Prefix matching is always
 token-level and admission always reserves the full expected context (the
 reference's ``token_level_prefix=False`` and
@@ -95,7 +101,10 @@ class EngineConfig:
     seed: int = 0
     # prefix sharing with refcounts + copy-on-write (serving/kvcache.py)
     share_prefix: bool = True
-    host_spill_pages: int = 0         # > 0 raises: not yet ported
+    # host-RAM spill tier for evicted prefix pages (kvcache.py); H2D
+    # bandwidth the planner's prefetch-latency term assumes
+    host_spill_pages: int = 0
+    h2d_gbps: float = 16.0
     mesh: object = None               # not None raises: not yet ported
 
 
@@ -134,6 +143,7 @@ class ServingEngine:
                                  budget=kv_budget,
                                  share_prefix=self.ecfg.share_prefix,
                                  host_spill_pages=self.ecfg.host_spill_pages,
+                                 h2d_gbps=self.ecfg.h2d_gbps,
                                  device=self.device)
         self.reqs: dict[int, RequestCtx] = {}
         self.gen = generator(self.device, self.ecfg.seed)
@@ -380,7 +390,10 @@ class ServingEngine:
     def execute(self, batch: Batch, on_pressure=None) -> dict[int, list]:
         """Run one planner batch; returns {rid: emitted tokens}.
         ``on_pressure(pages_short)`` lets the frontend preempt best-effort
-        victims when a page reservation cannot be met."""
+        victims when a page reservation cannot be met.  Prefetches the
+        admissions queued are flushed first: their copies run on the
+        stream ahead of every kernel of this batch."""
+        self.kv.flush_prefetch()
         emitted: dict[int, list] = {}
         self.last_prefill_progress = {}
         self.last_spec_stats = {}

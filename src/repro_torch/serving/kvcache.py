@@ -26,14 +26,22 @@ published pages); see the reference module's docstring.  What differs:
   (``acquire``, ``preempt``, ``release``), so a reused slot and a
   preempt replay start from the zero state, as plain generation does.
   The reference leaves a freed slot's rows as they were.
-* The host spill tier (``host_spill_pages > 0``) and mesh placement are
-  not ported yet; asking for either raises.  ``prefix_discounts`` always
-  reports 0 spilled pages, so the frontend never asks for a prefetch
-  time (``prefetch_seconds`` arrives with the spill tier).
+* The host spill tier (``host_spill_pages > 0``; the reference's
+  "Hierarchical KV") keeps each spilled page as **pinned** host tensors
+  on a card.  A spill is one asynchronous device-to-host copy per pool
+  leaf on the current stream, into a fresh pinned buffer.  A flush stacks
+  the queued entries into one pinned staging tensor per leaf, copies it
+  to the card with ``non_blocking=True`` and writes it into the pools
+  with ``index_copy_`` on the page axis, all on the current stream, so
+  every later kernel on that stream reads the prefetched bytes (the
+  reference gets that order from a data dependency).  Host reads of
+  spilled bytes (the flush's stacking, ``export_chain``) wait for the
+  spills' copies first.  Mesh placement (``place``) is not ported.
 """
 from __future__ import annotations
 
 import math
+import dataclasses
 from collections import OrderedDict
 from typing import Optional
 
@@ -61,6 +69,17 @@ def kv_page_bytes(cfg: ModelConfig, page_size: int = 16,
             per_tok = 2 * cfg.n_kv_heads * cfg.head_dim
         total += n * page_size * per_tok * itemsize
     return total
+
+
+@dataclasses.dataclass
+class _HostEntry:
+    """One spilled page in the host tier: the chain metadata needed to
+    re-verify a match (``parent`` hash + exact ``chunk`` tokens) and the
+    page contents per segment, ``{"self": {leaf: host tensor}}`` aligned
+    with the manager's pool segments (``()`` for unpaged segments)."""
+    parent: Optional[int]
+    chunk: tuple
+    data: list
 
 
 class SharedPageBudget:
@@ -166,9 +185,7 @@ class PagedKVManager(PageAllocator):
                  max_len: int = 512, dtype=torch.float32,
                  budget: Optional[SharedPageBudget] = None,
                  share_prefix: bool = False, host_spill_pages: int = 0,
-                 device=None):
-        if host_spill_pages > 0:
-            raise NotImplementedError("the host spill tier is not yet ported")
+                 h2d_gbps: float = 16.0, device=None):
         super().__init__(total_pages, page_size, budget=budget)
         self.cfg = cfg
         self.dtype = dtype
@@ -194,7 +211,30 @@ class PagedKVManager(PageAllocator):
         self.children: dict[Optional[int], set[int]] = {}
         self.cached: OrderedDict[int, int] = OrderedDict()  # LRU, zero-ref
         self._reg_state: dict[int, tuple[int, Optional[int]]] = {}
+        # ---- host spill tier (module docstring) ----
+        # entries live in the device index OR here, never both; the tier
+        # is sharing-scoped (no sharing -> nothing publishable to spill)
+        self.host_spill_pages = host_spill_pages if self.share_prefix else 0
+        self.h2d_gbps = h2d_gbps
+        self.host_index: OrderedDict[int, _HostEntry] = OrderedDict()
+        self.host_used = 0             # credit-once mirror of host_index
+        # queued H2D copies: (device page, host entry), run by
+        # flush_prefetch (the engine flushes at the top of execute())
+        self._pending_prefetch: list[tuple[int, _HostEntry]] = []
+        # the last spill's D2H copy, waited for before the host reads
+        # spilled bytes; staging buffers of H2D copies still in flight
+        self._d2h_done = None
+        self._h2d_inflight: list[tuple] = []
+        # per-root-chain probe popularity: the cluster's placement signal
+        self.chain_hits: dict[int, int] = {}
         self.cow_copies = 0
+        self.pages_grabbed = 0
+        self.prefix_evictions = 0
+        self.spilled_pages = 0         # device pages spilled to host
+        self.prefetched_pages = 0      # host entries prefetched to device
+        self.host_evictions = 0        # host-tier LRU evictions (final)
+        self.spilled_hit_tokens = 0    # hit tokens delivered via prefetch
+        self.prefetch_flushes = 0      # flush_prefetch calls that copied
         self.partial_head_copies = 0
         self.partial_hit_tokens = 0
         self._partial_pending = 0
@@ -214,8 +254,10 @@ class PagedKVManager(PageAllocator):
 
     def _grab_pages(self, n: int) -> Optional[list[int]]:
         """Take n physical pages: free list first, then LRU eviction of
-        zero-refcount cached pages.  Reserves the shared budget; None
-        (nothing taken) if pages or budget are short."""
+        zero-refcount cached pages.  An evicted page spills to the host
+        tier (when enabled) before being unpublished, so the chain stays
+        matchable.  Reserves the shared budget; None (nothing taken) if
+        pages or budget are short."""
         if n <= 0:
             return []
         if n > len(self.free) + len(self.cached):
@@ -227,10 +269,20 @@ class PagedKVManager(PageAllocator):
             if self.free:
                 p = self.free.pop()
             else:
-                p, _ = self.cached.popitem(last=False)     # LRU victim
+                p, key = self.cached.popitem(last=False)   # LRU victim
+                self._spill(p, key)
                 self._unpublish(p)
+                self.prefix_evictions += 1
             self.refcount[p] = 1
             out.append(p)
+        self.pages_grabbed += n
+        if self._pending_prefetch:
+            # a re-grabbed page must not receive a stale queued H2D copy
+            # (its chain data was already re-spilled from the queue above)
+            outset = set(out)
+            self._pending_prefetch = [(q, e) for q, e in
+                                      self._pending_prefetch
+                                      if q not in outset]
         return out
 
     def _unref(self, p: int) -> int:
@@ -381,10 +433,229 @@ class PagedKVManager(PageAllocator):
         have = len(self.tables.get(rid, []))
         return min(self.max_len, (have + self.free_pages) * self.page_size)
 
+    # ------------------------- host spill tier -------------------------- #
+    def _paged_axes(self) -> tuple:
+        """Per-segment page axis of the pool leaves (None for unpaged SSM
+        lane rows; 1 when the segment spans n > 1 layers)."""
+        return tuple(None if kind == "ssm" else (1 if n > 1 else 0)
+                     for kind, n in self.cfg.segments())
+
+    def _page_to_host(self, p: int) -> list:
+        """Device→host copy of page ``p`` of every paged pool leaf, one
+        ``{"self": {leaf: tensor}}`` per paged segment (``()`` for
+        unpaged ones).  On a card each leaf goes into a fresh pinned
+        buffer by one asynchronous copy on the current stream: the host
+        may read the buffers only after ``_sync_d2h``."""
+        cuda = self.device.type == "cuda"
+        out = []
+        for pool, ax in zip(self.pools, self._paged_axes()):
+            if ax is None:
+                out.append(())
+                continue
+            leaves = {}
+            for name, leaf in pool["self"].items():
+                src = leaf.select(ax, p)
+                if cuda:
+                    dst = torch.empty(src.shape, dtype=src.dtype,
+                                      pin_memory=True)
+                    dst.copy_(src, non_blocking=True)
+                else:
+                    dst = src.clone()
+                leaves[name] = dst
+            out.append({"self": leaves})
+        if cuda:
+            self._d2h_done = torch.cuda.Event()
+            self._d2h_done.record(torch.cuda.current_stream(self.device))
+        return out
+
+    def _sync_d2h(self) -> None:
+        """Wait until every spill's D2H copy has landed (one event: the
+        copies share the current stream); a no-op on the CPU, where the
+        copies are synchronous."""
+        if self._d2h_done is not None:
+            self._d2h_done.synchronize()
+            self._d2h_done = None
+
+    def _spill(self, p: int, key: int) -> None:
+        """Retag an LRU-evicted published page as SPILLED: its contents
+        move to a host entry under the same chain hash, so the chain stays
+        matchable after the device page is reallocated.  A page whose own
+        H2D prefetch is still queued spills from the queued host copy (the
+        device page may not hold the bytes yet)."""
+        if self.host_spill_pages <= 0:
+            return
+        chunk = self.page_tokens.get(p)
+        if chunk is None:
+            return
+        data = None
+        for q, e in self._pending_prefetch:
+            if q == p:
+                data = e.data
+                break
+        if data is None:
+            data = self._page_to_host(p)
+        self._host_insert(key, _HostEntry(self.page_parent.get(p),
+                                          chunk, data))
+        self.spilled_pages += 1
+
+    def _host_insert(self, key: int, entry: _HostEntry) -> bool:
+        """Insert a host entry under its own LRU budget, evicting the
+        oldest entries first (a host eviction is final).  An evicted
+        entry still queued for a prefetch stays alive in the queue."""
+        if self.host_spill_pages <= 0:
+            return False
+        if key in self.host_index:
+            self.host_index.move_to_end(key)
+            return False
+        while self.host_used >= self.host_spill_pages:
+            self.host_index.popitem(last=False)
+            self.host_used -= 1
+            self.host_evictions += 1
+        self.host_index[key] = entry
+        self.host_used += 1
+        return True
+
+    def _prefetch_page(self, h: int, parent: Optional[int],
+                       chunk: tuple) -> Optional[int]:
+        """Move a spilled chain entry host→device: grab one fresh device
+        page, re-publish it under the chain hash (``_publish`` removes the
+        host entry) and queue the H2D copy for ``flush_prefetch``.  None
+        when pages or budget are short: the hit truncates there, as
+        ``prefix_discounts`` promised."""
+        entry = self.host_index.get(h)
+        if entry is None:
+            return None
+        fresh = self._grab_pages(1)
+        if fresh is None:
+            return None
+        q = fresh[0]
+        self._pending_prefetch.append((q, entry))
+        self._publish(q, h, parent, chunk)
+        self.prefetched_pages += 1
+        self.spilled_hit_tokens += len(chunk)
+        return q
+
+    def flush_prefetch(self) -> int:
+        """Run every queued host→device page copy; returns pages copied.
+        Per pool leaf the queued entries are stacked into one staging
+        tensor (pinned on a card: ``torch.stack`` of pinned tensors would
+        return pageable memory, from which a ``non_blocking`` copy is
+        synchronous), copied to the device in one ``non_blocking`` copy
+        and written on the page axis by one ``index_copy_``, all on the
+        current stream, so every later kernel on it reads the prefetched
+        content.  The engine flushes at the top of ``execute()``;
+        ``lane_cache`` and ``_copy_pages`` flush before they read."""
+        if not self._pending_prefetch:
+            return 0
+        pend, self._pending_prefetch = self._pending_prefetch, []
+        self._sync_d2h()          # a queued entry may be a spill in flight
+        cuda = self.device.type == "cuda"
+        if cuda:                  # drop staging the stream has passed
+            self._h2d_inflight = [x for x in self._h2d_inflight
+                                  if not x[0].query()]
+        di = torch.as_tensor([q for q, _ in pend], dtype=torch.long,
+                             device=self.device)
+        staged = []
+        for i, (pool, ax) in enumerate(zip(self.pools, self._paged_axes())):
+            if ax is None:
+                continue
+            for name, leaf in pool["self"].items():
+                xs = [e.data[i]["self"][name] for _, e in pend]
+                if cuda:
+                    shape = list(xs[0].shape)
+                    shape.insert(ax, len(xs))
+                    buf = torch.empty(shape, dtype=leaf.dtype,
+                                      pin_memory=True)
+                    torch.stack(xs, dim=ax, out=buf)
+                    staged.append(buf)
+                    vals = buf.to(self.device, non_blocking=True)
+                else:
+                    vals = torch.stack(xs, dim=ax)
+                leaf.index_copy_(ax, di, vals)
+        if cuda:
+            # the staging buffers live until the stream passes the copies
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._h2d_inflight.append((ev, staged))
+        self.prefetch_flushes += 1
+        return len(pend)
+
+    def prefetch_seconds(self, n_pages: int) -> float:
+        """Modeled H2D latency of prefetching ``n_pages`` spilled pages:
+        the term the DP planner charges against a spilled hit's TTFT
+        deadline."""
+        if n_pages <= 0:
+            return 0.0
+        return (n_pages * kv_page_bytes(self.cfg, self.page_size, self.dtype)
+                / (self.h2d_gbps * 1e9))
+
+    # -------------------- cross-manager chain transfer ------------------ #
+    def root_chains(self) -> list[int]:
+        """Chain hashes of every resident first-page entry (device or
+        host): the exportable chain roots."""
+        roots = [self.page_key[p] for p in self.children.get(None, ())]
+        roots += [h for h, e in self.host_index.items() if e.parent is None]
+        return roots
+
+    def export_chain(self, h: int) -> list[tuple]:
+        """Export the published chain rooted at hash ``h`` as host-tier
+        entries ``(hash, parent, chunk, data)``, walking device and host
+        entries alike (D2H-copying device pages, then waiting for the
+        copies, so another manager may read the data).  Linear chains
+        only: a branching chain exports its smallest-page-id branch."""
+        self.flush_prefetch()      # device reads below must see content
+        out: list[tuple] = []
+        while h is not None and len(out) < self.max_pages_per_seq:
+            p = self.prefix_index.get(h)
+            if p is not None:
+                out.append((h, self.page_parent.get(p),
+                            self.page_tokens.get(p), self._page_to_host(p)))
+            elif h in self.host_index:
+                e = self.host_index[h]
+                out.append((h, e.parent, e.chunk, e.data))
+            else:
+                break
+            nxt = None
+            kids = self.children.get(h)
+            if kids:
+                nxt = self.page_key[min(kids)]
+            else:
+                for hh, e in self.host_index.items():
+                    if e.parent == h:
+                        nxt = hh
+                        break
+            h = nxt
+        self._sync_d2h()
+        return out
+
+    def install_host_chain(self, entries: list[tuple]) -> int:
+        """Install exported chain entries into this manager's HOST tier
+        (proactive placement, drain-time spill to survivors).  Hashes
+        already resident, device-published or spilled, are skipped, so
+        installs are idempotent and a chain never sits in both indexes.
+        Returns entries installed."""
+        if self.host_spill_pages <= 0 or not self.share_prefix:
+            return 0
+        n = 0
+        for h, parent, chunk, data in entries:
+            if h in self.prefix_index or h in self.host_index \
+                    or chunk is None:
+                continue
+            if self._host_insert(h, _HostEntry(parent, tuple(chunk), data)):
+                n += 1
+        return n
+
     # ------------------------- prefix sharing --------------------------- #
     @staticmethod
     def _chain(parent: Optional[int], chunk) -> int:
         return hash((parent, tuple(int(t) for t in chunk)))
+
+    def probe_prefix(self, tokens) -> int:
+        """Longest prefix (in tokens) ``_share_pages`` would map for this
+        stream right now, capped at ``len(tokens) - 1``; read-only (the
+        cluster's prefix-affinity probe).  It truncates where the budget
+        would, as ``prefix_discounts`` does."""
+        return self.prefix_discounts(tokens)[0]
 
     def live_prefix_pages(self, tokens, exclude_pages=None) -> int:
         """Matched prefix pages currently mapped by other requests."""
@@ -393,42 +664,59 @@ class PagedKVManager(PageAllocator):
     def prefix_discounts(self, tokens,
                          exclude_pages=None) -> tuple[int, int, int]:
         """``(probe hit tokens, live pages, spilled pages)`` from one chain
-        walk; spilled is always 0 without a spill tier."""
+        walk.  ``spilled`` counts the host-tier entries inside the hit,
+        each of which costs one fresh device page to deliver (physical
+        and budget, mirrored below) and one page of H2D transfer."""
         matches, hit, partial = self._match_pages(tokens)
-        live = int(sum(1 for p, _, _, _ in matches
-                       if self.refcount[p] > 0
+        live = int(sum(1 for m in matches if m[0] is not None
+                       and self.refcount[m[0]] > 0
                        and (exclude_pages is None
-                            or p not in exclude_pages)))
+                            or m[0] not in exclude_pages)))
         if not matches and partial is None:
             return 0, live, 0
         avail = self.budget.available if self.budget is not None else None
         phys = len(self.free) + len(self.cached)
         usable = 0
+        spilled = 0
         for p, _, _, _ in matches:
-            if self.refcount[p] > 0:
+            if p is not None and self.refcount[p] > 0:
                 usable += 1
-            elif avail is None or avail > 0:
+            elif p is not None:
                 # cached revival: one budget page; the page leaves the pool
-                if avail is not None:
-                    avail -= 1
-                phys -= 1
-                usable += 1
+                if avail is None or avail > 0:
+                    if avail is not None:
+                        avail -= 1
+                    phys -= 1
+                    usable += 1
+                else:
+                    partial = None   # _share_pages truncates the same way
+                    break
             else:
-                partial = None   # _share_pages truncates the same way
-                break
+                # spilled entry: one freshly grabbed device page
+                if phys > 0 and (avail is None or avail > 0):
+                    if avail is not None:
+                        avail -= 1
+                    phys -= 1
+                    usable += 1
+                    spilled += 1
+                else:
+                    partial = None
+                    break
         out = min(hit, usable * self.page_size)
         if partial is not None and out == hit and phys > 0 \
                 and (avail is None or avail > 0):
             out += partial[1]
-        return out, live, 0
+        return out, live, spilled
 
     def _match_pages(self, tokens) -> tuple[list[tuple], int,
                                             Optional[tuple[int, int]]]:
         """(matches, hit_tokens, partial) of the longest published chain
-        for ``tokens``: matches are ``(page, chain_hash, parent, chunk)``,
-        ``hit`` is capped at ``len(tokens) - 1`` and ``partial =
-        (donor_page, head_len)`` extends an uncapped chain with a
-        token-verified head of a published boundary page."""
+        for ``tokens``, walking the device index and the host tier as one
+        chain: matches are ``(page, chain_hash, parent, chunk)``, page
+        None for a spilled link; ``hit`` is capped at ``len(tokens) - 1``
+        and ``partial = (donor_page, head_len)`` extends an uncapped chain
+        with a token-verified head of a published boundary page.  Counts
+        the root chain's hit in ``chain_hits``."""
         if not self.share_prefix or tokens is None or len(tokens) < 2:
             return [], 0, None
         ps = self.page_size
@@ -438,10 +726,17 @@ class PagedKVManager(PageAllocator):
             nh = self._chain(h, chunk)
             p = self.prefix_index.get(nh)
             # hash match alone is not proof: verify the exact tokens
-            if p is None or self.page_tokens.get(p) != chunk:
-                break
-            matches.append((p, nh, h, chunk))
+            if p is not None and self.page_tokens.get(p) == chunk:
+                matches.append((p, nh, h, chunk))
+            else:
+                he = self.host_index.get(nh)
+                if he is None or he.chunk != chunk:
+                    break
+                matches.append((None, nh, h, chunk))
             h = nh
+        if matches:
+            root = matches[0][1]
+            self.chain_hits[root] = self.chain_hits.get(root, 0) + 1
         hit = min(len(matches) * ps, len(tokens) - 1)
         if hit < len(matches) * ps:
             return (matches[:self.pages_needed(hit) if hit else 0],
@@ -473,12 +768,20 @@ class PagedKVManager(PageAllocator):
 
     def _share_pages(self, rid: int, tokens) -> int:
         """Map the longest published chain into rid's (empty) block table
-        with refcount bumps; a partial-page boundary match appends a CoW
-        copy of the donor's head and counts only the verified head."""
+        with refcount bumps; a spilled link is prefetched into a fresh
+        page (its copy queued for ``flush_prefetch``); a partial-page
+        boundary match appends a CoW copy of the donor's head and counts
+        only the verified head."""
         self._partial_pending = 0
         matches, hit, partial = self._match_pages(tokens)
         taken: list[int] = []
-        for p, _, _, _ in matches:
+        for p, nh, parent, chunk in matches:
+            if p is None:
+                q = self._prefetch_page(nh, parent, chunk)
+                if q is None:   # device pages or budget short: truncate
+                    break
+                taken.append(q)   # _grab_pages already set refcount = 1
+                continue
             if self.refcount[p] > 0:
                 self.refcount[p] += 1
             elif self.budget is None or self.budget.reserve(1):
@@ -542,6 +845,9 @@ class PagedKVManager(PageAllocator):
         self.page_tokens[p] = chunk
         self.page_parent[p] = parent
         self.children.setdefault(parent, set()).add(p)
+        # a chain is never device-published and spilled at once
+        if self.host_index.pop(h, None) is not None:
+            self.host_used -= 1
 
     def _unpublish(self, p: int) -> None:
         key = self.page_key.pop(p, None)
@@ -617,17 +923,17 @@ class PagedKVManager(PageAllocator):
 
     def _copy_pages(self, src: list[int], dst: list[int]) -> None:
         """Copy pages ``src`` onto pages ``dst`` in every pool, in place
-        (the right-hand side is gathered before the write)."""
+        (the right-hand side is gathered before the write).  Pending
+        prefetches flush first: a source may be a prefetched page whose
+        copy is still queued."""
+        self.flush_prefetch()
         si = torch.as_tensor(src, dtype=torch.long, device=self.device)
         di = torch.as_tensor(dst, dtype=torch.long, device=self.device)
-        for pool, (kind, n) in zip(self.pools, self.cfg.segments()):
-            if kind == "ssm":
+        for pool, ax in zip(self.pools, self._paged_axes()):
+            if ax is None:
                 continue                       # lane rows: nothing paged
             for leaf in pool["self"].values():
-                if n > 1:
-                    leaf[:, di] = leaf[:, si]
-                else:
-                    leaf[di] = leaf[si]
+                leaf.index_copy_(ax, di, leaf.index_select(ax, si))
 
     # ------------------------ device-facing views ----------------------- #
     def table_rows(self, slots) -> torch.Tensor:
@@ -646,7 +952,9 @@ class PagedKVManager(PageAllocator):
         """The cache a model call reads: page pools pass through whole
         (global, addressed by block tables, updated in place); SSM lane
         rows are gathered to one row per batch lane (``slots`` may repeat
-        a slot for padded lanes)."""
+        a slot for padded lanes).  Pending prefetches flush first, so the
+        view never exposes a page whose copy is still queued."""
+        self.flush_prefetch()
         idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
         return [pool if ax < 0 else
                 {k: v.index_select(ax, idx) for k, v in pool.items()}

@@ -37,7 +37,13 @@ def no_cuda(monkeypatch):
 def test_every_module_imports_without_nvcc_or_card():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
-    assert "repro_torch.kernels.paged_prefill" in names
+    assert {"repro_torch.kernels.paged_prefill",
+            "repro_torch.serving.cluster", "repro_torch.core.simulator",
+            "repro_torch.core.router", "repro_torch.core.baselines",
+            "repro_torch.configs.opt"} <= set(names)
+    assert {f"repro_torch.telemetry.{m}" for m in (
+        "registry", "timeseries", "exporters", "instruments",
+        "autoscaler")} <= set(names)
     for name in names:
         importlib.import_module(name)
 
@@ -69,6 +75,10 @@ def test_default_device_raises_without_cuda(no_cuda):
         ServingEngine(cfg, params, draft=(cfg, params))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.build(serve.parse_args(["--reduced"]))
+    from repro_torch.core.perf_model import cpu_scale_perf_model
+    from repro_torch.serving.cluster import ClusterFrontend
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClusterFrontend.build(cfg, params, 2, cpu_scale_perf_model())
 
 
 def test_kernel_wrappers_refuse_other_devices():

@@ -103,6 +103,18 @@ def test_kv_budget_and_page_bytes():
 
 
 def test_unported_options_raise():
+    """Mesh placement is the one manager option still not ported: the
+    manager has no ``place`` and a cluster of mesh-sharded replicas
+    raises.  The host spill tier is ported: asking for it builds the tier
+    (off without prefix sharing, as in the reference)."""
+    from repro_torch.serving.cluster import ClusterFrontend
     cfg = get_reduced("smollm-135m")
+    kv = PagedKVManager(cfg, total_pages=8, host_spill_pages=4,
+                        share_prefix=True, device="cpu")
+    assert kv.host_spill_pages == 4 and not kv.host_index
+    assert PagedKVManager(cfg, total_pages=8, host_spill_pages=4,
+                          device="cpu").host_spill_pages == 0
+    assert not hasattr(kv, "place")
     with pytest.raises(NotImplementedError):
-        PagedKVManager(cfg, total_pages=8, host_spill_pages=4)
+        ClusterFrontend.build(cfg, None, 2, None, mesh=object(),
+                              device="cpu")

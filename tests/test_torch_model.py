@@ -101,6 +101,24 @@ def test_logits_match_jax(arch):
                                atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "command-r-plus-104b",
+                                  "opt-125m"])
+def test_dense_zoo_logits_match_jax(arch):
+    """The rest of the dense zoo (its block kinds are the main path's):
+    the registry serves each config as the reference defines it, and
+    full-causal logits of the reduced config match on bridged weights."""
+    assert dataclasses.asdict(get_config(arch)) == \
+        dataclasses.asdict(jcfgs.get_config(arch))
+    jcfg, jparams, cfg, tparams = _jax_model(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 40))
+    h, _, _ = _jax_forward(jparams, jcfg, jnp.asarray(toks, jnp.int32))
+    want = np.asarray(jmodels.logits_fn(jparams, jcfg, h))
+    th, _ = model_forward(tparams, cfg, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(logits_fn(tparams, cfg, th).numpy(), want,
+                               atol=ATOL, rtol=0)
+
+
 def test_full_smollm_shapes_match_jax():
     """Full-width smollm-135m: the same config, parameter count and every
     parameter's shape, without a forward pass (shapes only, on 'meta')."""
