@@ -17,8 +17,9 @@ script exits non-zero before the final line:
    about 2k, prefill chunks of 512; and the replay's commonest shapes, one
    lane decoding over 1861 keys and one lane's 8-row prefill bucket with 2
    live rows after 477 keys), at head dim 32 and 128 (qwen3-1.7b, GQA 2,
-   sliding window 4096 over a 6000-token context) and at whisper's decoder
-   (GQA 1, a 28-page table), with masked lanes, mid-page chunk starts, and
+   sliding window 4096 over a 6000-token context), at whisper's decoder
+   (GQA 1, a 28-page table) and at phi4-mini's heads (24 query / 8 KV of
+   128: GQA 3, a 64-page table), with masked lanes, mid-page chunk starts, and
    both one block per query tile and keys split over blocks with a merge
    launch.  Outputs agree within 1e-4 on valid rows, pools are bit-equal
    after the write, poisoned pages unchanged.  At the timed shapes each
@@ -168,12 +169,38 @@ script exits non-zero before the final line:
     eight lanes is timed whole and by part (one layer's cross K/V
     projection, which the reference's design repeats in every step, its
     cross-attention, its self-attention).
-17. The kernels line (B1 and B2 launches from step 4, B3's from step 7,
+17. The serving surface: ``repro_torch.launch.serve.http_gateway`` (the
+    launcher's ``--http`` cluster) stands up two replicas of phi4-mini-3.8b
+    at its published width and depth (32 layers, 24 query / 8 KV heads of
+    128, vocab 200064; random weights from the seed, float32, about 15.3
+    GB) sharing one parameter copy, 256 pages a replica over 512 (page
+    16), max_len 1024, 8 slots, behind the HTTP/SSE gateway.  The traffic
+    is the paper's six-scenario trace (``core/trace.py``; 18 entries,
+    stage lengths scaled by 0.25 and capped at 128), saved with
+    ``save_trace`` and replayed from ``load_trace``.  Part 1: every entry
+    posted over real TCP to an ``autostep=False`` gateway, then pumped
+    until idle; every SSE stream equal to the same trace driven in process
+    on a fresh identical cluster (a difference only where the top-2
+    margin of plain generation over that request's history is below
+    1e-4), every emitted token held against plain generation over the
+    history the engine recorded (tool contexts included), the short
+    single-stage streams also against ``greedy_reference``; ``done``
+    events equal to ``ClusterStats`` and the telemetry registry; counts
+    zeroed just before the pump: B1 once per layer per decode step and B2
+    once per layer per prefill group over both replicas, no other kernel,
+    no plain version.  Part 2: the entries posted open loop at their
+    arrival offsets to a gateway on its own thread (``run_in_thread``),
+    one client leaving after its first token (its request cancelled, its
+    pages released), replica 1 drained by ``POST /admin/drain``, ``GET
+    /metrics`` parsed, ``shutdown(drain=True)`` completing every other
+    stream, the shared budget equal to the replicas' used pages after
+    every step; the client's median TTFT and TPOT in wall seconds.
+18. The kernels line (B1 and B2 launches from step 4, B3's from step 7,
     B4's from step 10, B5's from step 13, B6's from step 16), the card
     line, and ``{"ok": true, "device": ...}``.
 
 Every earlier replay also checks that B6 never launched: only the
-no-cache attention of plain generation (steps 3, 5, 6, 15) and
+no-cache attention of plain generation (steps 3, 5, 6, 15, 17) and
 the encoder / cross-attention of steps 15-16 run it.
 
 It imports nothing of JAX or of the JAX package.
@@ -196,6 +223,7 @@ from pathlib import Path
 import torch
 
 LIMIT = 1e-4                   # max |kernel - plain| on valid rows
+TIE = 1e-4                     # a top-2 logit margin below it is a tie
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
@@ -455,7 +483,12 @@ def pages_visited(lo_pos, hi_pos, page):
 # commonest decode step (one lane; 1861 keys, the median over the one-lane
 # steps of a CPU rehearsal of the replay at the card's engine config; the
 # main path checks that it ran one-lane steps); "whisper" is
-# whisper-large-v3's decoder self-attention (G 1 over a 448-token table).
+# whisper-large-v3's decoder self-attention (G 1 over a 448-token table);
+# "phi4" is phi4-mini-3.8b behind the gateway (G 3 at head dim 128, which
+# takes the kernel's group-4 instantiation with one row masked; a 1024-
+# token table, lengths from one key to full, and a padded lane: a length
+# of 0 in a case makes a lane alias lane 0's table and length, as the
+# engine pads a decode group).
 DECODE_CASES = [   # name, B, H, KVH, hd, page, max_pages, lens, window
     ("main", 8, 9, 3, 64, 16, 256,
      [1, 17, 333, 780, 1024, 1500, 1999, 2048], None),
@@ -463,6 +496,8 @@ DECODE_CASES = [   # name, B, H, KVH, hd, page, max_pages, lens, window
     ("hd32", 8, 6, 2, 32, 8, 64, [1, 8, 9, 100, 200, 300, 500, 512], None),
     ("hd128_window", 4, 16, 8, 128, 16, 400, [6000, 4097, 4096, 37], 4096),
     ("whisper", 8, 20, 20, 64, 16, 28, [1, 15, 16, 17, 100, 250, 447, 448],
+     None),
+    ("phi4", 8, 24, 8, 128, 16, 64, [1, 17, 130, 256, 531, 700, 1024, 0],
      None),
 ]
 DECODE_TIMED = ("main", "replay")
@@ -475,6 +510,10 @@ def decode_phase(pa):
     results = {}
     for name, B, H, KVH, hd, page, max_pages, lens, window in DECODE_CASES:
         kp, vp, table = pools_and_tables(gen, B, KVH, hd, page, max_pages)
+        padded = [b for b, n in enumerate(lens) if n == 0]
+        if padded:
+            lens = [lens[0] if n == 0 else n for n in lens]
+            table[padded] = table[0].clone()
         q = torch.randn(B, H, hd, generator=gen, device="cuda")
         sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
         scale = hd ** -0.5
@@ -503,7 +542,8 @@ def decode_phase(pa):
         ok = err <= LIMIT and perr <= LIMIT and bool(torch.isfinite(got).all())
         rec = {"phase": "kernel", "kernel": "paged_decode_attention",
                "case": name, "B": B, "H": H, "KVH": KVH, "hd": hd,
-               "page": page, "seq_lens": lens, "window": window,
+               "page": page, "seq_lens": lens, "padded_lanes": padded,
+               "window": window,
                "splits": pa.n_splits(B, KVH, page, max_pages, window, n_sms),
                "max_abs_err": err, "poisoned_err": perr, "ok": ok}
         if name in DECODE_TIMED:
@@ -587,7 +627,10 @@ def decode_timing(pa, q, kp, vp, table, sl, lens, window):
 # in a CPU rehearsal of the replay at the card's engine config, with 2.3
 # live rows on average after a median 477 keys of history; the main path
 # checks that it ran one-lane 8-row groups); "g1" is whisper-large-v3's
-# decoder (20 query over 20 KV heads, a 448-token table).
+# decoder (20 query over 20 KV heads, a 448-token table); "phi4" is
+# phi4-mini-3.8b behind the gateway (24 query over 8 KV heads, head dim
+# 128: a GQA group of 3; 128-row chunks from mid-page starts and a masked
+# lane, over its 64-page table).
 PREFILL_CASES = [  # name, B, S, H, KVH, hd, page, max_pages, pos0, clen, win
     ("main", 8, 512, 9, 3, 64, 16, 256,
      [0, 0, 7, 512, 1000, 1480, 0, 0], [512, 300, 512, 512, 488, 512, 1, 0],
@@ -599,6 +642,8 @@ PREFILL_CASES = [  # name, B, S, H, KVH, hd, page, max_pages, pos0, clen, win
      [0, 3, 8, 100, 77, 0, 0, 0], [64, 64, 64, 1, 40, 0, 0, 0], None),
     ("hd128_window", 4, 512, 16, 8, 128, 16, 400,
      [5488, 4000, 9, 0], [512, 300, 512, 0], 4096),
+    ("phi4", 4, 128, 24, 8, 128, 16, 64, [0, 130, 375, 896],
+     [128, 106, 128, 0], None),
 ]
 # B3 at qwen3-1.7b's heads (16 query, 8 KV, head dim 128; one lane, an 8-
 # or 16-row window with 1 to 9 live rows) over histories of 0, 37, 524,
@@ -822,7 +867,7 @@ def compare_stream(got, want, margins):
     below 1e-4 (a tie)."""
     first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
                  None)
-    tie = first is not None and margins[first] < 1e-4
+    tie = first is not None and margins[first] < TIE
     return {"tokens": len(got), "equal": first is None,
             "first_difference": first, "tie": tie,
             "min_top2_margin": min(margins[:len(got)], default=None),
@@ -2789,6 +2834,417 @@ def cluster_phase(cfg, params, kernels, seed: int):
     return launches
 
 
+# ---------------------------- gateway phase ---------------------------- #
+# The serving surface on the card: phi4-mini-3.8b at its published width
+# and depth (random weights from the seed, float32, about 15.3 GB), two
+# replicas sharing one parameter copy behind the HTTP/SSE gateway,
+# built by the launcher's own ``http_gateway`` (page 16, 256 pages a
+# replica over 512, max_len 1024, 8 slots).  The traffic is the paper's
+# six-scenario mix (``core/trace.py``): 18 entries at 4/s over 4 s, stage
+# lengths scaled by 0.25 and capped at 128, token ids over the model's
+# whole vocabulary; 2612 prefill and 1272 decode tokens, at most 532 in
+# one request (a tool loop of six stages).
+GATEWAY = dict(arch="phi4-mini-3.8b", replicas=2, rate=4.0, duration=4.0,
+               time_scale=0.25, max_stage_tokens=128, entries=18,
+               page=16, replica_pages=256, total_pages=512, max_len=1024,
+               max_slots=8, greedy_max_tokens=32, max_steps=20_000)
+
+
+def gateway_model(seed: int):
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import init_params
+
+    cfg = get_config(GATEWAY["arch"])
+    dev = torch.device("cuda")
+    return cfg, init_params(cfg, generator(dev, seed), device=dev)
+
+
+class HistoryLog:
+    """What each request of a cluster was sampled from: the engine's token
+    history (the exact tokens its KV pages hold) at the request's finish,
+    and for every emitted token the length of the history it followed (a
+    prefill emission follows the whole history; a decode group's k
+    tokens the history before the group plus 1..k, as the engine writes
+    the group's start token and all but its last emission).  Each token
+    can then be held against plain generation over that history, tool
+    contexts included."""
+
+    def __init__(self, cluster):
+        self.cluster = cluster
+        self.history: dict[int, list] = {}
+        self.prefix: dict[int, list] = {}
+        self.tokens: dict[int, list] = {}
+        for d in cluster.drivers:
+            self._wrap(d.engine)
+
+    def _wrap(self, eng):
+        finish = eng.finish
+
+        def spy(rid, *a, **k):
+            ctx = eng.reqs.get(rid)
+            if ctx is not None:
+                self.history[rid] = list(ctx.history)
+            return finish(rid, *a, **k)
+        eng.finish = spy
+
+    def on_token(self, rid, toks) -> None:
+        ctx = next(d.engine.reqs[rid] for d in self.cluster.drivers
+                   if rid in d.engine.reqs)
+        H, k = len(ctx.history), len(toks)
+        self.prefix.setdefault(rid, []).extend(H - k + 1 + i
+                                               for i in range(k))
+        self.tokens.setdefault(rid, []).extend(int(t) for t in toks)
+
+
+def plain_over_history(params, cfg, log: HistoryLog, rid: int, dev):
+    """Every token ``rid`` emitted against plain full-causal generation
+    over the history the engine recorded: one forward over the history,
+    the logits only at the rows that sampled.  A token may differ from the
+    argmax only where the top-2 margin there is below the tie bound."""
+    from repro_torch.models import logits_fn, model_forward
+
+    if rid not in log.tokens:            # dropped before any token
+        return {"tokens": 0, "history": 0, "differ": 0, "ties": 0,
+                "min_top2_margin": None, "ok": True}, []
+    hist, pre, toks = log.history[rid], log.prefix[rid], log.tokens[rid]
+    with torch.no_grad():
+        h, _ = model_forward(params, cfg, torch.tensor([hist], device=dev))
+        rows = torch.tensor([p - 1 for p in pre], device=dev)
+        lg = logits_fn(params, cfg, h[0, rows])
+        top = torch.topk(lg, 2, dim=-1).values
+        margins = (top[:, 0] - top[:, 1]).tolist()
+        arg = torch.argmax(lg, dim=-1).tolist()
+    diff = [i for i, (a, t) in enumerate(zip(arg, toks)) if a != t]
+    return {"tokens": len(toks), "history": len(hist),
+            "differ": len(diff), "ties": sum(margins[i] < TIE for i in diff),
+            "min_top2_margin": min(margins),
+            "ok": (max(pre) <= len(hist) and len(arg) == len(toks)
+                   and all(margins[i] < TIE for i in diff))}, margins
+
+
+def gateway_phase(cfg, params, kernels, seed: int):
+    """The serving surface on the card, in two parts.  Part 1
+    (conformance): every trace entry posted over real TCP to an
+    ``autostep=False`` gateway, accepted, then pumped until idle; each SSE
+    stream against the same trace driven in process on a fresh identical
+    cluster, every stream against plain generation over its recorded
+    history, the short single-stage ones also against
+    ``greedy_reference``; the ``done`` events against ``ClusterStats`` and
+    the telemetry registry; launch counts zeroed just before the pump.
+    Part 2 (live traffic): the same entries posted open loop at their
+    arrival offsets to a gateway on its own thread (``run_in_thread``),
+    one client leaving after its first token, replica 1 drained through
+    ``POST /admin/drain`` mid-trace, ``GET /metrics`` parsed, and
+    ``shutdown(drain=True)`` completing every accepted stream; the shared
+    budget checked after every step."""
+    import asyncio
+    import numpy as np
+    from repro_torch.core.trace import generate_trace, load_trace, save_trace
+    from repro_torch.launch import serve
+    from repro_torch.serving.gateway import (collect_stream, http_get,
+                                             http_post, open_sse,
+                                             request_from_payload,
+                                             run_in_thread, sse_events)
+    from repro_torch.telemetry import parse_prometheus
+
+    g = GATEWAY
+    dev = torch.device("cuda")
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    entries = generate_trace(g["rate"], g["duration"], seed=seed,
+                             time_scale=g["time_scale"],
+                             max_stage_tokens=g["max_stage_tokens"],
+                             vocab=cfg.vocab)
+    path = Path(__file__).resolve().parent / "build" / "gateway_trace.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_trace(entries, str(path))
+    loaded = load_trace(str(path))
+    decode_of = {e.rid: sum(n for k, n, _ in e.stages if k == "decode")
+                 for e in loaded}
+    trace_info = {
+        "entries": len(loaded), "scenarios": sorted({e.scenario
+                                                     for e in loaded}),
+        "prefill_tokens": sum(n for e in loaded for k, n, _ in e.stages
+                              if k == "prefill"),
+        "decode_tokens": sum(decode_of.values()),
+        "max_request_tokens": max(e.total_tokens() for e in loaded),
+        "max_stages": max(len(e.stages) for e in loaded),
+        "vocab": cfg.vocab, "file_bytes": path.stat().st_size}
+
+    def gateway(autostep):
+        gw = serve.http_gateway(cfg, params, g["replicas"], reduced=False,
+                                device=dev, autostep=autostep, seed=seed)
+        return gw, gw.cluster
+
+    def sizes(cl):
+        e = cl.drivers[0].engine
+        return {"page": e.ecfg.page_size, "replica_pages": e.kv.total_pages,
+                "total_pages": cl.budget.total_pages,
+                "max_len": e.ecfg.max_len, "max_slots": e.ecfg.max_slots,
+                "params_shared": all(d.engine.params is params
+                                     for d in cl.drivers)}
+
+    # ---- part 1: conformance over real TCP, then in process ---------- #
+    gw, cl = gateway(autostep=False)
+    shape = sizes(cl)
+    log = HistoryLog(cl)
+    relay = gw._on_token
+
+    def spy_token(rid, toks):
+        log.on_token(rid, toks)
+        relay(rid, toks)
+    gw._on_token = spy_token
+
+    async def conformance():
+        await gw.start()
+        try:
+            tasks = [asyncio.create_task(collect_stream(
+                gw.host, gw.port, e.to_payload())) for e in loaded]
+            for _ in range(3000):
+                if gw.stats.accepted >= len(loaded):
+                    break
+                await asyncio.sleep(0.01)
+            for mod in kernels.values():
+                mod.COUNTS["kernel"] = mod.COUNTS["plain"] = 0
+            t0 = time.perf_counter()
+            steps = await gw.pump_until_idle(max_steps=g["max_steps"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: dict(mod.COUNTS)
+                        for name, mod in kernels.items()}
+            return await asyncio.gather(*tasks), steps, wall, launches
+        finally:
+            await gw.shutdown(drain=True)
+
+    results, steps1, wall1, launches1 = asyncio.run(conformance())
+    counters1 = {k: sum(d.engine.counters[k] for d in cl.drivers)
+                 for k in ("prefill_calls", "decode_calls", "decode_steps",
+                           "decode_tokens", "preemptions")}
+    stats1 = cl.stats
+    parsed = parse_prometheus(cl.telemetry.prometheus())
+    finished = {a: sum(v for (name, labels), v in parsed.items()
+                       if name == "repro_requests_finished_total"
+                       and ("attained", a) in labels)
+                for a in ("true", "false")}
+    entry_of = {r["rid"]: e for r, e in zip(results, loaded)}
+    sse = {r["rid"]: r for r in results}
+
+    # the same trace in process on a fresh identical cluster
+    _, ref = gateway(autostep=True)
+    ref_log = HistoryLog(ref)
+    ref_streams: dict[int, list] = {}
+
+    def ref_token(rid, toks):
+        ref_log.on_token(rid, toks)
+        ref_streams.setdefault(rid, []).extend(int(t) for t in toks)
+    for rid in sorted(entry_of):
+        req, prompt = request_from_payload(entry_of[rid].to_payload(), rid,
+                                           0.0)
+        ref.submit(req, prompt=prompt, on_token=ref_token)
+    t0 = time.perf_counter()
+    ref.run_until_idle(max_steps=g["max_steps"])
+    torch.cuda.synchronize()
+    wall_ref = time.perf_counter() - t0
+
+    # every stream against plain generation over its history; the SSE
+    # stream against the in-process one under the tie rule
+    streams, min_margin = {}, None
+    for rid in sorted(sse):
+        got = sse[rid]["tokens"]
+        plain, margins = plain_over_history(params, cfg, log, rid, dev)
+        want = ref_streams.get(rid, [])
+        first = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+        if first is None and len(got) != len(want):
+            first = min(len(got), len(want))
+        tie = (first is not None and first < len(margins)
+               and margins[first] < TIE)
+        rec = {"scenario": entry_of[rid].scenario,
+               "stages": len(entry_of[rid].stages), "plain": plain,
+               "equal_inprocess": first is None, "first_difference": first,
+               "tie": tie, "ok": plain["ok"] and (first is None or tie)
+               and (sse[rid]["done"]["dropped"]
+                    or len(got) == decode_of[entry_of[rid].rid])}
+        if first is not None and not tie:
+            rec["history_equal"] = log.history.get(rid) == \
+                ref_log.history.get(rid)
+        if plain["min_top2_margin"] is not None:
+            min_margin = min(m for m in (min_margin, plain["min_top2_margin"])
+                             if m is not None)
+        streams[rid] = rec
+    greedy = {}
+    for rid in sorted(sse):
+        e = entry_of[rid]
+        got = sse[rid]["tokens"]
+        if len(e.stages) == 2 and 0 < len(got) <= g["greedy_max_tokens"]:
+            want, margins = greedy_reference(params, cfg, list(e.prompt),
+                                             len(got), dev)
+            greedy[rid] = {"scenario": e.scenario,
+                           **compare_stream(got, want, margins)}
+            min_margin = min(min_margin, greedy[rid]["min_top2_margin"])
+    done = [r["done"] for r in results]
+    kernel_checks1 = {
+        "decode_launches":
+            launches1["decode"]["kernel"] == L * counters1["decode_steps"],
+        "prefill_launches":
+            launches1["prefill"]["kernel"] == L * counters1["prefill_calls"],
+        "no_other_kernel": not any(
+            launches1[k]["kernel"] for k in launches1
+            if k not in ("decode", "prefill")),
+        "no_plain": not any(v["plain"] for v in launches1.values()),
+    }
+    part1 = {"wall_s": wall1, "inprocess_wall_s": wall_ref,
+             "steps": steps1, **counters1, "launches": launches1,
+             "stats": stats1.as_dict(), "finished_registry": finished,
+             "streams": streams, "greedy": greedy,
+             "streams_compared_plain": len(streams) + len(greedy),
+             "min_top2_margin": min_margin}
+    del gw, cl, ref, log, ref_log
+    free_device_memory()
+
+    # ---- part 2: live open-loop traffic on the gateway's own thread --- #
+    gw2, cl2 = gateway(autostep=True)
+    drivers2 = list(cl2.drivers)
+    conserved = []
+    step = cl2.step
+
+    def checked_step(*a, **k):
+        n = step(*a, **k)
+        conserved.append(cl2.budget.used == sum(
+            d.engine.kv.used_pages for d in cl2.drivers))
+        return n
+    cl2.step = checked_step
+    leaver = max(loaded, key=lambda e: (decode_of[e.rid], -e.rid))
+    drain_after = len(loaded) // 2
+    handle = run_in_thread(cl2, seed=seed)
+    host, port = handle.host, handle.port
+    clients: dict[int, dict] = {}
+
+    async def client(e, t_post):
+        rec = {"entry": e.rid, "post": t_post, "times": [], "tokens": 0,
+               "done": None, "rid": None}
+        reader, writer = await open_sse(host, port, e.to_payload())
+        try:
+            async for ev, data in sse_events(reader):
+                now = time.perf_counter()
+                if ev == "start":
+                    rec["rid"] = data["rid"]
+                elif ev == "token":
+                    rec["times"].append(now)
+                    rec["tokens"] += len(data["tokens"])
+                    if e is leaver:
+                        break            # walk away after the first token
+                elif ev == "done":
+                    rec["done"] = data
+                    break
+        finally:
+            writer.close()
+        clients[e.rid] = rec
+
+    async def live():
+        loop = asyncio.get_running_loop()
+        t0 = time.perf_counter()
+        tasks, drain, metrics = [], None, None
+        for i, e in enumerate(loaded):
+            await asyncio.sleep(max(0.0, t0 + e.arrival
+                                    - time.perf_counter()))
+            tasks.append(asyncio.create_task(client(e, time.perf_counter())))
+            if i == drain_after:
+                drain = await http_post(host, port, "/admin/drain",
+                                        {"replica": 1})
+        for _ in range(6000):
+            if handle.gateway.stats.accepted >= len(loaded):
+                break
+            await asyncio.sleep(0.01)
+        metrics = await http_get(host, port, "/metrics")
+        accepted = handle.gateway.stats.accepted
+        await loop.run_in_executor(None, handle.shutdown, True, 1200.0)
+        await asyncio.gather(*tasks)
+        return time.perf_counter() - t0, drain, metrics, accepted
+
+    wall2, drain, metrics, accepted2 = asyncio.run(live())
+    for _ in range(100):                # retire the drained replica
+        if not cl2.draining:
+            break
+        cl2.step()
+    torch.cuda.synchronize()
+    stats2 = cl2.stats
+    gws = handle.gateway.stats
+    left = clients[leaver.rid]["rid"]
+    parsed2 = parse_prometheus(metrics[1]) if metrics[0] == 200 else {}
+    ttft = [c["times"][0] - c["post"] for c in clients.values()
+            if c["times"]]
+    tpot = [(c["times"][-1] - c["times"][0]) / (c["tokens"] - 1)
+            for c in clients.values()
+            if c["done"] is not None and len(c["times"]) >= 2
+            and c["tokens"] >= 2]
+    completed = [c for e, c in clients.items() if e != leaver.rid]
+    part2 = {"wall_s": wall2, "accepted": accepted2,
+             "completed": gws.completed, "disconnected": gws.disconnected,
+             "left_rid": left, "drain_response": drain,
+             "steps_checked": len(conserved), "stats": stats2.as_dict(),
+             "replicas_left": [d.idx for d in cl2.drivers],
+             "metrics_series": sorted({name for name, _ in parsed2}),
+             "ttft_wall_s": statistics.median(ttft) if ttft else None,
+             "tpot_wall_s": statistics.median(tpot) if tpot else None}
+    checks = {
+        "model_full_width": (L, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.head_dim, cfg.vocab)
+        == (32, 3072, 24, 8, 128, 200064),
+        "cluster_shape": shape == {
+            "page": g["page"], "replica_pages": g["replica_pages"],
+            "total_pages": g["total_pages"], "max_len": g["max_len"],
+            "max_slots": g["max_slots"], "params_shared": True},
+        "trace_roundtrip": loaded == entries and len(loaded)
+        == g["entries"] and len(trace_info["scenarios"]) == 6,
+        "all_accepted": len(results) == len(loaded)
+        and all(r["done"] is not None for r in results),
+        "streams_match_inprocess_or_tie": all(s["ok"]
+                                              for s in streams.values()),
+        "streams_match_plain": all(s["plain"]["ok"]
+                                   for s in streams.values())
+        and all(s["ok"] for s in greedy.values()),
+        "greedy_streams": len(greedy) >= 3,
+        "multi_stage_toolllm_held": any(
+            s["scenario"] == "toolllm" and s["stages"] > 2 and s["plain"]["ok"]
+            for s in streams.values()),
+        "done_attained_equals_stats":
+            sum(d["attained"] for d in done) == stats1.attained
+            == finished["true"],
+        "done_dropped_equals_stats":
+            sum(d["dropped"] for d in done) == stats1.dropped,
+        "done_count_equals_served": len(done) == stats1.served
+        == finished["true"] + finished["false"],
+        **kernel_checks1,
+        "live_all_accepted": accepted2 == len(loaded),
+        "live_disconnect_cancelled": gws.disconnected == 1
+        and stats2.cancelled == 1
+        and all(left not in d.engine.reqs and left not in d.engine.kv.tables
+                for d in drivers2),
+        "live_budget_conserved_every_step": bool(conserved) and all(conserved)
+        and cl2.budget.used == 0,
+        "live_drain_completed": drain is not None and drain[0] == 200
+        and [d.idx for d in cl2.drivers] == [0],
+        "live_metrics_parse": metrics[0] == 200
+        and "repro_step_series" in part2["metrics_series"],
+        "live_every_stream_done": gws.completed == accepted2 - 1
+        and all(c["done"] is not None for c in completed),
+        "live_tokens": all(c["done"]["dropped"]
+                           or c["tokens"] == decode_of[e]
+                           for e, c in clients.items() if e != leaver.rid),
+    }
+    emit({"phase": "gateway_replay", "model": cfg.name, "layers": L,
+          "replicas": g["replicas"], **shape, "trace": trace_info,
+          "part1": part1, "part2": part2,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "gpu": card_line(), "checks": checks})
+    if not all(checks.values()):
+        raise SystemExit(f"gateway checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return part1["launches"]
+
+
 def main(argv=()) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA card.")
@@ -2881,6 +3337,12 @@ def main(argv=()) -> int:
     whisper_stream_phase(cfg, params, seed)
     free_device_memory()
     whisper_launches = whisper_replay_phase(cfg, params, kernels, seed)
+    del params
+    free_device_memory()
+    # last: run ahead of the kernel phases, it left the profiler
+    # recording no launch at all in several of their readings
+    cfg, params = gateway_model(seed)
+    gateway_phase(cfg, params, kernels, seed)
     del params
     free_device_memory()
     torch.cuda.synchronize()

@@ -56,6 +56,10 @@ class _HostCuda:
     def max_memory_allocated():
         return 0
 
+    @staticmethod
+    def empty_cache():
+        pass
+
 
 class _TorchOnHost:
     """``torch`` as the phase sees it: the device is the CPU and

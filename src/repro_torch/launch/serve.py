@@ -1,6 +1,6 @@
 """Serving launcher of the port: the SLOs-Serve scheduler driving the
 PyTorch engine end to end through ``ServingFrontend``, in batch-replay
-mode (port of ``repro/launch/serve.py``; the HTTP/SSE mode is not ported).
+mode, or live over HTTP/SSE (port of ``repro/launch/serve.py``).
 
 The planner runs against the same virtual-time performance model as the
 JAX launcher (``cpu_scale_perf_model``), so served / attained / dropped
@@ -15,6 +15,17 @@ with ``--device cpu``:
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
       --reduced --device cpu
+
+``--http`` switches from batch replay to the live serving path: the
+asyncio HTTP/SSE gateway (``serving/gateway.py``) over an N-replica
+``ClusterFrontend`` (``--replicas``), with wall-clock telemetry on ``GET
+/metrics`` and graceful SIGINT/SIGTERM shutdown: intake stops, every
+in-flight stream drains to its done event, then the process exits.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --http --reduced \
+      --device cpu --replicas 2
+  curl -N -d '{"slo":"tight","prompt_len":16,"output_len":32}' \
+      http://127.0.0.1:8080/v1/generate
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ from repro_torch.core.scheduler import SchedulerConfig, SLOsServeScheduler
 from repro_torch.core.workload import generate_workload
 from repro_torch.device import generator, resolve_device
 from repro_torch.models import init_params
+from repro_torch.models.transformer import init_paged_cache
 from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.serving.frontend import ServingFrontend
 
@@ -50,6 +62,11 @@ def parse_args(argv=None):
     ap.add_argument("--time-scale", type=float, default=0.02,
                     help="shrink request lengths (1.0 = the scenario's own)")
     ap.add_argument("--max-requests", type=int, default=24)
+    ap.add_argument("--http", action="store_true",
+                    help="serve over HTTP/SSE instead of batch replay")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--replicas", type=int, default=2)
     return ap.parse_args(argv)
 
 
@@ -61,6 +78,99 @@ def engine_config(reduced: bool) -> EngineConfig:
     max_len, page = 4096, 16
     return EngineConfig(max_slots=8, max_len=max_len, page_size=page,
                         total_pages=8 * math.ceil(max_len / page))
+
+
+def kv_bytes_per_page(cfg, page_size: int) -> int:
+    """Device bytes of one page over every paged pool leaf (all layers'
+    K and V, or MLA's latent rows), from the pools' shapes alone: pools
+    of one page hold two (the write-off page is the second)."""
+    pools = init_paged_cache(cfg, 1, page_size, device="meta")
+    return sum(leaf.numel() * leaf.element_size()
+               for pool in pools if "self" in pool
+               for leaf in pool["self"].values()) // 2
+
+
+# The HTTP mode's cluster.  Reduced: the reference launcher's numbers.
+# Full width: page 16, a 1024-token context and 8 slots, each replica's
+# pools sized by the model's bytes a page to at most HTTP_KV_GIB (and to
+# no more than its slots can fill).
+HTTP_REDUCED = dict(page_size=8, replica_pages=64, max_len=256, max_slots=8)
+HTTP_FULL = dict(page_size=16, max_len=1024, max_slots=8)
+HTTP_KV_GIB = 1.0
+
+
+def http_cluster_config(cfg, reduced: bool) -> dict:
+    """``page_size``, ``replica_pages``, ``max_len`` and ``max_slots`` of
+    one replica of the HTTP mode's cluster."""
+    if reduced:
+        return dict(HTTP_REDUCED)
+    c = dict(HTTP_FULL)
+    fill = c["max_slots"] * math.ceil(c["max_len"] / c["page_size"])
+    per_page = kv_bytes_per_page(cfg, c["page_size"])
+    c["replica_pages"] = (fill if per_page == 0 else
+                          max(1, min(fill, int(HTTP_KV_GIB * 2**30)
+                                     // per_page)))
+    return c
+
+
+def http_gateway(cfg, params, replicas: int, *, reduced: bool, device,
+                 host: str = "127.0.0.1", port: int = 0, seed: int = 0,
+                 autostep: bool = True):
+    """The HTTP mode: ``replicas`` engines over shared ``params`` behind
+    the SLO-routed ``ClusterFrontend`` (one hop, then the backup tier),
+    one page budget of ``replicas`` x ``replica_pages``, wall-clock
+    telemetry, and an ``SSEGateway`` over it, not started yet (``await
+    gw.start()`` on an event loop, or ``run_in_thread(gw.cluster)``)."""
+    from repro_torch.core.router import RoutingPolicy, make_real_cluster
+    from repro_torch.serving.gateway import SSEGateway
+    from repro_torch.telemetry import ClusterTelemetry
+
+    c = http_cluster_config(cfg, reduced)
+    cluster = make_real_cluster(
+        replicas, cfg, params, VIRTUAL_PERF,
+        policy=RoutingPolicy(max_hops=1),
+        total_pages=c["replica_pages"] * replicas,
+        replica_pages=c["replica_pages"], page_size=c["page_size"],
+        max_slots=c["max_slots"], max_len=c["max_len"],
+        sched_cfg=SchedulerConfig(page_size=c["page_size"],
+                                  prefill_emits_first_token=True),
+        telemetry=ClusterTelemetry(enabled=True, wall_clock=True),
+        device=device)
+    return SSEGateway(cluster, host=host, port=port, autostep=autostep,
+                      seed=seed)
+
+
+def serve_http(args) -> None:
+    """Run the SSE gateway until SIGINT/SIGTERM, then drain gracefully."""
+    import asyncio
+    import signal
+
+    device = resolve_device(args.device)
+    cfg = (get_reduced if args.reduced else get_config)(args.arch)
+    params = init_params(cfg, generator(device, args.seed), device=device)
+    gw = http_gateway(cfg, params, args.replicas, reduced=args.reduced,
+                      device=device, host=args.host, port=args.port,
+                      seed=args.seed)
+    cluster = gw.cluster
+
+    async def amain():
+        await gw.start()
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, stop.set)
+        print(f"serving {args.arch} x{args.replicas} at {gw.url} "
+              f"(SSE on POST /v1/generate; Ctrl-C drains and exits)",
+              flush=True)
+        await stop.wait()
+        print("draining in-flight streams...", flush=True)
+        await gw.shutdown(drain=True)
+        s = cluster.stats
+        print(f"drained: served {s.served}/{s.submitted}, "
+              f"attained {s.attained}, cancelled {s.cancelled}, "
+              f"streams completed {gw.stats.completed}", flush=True)
+
+    asyncio.run(amain())
 
 
 def build(args):
@@ -101,7 +211,11 @@ def replay(fe) -> float:
 
 
 def main(argv=None):
-    fe, engine = build(parse_args(argv))
+    args = parse_args(argv)
+    if args.http:
+        serve_http(args)
+        return
+    fe, engine = build(args)
     wall = replay(fe)
     stats = fe.stats
     print(f"served {stats.served}/{stats.submitted} requests "

@@ -26,8 +26,7 @@ This module is ``repro/serving/cluster.py`` with its imports rewritten.
 What differs is ``build``: every replica's engine runs on the one
 ``device`` it is given (on one card all replicas share it, and share the
 same parameter tensors), in float32 only; mesh-sharded replicas
-(``mesh``, ``devices_per_replica``) and page-granular prefix matching
-(``token_level_prefix=False``) are not ported and raise.
+(``mesh``, ``devices_per_replica``) are not ported and raise.
 """
 from __future__ import annotations
 
@@ -171,16 +170,13 @@ class ClusterFrontend:
 
         ``device`` (``resolve_device``: CUDA unless named) carries every
         replica's engine, the autoscaler's too; ``params`` must live on
-        it and are shared, not copied.  ``mesh`` and
-        ``devices_per_replica`` (mesh-sharded replicas),
-        ``token_level_prefix`` False and any ``dtype`` but float32 are not
-        ported and raise."""
+        it and are shared, not copied.  ``token_level_prefix`` goes to
+        every replica's ``EngineConfig``.  ``mesh`` and
+        ``devices_per_replica`` (mesh-sharded replicas) and any ``dtype``
+        but float32 are not ported and raise."""
         if mesh is not None or devices_per_replica is not None:
             raise NotImplementedError(
                 "mesh-sharded replicas are not yet ported")
-        if not token_level_prefix:
-            raise NotImplementedError(
-                "page-granular prefix matching is not yet ported")
         if dtype != torch.float32:
             raise NotImplementedError(
                 f"the port's engine runs in float32 only, not {dtype}")
@@ -197,8 +193,9 @@ class ClusterFrontend:
             """Spawn replica ``i`` — also the autoscaler's grow path, so
             added replicas are configured exactly like the initial pool
             (same shared budget, params, and scheduler config)."""
-            # host-spill knobs default to the EngineConfig defaults
-            # unless set explicitly here
+            # host-spill knobs default to the EngineConfig env-driven
+            # defaults (REPRO_HOST_SPILL / REPRO_HOST_SPILL_PAGES) unless
+            # set explicitly here
             spill_kw = {}
             if host_spill_pages is not None:
                 spill_kw["host_spill_pages"] = host_spill_pages
@@ -209,6 +206,7 @@ class ClusterFrontend:
                 EngineConfig(max_slots=max_slots, max_len=max_len,
                              page_size=page_size, total_pages=replica_pages,
                              seed=seed + i, share_prefix=share_prefix,
+                             token_level_prefix=token_level_prefix,
                              **spill_kw),
                 draft=draft, kv_budget=budget, device=device)
             kw = dict(page_size=page_size, prefill_emits_first_token=True)

@@ -49,23 +49,29 @@ loops, and ``spec_catch_up_calls`` counts the draft's catch-up prefills
 prefill kernel).
 
 The host spill tier (``EngineConfig.host_spill_pages > 0``,
-``serving/kvcache.py``) is ported; its default stays 0, where the
-reference reads ``REPRO_HOST_SPILL[_PAGES]`` from the environment (the
-port reads no environment default yet).  Admissions queue the H2D copies
-of spilled prefix pages and ``execute()`` flushes them first.
+``serving/kvcache.py``) is ported.  Admissions queue the H2D copies of
+spilled prefix pages and ``execute()`` flushes them first.
+
+``EngineConfig`` reads the reference's environment defaults on every
+instantiation: ``REPRO_SHARE_PREFIX`` (prefix sharing, default on),
+``REPRO_TOKEN_LEVEL_PREFIX`` (partial-page head matching, default on;
+off is page-granular matching), and ``REPRO_HOST_SPILL`` /
+``REPRO_HOST_SPILL_PAGES`` (the host tier: 256 pages under
+``REPRO_HOST_SPILL=1``, or the number given).  A field passed
+explicitly wins.  ``prefix_aware_admission`` (default off) lets the
+frontend shave a request's up-front page reservation by its probed
+cached-prefix hit.
 
 Not ported yet: mesh-sharded serving (``EngineConfig.mesh``) and
 speculative decoding over an SSM model (rollback by truncation cannot
 roll back lane state); asking for either raises
-``NotImplementedError``.  Prefix matching is always
-token-level and admission always reserves the full expected context (the
-reference's ``token_level_prefix=False`` and
-``prefix_aware_admission=True`` are not ported).
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -91,6 +97,19 @@ def _bucket(n: int, buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 2048)) -> int:
     return ((n + 2047) // 2048) * 2048
 
 
+def _env_flag(name: str, default: bool) -> bool:
+    """An ``EngineConfig`` default flipped from the environment, read per
+    instantiation (so monkeypatching works); an explicit field wins."""
+    v = os.environ.get(name)
+    return default if v is None else v.lower() not in ("0", "false", "off")
+
+
+def _env_int(name: str, default: int) -> int:
+    """Integer-valued environment default, read as ``_env_flag`` is."""
+    v = os.environ.get(name)
+    return default if v is None else int(v)
+
+
 @dataclasses.dataclass
 class EngineConfig:
     max_slots: int = 8                # max concurrent sequences
@@ -100,10 +119,24 @@ class EngineConfig:
     temperature: float = 0.0
     seed: int = 0
     # prefix sharing with refcounts + copy-on-write (serving/kvcache.py)
-    share_prefix: bool = True
-    # host-RAM spill tier for evicted prefix pages (kvcache.py); H2D
+    share_prefix: bool = dataclasses.field(
+        default_factory=lambda: _env_flag("REPRO_SHARE_PREFIX", True))
+    # token-level partial-page matching: a prompt diverging mid-page
+    # reuses the verified head of the boundary page through a CoW'd copy;
+    # False = page-granular hits only
+    token_level_prefix: bool = dataclasses.field(
+        default_factory=lambda: _env_flag("REPRO_TOKEN_LEVEL_PREFIX", True))
+    # prefix-aware admission: the frontend shaves the up-front reservation
+    # by the probed cached-prefix hit (decode growth extends on demand)
+    prefix_aware_admission: bool = False
+    # host-RAM spill tier for evicted prefix pages (kvcache.py): that many
+    # pages of host budget; REPRO_HOST_SPILL=1 turns it on at 256 pages,
+    # REPRO_HOST_SPILL_PAGES sets the number.  h2d_gbps is the H2D
     # bandwidth the planner's prefetch-latency term assumes
-    host_spill_pages: int = 0
+    host_spill_pages: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "REPRO_HOST_SPILL_PAGES",
+            256 if _env_flag("REPRO_HOST_SPILL", False) else 0))
     h2d_gbps: float = 16.0
     mesh: object = None               # not None raises: not yet ported
 
@@ -142,6 +175,7 @@ class ServingEngine:
                                  dtype=torch.float32,
                                  budget=kv_budget,
                                  share_prefix=self.ecfg.share_prefix,
+                                 token_level=self.ecfg.token_level_prefix,
                                  host_spill_pages=self.ecfg.host_spill_pages,
                                  h2d_gbps=self.ecfg.h2d_gbps,
                                  device=self.device)

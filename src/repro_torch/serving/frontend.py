@@ -17,9 +17,8 @@ deterministic and testable; the engine executes every token for real.
 
 This module is ``repro/serving/frontend.py`` with its imports rewritten:
 both classes hold the engine by duck type and make no tensor calls, so the
-same control loop drives the PyTorch engine.  The one branch it drops is
-prefix-aware admission (the engine's ``prefix_aware_admission`` option,
-not ported): admission reserves the full expected context.
+same control loop drives the PyTorch engine, prefix-aware admission (the
+engine's ``prefix_aware_admission`` option) included.
 """
 from __future__ import annotations
 
@@ -378,6 +377,12 @@ class ReplicaDriver:
             return False
         expected = r.total_tokens() + 8
         enc = self.encs.get(r.rid)
+        if eng.ecfg.prefix_aware_admission and enc is None:
+            # shave the up-front reservation by the probed cached-prefix
+            # hit: those tokens' pages are mapped (not drawn fresh) at
+            # admit, so the table only has to cover the residual now —
+            # decode growth extends on demand (EngineConfig docstring)
+            expected = max(expected - eng.kv.probe_prefix(prompt), 1)
         ok = eng.add_request(r.rid, prompt, expected, enc_states=enc)
         if not ok:
             # fresh demand is the full reservation minus LIVE shared-prefix

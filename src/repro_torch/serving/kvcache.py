@@ -172,8 +172,9 @@ class PagedKVManager(PageAllocator):
     slot), per-page ``refcount``, the prefix index and LRU cached pool, and
     the inherited free list / page tables.
 
-    Token-level partial-page matching is always on (the reference's
-    ``token_level=False`` page-granular mode is not ported).  Prefix
+    ``token_level`` (default on) adds partial-page matching: a prompt
+    diverging mid-page reuses the verified head of the boundary page;
+    off, hits are page-granular, as in the reference.  Prefix
     sharing is forced off for SSM-bearing models, as in the reference:
     skipping a cached prefill chunk would skip the (unpaged, lane-resident)
     SSM state updates it performs.  ``device`` follows ``resolve_device``:
@@ -184,8 +185,9 @@ class PagedKVManager(PageAllocator):
                  page_size: int = 16, max_seqs: int = 8,
                  max_len: int = 512, dtype=torch.float32,
                  budget: Optional[SharedPageBudget] = None,
-                 share_prefix: bool = False, host_spill_pages: int = 0,
-                 h2d_gbps: float = 16.0, device=None):
+                 share_prefix: bool = False, token_level: bool = True,
+                 host_spill_pages: int = 0, h2d_gbps: float = 16.0,
+                 device=None):
         super().__init__(total_pages, page_size, budget=budget)
         self.cfg = cfg
         self.dtype = dtype
@@ -203,6 +205,7 @@ class PagedKVManager(PageAllocator):
         # ---- prefix sharing state (reference module docstring) ----
         self.share_prefix = share_prefix and not any(
             kind == "ssm" for kind, _ in cfg.segments())
+        self.token_level = token_level        # partial-page head matching
         self.refcount = np.zeros((total_pages,), np.int32)
         self.prefix_index: dict[int, int] = {}       # chain hash -> page
         self.page_key: dict[int, int] = {}           # page -> chain hash
@@ -747,7 +750,9 @@ class PagedKVManager(PageAllocator):
                     start: int) -> Optional[tuple[int, int]]:
         """Longest token-verified head of a published boundary page that
         extends chain ``parent`` past ``start``; smallest page id breaks
-        length ties."""
+        length ties.  None when ``token_level`` is off."""
+        if not self.token_level:
+            return None
         room = min(len(tokens) - 1 - start, self.page_size)
         if room <= 0:
             return None

@@ -372,7 +372,6 @@ def test_placement_pass_and_affinity_to_placed_chain(sides):
 def test_build_options_not_ported_raise(sides):
     side = sides[1]
     for over in (dict(mesh=object()), dict(devices_per_replica=1),
-                 dict(token_level_prefix=False),
                  dict(dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError):
             side.cluster(**over)

@@ -40,7 +40,8 @@ def test_every_module_imports_without_nvcc_or_card():
     assert {"repro_torch.kernels.paged_prefill",
             "repro_torch.serving.cluster", "repro_torch.core.simulator",
             "repro_torch.core.router", "repro_torch.core.baselines",
-            "repro_torch.configs.opt"} <= set(names)
+            "repro_torch.configs.opt", "repro_torch.core.trace",
+            "repro_torch.serving.gateway"} <= set(names)
     assert {f"repro_torch.telemetry.{m}" for m in (
         "registry", "timeseries", "exporters", "instruments",
         "autoscaler")} <= set(names)
