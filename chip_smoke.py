@@ -18,8 +18,12 @@ script exits non-zero before the final line:
    lane decoding over 1861 keys and one lane's 8-row prefill bucket with 2
    live rows after 477 keys), at head dim 32 and 128 (qwen3-1.7b, GQA 2,
    sliding window 4096 over a 6000-token context), at whisper's decoder
-   (GQA 1, a 28-page table) and at phi4-mini's heads (24 query / 8 KV of
-   128: GQA 3, a 64-page table), with masked lanes, mid-page chunk starts, and
+   (GQA 1, a 28-page table), at phi4-mini's heads (24 query / 8 KV of
+   128: GQA 3, a 64-page table), at zamba2-7b's shared attention (32 / 32
+   heads of 112; its replay's commonest decode step and prefill group
+   timed beside an eight-lane step and four 128-row chunks) and at
+   phi3.5-moe's (32 / 8 heads of 128: GQA 4), with masked lanes, mid-page
+   chunk starts, and
    both one block per query tile and keys split over blocks with a merge
    launch.  Outputs agree within 1e-4 on valid rows, pools are bit-equal
    after the write, poisoned pages unchanged.  At the timed shapes each
@@ -142,7 +146,9 @@ script exits non-zero before the final line:
     chunks of 16, 32 and 128 rows, causal from q_offset 0 and beyond with
     kv_len < Sk, head dim 32 and 128 (llama-3.2-vision's cross shape: 32
     query / 8 KV heads over 1600 image tokens; qwen3-1.7b's no-cache
-    causal shape), Sq and Sk no multiples of the tile; outputs within
+    causal shape), Sq and Sk no multiples of the tile, head dim 112
+    (zamba2-7b's plain generation: a 763-token causal prompt over 32
+    heads, timed, and a few rows at an offset); outputs within
     1e-4, keys no row may see poisoned.  Each line names the regime the
     wrapper chose: warps per 16-row group (8 at one row, 1 from 65 rows)
     and key splits (none when the query tiles give every SM a block).
@@ -169,7 +175,29 @@ script exits non-zero before the final line:
     eight lanes is timed whole and by part (one layer's cross K/V
     projection, which the reference's design repeats in every step, its
     cross-attention, its self-attention).
-17. The serving surface: ``repro_torch.launch.serve.http_gateway`` (the
+17. zamba2-7b (``hybrid``): B5 against its plain version at its widths
+    (112 heads, head dim 64, state 64; the hybrid replay's 32-token
+    chunk, a 128-token chunk, padded lanes, 512 tokens in chunks of 128
+    and a 763-token prompt as one chunk; timed at the first, second and
+    last); then the model at its published width and depth (81 layers:
+    68 Mamba2 layers and one shared attention block at 13 depths, each
+    occurrence over its own pools; random weights from the seed, 21.4 GiB
+    in float32): the SSM stream script's greedy streams against plain
+    generation (B5 over the whole prompt, B6 at head dim 112), and the
+    chatbot replay of the SSM path (8 requests, 4 slots, 1024 pages):
+    B2 once per occurrence per prefill group, B1 once per occurrence per
+    decode step, B5 once per Mamba2 layer per prefill group, B3, B4, B6
+    and the plain versions never; the shapes it gave B1, B2 and B5, which
+    must hold the timed replay shapes; a decode step and a prefill group
+    split into the Mamba2 layers', the shared attention's and the
+    device's time.
+18. phi3.5-moe-42b-a6.6b (``attn_moe``) at its published widths (d_model
+    4096, 32 / 8 heads of 128, 16 experts top-2 of 6400, vocab 32064),
+    its 32 layers cut to 4 (20.4 GiB in float32): three greedy streams
+    against plain generation, and the 8-request chatbot replay: B2 once
+    per layer per prefill group, B1 once per layer per decode step,
+    nothing else.
+19. The serving surface: ``repro_torch.launch.serve.http_gateway`` (the
     launcher's ``--http`` cluster) stands up two replicas of phi4-mini-3.8b
     at its published width and depth (32 layers, 24 query / 8 KV heads of
     128, vocab 200064; random weights from the seed, float32, about 15.3
@@ -195,12 +223,12 @@ script exits non-zero before the final line:
     /metrics`` parsed, ``shutdown(drain=True)`` completing every other
     stream, the shared budget equal to the replicas' used pages after
     every step; the client's median TTFT and TPOT in wall seconds.
-18. The kernels line (B1 and B2 launches from step 4, B3's from step 7,
-    B4's from step 10, B5's from step 13, B6's from step 16), the card
-    line, and ``{"ok": true, "device": ...}``.
+20. The kernels line (each kernel once, its launches summed over every
+    path's replay, with ``launches_by_path``), the card line, and
+    ``{"ok": true, "device": ...}``.
 
 Every earlier replay also checks that B6 never launched: only the
-no-cache attention of plain generation (steps 3, 5, 6, 15, 17) and
+no-cache attention of plain generation (steps 3, 5, 6, 15, 17-19) and
 the encoder / cross-attention of steps 15-16 run it.
 
 It imports nothing of JAX or of the JAX package.
@@ -458,7 +486,7 @@ def tf32x3_floor_ms(n_bytes: float, n_flops: float) -> float:
     """The least time of the same work done as 3xTF32 tensor-core products
     (three TF32 products per float32 one, at the tensor cores' dense TF32
     peak) or by moving its bytes, whichever is longer: the floor of the
-    tensor-core kernels (B2, B4, B6), beside the float32 bound."""
+    tensor-core kernels (B2, B4, B5, B6), beside the float32 bound."""
     return max(n_bytes / HBM_BYTES_PER_S,
                3 * n_flops / TF32_FLOP_PER_S) * 1e3
 
@@ -488,7 +516,14 @@ def pages_visited(lo_pos, hi_pos, page):
 # takes the kernel's group-4 instantiation with one row masked; a 1024-
 # token table, lengths from one key to full, and a padded lane: a length
 # of 0 in a case makes a lane alias lane 0's table and length, as the
-# engine pads a decode group).
+# engine pads a decode group); "zamba2*" are zamba2-7b's shared attention
+# (32 query over 32 KV heads of 112: G 1 at the head dim whose rows take
+# 28 of a stream's 32 lanes) over its 64-page table: eight lanes (2 key
+# splits), twelve (one split) and the hybrid replay's commonest decode
+# step (one lane over 338 keys: 151 of its 294 decode steps in a CPU
+# rehearsal of the replay at the card's engine config; 9 splits);
+# "phi35_moe" is phi3.5-moe's attention (32 query / 8 KV heads of 128:
+# G 4).
 DECODE_CASES = [   # name, B, H, KVH, hd, page, max_pages, lens, window
     ("main", 8, 9, 3, 64, 16, 256,
      [1, 17, 333, 780, 1024, 1500, 1999, 2048], None),
@@ -499,8 +534,15 @@ DECODE_CASES = [   # name, B, H, KVH, hd, page, max_pages, lens, window
      None),
     ("phi4", 8, 24, 8, 128, 16, 64, [1, 17, 130, 256, 531, 700, 1024, 0],
      None),
+    ("zamba2", 8, 32, 32, 112, 16, 64, [1, 17, 130, 256, 531, 700, 1024, 0],
+     None),
+    ("zamba2_unsplit", 12, 32, 32, 112, 16, 64,
+     [1, 16, 17, 33, 100, 338, 512, 763, 900, 1000, 1024, 0], None),
+    ("zamba2_replay", 1, 32, 32, 112, 16, 64, [338], None),
+    ("phi35_moe", 8, 32, 8, 128, 16, 64, [1, 17, 130, 256, 531, 700, 1024,
+                                          0], None),
 ]
-DECODE_TIMED = ("main", "replay")
+DECODE_TIMED = ("main", "replay", "zamba2", "zamba2_replay")
 
 
 def decode_phase(pa):
@@ -630,7 +672,14 @@ def decode_timing(pa, q, kp, vp, table, sl, lens, window):
 # decoder (20 query over 20 KV heads, a 448-token table); "phi4" is
 # phi4-mini-3.8b behind the gateway (24 query over 8 KV heads, head dim
 # 128: a GQA group of 3; 128-row chunks from mid-page starts and a masked
-# lane, over its 64-page table).
+# lane, over its 64-page table); "zamba2*" are zamba2-7b's shared
+# attention (32 over 32 heads of 112) over its 64-page table: 128-row
+# chunks from mid-page starts with a masked lane (3 key splits), 256-row
+# ones (192 query tiles: one split) and the hybrid replay's commonest
+# prefill group (one lane's 32-row bucket with 17 live rows: 27 of its 61
+# groups in a CPU rehearsal at the card's engine config; pos0 99, the
+# median of that bucket's; 9 splits); "phi35_moe" is phi3.5-moe's
+# attention (32 over 8 heads of 128, G 4).
 PREFILL_CASES = [  # name, B, S, H, KVH, hd, page, max_pages, pos0, clen, win
     ("main", 8, 512, 9, 3, 64, 16, 256,
      [0, 0, 7, 512, 1000, 1480, 0, 0], [512, 300, 512, 512, 488, 512, 1, 0],
@@ -643,6 +692,13 @@ PREFILL_CASES = [  # name, B, S, H, KVH, hd, page, max_pages, pos0, clen, win
     ("hd128_window", 4, 512, 16, 8, 128, 16, 400,
      [5488, 4000, 9, 0], [512, 300, 512, 0], 4096),
     ("phi4", 4, 128, 24, 8, 128, 16, 64, [0, 130, 375, 896],
+     [128, 106, 128, 0], None),
+    ("zamba2", 4, 128, 32, 32, 112, 16, 64, [0, 130, 375, 896],
+     [128, 106, 128, 0], None),
+    ("zamba2_unsplit", 3, 256, 32, 32, 112, 16, 64, [0, 37, 500],
+     [256, 250, 0], None),
+    ("zamba2_replay", 1, 32, 32, 32, 112, 16, 64, [99], [17], None),
+    ("phi35_moe", 4, 128, 32, 8, 128, 16, 64, [0, 130, 375, 896],
      [128, 106, 128, 0], None),
 ]
 # B3 at qwen3-1.7b's heads (16 query, 8 KV, head dim 128; one lane, an 8-
@@ -665,7 +721,7 @@ VERIFY_CASES = [
 ]
 
 
-PREFILL_TIMED = ("main", "replay")
+PREFILL_TIMED = ("main", "replay", "zamba2", "zamba2_replay")
 # B3 is timed at the spec replay's window and over a 2000-key history
 VERIFY_TIMED = ("main", "hist2000")
 
@@ -830,14 +886,17 @@ def chunk_timing(kernel_name, kernel, plain, q, kn, vn, kp, vp, table, p0,
             vis = qp + 1 if window is None else min(qp + 1, window)
             n_flops += 4 * H * hd * vis
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
-            "device_ms_parts": dev_parts, "device_launches_seen": dev_seen,
-            "plain_ms": plain_ms,
-            "library_ms": library_ms, "library_device_ms": library_dev_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_call": "scaled_dot_product_attention over K/V gathered "
-                            "up to the longest lane (write not included)"}
+    out = {"ms": kernel_ms, "device_ms": kernel_dev_ms,
+           "device_ms_parts": dev_parts, "device_launches_seen": dev_seen,
+           "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_device_ms": library_dev_ms,
+           "bound_ms": bound_ms,
+           "bound_by": bound_by,
+           "library_call": "scaled_dot_product_attention over K/V gathered "
+                           "up to the longest lane (write not included)"}
+    if kernel_name == "paged_prefill_attention":    # B2's 3xTF32 products
+        out["tf32x3_floor_ms"] = tf32x3_floor_ms(n_bytes, n_flops)
+    return out
 
 
 # ---------------------------- stream check ----------------------------- #
@@ -1528,11 +1587,12 @@ SSD_CASES = [
 SSD_TIMED = ("main", "S512_c128", "S763_one_chunk")
 
 
-def ssd_inputs(gen, B, S, clen, with_init):
+def ssd_inputs(gen, B, S, clen, with_init, widths=(SSM_H, SSM_P, SSM_N)):
     """Inputs at the main path's scales: x, B and C as silu outputs of
     normals, dt = softplus(normal) (zero past each lane's chunk_len),
-    A = -linspace(1, 16) (the init's A_log), a state of std 0.3."""
-    H, P, N = SSM_H, SSM_P, SSM_N
+    A = -linspace(1, 16) (the init's A_log), a state of std 0.3; widths
+    (H, P, N), mamba2's unless given."""
+    H, P, N = widths
     F = torch.nn.functional
 
     def silu(*shape):
@@ -1549,18 +1609,20 @@ def ssd_inputs(gen, B, S, clen, with_init):
     return xh, dt, A, Bm, Cm, h0
 
 
-def ssd_phase(sk, parent=None, cases=SSD_CASES, timed=SSD_TIMED, seed=6):
-    """B5 against its plain version on the same inputs at mamba2's widths
-    (80 heads, head dim 64, state 128): y and the final state within 1e-4
-    (and allclose at rtol 1e-4), finite.  A lane with chunk_len 0 must
-    keep its initial state exactly.  The cases named in ``timed`` are
-    timed, and with ``parent`` the other tree's kernel beside; returns the
-    record of the first."""
+def ssd_phase(sk, parent=None, cases=SSD_CASES, timed=SSD_TIMED, seed=6,
+              widths=(SSM_H, SSM_P, SSM_N)):
+    """B5 against its plain version on the same inputs at ``widths`` (H,
+    P, N; mamba2's 80 heads, head dim 64, state 128 unless given): y and
+    the final state within 1e-4 (and allclose at rtol 1e-4), finite.  A
+    lane with chunk_len 0 must keep its initial state exactly.  The cases
+    named in ``timed`` are timed, and with ``parent`` the other tree's
+    kernel beside; returns the record of the first."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     results = {}
+    H, P, N = widths
     for name, B, S, chunk, with_init, clen in cases:
-        xh, dt, A, Bm, Cm, h0 = ssd_inputs(gen, B, S, clen, with_init)
+        xh, dt, A, Bm, Cm, h0 = ssd_inputs(gen, B, S, clen, with_init, widths)
         y, hT = sk.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk, init_state=h0)
         wy, wh = sk.ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk, h0)
         torch.cuda.synchronize()
@@ -1573,8 +1635,8 @@ def ssd_phase(sk, parent=None, cases=SSD_CASES, timed=SSD_TIMED, seed=6):
               and torch.allclose(hT, wh, atol=LIMIT, rtol=LIMIT)
               and bool(torch.isfinite(y).all() and torch.isfinite(hT).all()))
         rec = {"phase": "kernel", "kernel": "ssd_scan", "case": name,
-               "B": B, "S": S, "chunk": chunk, "H": SSM_H, "P": SSM_P,
-               "N": SSM_N, "init_state": with_init, "chunk_len": clen,
+               "B": B, "S": S, "chunk": chunk, "H": H, "P": P, "N": N,
+               "init_state": with_init, "chunk_len": clen,
                "cb_workspace": sk.cb_workspace(chunk),
                "workspace_mib": (4 * sk.workspace_floats(B, S, chunk) / 2**20
                                  if sk.cb_workspace(chunk) else 0.0),
@@ -1621,6 +1683,7 @@ def ssd_timing(sk, xh, dt, A, Bm, Cm, h0, chunk):
             "plain_ms": plain_ms,
             "library_ms": None, "library_device_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "tf32x3_floor_ms": tf32x3_floor_ms(n_bytes, n_flops),
             "library_call": "none: no single PyTorch call computes "
                             "chunked SSD"}
 
@@ -1916,7 +1979,10 @@ WHISPER_ARCH = "whisper-large-v3"
 # last rows meet kv_len < Sk, head dim 32 (once over 160 heads of 20 rows,
 # 4 warps to a row group), head dim 128 at llama-3.2-vision's cross shape
 # and at qwen3-1.7b's no-cache causal shape, and Sq, Sk and kv_len that
-# are no multiples of the tiles.
+# are no multiples of the tiles; at head dim 112 zamba2-7b's shared
+# attention in plain generation (32 heads, G 1): a 763-token prompt (the
+# chatbot trace's mean) and a few rows at an offset with kv_len < Sk (8
+# warps to a row group, keys split).
 FLASH_CASES = [
     ("encoder", 1, 1500, 1500, 20, 20, 64, False, 0, None),
     ("cross_decode", 8, 1, 1500, 20, 20, 64, False, 0, None),
@@ -1933,9 +1999,11 @@ FLASH_CASES = [
     ("hd128_vlm_cross", 2, 37, 1600, 32, 8, 128, False, 0, None),
     ("hd128_qwen3_causal", 1, 200, 200, 16, 8, 128, True, 0, None),
     ("ragged", 2, 65, 129, 3, 3, 64, False, 0, 100),
+    ("hd112_zamba2_causal", 1, 763, 763, 32, 32, 112, True, 0, None),
+    ("hd112_few_rows", 2, 9, 300, 32, 32, 112, True, 250, 255),
 ]
 FLASH_TIMED = ("encoder", "cross_decode", "replay_cross_decode",
-               "replay_cross_prefill")
+               "replay_cross_prefill", "hd112_zamba2_causal")
 
 
 def flat_heads(q, k, v):
@@ -2360,6 +2428,311 @@ def whisper_decode_breakdown(cfg, params, eng, frames):
     return out
 
 
+# ------------------------- hybrid and MoE phases ------------------------ #
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_H, HYBRID_P, HYBRID_N = 112, 64, 64
+# The hybrid path's engine: page 16, 4 slots (so slots are reused), 1024
+# pages (16 tokens x 372,736 B over the 13 shared-attention occurrences:
+# 5.7 GiB of pools), max_len 1024.
+HYBRID_ENGINE = dict(max_slots=4, max_len=1024, page_size=16,
+                     total_pages=1024)
+# B5 at zamba2's widths (112 heads, head dim 64, state 64): the hybrid
+# replay's commonest prefill group (one lane's 32-token bucket with 17 live
+# rows, from the lane's carried state: 27 of its 61 groups in a CPU
+# rehearsal at the card's engine config), a 128-token chunk (the model's
+# chunk) from a state, lanes padded with dt = 0 (one all padding), 512
+# tokens in chunks of 128, and a 763-token prompt as one chunk (plain
+# generation runs a whole prompt whose length 128 does not divide so).
+SSD_HYBRID_CASES = [
+    ("zamba2_replay", 1, 32, 32, True, [17]),
+    ("zamba2_c128", 1, 128, 128, True, None),
+    ("zamba2_padded_lanes", 4, 16, 16, True, [16, 11, 0, 0]),
+    ("zamba2_S512_c128", 1, 512, 128, True, None),
+    ("zamba2_S763_one_chunk", 1, 763, 763, False, None),
+]
+SSD_HYBRID_TIMED = ("zamba2_replay", "zamba2_c128", "zamba2_S763_one_chunk")
+CHATBOT_REPLAY = ["--scenario", "chatbot", "--rate", "2.0", "--time-scale",
+                  "0.25", "--max-requests", "8", "--duration", "10"]
+
+
+def hybrid_model(seed: int):
+    """zamba2-7b at its published width and depth and its random weights
+    (5.74 B parameters, 21.4 GiB in float32): 68 Mamba2 layers and one
+    shared attention block (32 heads of 112) run at 13 depths."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import init_params
+    dev = torch.device("cuda")
+    cfg = get_config(HYBRID_ARCH)
+    return cfg, init_params(cfg, generator(dev, seed), device=dev)
+
+
+def hybrid_stream_phase(cfg, params, seed: int):
+    """The engine's greedy streams on full-width zamba2 (B5 in every
+    Mamba2 layer and B2 / B1 at every shared-attention occurrence, each
+    over its own pools; lane rows gathered and scattered per call) against
+    plain full-causal generation (B5 over the whole sequence as one chunk,
+    B6 at head dim 112), in the SSM stream phase's script: two slots, a
+    frozen decode lane, a second prefill from a mid-chunk state and a slot
+    reused."""
+    engine_streams({"phase": "hybrid_stream", "model": cfg.name,
+                    "layers": cfg.n_layers}, cfg, params, max_len=256,
+                   prompt_seed=seed + 5, max_slots=2,
+                   prompt_lens=SSM_STREAM_PROMPTS, script=SSM_STREAM_SCRIPT)
+
+
+def serve_replay(cfg, params, kernels, arch_args, ecfg, seed: int):
+    """``ServingFrontend`` with the launcher's ``SLOsServeScheduler`` and
+    virtual perf model over a fresh ``ServingEngine(ecfg)``, serving the
+    launcher's trace for ``arch_args``; the kernel launch counts are
+    zeroed just before and read just after.  Returns (frontend, engine,
+    wall s, launches, ShapeLog, SpanTimer, peak GiB)."""
+    from repro_torch.core.scheduler import SchedulerConfig, SLOsServeScheduler
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.frontend import ServingFrontend
+
+    eng = ServingEngine(cfg, params, EngineConfig(**ecfg),
+                        device=torch.device("cuda"))
+    sched = SLOsServeScheduler(serve.VIRTUAL_PERF, SchedulerConfig(
+        prefill_emits_first_token=True))
+    fe = ServingFrontend(eng, sched, seed=seed)
+    for req in serve.trace(serve.parse_args(arch_args
+                                            + ["--seed", str(seed)])):
+        fe.submit(req)
+    timer, shapes = SpanTimer(), ShapeLog(eng)
+    eng.tracer = timer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in kernels.values():
+        c.COUNTS["kernel"] = c.COUNTS["plain"] = 0
+    wall = serve.replay(fe)
+    launches = {k: dict(m.COUNTS) for k, m in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eng.tracer = None
+    return fe, eng, wall, launches, shapes, timer, peak
+
+
+def replay_record(phase, cfg, fe, eng, wall, launches, shapes, timer, peak):
+    s, c = fe.stats, eng.counters
+    return {"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
+            "slots": eng.ecfg.max_slots, "pages": eng.ecfg.total_pages,
+            "submitted": s.submitted, "served": s.served,
+            "attained": s.attained, "dropped": s.dropped,
+            "tokens_out": s.tokens_out,
+            "counters": {k: c[k] for k in (
+                "prefill_calls", "decode_calls", "decode_steps",
+                "decode_tokens")},
+            "launches": launches, "shapes": shapes.summary(),
+            "wall_s": wall, "span_s": timer.seconds, "spans": timer.count,
+            "outside_spans_s": wall - sum(timer.seconds.values()),
+            "prefill_group_ms": (1e3 * timer.seconds.get("prefill", 0.0)
+                                 / max(c["prefill_calls"], 1)),
+            "decode_step_ms": (1e3 * timer.seconds.get("decode", 0.0)
+                               / max(c["decode_steps"], 1)),
+            "peak_mem_gib": peak}
+
+
+def hybrid_replay_phase(cfg, params, kernels, seed: int):
+    """The hybrid path end to end: the chatbot replay (8 requests, lengths
+    scaled by 0.25, 2/s) on full-width zamba2 with HYBRID_ENGINE.  Launch
+    counts zeroed just before and read just after: B2 once per
+    shared-attention occurrence per prefill group, B1 once per occurrence
+    per decode step, B5 once per Mamba2 layer per prefill group, B3, B4,
+    B6 and the plain versions never.  The line lists the shapes the replay
+    gave B2 and B1 (and B5: the prefill buckets), which must include the
+    "zamba2_replay" shapes the kernel phases timed, and where a decode step
+    and a prefill group spend their time (``hybrid_breakdown``)."""
+    fe, eng, wall, launches, shapes, timer, peak = serve_replay(
+        cfg, params, kernels, ["--arch", HYBRID_ARCH] + CHATBOT_REPLAY,
+        HYBRID_ENGINE, seed)
+    s, c = fe.stats, eng.counters
+    n_attn = cfg.block_pattern.count("shared_attn")
+    n_ssm = cfg.block_pattern.count("ssm")
+    (_, dB, *_, (d_len,), _), = [k for k in DECODE_CASES
+                                 if k[0] == "zamba2_replay"]
+    (_, pB, pS, *_, p_live, _), = [k for k in PREFILL_CASES
+                                   if k[0] == "zamba2_replay"]
+    (_, sB, sS, _, _, s_live), = [k for k in SSD_HYBRID_CASES
+                                  if k[0] == "zamba2_replay"]
+
+    def ran(B, S, live):
+        return any(lv == tuple(live)
+                   for _, lv in shapes.exact.get(f"{B}/{S}", []))
+    checks = {
+        "model_full_width": (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                             cfg.n_kv_heads, cfg.head_dim, cfg.ssm.d_state,
+                             cfg.ssm.head_dim, n_attn, n_ssm)
+        == (81, 3584, 32, 32, 112, 64, 64, 13, 68),
+        "served_all": s.served == s.submitted == 8,
+        "tokens_out": s.tokens_out > 0,
+        "decode_launches":
+            launches["decode"]["kernel"] == n_attn * c["decode_steps"],
+        "prefill_launches":
+            launches["prefill"]["kernel"] == n_attn * c["prefill_calls"],
+        "ssd_launches":
+            launches["ssd"]["kernel"] == n_ssm * c["prefill_calls"],
+        "no_other_kernel": all(launches[k]["kernel"] == 0
+                               for k in ("verify", "mla_prefill", "flash")),
+        "no_plain": not any(v["plain"] for v in launches.values()),
+        "timed_decode_shape_ran": d_len in shapes.longest.get(str(dB), ()),
+        "timed_prefill_shape_ran": ran(pB, pS, p_live),
+        "timed_ssd_shape_ran": ran(sB, sS, s_live),
+    }
+    rec = replay_record("hybrid_replay", cfg, fe, eng, wall, launches, shapes,
+                        timer, peak)
+    rec.update({"shared_attn_occurrences": n_attn, "ssm_layers": n_ssm,
+                "breakdown": hybrid_breakdown(cfg, params, eng),
+                "checks": checks})
+    emit(rec)
+    if not all(checks.values()):
+        raise SystemExit(f"hybrid replay checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
+def hybrid_breakdown(cfg, params, eng):
+    """Where a zamba2 step's time goes, at the replay's commonest shapes:
+    a decode step of the engine's 4 lanes (every lane at position 337,
+    chunk_len 0, so the pools and lane rows keep their state) and a
+    prefill group of one lane's 32-row bucket with 17 live rows at
+    position 99 (slot 0's lane rows, gathered, its new rows dropped).
+    Each: CUDA events around the call (the host's dispatch included),
+    ``torch.profiler``'s device time of all its kernels, of B5's and of
+    B1's or B2's, so the card's idle share in the call is 1 - device /
+    call; and one Mamba2 block and the shared attention block alone
+    (CUDA events), times their 68 and 13 occurrences."""
+    from repro_torch.models import logits_fn, model_forward
+    from repro_torch.models.transformer import _layer, block_forward
+
+    dev = eng.device
+    segs = cfg.segments()
+    ia = next(i for i, (k, _) in enumerate(segs) if k == "shared_attn")
+    ssm_p = _layer(params["segments"][0]["p"], 0)
+    n_attn = cfg.block_pattern.count("shared_attn")
+    n_ssm = cfg.block_pattern.count("ssm")
+    width = eng.kv.max_pages_per_seq
+    g = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    with torch.no_grad():
+        for name, B, S, pos, live, attn_kernel in (
+                ("decode", eng.ecfg.max_slots, 1, 337, 0,
+                 "paged_decode_attention"),
+                ("prefill", 1, 32, 99, 17, "paged_prefill_attention")):
+            tok = torch.ones(B, S, dtype=torch.long, device=dev)
+            pos0 = torch.full((B,), pos, dtype=torch.int32, device=dev)
+            clen = torch.full((B,), live, dtype=torch.int32, device=dev)
+            table = (torch.arange(B * width, device=dev, dtype=torch.int32)
+                     % eng.ecfg.total_pages).reshape(B, width)
+            lanes = eng.kv.lane_cache(list(range(B)))
+            x = torch.randn(B, S, cfg.d_model, generator=g, device=dev)
+            positions = pos0[:, None] + torch.arange(S, device=dev)[None]
+            rows = {k: t[0] for k, t in lanes[0].items()}
+
+            def step():
+                hid, _ = model_forward(params, cfg, tok, cache=lanes,
+                                       pos0=pos0, block_tables=table,
+                                       chunk_len=clen)
+                return logits_fn(params, cfg, hid[:, -1])
+
+            def ssm_block():
+                return block_forward(ssm_p, "ssm", cfg, x,
+                                     positions=positions, cache=rows,
+                                     chunk_len=clen)
+
+            def attn_block():
+                return block_forward(params["shared_attn"], "shared_attn",
+                                     cfg, x, positions=positions,
+                                     cache=lanes[ia]["self"], pos0=pos0,
+                                     block_tables=table, chunk_len=clen)
+            rec = {"B": B, "S": S, "pos0": pos, "live": live,
+                   "call_ms": time_ms(step),
+                   "ssm_block_ms": time_ms(ssm_block),
+                   "shared_attn_block_ms": time_ms(attn_block)}
+            reading = cuda_profile(step, n=1, flush=False)
+            total, ops = cuda_sum(reading)
+            rec.update({
+                "ssm_layers_ms": n_ssm * rec["ssm_block_ms"],
+                "shared_attn_ms": n_attn * rec["shared_attn_block_ms"],
+                "device_ms": total, "device_ops": ops,
+                "ssd_device_ms": cuda_sum(reading,
+                                          KERNEL_NAMES["ssd_scan"])[0],
+                "attention_kernel_device_ms": cuda_sum(
+                    reading, KERNEL_NAMES[attn_kernel])[0],
+                "device_idle_share": (None if total is None
+                                      else 1 - total / rec["call_ms"])})
+            out[name] = rec
+    return out
+
+
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+# the published widths, 32 layers cut to 4 (20.4 GiB in float32; the
+# whole model is 156 GiB)
+MOE_CUT = dict(n_layers=4, block_pattern=("attn_moe",) * 4)
+MOE_ENGINE = dict(max_slots=8, max_len=1024, page_size=16, total_pages=512)
+
+
+def moe_model(seed: int):
+    """phi3.5-moe-42b-a6.6b at its published widths (d_model 4096, 32 / 8
+    heads of 128, 16 experts top-2 of d_ff 6400, vocab 32064 untied), its
+    32 layers cut to 4, random weights from the seed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import init_params
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(MOE_ARCH), **MOE_CUT)
+    return cfg, init_params(cfg, generator(dev, seed), device=dev)
+
+
+def moe_stream_phase(cfg, params, seed: int):
+    """The engine's greedy streams on the cut phi3.5-moe (B2 and B1 at G 4,
+    head dim 128; the MoE FFN with the dropless capacity factor) against
+    plain full-causal generation, in the stream phase's script."""
+    engine_streams({"phase": "moe_stream", "model": cfg.name,
+                    "layers": cfg.n_layers}, cfg, params, max_len=256,
+                   prompt_seed=seed + 6)
+
+
+def moe_replay_phase(cfg, params, kernels, seed: int):
+    """The ``attn_moe`` path end to end: the chatbot replay (8 requests)
+    on the cut phi3.5-moe with MOE_ENGINE.  Launch counts zeroed just
+    before and read just after: B2 once per layer per prefill group, B1
+    once per layer per decode step, nothing else, no plain version."""
+    fe, eng, wall, launches, shapes, timer, peak = serve_replay(
+        cfg, params, kernels, ["--arch", MOE_ARCH] + CHATBOT_REPLAY,
+        MOE_ENGINE, seed)
+    s, c = fe.stats, eng.counters
+    L = cfg.n_layers
+    m = cfg.moe
+    checks = {
+        "model_published_widths": (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim, m.n_experts, m.top_k,
+                                   m.d_ff_expert, cfg.vocab,
+                                   cfg.tie_embeddings)
+        == (4096, 32, 8, 128, 16, 2, 6400, 32064, False),
+        "depth_cut": cfg.block_pattern == ("attn_moe",) * 4,
+        "served_all": s.served == s.submitted == 8,
+        "tokens_out": s.tokens_out > 0,
+        "decode_launches":
+            launches["decode"]["kernel"] == L * c["decode_steps"],
+        "prefill_launches":
+            launches["prefill"]["kernel"] == L * c["prefill_calls"],
+        "no_other_kernel": all(launches[k]["kernel"] == 0 for k in (
+            "verify", "mla_prefill", "ssd", "flash")),
+        "no_plain": not any(v["plain"] for v in launches.values()),
+    }
+    rec = replay_record("moe_replay", cfg, fe, eng, wall, launches, shapes,
+                        timer, peak)
+    rec["checks"] = checks
+    emit(rec)
+    if not all(checks.values()):
+        raise SystemExit(f"moe replay checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
 # ----------------------------- main path ------------------------------- #
 class SpanTimer:
     """Engine tracer (the duck type of the telemetry StepTracer): wall
@@ -2386,20 +2759,26 @@ class ShapeLog:
     """The shapes the replay gives B2 and B1, read off the engine's two
     device programs: per prefill group its (B, S) bucket, each real lane's
     live rows and pos0; per decode loop its batch bucket B, its steps and
-    the longest lane's seq_len at its first step.  Reading the group's
-    small position tensors is one extra host sync per group."""
+    the longest seq_len B1 got in each step (a lane's position + 1; a lane
+    advances only in the steps it emits a token, read from the loop's
+    output).  Reading the small position tensors is one extra host sync
+    per group and per loop."""
 
     def __init__(self, eng):
         self.prefill: dict[str, int] = {}      # "B/S" -> groups
+        self.exact: dict[str, list] = {}       # "B/S" -> (pos0s, lives)
         self.live: list[int] = []              # live rows per real lane
         self.pos0: list[int] = []
         self.decode: dict[str, int] = {}       # "B" -> decode steps
-        self.longest: dict[str, list] = {}     # "B" -> longest seq_len
+        self.longest: dict[str, list] = {}     # "B" -> per step, B1's
+                                               # longest seq_len
         prefill_forward, decode_loop = eng._prefill_forward, eng._decode_loop
 
         def prefill(cache, tokens, pos0, true_len, *rest):
             key = f"{tokens.shape[0]}/{tokens.shape[1]}"
             self.prefill[key] = self.prefill.get(key, 0) + 1
+            self.exact.setdefault(key, []).append(
+                (tuple(pos0.tolist()), tuple(true_len.tolist())))
             for p, n in zip(pos0.tolist(), true_len.tolist()):
                 if n:
                     self.live.append(n)
@@ -2409,9 +2788,14 @@ class ShapeLog:
         def decode(cache, tokens0, pos0, steps, eos, bt, n_steps, *rest):
             key = str(tokens0.shape[0])
             self.decode[key] = self.decode.get(key, 0) + n_steps
-            self.longest.setdefault(key, []).append(int(pos0.max()) + 1)
-            return decode_loop(cache, tokens0, pos0, steps, eos, bt, n_steps,
-                               *rest)
+            pos = pos0.tolist()
+            out = decode_loop(cache, tokens0, pos0, steps, eos, bt, n_steps,
+                              *rest)
+            longest = self.longest.setdefault(key, [])
+            for row in (out != -1).T.tolist():     # step by step
+                longest.append(max(pos) + 1)
+                pos = [p + a for p, a in zip(pos, row)]
+            return out
         eng._prefill_forward, eng._decode_loop = prefill, decode
 
     def summary(self) -> dict:
@@ -3301,19 +3685,21 @@ def main(argv=()) -> int:
     free_device_memory()
     kernels = {"decode": pa, "prefill": pp, "verify": pv, "mla_prefill": mk,
                "ssd": sk, "flash": fa}
-    cluster_phase(cfg, params, kernels, seed)
+    paths = {"main_path": launches}
+    paths["cluster_replay"] = cluster_phase(cfg, params, kernels, seed)
     del params
     free_device_memory()
     spec_stream_phase(seed)
     free_device_memory()
     spec = spec_replay_phase(pa, pp, pv, fa, seed)
+    paths["spec_replay"] = spec
     free_device_memory()
     mla = mla_prefill_phase(mk)
     free_device_memory()
     cfg, params = mla_model(seed)
     mla_stream_phase(cfg, params, seed)
     free_device_memory()
-    mla_launches = mla_replay_phase(
+    paths["mla_replay"] = mla_replay_phase(
         cfg, params, {"decode": pa, "prefill": pp, "verify": pv,
                       "mla_prefill": mk, "flash": fa}, seed)
     del params
@@ -3323,8 +3709,8 @@ def main(argv=()) -> int:
     cfg, params = ssm_model(seed)
     ssm_stream_phase(cfg, params, seed)
     free_device_memory()
-    ssm_launches, groups, lives = ssm_replay_phase(cfg, params, kernels,
-                                                   seed)
+    paths["ssm_replay"], groups, lives = ssm_replay_phase(cfg, params,
+                                                          kernels, seed)
     ssd_replay_group_phase(sk, cfg, groups, lives, parent)
     if parent is not None:
         free_device_memory()
@@ -3336,21 +3722,40 @@ def main(argv=()) -> int:
     cfg, params = whisper_model(seed)
     whisper_stream_phase(cfg, params, seed)
     free_device_memory()
-    whisper_launches = whisper_replay_phase(cfg, params, kernels, seed)
+    paths["whisper_replay"] = whisper_replay_phase(cfg, params, kernels,
+                                                   seed)
+    del params
+    free_device_memory()
+    ssd_phase(sk, cases=SSD_HYBRID_CASES, timed=SSD_HYBRID_TIMED, seed=11,
+              widths=(HYBRID_H, HYBRID_P, HYBRID_N))
+    free_device_memory()
+    cfg, params = hybrid_model(seed)
+    hybrid_stream_phase(cfg, params, seed)
+    free_device_memory()
+    paths["hybrid_replay"] = hybrid_replay_phase(cfg, params, kernels, seed)
+    del params
+    free_device_memory()
+    cfg, params = moe_model(seed)
+    moe_stream_phase(cfg, params, seed)
+    free_device_memory()
+    paths["moe_replay"] = moe_replay_phase(cfg, params, kernels, seed)
     del params
     free_device_memory()
     # last: run ahead of the kernel phases, it left the profiler
     # recording no launch at all in several of their readings
     cfg, params = gateway_model(seed)
-    gateway_phase(cfg, params, kernels, seed)
+    paths["gateway_replay"] = gateway_phase(cfg, params, kernels, seed)
     del params
     free_device_memory()
     torch.cuda.synchronize()
     emit({"phase": "done", "total_s": time.perf_counter() - t0})
 
-    def entry(name, source, replaces, rec, n):
+    def entry(name, source, replaces, rec, key):
+        # launches: the kernel's over every path's replay
+        by_path = {p: v[key]["kernel"] for p, v in paths.items() if key in v}
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": n,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "device_ms": rec["device_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
@@ -3359,25 +3764,24 @@ def main(argv=()) -> int:
     emit({"kernels": [
         entry("paged_decode_attention", "src/repro_torch/csrc/paged_decode.cu",
               "src/repro/kernels/paged_attention.py:73", dec["main"],
-              launches["decode"]["kernel"]),
+              "decode"),
         entry("paged_prefill_attention",
               "src/repro_torch/csrc/paged_prefill.cu",
               "src/repro/kernels/paged_prefill.py:125", pre["main"],
-              launches["prefill"]["kernel"]),
+              "prefill"),
         entry("paged_verify_attention",
               "src/repro_torch/csrc/paged_verify.cu",
               "src/repro/kernels/paged_prefill.py:308", ver["main"],
-              spec["verify"]["kernel"]),
+              "verify"),
         entry("mla_paged_prefill_attention",
               "src/repro_torch/csrc/mla_paged_prefill.cu",
               "src/repro/kernels/paged_prefill.py:255", mla,
-              mla_launches["mla_prefill"]["kernel"]),
+              "mla_prefill"),
         entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
-              "src/repro/kernels/ssd_scan.py:59", ssd,
-              ssm_launches["ssd"]["kernel"]),
+              "src/repro/kernels/ssd_scan.py:59", ssd, "ssd"),
         entry("flash_attention_bh", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:66", flash["encoder"],
-              whisper_launches["flash"]["kernel"]),
+              "flash"),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

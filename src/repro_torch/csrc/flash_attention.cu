@@ -23,7 +23,9 @@
 //   The score fragment feeds P·V as the A operand with no data movement.
 // - A block has 8 warps and stages 64-key K/V tiles by 16-byte cp.async,
 //   double-buffered (tile t + 1 in flight while tile t is computed), rows
-//   padded to hd + 4 floats so that the fragment reads fall on 32 banks.
+//   padded to hd + 4 floats so that the fragment reads fall on 32 banks
+//   (at zamba2's hd 112 too: csrc/paged_prefill.cu).  P·V takes its hd / 8
+//   output n-tiles four at a time and then the rest (pv_mma3).
 //   Keys past the tile range are zero-filled, never read.
 // - Two regimes, by rows (template KW, warps per row group):
 //   * many rows (Sq > 64; the encoder, long cross-prefill chunks): KW 1,
@@ -60,6 +62,7 @@ using repro_mma::cp_async_wait_all;
 using repro_mma::load_a;
 using repro_mma::mma3;
 using repro_mma::p_fragment;
+using repro_mma::pv_mma3;
 using repro_mma::quad_max;
 using repro_mma::quad_sum;
 using repro_split::kNegInf;
@@ -226,16 +229,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
         uint32_t ab[4], as[4];
         p_fragment(p0, p1, p2, p3, ab, as);
         const float* v0 = vt + (8 * j + 2 * tq) * ST + gq;
-#pragma unroll
-        for (int n0 = 0; n0 < NK; n0 += 4) {   // 4 output n-tiles at a time
-          float vb2[4][2];
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            vb2[n][0] = v0[8 * (n0 + n)];
-            vb2[n][1] = v0[ST + 8 * (n0 + n)];
-          }
-          mma3<4>(*reinterpret_cast<float(*)[4][4]>(&o[n0]), ab, as, vb2);
-        }
+        pv_mma3<NK>(o, ab, as, v0, ST);
       }
     }
     __syncthreads();                 // buffer buf free for tile t + 2
@@ -371,7 +365,7 @@ int launch_kw(const float* q, const float* k, const float* v, float* out,
 // n_split: key splits per query tile (the wrapper's n_splits), with
 // m_ws / l_ws (BH, n_split, Sq) and acc_ws (BH, n_split, Sq, hd) when it is
 // above 1 (null otherwise).  Returns a cudaError_t (0 on success);
-// cudaErrorInvalidValue for a head dim other than 32, 64 or 128, a kw
+// cudaErrorInvalidValue for a head dim other than 32, 64, 112 or 128, a kw
 // outside 1/2/4/8 or a grid the card cannot launch.
 extern "C" int repro_flash_attention_f32(
     const float* q, const float* k, const float* v, float* out, float* m_ws,
@@ -388,6 +382,9 @@ extern "C" int repro_flash_attention_f32(
     case 64:
       return launch_kw<64>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
                            causal, q_offset, kv_len, scale, n_split, kw, s);
+    case 112:
+      return launch_kw<112>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
+                            causal, q_offset, kv_len, scale, n_split, kw, s);
     case 128:
       return launch_kw<128>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
                             causal, q_offset, kv_len, scale, n_split, kw, s);

@@ -105,6 +105,40 @@ __device__ __forceinline__ void mma3_acc(float (&d)[N][4],
     for (int e = 0; e < 4; ++e) d[n][e] += z[2][n][e] + (z[0][n][e] + z[1][n][e]);
 }
 
+// o[n] += P·V[n] for the NK output n-tiles of P·V's k-step of 8 keys (B2
+// and B6): mma3 over four n-tiles at a time, then over the NK % 4 left
+// (head dim 112 has NK = 14: three groups of four and a tail of two), so
+// no product reaches past o.  V's B fragment of n-tile n is v0[8 n] and
+// v0[st + 8 n] (the k-step's rows 2t and 2t + 1, column g; p_fragment's
+// key order).
+template <int NK>
+__device__ __forceinline__ void pv_mma3(float (&o)[NK][4],
+                                        const uint32_t (&ab)[4],
+                                        const uint32_t (&as)[4],
+                                        const float* v0, int st) {
+#pragma unroll
+  for (int n0 = 0; n0 + 4 <= NK; n0 += 4) {
+    float vb2[4][2];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      vb2[n][0] = v0[8 * (n0 + n)];
+      vb2[n][1] = v0[st + 8 * (n0 + n)];
+    }
+    mma3<4>(*reinterpret_cast<float(*)[4][4]>(&o[n0]), ab, as, vb2);
+  }
+  constexpr int kTail = NK % 4;
+  if constexpr (kTail > 0) {
+    constexpr int n0 = NK - kTail;
+    float vb2[kTail][2];
+#pragma unroll
+    for (int n = 0; n < kTail; ++n) {
+      vb2[n][0] = v0[8 * (n0 + n)];
+      vb2[n][1] = v0[st + 8 * (n0 + n)];
+    }
+    mma3<kTail>(*reinterpret_cast<float(*)[kTail][4]>(&o[n0]), ab, as, vb2);
+  }
+}
+
 // The A fragment of rows (g, g + 8), columns (c + t, c + t + 4) of a
 // row-major fp32 tile with row stride st, split into (big, small).
 __device__ __forceinline__ void load_a(const float* tile, int st, int c, int g,

@@ -20,12 +20,17 @@
 //   writes l = 0; a second launch (split_merge.cuh) merges the splits.  With
 //   one split the block writes the output itself.
 // - No block barrier per page.  A key row of one KV head is hd contiguous
-//   floats; hd / 4 lanes read it as one float4 each, so a warp holds 32 /
-//   (hd / 4) independent key streams.  Each stream keeps U keys' K and V
-//   rows in flight (16-byte loads), scores them against the G query rows it
-//   holds in registers (a dot product reduced over its hd / 4 lanes by
-//   shuffles) and folds them into its own running (m, l, acc).  The block's
-//   streams are merged once, at the end, through shared memory.
+//   floats, hd / 4 float4 columns; a stream of LPK lanes (hd / 4 rounded up
+//   to a power of two) reads it one float4 a lane, so a warp holds 32 /
+//   LPK independent key streams.  Each stream keeps U keys' K and V rows
+//   in flight (16-byte loads), scores them against the G query rows it
+//   holds in registers (a dot product reduced over its LPK lanes by
+//   shuffles) and folds them into its own running (m, l, acc).  At a head
+//   dim whose hd / 4 is no power of two (zamba2's 112: 28 columns) the
+//   stream's last lanes (4 of 32) hold zeros: they load nothing, add 0 to
+//   every dot product and store nothing, so the shuffles stay at powers
+//   of two.  The block's streams are merged once, at the end, through
+//   shared memory.
 // - The window's lower bound skips pages wholly below seq_len - window, and
 //   pages past the end are never read (every decode lane has seq_len >= 1).
 //
@@ -39,6 +44,13 @@
 namespace {
 
 using repro_split::kNegInf;
+
+// lanes a key row of c4 float4 columns takes: c4 rounded up to a power of
+// two (8 at head dim 32, 16 at 64, 32 at 112 and 128)
+__host__ __device__ constexpr int lanes_per_row(int c4) {
+  return c4 <= 8 ? 8 : c4 <= 16 ? 16 : 32;
+}
+
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kU = 8;  // keys in flight per stream
@@ -56,19 +68,22 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     float* __restrict__ acc_ws,           // (B, KVH, n_split, G, hd)
     int H, int KVH, int page, int max_pages, float scale, int window,
     int n_split) {
-  constexpr int LPK = HD / 4;          // lanes per key row (float4 each)
+  constexpr int C4 = HD / 4;           // float4 columns of a key row
+  constexpr int LPK = lanes_per_row(C4);  // lanes per key row (float4 each)
   constexpr int KPW = 32 / LPK;        // key streams per warp
   constexpr int NS = kWarps * KPW;     // key streams per block
+  static_assert(HD % 4 == 0 && C4 <= 32, "a key row is at most 32 float4s");
   __shared__ float m_s[NS][MG];
   __shared__ float l_s[NS][MG];
-  __shared__ float4 acc_s[NS][MG][LPK];
+  __shared__ float4 acc_s[NS][MG][C4];
 
   const int b = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z;
   const int G = H / KVH;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int li = lane % LPK;                       // float4 column
+  const bool col = LPK == C4 || li < C4;           // the lane holds a column
   const int stream = warp * KPW + lane / LPK;
-  const long long row4 = (long long)KVH * LPK;     // float4s per token slot
+  const long long row4 = (long long)KVH * C4;      // float4s per token slot
 
   // this split's share of the lane's pages
   const int seq_len = seq_lens[b];
@@ -85,17 +100,17 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   float m[MG], l[MG];
   float4 acc[MG];
   const float4* q4 = reinterpret_cast<const float4*>(q) +
-                     ((long long)b * H + (long long)kvh * G) * LPK + li;
+                     ((long long)b * H + (long long)kvh * G) * C4 + li;
 #pragma unroll
   for (int g = 0; g < MG; ++g) {
-    qv[g] = g < G ? q4[g * LPK] : make_float4(0.f, 0.f, 0.f, 0.f);
+    qv[g] = g < G && col ? q4[g * C4] : make_float4(0.f, 0.f, 0.f, 0.f);
     m[g] = kNegInf;
     l[g] = 0.f;
     acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  const float4* k4 = reinterpret_cast<const float4*>(k_pages) + (long long)kvh * LPK + li;
-  const float4* v4 = reinterpret_cast<const float4*>(v_pages) + (long long)kvh * LPK + li;
+  const float4* k4 = reinterpret_cast<const float4*>(k_pages) + (long long)kvh * C4 + li;
+  const float4* v4 = reinterpret_cast<const float4*>(v_pages) + (long long)kvh * C4 + li;
   const int* bt = block_table + (long long)b * max_pages;
   // the loop is uniform over the warp (its shuffles need every lane); a
   // stream past the end masks all its keys
@@ -105,7 +120,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const int pos = k0 + u;
-      if (pos < k_end) {
+      if (pos < k_end && col) {
         const long long slot = (long long)bt[pos / page] * page + pos % page;
         kr[u] = __ldg(k4 + slot * row4);
         vr[u] = __ldg(v4 + slot * row4);
@@ -151,7 +166,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   // merge the block's streams: every lane of a stream holds the same (m, l)
 #pragma unroll
   for (int g = 0; g < MG; ++g) {
-    acc_s[stream][g][li] = acc[g];
+    if (col) acc_s[stream][g][li] = acc[g];
     if (li == 0) {
       m_s[stream][g] = m[g];
       l_s[stream][g] = l[g];
@@ -222,8 +237,8 @@ int launch_hd(int G, const float* q, const float* k_pages,
 }  // namespace
 
 // Returns 0 or a CUDA error code; cudaErrorInvalidValue (1) for a head dim
-// other than 32, 64, 128 or a group larger than 8 (the wrapper refuses
-// both first).
+// other than 32, 64, 112, 128 or a group larger than 8 (the wrapper
+// refuses both first).
 extern "C" int repro_paged_decode_f32(
     const float* q, const float* k_pages, const float* v_pages,
     const int* block_table, const int* seq_lens, float* out, float* m_ws,
@@ -240,6 +255,10 @@ extern "C" int repro_paged_decode_f32(
       return launch_hd<64>(G, q, k_pages, v_pages, block_table, seq_lens, out,
                            m_ws, l_ws, acc_ws, B, H, KVH, page, max_pages,
                            scale, window, n_split, st);
+    case 112:
+      return launch_hd<112>(G, q, k_pages, v_pages, block_table, seq_lens,
+                            out, m_ws, l_ws, acc_ws, B, H, KVH, page,
+                            max_pages, scale, window, n_split, st);
     case 128:
       return launch_hd<128>(G, q, k_pages, v_pages, block_table, seq_lens,
                             out, m_ws, l_ws, acc_ws, B, H, KVH, page,

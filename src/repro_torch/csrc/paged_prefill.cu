@@ -43,8 +43,13 @@
 //   16-byte cp.async copies, double-buffered: tile t + 1 is in flight while
 //   tile t is computed.  Rows are padded to hd + 4 floats: 16-byte aligned,
 //   and the fragment reads of Q, K (rows g, columns t) and V (rows 2t,
-//   columns g) fall on 32 different banks.  The fp32 tiles are split into
-//   big / small as fragments are read, so hd 128 still fits two stages.
+//   columns g) fall on 32 different banks (hd + 4 is 4 mod 32 at hd 32,
+//   64 and 128 and 20 mod 32 at zamba2's 112: the rows' offsets g (hd + 4)
+//   are then 0, 20, 8, 28, 16, 4, 24, 12 mod 32, still eight distinct
+//   multiples of 4, and 2t (hd + 4) is 8t mod 32).  The fp32 tiles are
+//   split into big / small as fragments are read, so hd 128 still fits two
+//   stages.  P·V walks its hd / 8 output n-tiles four at a time and then
+//   the rest (pv_mma3: at hd 112 a tail of two).
 // - The online softmax runs on the score fragments: a row's max is a
 //   two-step quad shuffle, its denominator is summed per thread and
 //   reduced once at the end, and no barrier is taken per key.  Its
@@ -91,6 +96,7 @@ using repro_mma::cp_async_commit;
 using repro_mma::cp_async_wait_1;
 using repro_mma::cp_async_wait_all;
 using repro_mma::mma3;
+using repro_mma::pv_mma3;
 using repro_mma::split;
 using repro_split::kNegInf;
 constexpr int kWarps = 8;
@@ -312,16 +318,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
         split(p1, ab[2], as[2]);
         split(p3, ab[3], as[3]);
         const float* v0 = vt + (8 * j + 2 * tq) * ST + gq;
-#pragma unroll
-        for (int n0 = 0; n0 < NK; n0 += 4) {   // 4 output n-tiles at a time
-          float vb2[4][2];
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            vb2[n][0] = v0[8 * (n0 + n)];
-            vb2[n][1] = v0[ST + 8 * (n0 + n)];
-          }
-          mma3<4>(*reinterpret_cast<float(*)[4][4]>(&o[n0]), ab, as, vb2);
-        }
+        pv_mma3<NK>(o, ab, as, v0, ST);
       }
     }
     __syncthreads();                 // buffer buf free for tile t + 2
@@ -389,7 +386,7 @@ int launch(const float* q, const float* k_new, const float* v_new,
 }  // namespace
 
 // Returns 0 or a CUDA error code; cudaErrorInvalidValue (1) for a head dim
-// other than 32, 64 or 128 (the wrapper refuses it first).
+// other than 32, 64, 112 or 128 (the wrapper refuses it first).
 extern "C" int repro_paged_prefill_f32(
     const float* q, const float* k_new, const float* v_new, float* k_pages,
     float* v_pages, const int* block_table, const int* pos0,
@@ -406,6 +403,10 @@ extern "C" int repro_paged_prefill_f32(
       return launch<64>(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
                         chunk_len, out, m_ws, l_ws, acc_ws, B, S, H, KVH,
                         page, max_pages, scale, window, n_split, st);
+    case 112:
+      return launch<112>(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
+                         chunk_len, out, m_ws, l_ws, acc_ws, B, S, H, KVH,
+                         page, max_pages, scale, window, n_split, st);
     case 128:
       return launch<128>(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
                          chunk_len, out, m_ws, l_ws, acc_ws, B, S, H, KVH,

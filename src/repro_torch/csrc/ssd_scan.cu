@@ -12,9 +12,10 @@
 //   h[p, n] <- h[p, n] exp(seg_end) + sum_l B_l[n] dt_l exp(seg_end - seg_l)
 //              x[l, p]
 // Shapes: x, y (B, S, H, P); dt (B, S, H); A (H,); Bm, Cm (B, S, N) (one
-// SSM group, shared by all heads); h0, hT (B, H, P, N).  Built for
-// mamba2's P 64 and N 128; any chunk length L up to kMaxChunk that divides
-// S (plain generation runs whole prompts as one chunk of any length).
+// SSM group, shared by all heads); h0, hT (B, H, P, N).  Built for P 64
+// and N 128 (mamba2) or 64 (zamba2); any chunk length L up to kMaxChunk
+// that divides S (plain generation runs whole prompts as one chunk of any
+// length).
 //
 // What bounds it on an H100: at the serving path's short chunks, bytes
 // (the 32 KB state of every head is read and written once per call: 5.2 of
@@ -24,11 +25,13 @@
 //
 // What the design does about it:
 //  * Grid (P slice, head, lane), 4 warps a block.  A block owns 16 of its
-//    head's 64 state rows (320 blocks at mamba2's 80 heads and one lane)
-//    and keeps that 16 x 128 slice in registers, as mma accumulators,
-//    across the chunk loop; it is read and written once per call with
-//    16-byte accesses (a quad's fragment pairs are exchanged by shuffles
-//    into float4s).
+//    head's 64 state rows (320 blocks at mamba2's 80 heads and one lane,
+//    448 at zamba2's 112) and keeps that 16 x N slice in registers, as mma
+//    accumulators, across the chunk loop, each of its four warps owning
+//    N / 4 state columns (32 at mamba2's N 128, 16 at zamba2's N 64: an
+//    H100 sweep timed two warps of 32 columns at N 64 no faster, PERF.md);
+//    it is read and written once per call with 16-byte accesses (a
+//    quad's fragment pairs are exchanged by shuffles into float4s).
 //  * Tensor cores: C.B^T, the masked-decay scores times x, C.h^T and
 //    B^T.(dt decay x) are mma.sync.m16n8k8 TF32 products in 3xTF32
 //    (csrc/mma_tf32.cuh, shared with B2, B4 and B6) in its accurate form
@@ -50,8 +53,8 @@
 //    the masked pairs (m > l) are an exact 0 without an exp (the reference
 //    masks to -1e30 before exp for the same reason: the upper triangle
 //    overflows).  The last row group's key walk covers every token of the
-//    chunk, and the state update rides on it, each warp over its own 32
-//    state columns.
+//    chunk, and the state update rides on it, each warp over its own
+//    N / 4 state columns.
 //  * C.B^T is the same for every head.  Above the wrapper's threshold
 //    (cb_workspace) a first launch, ssd_cb_kernel, writes its lower
 //    triangle for every (lane, chunk) to a workspace of B * n_chunks * Lp^2
@@ -88,24 +91,28 @@ using repro_mma::p_fragment;
 using repro_mma::split;
 
 constexpr int kP = 64;                   // head_dim the kernel is built for
-constexpr int kN = 128;                  // d_state
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kT = 16;                   // rows (and keys) per tile
 constexpr int kGroupRows = kWarps * kT;  // rows of one row group
-constexpr int kLd = kN + 4;              // C, B and state rows in shared memory
 constexpr int kPS = 16;                  // state rows per block
 constexpr int kLdX = 32 + 4;             // a staged x row: 4 mod 32 floats
 constexpr int kMaxChunk = 8192;
-static_assert(kN == 32 * kWarps, "each warp updates 32 state columns");
+
+// C, B and state rows of N floats in shared memory: N + 4 floats, 4 mod 32
+// at N 64 and 128
+template <int N>
+__host__ __device__ constexpr int ld_of() { return N + 4; }
 
 __host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
 
+template <int N>
 size_t smem_bytes(int L) {
+  constexpr int ld = ld_of<N>();
   const int lp = round16(L);
   const int c_rows = lp < kGroupRows ? lp : kGroupRows;
-  return sizeof(float) * ((size_t)c_rows * kLd + 2 * kT * kLd +
-                          2 * kT * kLdX + kPS * kLd + 4 * (size_t)lp);
+  return sizeof(float) * ((size_t)c_rows * ld + 2 * kT * ld +
+                          2 * kT * kLdX + kPS * ld + 4 * (size_t)lp);
 }
 
 // A quad (the 4 lanes t of one fragment row) holds 16 consecutive columns
@@ -142,37 +149,40 @@ __device__ __forceinline__ void float4_to_pairs(float4 v, int t, float2& lo,
   hi = (t & 1) ? make_float2(y2, y3) : make_float2(y0, y1);
 }
 
-// rows [row0, row0 + n_rows) of a (tokens, kN) matrix from token tok into
-// shared memory rows of kLd floats, by nt threads; rows at or past L zeros
+// rows [row0, row0 + n_rows) of a (tokens, N) matrix from token tok into
+// shared memory rows of N + 4 floats, by nt threads; rows at or past L zeros
+template <int N>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            long long tok, int row0,
                                            int n_rows, int L, int tid,
                                            int nt) {
-  for (int e = tid; e < n_rows * (kN / 4); e += nt) {
-    const int r = e / (kN / 4), q = e % (kN / 4);
+  for (int e = tid; e < n_rows * (N / 4); e += nt) {
+    const int r = e / (N / 4), q = e % (N / 4);
     const bool live = row0 + r < L;
-    const float* s = live ? src + (tok + row0 + r) * kN + 4 * q : src;
-    cp_async16(dst + r * kLd + 4 * q, s, live);
+    const float* s = live ? src + (tok + row0 + r) * N + 4 * q : src;
+    cp_async16(dst + r * ld_of<N>() + 4 * q, s, live);
   }
 }
 
-// The 16 x 16 tile of C.B^T of one warp: rows from Cw (16 rows of kLd),
-// keys from Bt (16 rows of kLd); s[j] is the fragment of keys 8j .. 8j + 7.
+// The 16 x 16 tile of C.B^T of one warp: rows from Cw (16 rows of N + 4),
+// keys from Bt (16 rows of N + 4); s[j] is the fragment of keys 8j .. 8j + 7.
+template <int N>
 __device__ __forceinline__ void cb_tile(const float* Cw, const float* Bt,
                                         int g, int t, float (&s)[2][4]) {
+  constexpr int ld = ld_of<N>();
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll 4
-  for (int k0 = 0; k0 < kN; k0 += 8) {
+  for (int k0 = 0; k0 < N; k0 += 8) {
     uint32_t ab[4], as[4];
-    load_a(Cw, kLd, k0, g, t, ab, as);
+    load_a(Cw, ld, k0, g, t, ab, as);
     float bf[2][2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      bf[j][0] = Bt[(8 * j + g) * kLd + k0 + t];
-      bf[j][1] = Bt[(8 * j + g) * kLd + k0 + t + 4];
+      bf[j][0] = Bt[(8 * j + g) * ld + k0 + t];
+      bf[j][1] = Bt[(8 * j + g) * ld + k0 + t + 4];
     }
     mma3_acc<2>(s, ab, as, bf);
   }
@@ -181,29 +191,30 @@ __device__ __forceinline__ void cb_tile(const float* Cw, const float* Bt,
 // C.B^T per (lane, chunk): block (lane * n_chunks + chunk, row tile r);
 // each warp takes key tiles warp, warp + 4, ... up to r (the lower
 // triangle) and writes the raw products, rows of Lp floats.
+template <int N>
 __global__ void __launch_bounds__(kThreads)
 ssd_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
               float* __restrict__ cb, int L) {
-  __shared__ __align__(16) float Cs[kT * kLd];
-  __shared__ __align__(16) float Bs[kWarps][kT * kLd];
+  __shared__ __align__(16) float Cs[kT * ld_of<N>()];
+  __shared__ __align__(16) float Bs[kWarps][kT * ld_of<N>()];
   const int r = blockIdx.y;
   const long long bc = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int lp = round16(L);
   const long long tok = bc * L;          // S = n_chunks * L
-  stage_rows(Cs, Cm, tok, kT * r, kT, L, tid, kThreads);
+  stage_rows<N>(Cs, Cm, tok, kT * r, kT, L, tid, kThreads);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
   float* out = cb + (bc * lp + kT * r) * lp;
   for (int kt = warp; kt <= r; kt += kWarps) {
-    stage_rows(Bs[warp], Bm, tok, kT * kt, kT, L, lane, 32);
+    stage_rows<N>(Bs[warp], Bm, tok, kT * kt, kT, L, lane, 32);
     cp_async_commit();
     cp_async_wait_all();
     __syncwarp();
     float s[2][4];
-    cb_tile(Cs, Bs[warp], g, t, s);
+    cb_tile<N>(Cs, Bs[warp], g, t, s);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int m = kT * kt + 8 * j + 2 * t;
@@ -215,6 +226,9 @@ ssd_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
   }
 }
 
+// N: the state width; each warp owns N / 4 state columns (a multiple of
+// 16: one float4 exchange covers 16 columns)
+template <int N>
 __global__ void __launch_bounds__(kThreads)
 ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ A, const float* __restrict__ Bm,
@@ -222,6 +236,11 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ cb, float* __restrict__ y,
            float* __restrict__ hT, int S, int H, int L) {
   constexpr int NT = kPS / 8;            // 8-column tiles of a y row
+  constexpr int kLd = ld_of<N>();
+  constexpr int CW = N / kWarps;         // state columns of a warp
+  constexpr int NJ = CW / 8;             // its 8-column state tiles
+  static_assert(N % kWarps == 0 && CW % 16 == 0,
+                "warps own whole 16-column groups of the state");
   extern __shared__ __align__(16) float smem[];
   const int lp = round16(L);
   const int c_rows = min(lp, kGroupRows);
@@ -239,21 +258,21 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int g = lane >> 2, t = lane & 3;
   const int nc = S / L, n_t = lp / kT;
   const int n_groups = (n_t + kWarps - 1) / kWarps;
-  const long long hbase = ((long long)b * H + h) * kP * kN + (long long)p0 * kN;
+  const long long hbase = ((long long)b * H + h) * kP * N + (long long)p0 * N;
   const float a = A[h];
 
   // the state slice: hs[j] is the accumulator fragment of rows (g, g + 8)
-  // and columns 32 warp + 8 j + (2t, 2t + 1)
-  float hs[4][4];
+  // and columns CW warp + 8 j + (2t, 2t + 1)
+  float hs[NJ][4];
   // h0 read with 16-byte loads and put into fragment order
 #pragma unroll
   for (int half = 0; half < 2; ++half)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < NJ / 2; ++i) {
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (h0 != nullptr)
         v = *reinterpret_cast<const float4*>(
-            h0 + hbase + (g + 8 * half) * kN + 32 * warp + 16 * i + 4 * t);
+            h0 + hbase + (g + 8 * half) * N + CW * warp + 16 * i + 4 * t);
       float2 lo, hi;
       float4_to_pairs(v, t, lo, hi);
       hs[2 * i][2 * half] = lo.x;
@@ -268,8 +287,8 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     auto stage_tile = [&](int kt, bool need_b) {
       const int buf = kt & 1;
       if (need_b)
-        stage_rows(Bs + buf * kT * kLd, Bm, tok, kT * kt, kT, L, tid,
-                   kThreads);
+        stage_rows<N>(Bs + buf * kT * kLd, Bm, tok, kT * kt, kT, L, tid,
+                      kThreads);
       for (int e = tid; e < kT * (kPS / 4); e += kThreads) {
         const int rr = e / (kPS / 4), q = e % (kPS / 4);
         const int l = kT * kt + rr;
@@ -280,7 +299,7 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     };
     // a row group's C rows and its first key tile, as one cp.async group
     auto stage_group = [&](int rg) {
-      stage_rows(Cs, Cm, tok, rg * kGroupRows, c_rows, L, tid, kThreads);
+      stage_rows<N>(Cs, Cm, tok, rg * kGroupRows, c_rows, L, tid, kThreads);
       stage_tile(0, cb == nullptr || rg == n_groups - 1);
       cp_async_commit();
     };
@@ -288,10 +307,11 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     stage_group(0);                      // in flight while seg is formed
     for (int i = tid; i < L; i += kThreads) dts[i] = dt[(tok + i) * H + h];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float* hr = Hs + g * kLd + 32 * warp + 8 * j + 2 * t;
+    for (int j = 0; j < NJ; ++j) {
+      float* hr = Hs + g * kLd + CW * warp + 8 * j + 2 * t;
       *reinterpret_cast<float2*>(hr) = make_float2(hs[j][0], hs[j][1]);
-      *reinterpret_cast<float2*>(hr + 8 * kLd) = make_float2(hs[j][2], hs[j][3]);
+      *reinterpret_cast<float2*>(hr + 8 * kLd) =
+          make_float2(hs[j][2], hs[j][3]);
     }
     __syncthreads();
     if (tid == 0) {
@@ -311,7 +331,7 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     }
     const float e_end = expf(seg_end);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) hs[j][e] *= e_end;
 
@@ -345,7 +365,7 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
         if (kt == 0 && rows) {           // C.h^T: the incoming state
 #pragma unroll 4
-          for (int k0 = 0; k0 < kN; k0 += 8) {
+          for (int k0 = 0; k0 < N; k0 += 8) {
             uint32_t ab[4], as[4];
             load_a(Cw, kLd, k0, g, t, ab, as);
             float bf[NT][2];
@@ -375,7 +395,7 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
               s[j][3] = v1.y;
             }
           } else {
-            cb_tile(Cw, Bt, g, t, s);
+            cb_tile<N>(Cw, Bt, g, t, s);
           }
 #pragma unroll
           for (int j = 0; j < 2; ++j)
@@ -408,11 +428,11 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
             // tokens in the order 0, 2, 4, 6, 1, 3, 5, 7, as p_fragment
             const int l0 = 8 * ks + 2 * t;
             const float c0 = cwt[l0], c1 = cwt[l0 + 1];
-            float bf[4][2];
+            float bf[NJ][2];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              bf[j][0] = Bt[l0 * kLd + 32 * warp + 8 * j + g];
-              bf[j][1] = Bt[(l0 + 1) * kLd + 32 * warp + 8 * j + g];
+            for (int j = 0; j < NJ; ++j) {
+              bf[j][0] = Bt[l0 * kLd + CW * warp + 8 * j + g];
+              bf[j][1] = Bt[(l0 + 1) * kLd + CW * warp + 8 * j + g];
             }
             const float* xr = Xt + l0 * kLdX + g;
             uint32_t ab[4], as[4];
@@ -420,7 +440,7 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
             split(xr[8] * c0, ab[1], as[1]);
             split(xr[kLdX] * c1, ab[2], as[2]);
             split(xr[kLdX + 8] * c1, ab[3], as[3]);
-            mma3_acc<4>(hs, ab, as, bf);
+            mma3_acc<NJ>(hs, ab, as, bf);
           }
         }
         __syncthreads();                 // this tile's buffers are rewritten
@@ -452,13 +472,39 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
   for (int half = 0; half < 2; ++half)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < NJ / 2; ++i) {
       const float4 v = pairs_to_float4(
           make_float2(hs[2 * i][2 * half], hs[2 * i][2 * half + 1]),
           make_float2(hs[2 * i + 1][2 * half], hs[2 * i + 1][2 * half + 1]), t);
-      *reinterpret_cast<float4*>(hT + hbase + (g + 8 * half) * kN + 32 * warp +
+      *reinterpret_cast<float4*>(hT + hbase + (g + 8 * half) * N + CW * warp +
                                  16 * i + 4 * t) = v;
     }
+}
+
+template <int N>
+int launch(const float* x, const float* dt, const float* A, const float* Bm,
+           const float* Cm, const float* h0, float* y, float* hT, float* cb,
+           int B, int S, int H, int L, cudaStream_t st) {
+  if (cb != nullptr) {
+    ssd_cb_kernel<N><<<dim3((unsigned)((long long)B * (S / L)),
+                            round16(L) / kT),
+                       kThreads, 0, st>>>(Bm, Cm, cb, L);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  // the attribute is set once per instantiation, to the largest chunk's
+  // need (a launch reserves only what it asks for)
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ssd_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes<N>(kMaxChunk));
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  ssd_kernel<N><<<dim3(kP / kPS, H, B), kThreads, smem_bytes<N>(L), st>>>(
+      x, dt, A, Bm, Cm, h0, cb, y, hT, S, H, L);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -466,35 +512,21 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 // cb: null (every block computes its own C.B^T tiles) or a workspace of
 // B * (S / L) * Lp * Lp floats, Lp = L rounded up to 16, which a first
 // launch fills.  Returns 0 or the CUDA error of the attribute call or a
-// launch; cudaErrorInvalidValue for widths other than P 64 and N 128, a
-// chunk that does not divide S or exceeds kMaxChunk, or a grid the card
-// cannot launch.
+// launch; cudaErrorInvalidValue for widths other than P 64 and N 64 or
+// 128, a chunk that does not divide S or exceeds kMaxChunk, or a grid the
+// card cannot launch.
 extern "C" int repro_ssd_scan_f32(const float* x, const float* dt,
                                   const float* A, const float* Bm,
                                   const float* Cm, const float* h0, float* y,
                                   float* hT, float* cb, int B, int S, int H,
                                   int P, int N, int L, void* stream) {
-  if (P != kP || N != kN || L < 1 || L > kMaxChunk || S % L != 0 ||
-      B < 1 || B > 65535 || H < 1 || H > 65535)
+  if (P != kP || L < 1 || L > kMaxChunk || S % L != 0 || B < 1 ||
+      B > 65535 || H < 1 || H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (cb != nullptr) {
-    ssd_cb_kernel<<<dim3((unsigned)((long long)B * (S / L)), round16(L) / kT),
-                    kThreads, 0, st>>>(Bm, Cm, cb, L);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  // the attribute is set once, to the largest chunk's need (a launch
-  // reserves only what it asks for)
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(kMaxChunk));
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
-  ssd_kernel<<<dim3(kP / kPS, H, B), kThreads, smem_bytes(L), st>>>(
-      x, dt, A, Bm, Cm, h0, cb, y, hT, S, H, L);
-  return (int)cudaGetLastError();
+  if (N == 128)
+    return launch<128>(x, dt, A, Bm, Cm, h0, y, hT, cb, B, S, H, L, st);
+  if (N == 64)
+    return launch<64>(x, dt, A, Bm, Cm, h0, y, hT, cb, B, S, H, L, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -14,7 +14,7 @@ plain version the mean of V.
 
 Dispatch is by the inputs' device, as in ``paged_attention.py``: CPU →
 ``flash_attention_plain``, CUDA → ``csrc/flash_attention.cu`` or raise.
-The kernel takes head dims 32, 64 and 128.  ``COUNTS["kernel"]`` counts
+The kernel takes head dims 32, 64, 112 and 128.  ``COUNTS["kernel"]`` counts
 calls that launched the kernel, one per call whether or not a key split
 adds a merge launch.
 
@@ -37,8 +37,9 @@ from repro_torch.kernels.paged_attention import (
 
 COUNTS = {"kernel": 0, "plain": 0}
 
-# the head dims csrc/flash_attention.cu is compiled for
-KERNEL_HEAD_DIMS = (32, 64, 128)
+# the head dims csrc/flash_attention.cu is compiled for (112: zamba2's
+# shared attention in plain generation)
+KERNEL_HEAD_DIMS = (32, 64, 112, 128)
 # the CUDA kernel's tiles: warps per block, query rows per warp's row
 # group, keys per staged tile
 WARPS, ROW_GROUP, KEY_TILE = 8, 16, 64

@@ -30,8 +30,9 @@ COUNTS = {"kernel": 0, "plain": 0}
 
 # blocks in flight the split count aims at, per SM of the card
 BLOCKS_PER_SM = 2
-# head dims the CUDA kernel is built for, and its largest GQA group
-HEAD_DIMS = (32, 64, 128)
+# head dims the CUDA kernels B1 and B2 are built for (112: zamba2's
+# shared attention), and B1's largest GQA group
+HEAD_DIMS = (32, 64, 112, 128)
 MAX_GROUP = 8
 
 _SMS: dict[int, int] = {}

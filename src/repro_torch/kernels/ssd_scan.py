@@ -11,14 +11,15 @@ SSD form, across chunks the (H, P, N) state is carried.
 
 Dispatch is by the inputs' device, as in ``paged_attention.py``: CPU →
 ``ssd_chunked_plain``, CUDA → ``csrc/ssd_scan.cu`` or raise.  The kernel
-is built for mamba2's head dim 64 and state width 128 and takes chunks of
-up to ``KERNEL_MAX_CHUNK`` tokens; other widths raise on the card.
+is built for head dim 64 and state widths 128 (mamba2) and 64 (zamba2)
+and takes chunks of up to ``KERNEL_MAX_CHUNK`` tokens; other widths raise
+on the card.
 ``COUNTS["kernel"]`` counts calls that launched the kernel, one per call
 whether or not the C.B^T workspace adds a first launch.
 
-The wrapper picks the kernel's regime from the chunk length:
-``cb_workspace``, whether a first launch computes C.B^T once per lane and
-chunk for all heads.
+The wrapper picks the kernel's regime: ``cb_workspace``, from the chunk
+length, whether a first launch computes C.B^T once per lane and chunk for
+all heads.
 """
 from __future__ import annotations
 
@@ -28,8 +29,9 @@ from repro_torch.kernels.paged_attention import check_tensor
 
 COUNTS = {"kernel": 0, "plain": 0}
 
-# the widths csrc/ssd_scan.cu is compiled for
-KERNEL_HEAD_DIM, KERNEL_STATE, KERNEL_MAX_CHUNK = 64, 128, 8192
+# the widths csrc/ssd_scan.cu is compiled for: head dim, state widths,
+# longest chunk
+KERNEL_HEAD_DIM, KERNEL_STATES, KERNEL_MAX_CHUNK = 64, (64, 128), 8192
 # chunks longer than this get C.B^T from the workspace launch
 CB_WORKSPACE_ABOVE = 32
 
@@ -88,10 +90,11 @@ def _launch(xh, dt, A, Bm, Cm, chunk, init_state):
         check_tensor("init_state", init_state, torch.float32, dev, 4)
         if init_state.shape != (B, H, P, N):
             raise ValueError("ssd_scan: init_state must be (B, H, P, N)")
-    if (P, N) != (KERNEL_HEAD_DIM, KERNEL_STATE) or chunk > KERNEL_MAX_CHUNK:
+    if P != KERNEL_HEAD_DIM or N not in KERNEL_STATES \
+            or chunk > KERNEL_MAX_CHUNK:
         raise ValueError(
-            f"ssd_scan: the kernel takes head dim {KERNEL_HEAD_DIM}, state "
-            f"{KERNEL_STATE} and chunks up to {KERNEL_MAX_CHUNK}, got P {P}, "
+            f"ssd_scan: the kernel takes head dim {KERNEL_HEAD_DIM}, states "
+            f"{KERNEL_STATES} and chunks up to {KERNEL_MAX_CHUNK}, got P {P}, "
             f"N {N}, chunk {chunk}")
     y = torch.empty_like(xh)
     final = torch.empty(B, H, P, N, dtype=torch.float32, device=dev)

@@ -1,7 +1,9 @@
-"""Model zoo of the port: dense GQA decoders (``attn`` blocks),
-cross-attending decoders (``cross_attn`` blocks: whisper with its encoder
-in ``encdec.py``, the llama-3.2-vision VLM), DeepSeek-V2 (``mla`` /
-``mla_moe`` blocks) and Mamba2 (``ssm`` blocks)."""
+"""Model zoo of the port: dense GQA decoders (``attn`` blocks), GQA with
+MoE FFNs (``attn_moe``: phi3.5-moe), cross-attending decoders
+(``cross_attn`` blocks: whisper with its encoder in ``encdec.py``, the
+llama-3.2-vision VLM), DeepSeek-V2 (``mla`` / ``mla_moe`` blocks), Mamba2
+(``ssm`` blocks) and the zamba2 hybrid (``ssm`` blocks and one shared
+``shared_attn`` block)."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import (encdec_forward, encoder_forward,
                                        init_encdec_params, init_encoder)

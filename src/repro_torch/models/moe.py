@@ -1,5 +1,6 @@
 """Mixture-of-Experts FFN: top-k routing, shared experts, load-balance
-terms (port of ``repro/models/moe.py``, its ``dispatch`` mode).
+terms (port of ``repro/models/moe.py``: its ``dispatch`` mode, the
+engine's, and its ``dense`` mode, every expert on every token).
 
 Routing and capacity are the reference's: fp32 router logits, softmax,
 top-k, the k weights renormalised (sum clipped at 1e-9); each (token,
@@ -21,6 +22,11 @@ result:
   scatter-add: CUDA's atomic ``index_add_`` would sum in another order on
   every run and break the port's bit-identity contracts (sharing on/off,
   preempt replay).
+
+``mode="dense"`` is the reference's exact small-shape oracle: every
+expert runs over every token and the outputs are combined by the top-k
+weights scattered into an (T, E) matrix (zero for an expert a token did
+not pick).  Nothing is dropped, so it equals a dropless dispatch.
 
 ``jax.lax.top_k`` and ``torch.topk`` may order exactly tied probabilities
 differently.  With fp32 router probabilities from real activations exact
@@ -76,40 +82,34 @@ def capacity(cf: float, k: int, T: int, E: int) -> int:
     return max(1, math.ceil(cf * k * T / E))
 
 
-def moe_forward(p, x, cfg: ModelConfig, capacity_factor=None):
+def _dense(p, xt, probs, topv, topi):
+    """Every expert over every token, combined by the top-k weights (the
+    reference's ``mode="dense"``, einsum for einsum)."""
+    combine = torch.zeros_like(probs).scatter(1, topi, topv).to(xt.dtype)
+    h = (F.silu(torch.einsum("td,edf->etf", xt, p["w_gate"]))
+         * torch.einsum("td,edf->etf", xt, p["w_up"]))
+    eo = torch.einsum("etf,efd->etd", h, p["w_down"])
+    return torch.einsum("etd,te->td", eo, combine)
+
+
+def moe_forward(p, x, cfg: ModelConfig, mode: str = "dispatch",
+                capacity_factor=None):
     """Returns (out (B, S, D), aux) with aux ``{"aux_loss",
-    "expert_density"}``.  ``capacity_factor`` None means 2.0 (the
+    "expert_density"}``.  ``mode`` is ``"dispatch"`` (capacity-based,
+    the engine's) or ``"dense"`` (every expert on every token, no drops;
+    ``capacity_factor`` unused).  ``capacity_factor`` None means 2.0 (the
     reference's training default); any value >= E / k is dropless."""
+    if mode not in ("dispatch", "dense"):
+        raise ValueError(f"moe_forward: unknown mode {mode!r}")
     m = cfg.moe
-    cf = 2.0 if capacity_factor is None else capacity_factor
     B, S, D = x.shape
     xt = x.reshape(-1, D)
-    T = xt.shape[0]
     E, k = m.n_experts, m.top_k
     probs, topv, topi = _route(p, xt, m)
-
-    C = capacity(cf, k, T, E)
-    e_u = topi.reshape(-1)                                   # (T*k,)
-    t_u = torch.arange(T, device=x.device).repeat_interleave(k)
-    # units grouped by expert, in unit order within each expert: expert e
-    # keeps the first min(count_e, C) of its group; a dropped unit's output
-    # stays 0
-    order = torch.argsort(e_u, stable=True)
-    counts = torch.bincount(e_u, minlength=E).tolist()       # host sync
-    unit_out = torch.zeros(T * k, D, dtype=x.dtype, device=x.device)
-    start = 0
-    for e, n in enumerate(counts):
-        if n:
-            idx = order[start:start + min(n, C)]
-            h = xt[t_u[idx]]
-            unit_out[idx] = (F.silu(h @ p["w_gate"][e])
-                             * (h @ p["w_up"][e])) @ p["w_down"][e]
-        start += n
-    unit_out = unit_out * topv.reshape(-1).to(x.dtype)[:, None]
-    per_slot = unit_out.reshape(T, k, D)
-    out = per_slot[:, 0]
-    for j in range(1, k):                    # the reference's slot order
-        out = out + per_slot[:, j]
+    if mode == "dense":
+        out = _dense(p, xt, probs, topv, topi)
+    else:
+        out = _dispatch(p, xt, topv, topi, m, capacity_factor)
 
     if m.n_shared:
         sh = F.silu(xt @ p["shared_gate"]) * (xt @ p["shared_up"])
@@ -120,3 +120,34 @@ def moe_forward(p, x, cfg: ModelConfig, capacity_factor=None):
     aux_loss = E * torch.sum(density / k * router_mean)
     return out.reshape(B, S, D), {"aux_loss": aux_loss,
                                   "expert_density": density}
+
+
+def _dispatch(p, xt, topv, topi, m, capacity_factor):
+    """Each expert's SwiGLU over its kept units, combined in slot order
+    (the module docstring)."""
+    cf = 2.0 if capacity_factor is None else capacity_factor
+    T, D = xt.shape
+    E, k = m.n_experts, m.top_k
+    C = capacity(cf, k, T, E)
+    e_u = topi.reshape(-1)                                   # (T*k,)
+    t_u = torch.arange(T, device=xt.device).repeat_interleave(k)
+    # units grouped by expert, in unit order within each expert: expert e
+    # keeps the first min(count_e, C) of its group; a dropped unit's output
+    # stays 0
+    order = torch.argsort(e_u, stable=True)
+    counts = torch.bincount(e_u, minlength=E).tolist()       # host sync
+    unit_out = torch.zeros(T * k, D, dtype=xt.dtype, device=xt.device)
+    start = 0
+    for e, n in enumerate(counts):
+        if n:
+            idx = order[start:start + min(n, C)]
+            h = xt[t_u[idx]]
+            unit_out[idx] = (F.silu(h @ p["w_gate"][e])
+                             * (h @ p["w_up"][e])) @ p["w_down"][e]
+        start += n
+    unit_out = unit_out * topv.reshape(-1).to(xt.dtype)[:, None]
+    per_slot = unit_out.reshape(T, k, D)
+    out = per_slot[:, 0]
+    for j in range(1, k):                    # the reference's slot order
+        out = out + per_slot[:, j]
+    return out

@@ -1,5 +1,5 @@
-"""Decoder stack for ``attn``, ``cross_attn``, ``mla``, ``mla_moe`` and
-``ssm`` models (port of ``repro/models/transformer.py``).
+"""Decoder stack for every block kind of the reference (port of
+``repro/models/transformer.py``).
 
 Parameters keep the JAX pytree's layout: ``cfg.block_pattern`` is grouped
 into homogeneous segments and each segment's block parameters are stacked
@@ -7,12 +7,17 @@ on a leading layer axis (unstacked when the segment has one layer).  Where
 JAX runs ``lax.scan`` over a segment, this module loops over the layer
 index in Python; each layer reads and writes its own slice of the stacked
 page pools (or SSM lane rows) in place.  Block kinds: ``attn`` (GQA +
-dense MLP), ``cross_attn`` (GQA, then cross-attention over encoder or
-image states, then a dense MLP: whisper's decoder, the VLM's image
-layers), ``mla`` (MLA + dense MLP), ``mla_moe`` (MLA + MoE FFN,
-DeepSeek-V2) and ``ssm`` (a Mamba2 mixer, no FFN half); any other kind
-raises ``NotImplementedError``.  Learned positions (``cfg.learned_pos``,
-whisper) are added to the embeddings, clipped to the table.
+dense MLP), ``attn_moe`` (GQA + MoE FFN, phi3.5-moe), ``cross_attn``
+(GQA, then cross-attention over encoder or image states, then a dense
+MLP: whisper's decoder, the VLM's image layers), ``shared_attn`` (a GQA +
+dense MLP block whose ONE parameter set, ``params["shared_attn"]``, runs
+at every occurrence, each occurrence with its own page pools: zamba2),
+``mla`` (MLA + dense MLP), ``mla_moe`` (MLA + MoE FFN, DeepSeek-V2) and
+``ssm`` (a Mamba2 mixer, no FFN half); any other kind raises
+``NotImplementedError``.  A ``shared_attn`` segment holds the reference's
+empty marker ``{}`` in ``params["segments"]``.  Learned positions
+(``cfg.learned_pos``, whisper) are added to the embeddings, clipped to
+the table.
 """
 from __future__ import annotations
 
@@ -31,9 +36,10 @@ from repro_torch.models.moe import init_moe, moe_forward
 from repro_torch.models.ssm import (init_ssm, ssm_decode_step, ssm_forward,
                                     write_lane_rows)
 
-PORTED_KINDS = ("attn", "cross_attn", "mla", "mla_moe", "ssm")
+PORTED_KINDS = ("attn", "attn_moe", "cross_attn", "shared_attn", "mla",
+                "mla_moe", "ssm")
 MLA_KINDS = ("mla", "mla_moe")
-MOE_KINDS = ("mla_moe",)
+MOE_KINDS = ("attn_moe", "mla_moe")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -157,6 +163,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
             device=device) * 0.02
     segs = []
     for kind, n in cfg.segments():
+        if kind == "shared_attn":
+            # one block for every occurrence, drawn at the first one
+            if "shared_attn" not in params:
+                params["shared_attn"] = init_block(gen, kind, cfg, dtype,
+                                                   device)
+            segs.append({})               # marker: params live in shared_attn
+            continue
         block = init_block(gen, kind, cfg, dtype, device)
         if n > 1:
             # filled layer by layer, so that at most one unstacked block
@@ -250,12 +263,14 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
         x = x + params["pos_embed"][
             positions.clamp(0, cfg.learned_pos - 1).long()]
     for i, (kind, n) in enumerate(cfg.segments()):
-        seg_p = params["segments"][i]["p"]
+        # a shared_attn marker segment runs the one shared block
+        seg_p = (params["shared_attn"] if kind == "shared_attn"
+                 else params["segments"][i]["p"])
         seg_c = None
         if cache is not None:
             seg_c = cache[i] if kind == "ssm" else cache[i]["self"]
         for l in range(n):
-            p = seg_p if n == 1 else _layer(seg_p, l)
+            p = seg_p if n == 1 or kind == "shared_attn" else _layer(seg_p, l)
             c = None
             if seg_c is not None:
                 c = seg_c if n == 1 else {k: t[l] for k, t in seg_c.items()}

@@ -61,6 +61,7 @@ def _t(*arrs):
     (2, 4, 2, 64, 16, 4, None),     # G 2, hd 64, page 16
     (3, 9, 3, 64, 16, 5, 20),       # smollm's group, window over pages
     (3, 4, 2, 32, 8, 6, 7),         # window inside one page
+    (2, 4, 4, 112, 16, 3, None),    # zamba2's G 1 at head dim 112
 ])
 def test_decode_matches_jax(B, H, KV, hd, page, max_pages, window):
     q, _, _, kp, vp, table = _inputs(B + hd, B, 1, H, KV, hd, page, max_pages)
@@ -115,6 +116,7 @@ def test_decode_poisoned_pages_do_not_leak(window):
     (3, 16, 4, 2, 64, 16, 3, None),  # G 2, hd 64, page 16
     (3, 12, 6, 2, 32, 8, 6, 5),      # window smaller than the chunk
     (2, 8, 9, 3, 64, 16, 3, 20),     # smollm's group, window over pages
+    (3, 8, 4, 4, 112, 16, 3, None),  # zamba2's G 1 at head dim 112
 ])
 def test_prefill_matches_jax(B, S, H, KV, hd, page, max_pages, window):
     """Lanes mix a mid-page start, an aligned start with a padded tail and
@@ -392,6 +394,7 @@ def _split_decode(q, kp, vp, table, seq_lens, scale, window, ns):
     (9, 3, 64, 16, [1, 17, 200], None),
     (4, 4, 32, 8, [5, 64, 33], None),
     (8, 4, 128, 16, [100, 60, 16], 40),
+    (4, 4, 112, 16, [1, 60, 33], None),    # zamba2's head dim
 ])
 def test_decode_split_decomposition(H, KV, hd, page, lens, window):
     """Every split count from 1 to past the longest lane's pages (so that
@@ -468,6 +471,7 @@ def _split_prefill(q, kn, vn, kp, vp, table, pos0, clen, scale, window, ns):
     (64, 9, 3, 64, 16, [0, 100], [64, 30], None),   # rows straddle tiles
     (64, 4, 4, 32, 8, [37, 3], [64, 1], None),      # G 1
     (32, 8, 4, 128, 16, [150, 0], [20, 32], 40),    # G 2, a window
+    (32, 4, 4, 112, 16, [99, 0], [17, 32], None),   # zamba2's replay bucket
 ])
 def test_prefill_split_decomposition(S, H, KV, hd, page, pos0, clen, window):
     """The kernel's tiling and key splits (1 to more key tiles than a
@@ -514,7 +518,7 @@ def _product_3xtf32(a, b):
             + (ab.double() @ bb.double()).float())
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
 def test_3xtf32_products_hold_the_card_check(hd):
     """At B2's head dims, scores q·kᵀ (q, k standard normal: |s| up to about
     4 sqrt(hd)) and the attention output P·V from 3xTF32 products stay
@@ -546,7 +550,7 @@ def _attention_f64(q, k, v, scale):
     return p @ v.double()
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
 def test_flash_3xtf32_holds_the_card_check(hd):
     """B6's products at its head dims over whisper's 1500 encoder frames:
     a 16-row query tile's output from 3xTF32 scores and P·V stays within
@@ -668,6 +672,7 @@ def _split_flash(q, k, v, causal, q_offset, kv_len, ns, kw):
     (2, 1, 150, 32, False, 0, 120),         # cross-decode, kv_len < Sk
     (1, 77, 200, 64, True, 100, 150),       # causal at an offset, kv_len
     (1, 150, 150, 32, True, 0, None),       # two query tiles, ragged
+    (2, 40, 120, 112, True, 80, None),      # zamba2's head dim
 ])
 def test_flash_split_decomposition(BH, Sq, Sk, hd, causal, q_offset, kv_len):
     """Each warps-per-group count, with key splits from 1 to more than the
@@ -919,6 +924,7 @@ SSD_CUTS = [
     (2, 48, 3, 32, 16, 24, (), 16, False),        # ragged L, two chunks
     (1, 80, 2, 32, 16, 80, ((0, 50),), 16, True), # 5 row tiles: 2 groups
     (3, 32, 2, 32, 32, 8, ((1, 20), (2, 0)), 16, True),  # a lane all padding
+    (1, 32, 2, 64, 64, 16, ((0, 20),), 16, True),  # zamba2's P 64, N 64
 ]
 
 
@@ -952,6 +958,40 @@ def test_ssd_cut_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=ATOL)
 
 
+def test_zamba2_widths_plain_versions_match_jax():
+    """zamba2-7b's widths through the wrappers' plain versions (what a CPU
+    tensor runs): B6 at head dim 112 (32 heads, causal from an offset with
+    kv_len < Sk) against the Pallas kernel in interpret mode; B5 at head
+    dim 64 and state 64 against the Pallas kernel from a zero state and
+    against ``ssd_chunked`` from a carried state (a lane padded with
+    dt = 0 from position 20), within 1e-5."""
+    rng = np.random.default_rng(112)
+    q, k, v = (rng.standard_normal((4, n, 112)).astype(np.float32)
+               for n in (24, 90, 90))
+    kw = dict(causal=True, q_offset=60, kv_len=80)
+    want = np.asarray(jax_flash_bh(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), block_q=24, block_k=90,
+                                   interpret=True, **kw))
+    n0 = fa.COUNTS["plain"]
+    got = fa.flash_attention_bh(*_t(q, k, v), **kw)
+    assert fa.COUNTS["plain"] == n0 + 1
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+    B, S, H, P, N, chunk = 2, 48, 3, 64, 64, 16
+    xh, dt, A, Bm, Cm, h0 = _ssd_np(B, S, H, P, N, seed=64, pad=((1, 20),))
+    ins = (xh, dt, A, Bm, Cm)
+    want = np.asarray(ops.ssd(*map(jnp.asarray, ins), chunk=chunk,
+                              interpret=True))
+    y, _ = sk.ssd_scan(*_t(*ins), chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), want, atol=ATOL, rtol=ATOL)
+    wy, wh = _jax_ssd_chunked(*map(jnp.asarray, ins), chunk, jnp.asarray(h0))
+    y, hT = sk.ssd_scan(*_t(*ins), chunk=chunk, init_state=_t(h0)[0])
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=ATOL,
+                               rtol=ATOL)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(wh), atol=ATOL,
+                               rtol=ATOL)
+
+
 def _product_3xtf32_acc(a, b):
     """a @ b as mma_tf32.cuh's mma3_acc computes it: the operands split
     as for ``_product_3xtf32`` (big = rna(x), small = x - big read by
@@ -970,17 +1010,17 @@ def _product_3xtf32_acc(a, b):
     return acc
 
 
-def test_ssd_3xtf32_holds_the_card_check():
+@pytest.mark.parametrize("N,heads", [(128, 80), (64, 112)])
+def test_ssd_3xtf32_holds_the_card_check(N, heads):
     """B5's four products in 3xTF32 (mma3_acc) at ``S512_c128``'s scale:
-    512 tokens in chunks of 128 from a carried state, mamba2's head dim 64
-    and state 128, the slowest and fastest of the card case's decay
-    rates: y (up to
-    about 125) and the final state within the card's 1e-4 of the plain
-    version, which forms seg, the decay and dt in float32 as the kernel
-    does."""
-    H, P, N, L, S = 2, 64, 128, 128, 512
-    xh, dt, A, Bm, Cm, h0 = _ssd_np(1, S, 80, P, N, seed=5)
-    heads = [0, 79]
+    512 tokens in chunks of 128 from a carried state, head dim 64 and
+    mamba2's state 128 (80 heads) or zamba2's 64 (112 heads), the slowest
+    and fastest of the card case's decay rates: y (up to about 125) and
+    the final state within the card's 1e-4 of the plain version, which
+    forms seg, the decay and dt in float32 as the kernel does."""
+    H, P, L, S = 2, 64, 128, 512
+    xh, dt, A, Bm, Cm, h0 = _ssd_np(1, S, heads, P, N, seed=5)
+    heads = [0, heads - 1]
     xh, dt, A, h0 = xh[:, :, heads], dt[:, :, heads], A[heads], h0[:, heads]
     want_y, want_h = (t.double() for t in sk.ssd_chunked_plain(
         *_t(xh, dt, A, Bm, Cm), L, _t(h0)[0]))

@@ -1,9 +1,10 @@
 """The port's MoE FFN (``models/moe.py``) against the JAX package on
-reduced deepseek-v2 (4 routed experts, top-2, one shared expert) and a
-wider variant (8 experts, top-3): the same numpy-seeded weights and
-activations through both, with the serving engine's dropless capacity
-factor E / k, the reference's default 2.0, and capacity factors small
-enough that units are dropped.  Outputs and the aux terms agree to atol
+reduced deepseek-v2 (4 routed experts, top-2, one shared expert), a
+wider variant (8 experts, top-3) and reduced phi3.5-moe (4 experts, top-2,
+no shared expert): the same numpy-seeded weights and activations through
+both, with the serving engine's dropless capacity factor E / k, the
+reference's default 2.0, capacity factors small enough that units are
+dropped, and the every-expert ``dense`` mode.  Outputs and the aux terms agree to atol
 1e-5 (float32 matmuls summed in another order than XLA's).  Also the
 full-width three-layer deepseek-v2 cut: the same parameter count and
 every parameter's shape as the JAX init (shapes only)."""
@@ -34,6 +35,9 @@ _jax_moe = jax.jit(jmoe.moe_forward, static_argnums=(2,),
 
 
 def _cfg(variant):
+    if variant == "phi35":
+        arch = "phi3.5-moe-42b-a6.6b"
+        return jcfgs.get_reduced(arch), get_reduced(arch)
     jcfg, cfg = jcfgs.get_reduced(ARCH), get_reduced(ARCH)
     if variant == "wide":
         jcfg = dataclasses.replace(jcfg, moe=WIDE)
@@ -105,6 +109,34 @@ def test_dropless_moe_matches_dense_reference():
                              capacity_factor=WIDE.n_experts / WIDE.top_k)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["reduced", "wide", "phi35"])
+def test_dense_mode_matches_jax_and_dropless_dispatch(variant):
+    """``mode="dense"`` (every expert on every token, combined by the
+    top-k weights) gives the JAX ``mode="dense"`` output and aux terms
+    within 1e-5, and the port's dropless dispatch within 1e-5 (the same
+    products summed in another order)."""
+    jcfg, cfg = _cfg(variant)
+    m = cfg.moe
+    w = _weights(cfg, seed=5 + m.n_experts)
+    x = np.random.default_rng(4).standard_normal(
+        (2, 9, cfg.d_model)).astype(np.float32)
+    want, jaux = _jax_moe(jax.tree.map(jnp.asarray, w), jnp.asarray(x), jcfg,
+                          mode="dense")
+    tw = {k: torch.from_numpy(v) for k, v in w.items()}
+    got, aux = moe.moe_forward(tw, torch.from_numpy(x), cfg, mode="dense")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(aux["aux_loss"].item(),
+                               float(jaux["aux_loss"]), atol=ATOL, rtol=0)
+    dispatch, _ = moe.moe_forward(
+        tw, torch.from_numpy(x), cfg,
+        capacity_factor=moe.dropless_capacity_factor(cfg))
+    np.testing.assert_allclose(got.numpy(), dispatch.numpy(), atol=ATOL,
+                               rtol=0)
+    with pytest.raises(ValueError):
+        moe.moe_forward(tw, torch.from_numpy(x), cfg, mode="sparse")
 
 
 def test_moe_capacity_matches_reference_formula():
