@@ -1,5 +1,6 @@
-// Fused MLA latent-page chunked prefill for Hopper (sm_90a), float32 data,
-// products on the tensor cores in 3xTF32.
+// Fused MLA latent-page chunked prefill for Hopper (sm_90a), float32 data
+// over float32 or bfloat16 latent pages, products on the tensor cores in
+// 3xTF32.
 //
 // Replaces: src/repro/kernels/paged_prefill.py, mla_paged_prefill_attention
 // (Pallas body _mla_prefill_kernel).  One launch per MLA layer per prefill
@@ -61,6 +62,16 @@
 // a masked lane (chunk_len 0) aliases another lane's table and writes
 // nothing.
 //
+// bf16 pages (page_types.cuh): key tiles are staged as bf16, rows padded
+// to 584 elements (292 words, 4 mod 32: the fragment reads stay on 32
+// banks, as in B2), so the two stages take 75 KB in place of 148 and a
+// block 157 KB (still one block per SM: the staging is not deepened).
+// Values are widened to fp32 as fragments are read, and both products skip
+// the key's small TF32 half (zero for a bf16 value).  The chunk's own
+// latent rows are rounded to bf16 in registers as they are staged, so the
+// chunk attends over exactly what it writes (rounded to nearest even), as
+// the reference reads them back from its pages.
+//
 // Output rows at i >= chunk_len[b] (padding, masked lanes) are zeros.
 // Masked scores are NEG_INF = -1e30 and contribute an exact 0, and the
 // denominator is floored at 1e-30, as in the TPU kernel.  scale is an
@@ -69,9 +80,16 @@
 #include <stdint.h>
 
 #include "mma_tf32.cuh"
+#include "page_types.cuh"
 #include "split_merge.cuh"
 
 namespace {
+
+using repro_page::bf16;
+using repro_page::load4;
+using repro_page::stage_rounded;
+using repro_page::store4;
+using repro_page::to_f32;
 
 using repro_mma::cp_async16;
 using repro_mma::cp_async_commit;
@@ -86,9 +104,9 @@ using repro_split::kNegInf;
 
 constexpr int kR = 512;                  // kv_lora_rank the kernel is built for
 constexpr int kRope = 64;                // qk_rope_head_dim
-constexpr int kD = kR + kRope;           // floats per staged key
-constexpr int kST = kD + 4;              // shared row stride in floats
-constexpr int kC4 = kD / 4;              // 16-byte chunks per row
+constexpr int kD = kR + kRope;           // elements per staged key
+constexpr int kQST = kD + 4;             // shared query row stride in floats
+constexpr int kC4 = kD / 4;              // fp32 16-byte chunks of a row
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRG = 2;                   // row groups of 16 per block
@@ -99,20 +117,31 @@ constexpr int kNJ = kKeys / 8;           // n-tiles of a key tile
 constexpr int kKS = kD / 8 / 2;          // a warp's Q·Kᵀ k-steps (depth half)
 constexpr int kNO = kR / 8 / kCW;        // a warp's P·V n-tiles (128 columns)
 constexpr int kTPK = kThreads / kKeys;   // loader threads per key row
-constexpr size_t kSmem =
-    sizeof(float) * ((size_t)(kRows + 2 * kKeys) * kST + kRG * kCW * 2 * 4 * 32);
+constexpr int kXS = kRG * kCW * 2 * 4 * 32;  // floats of partial logits
+
+// shared row stride of a staged key in elements of T (one 16-byte chunk of
+// padding), 16-byte chunks of a staged key, and the block's shared memory
+template <typename T>
+constexpr int kST = kD + repro_page::kPerChunk<T>;
+template <typename T>
+constexpr int kCK = kD / repro_page::kPerChunk<T>;
+template <typename T>
+constexpr size_t kSmem = sizeof(float) * ((size_t)kRows * kQST + kXS) +
+                         sizeof(T) * (size_t)2 * kKeys * kST<T>;
 
 static_assert(kCW == 4, "2 key halves x 2 depth halves per row group");
-static_assert(kC4 % kTPK == 0, "a key row's chunks share out evenly");
-static_assert(kSmem <= 232448, "one block per SM");
+static_assert(kCK<float> % kTPK == 0 && kCK<bf16> % kTPK == 0,
+              "a key row's chunks share out evenly");
+static_assert(kSmem<float> <= 232448, "one block per SM");
 
+template <typename T>  // page element type
 __global__ void __launch_bounds__(kThreads, 1) mla_prefill_kernel(
     const float* __restrict__ q_lat,      // (B, S, H, kR)
     const float* __restrict__ q_rope,     // (B, S, H, kRope)
     const float* __restrict__ ckv_new,    // (B, S, kR)
     const float* __restrict__ krope_new,  // (B, S, kRope)
-    float* ckv_pages,                     // (n_pages, page, kR)
-    float* krope_pages,                   // (n_pages, page, kRope)
+    T* ckv_pages,                         // (n_pages, page, kR)
+    T* krope_pages,                       // (n_pages, page, kRope)
     const int* __restrict__ block_table,  // (B, max_pages)
     const int* __restrict__ pos0_arr,     // (B,)
     const int* __restrict__ clen_arr,     // (B,)
@@ -121,10 +150,11 @@ __global__ void __launch_bounds__(kThreads, 1) mla_prefill_kernel(
     float* __restrict__ l_ws,
     float* __restrict__ acc_ws,           // (B, n_split, S * H, kR)
     int S, int H, int page, int max_pages, float scale, int n_split) {
+  constexpr int ST = kST<T>, EC = repro_page::kPerChunk<T>, CK = kCK<T>;
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // kRows x kST
-  float* k_s = q_s + kRows * kST;                 // 2 x kKeys x kST
-  float* x_s = k_s + 2 * kKeys * kST;             // partial logits
+  float* q_s = reinterpret_cast<float*>(smem4);  // kRows x kQST
+  float* x_s = q_s + kRows * kQST;                // partial logits
+  T* k_s = reinterpret_cast<T*>(x_s + kXS);       // 2 x kKeys x ST
 
   const int b = blockIdx.x;
   const int n_rt = gridDim.y;
@@ -152,11 +182,11 @@ __global__ void __launch_bounds__(kThreads, 1) mla_prefill_kernel(
       const long long dst = (long long)table[pos / page] * page + pos % page;
       const long long src = (long long)b * S + i;
       if (c < kR / 4)
-        reinterpret_cast<float4*>(ckv_pages + dst * kR)[c] =
-            reinterpret_cast<const float4*>(ckv_new + src * kR)[c];
+        store4(ckv_pages + dst * kR + 4 * c,
+               load4(ckv_new + src * kR + 4 * c));
       else
-        reinterpret_cast<float4*>(krope_pages + dst * kRope)[c - kR / 4] =
-            reinterpret_cast<const float4*>(krope_new + src * kRope)[c - kR / 4];
+        store4(krope_pages + dst * kRope + 4 * (c - kR / 4),
+               load4(krope_new + src * kRope + 4 * (c - kR / 4)));
     }
   }
 
@@ -177,32 +207,44 @@ __global__ void __launch_bounds__(kThreads, 1) mla_prefill_kernel(
   const int t_lo = (int)((long long)split_id * n_tiles / n_split);
   const int t_hi = (int)((long long)(split_id + 1) * n_tiles / n_split);
 
-  // kTPK loader threads per key row, each with kC4 / kTPK chunks strided
+  // kTPK loader threads per key row, each with CK / kTPK chunks strided
   // by kTPK (neighbouring threads on neighbouring 16 bytes): chunks
-  // c < kR / 4 come from the ckv row, the rest from the krope row
+  // c < kR / EC come from the ckv row, the rest from the krope row
   const int ld_row = tid / kTPK, ld_c = tid % kTPK;
   auto load_tile = [&](int t, int buf) {
     const int pos = t * kKeys + ld_row;
-    const float* cs = ckv_new;
-    const float* rs = krope_new;
+    T* d = k_s + (buf * kKeys + ld_row) * ST;
+    if (pos >= pos0 && pos < k_hi && !repro_page::kSmallHalf<T>) {
+      // bf16: the chunk's own rows, rounded in registers and staged
+      const long long src = (long long)b * S + (pos - pos0);
+#pragma unroll
+      for (int j = 0; j < CK / kTPK; ++j) {
+        const int c = ld_c + kTPK * j;
+        stage_rounded(d + EC * c, c < kR / EC
+                                      ? ckv_new + src * kR + EC * c
+                                      : krope_new + src * kRope + EC * c - kR);
+      }
+      return;
+    }
+    const T* cs = ckv_pages;
+    const T* rs = krope_pages;
     bool pred = false;
     if (pos < pos0) {              // history: pages this launch never writes
       const long long row = (long long)table[pos / page] * page + pos % page;
       cs = ckv_pages + row * kR;
       rs = krope_pages + row * kRope;
       pred = true;
-    } else if (pos < k_hi) {       // the chunk itself: from the new rows
+    } else if (pos < k_hi) {       // fp32: the chunk itself, copied as it is
       const long long src = (long long)b * S + (pos - pos0);
-      cs = ckv_new + src * kR;
-      rs = krope_new + src * kRope;
+      cs = reinterpret_cast<const T*>(ckv_new + src * kR);
+      rs = reinterpret_cast<const T*>(krope_new + src * kRope);
       pred = true;
     }
-    float* d = k_s + (buf * kKeys + ld_row) * kST;
 #pragma unroll
-    for (int j = 0; j < kC4 / kTPK; ++j) {
+    for (int j = 0; j < CK / kTPK; ++j) {
       const int c = ld_c + kTPK * j;
-      const float* src = c < kR / 4 ? cs + 4 * c : rs + 4 * (c - kR / 4);
-      cp_async16(d + 4 * c, pred ? src : ckv_new, pred);
+      const T* src = c < kR / EC ? cs + EC * c : rs + EC * c - kR;
+      cp_async16(d + EC * c, pred ? src : ckv_pages, pred);
     }
   };
 
@@ -214,7 +256,7 @@ __global__ void __launch_bounds__(kThreads, 1) mla_prefill_kernel(
     const bool live = r0 + rr < live_end;
     const float* src = c < kR / 4 ? q_lat + row * kR + 4 * c
                                   : q_rope + row * kRope + 4 * (c - kR / 4);
-    cp_async16(q_s + rr * kST + 4 * c, live ? src : q_lat, live);
+    cp_async16(q_s + rr * kQST + 4 * c, live ? src : q_lat, live);
   }
   if (t_lo < t_hi) load_tile(t_lo, 0);
   cp_async_commit();
@@ -239,7 +281,7 @@ __global__ void __launch_bounds__(kThreads, 1) mla_prefill_kernel(
     cp_async_commit();
     cp_async_wait_1();               // tile t (and the queries) landed
     __syncthreads();
-    const float* kt = k_s + buf * kKeys * kST;
+    const T* kt = k_s + buf * kKeys * ST;
     if (warp_live) {
       // partial logits: 16 rows x keys 16 kn + [0, 16) over depth
       // 288 kd + [0, 288), accumulated by k-step parity
@@ -249,19 +291,19 @@ __global__ void __launch_bounds__(kThreads, 1) mla_prefill_kernel(
 #pragma unroll
         for (int j = 0; j < 2; ++j)
           sp[p][j][0] = sp[p][j][1] = sp[p][j][2] = sp[p][j][3] = 0.f;
-      const float* qw = q_s + wr * kST;
-      const float* kr = kt + (16 * kn + gq) * kST + tq;
+      const float* qw = q_s + wr * kQST;
+      const T* kr = kt + (16 * kn + gq) * ST + tq;
 #pragma unroll 4
       for (int kk = kd * kKS; kk < (kd + 1) * kKS; ++kk) {
         uint32_t ab[4], as[4];
-        load_a(qw, kST, 8 * kk, gq, tq, ab, as);
+        load_a(qw, kQST, 8 * kk, gq, tq, ab, as);
         float kb2[2][2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          kb2[j][0] = kr[8 * j * kST + 8 * kk];
-          kb2[j][1] = kr[8 * j * kST + 8 * kk + 4];
+          kb2[j][0] = to_f32(kr[8 * j * ST + 8 * kk]);
+          kb2[j][1] = to_f32(kr[8 * j * ST + 8 * kk + 4]);
         }
-        mma3<2>(sp[kk & 1], ab, as, kb2);
+        mma3<2, repro_page::kSmallHalf<T>>(sp[kk & 1], ab, as, kb2);
       }
       float* xw = xg + cw * 2 * 4 * 32;
 #pragma unroll
@@ -316,16 +358,17 @@ __global__ void __launch_bounds__(kThreads, 1) mla_prefill_kernel(
         l1 += p2 + p3;
         uint32_t ab[4], as[4];
         p_fragment(p0, p1, p2, p3, ab, as);
-        const float* v0 = kt + (8 * j + 2 * tq) * kST + 128 * cw + gq;
+        const T* v0 = kt + (8 * j + 2 * tq) * ST + 128 * cw + gq;
 #pragma unroll
         for (int n0 = 0; n0 < kNO; n0 += 4) {   // 4 output n-tiles at a time
           float vb2[4][2];
 #pragma unroll
           for (int n = 0; n < 4; ++n) {
-            vb2[n][0] = v0[8 * (n0 + n)];
-            vb2[n][1] = v0[kST + 8 * (n0 + n)];
+            vb2[n][0] = to_f32(v0[8 * (n0 + n)]);
+            vb2[n][1] = to_f32(v0[ST + 8 * (n0 + n)]);
           }
-          mma3<4>(*reinterpret_cast<float(*)[4][4]>(&o[n0]), ab, as, vb2);
+          mma3<4, repro_page::kSmallHalf<T>>(
+              *reinterpret_cast<float(*)[4][4]>(&o[n0]), ab, as, vb2);
         }
       }
     }
@@ -364,20 +407,13 @@ __global__ void __launch_bounds__(kThreads, 1) mla_prefill_kernel(
   }
 }
 
-}  // namespace
-
-// n_split: key splits per row tile (the wrapper's n_splits), with m_ws /
-// l_ws (B, n_split, S * H) and acc_ws (B, n_split, S * H, r) when it is
-// above 1 (null otherwise).  Returns 0 or a CUDA error code;
-// cudaErrorInvalidValue for latent widths other than r 512, rope 64 or a
-// grid the card cannot launch.
-extern "C" int repro_mla_paged_prefill_f32(
-    const float* q_lat, const float* q_rope, const float* ckv_new,
-    const float* krope_new, float* ckv_pages, float* krope_pages,
-    const int* block_table, const int* pos0, const int* chunk_len, float* out,
-    float* m_ws, float* l_ws, float* acc_ws, int B, int S, int H, int r,
-    int rope, int page, int max_pages, float scale, int n_split,
-    void* stream) {
+template <typename T>
+int mla_prefill(const float* q_lat, const float* q_rope, const float* ckv_new,
+                const float* krope_new, T* ckv_pages, T* krope_pages,
+                const int* block_table, const int* pos0, const int* chunk_len,
+                float* out, float* m_ws, float* l_ws, float* acc_ws, int B,
+                int S, int H, int r, int rope, int page, int max_pages,
+                float scale, int n_split, void* stream) {
   const long long tiles = ((long long)S * H + kRows - 1) / kRows;
   if (r != kR || rope != kRope || tiles > 65535 || n_split < 1 ||
       n_split > 65535)
@@ -386,13 +422,13 @@ extern "C" int repro_mla_paged_prefill_f32(
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        mla_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmem);
+        mla_prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmem<T>);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  mla_prefill_kernel<<<dim3(B, (unsigned)tiles, n_split), kThreads, kSmem,
-                       st>>>(
+  mla_prefill_kernel<T><<<dim3(B, (unsigned)tiles, n_split), kThreads,
+                          kSmem<T>, st>>>(
       q_lat, q_rope, ckv_new, krope_new, ckv_pages, krope_pages, block_table,
       pos0, chunk_len, out, m_ws, l_ws, acc_ws, S, H, page, max_pages, scale,
       n_split);
@@ -400,4 +436,38 @@ extern "C" int repro_mla_paged_prefill_f32(
   if (err != cudaSuccess || n_split == 1) return (int)err;
   return repro_split::launch_split_merge(m_ws, l_ws, acc_ws, chunk_len, out,
                                          B, S, H, 1, kR, n_split, st);
+}
+
+}  // namespace
+
+// n_split: key splits per row tile (the wrapper's n_splits), with m_ws /
+// l_ws (B, n_split, S * H) and acc_ws (B, n_split, S * H, r) when it is
+// above 1 (null otherwise).  Returns 0 or a CUDA error code;
+// cudaErrorInvalidValue for latent widths other than r 512, rope 64 or a
+// grid the card cannot launch.  _f32 takes float32 pages, _bf16 bfloat16
+// pages.
+extern "C" int repro_mla_paged_prefill_f32(
+    const float* q_lat, const float* q_rope, const float* ckv_new,
+    const float* krope_new, float* ckv_pages, float* krope_pages,
+    const int* block_table, const int* pos0, const int* chunk_len, float* out,
+    float* m_ws, float* l_ws, float* acc_ws, int B, int S, int H, int r,
+    int rope, int page, int max_pages, float scale, int n_split,
+    void* stream) {
+  return mla_prefill<float>(q_lat, q_rope, ckv_new, krope_new, ckv_pages,
+                            krope_pages, block_table, pos0, chunk_len, out,
+                            m_ws, l_ws, acc_ws, B, S, H, r, rope, page,
+                            max_pages, scale, n_split, stream);
+}
+
+extern "C" int repro_mla_paged_prefill_bf16(
+    const float* q_lat, const float* q_rope, const float* ckv_new,
+    const float* krope_new, bf16* ckv_pages, bf16* krope_pages,
+    const int* block_table, const int* pos0, const int* chunk_len, float* out,
+    float* m_ws, float* l_ws, float* acc_ws, int B, int S, int H, int r,
+    int rope, int page, int max_pages, float scale, int n_split,
+    void* stream) {
+  return mla_prefill<bf16>(q_lat, q_rope, ckv_new, krope_new, ckv_pages,
+                           krope_pages, block_table, pos0, chunk_len, out,
+                           m_ws, l_ws, acc_ws, B, S, H, r, rope, page,
+                           max_pages, scale, n_split, stream);
 }

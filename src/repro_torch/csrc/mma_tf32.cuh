@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "page_types.cuh"
+
 namespace repro_mma {
 
 __device__ __forceinline__ uint32_t tf32(float x) {
@@ -51,8 +53,10 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
 // big·small + big·big), the A fragment given as (big, small) and each B
 // fragment as two fp32 values b[n][0..1].  The three passes run over all N
 // accumulators in turn, so consecutive mma.sync are independent and their
-// latencies overlap.
-template <int N>
+// latencies overlap.  With kBSmall false the B values are exact in TF32
+// (widened from bf16 pages: page_types.cuh), their small halves are zero
+// and big·small is left out: two products instead of three, same sums.
+template <int N, bool kBSmall = true>
 __device__ __forceinline__ void mma3(float (&d)[N][4], const uint32_t (&ab)[4],
                                      const uint32_t (&as)[4],
                                      const float (&b)[N][2]) {
@@ -64,8 +68,10 @@ __device__ __forceinline__ void mma3(float (&d)[N][4], const uint32_t (&ab)[4],
   }
 #pragma unroll
   for (int n = 0; n < N; ++n) mma(d[n], as, bb[n][0], bb[n][1]);
+  if constexpr (kBSmall) {
 #pragma unroll
-  for (int n = 0; n < N; ++n) mma(d[n], ab, bs[n][0], bs[n][1]);
+    for (int n = 0; n < N; ++n) mma(d[n], ab, bs[n][0], bs[n][1]);
+  }
 #pragma unroll
   for (int n = 0; n < N; ++n) mma(d[n], ab, bb[n][0], bb[n][1]);
 }
@@ -110,21 +116,24 @@ __device__ __forceinline__ void mma3_acc(float (&d)[N][4],
 // (head dim 112 has NK = 14: three groups of four and a tail of two), so
 // no product reaches past o.  V's B fragment of n-tile n is v0[8 n] and
 // v0[st + 8 n] (the k-step's rows 2t and 2t + 1, column g; p_fragment's
-// key order).
-template <int NK>
+// key order), fp32 or bf16 staged values (a bf16 V takes mma3's
+// two-product form).
+template <int NK, typename T>
 __device__ __forceinline__ void pv_mma3(float (&o)[NK][4],
                                         const uint32_t (&ab)[4],
                                         const uint32_t (&as)[4],
-                                        const float* v0, int st) {
+                                        const T* v0, int st) {
+  using repro_page::to_f32;
+  constexpr bool kBSmall = repro_page::kSmallHalf<T>;
 #pragma unroll
   for (int n0 = 0; n0 + 4 <= NK; n0 += 4) {
     float vb2[4][2];
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
-      vb2[n][0] = v0[8 * (n0 + n)];
-      vb2[n][1] = v0[st + 8 * (n0 + n)];
+      vb2[n][0] = to_f32(v0[8 * (n0 + n)]);
+      vb2[n][1] = to_f32(v0[st + 8 * (n0 + n)]);
     }
-    mma3<4>(*reinterpret_cast<float(*)[4][4]>(&o[n0]), ab, as, vb2);
+    mma3<4, kBSmall>(*reinterpret_cast<float(*)[4][4]>(&o[n0]), ab, as, vb2);
   }
   constexpr int kTail = NK % 4;
   if constexpr (kTail > 0) {
@@ -132,10 +141,11 @@ __device__ __forceinline__ void pv_mma3(float (&o)[NK][4],
     float vb2[kTail][2];
 #pragma unroll
     for (int n = 0; n < kTail; ++n) {
-      vb2[n][0] = v0[8 * (n0 + n)];
-      vb2[n][1] = v0[st + 8 * (n0 + n)];
+      vb2[n][0] = to_f32(v0[8 * (n0 + n)]);
+      vb2[n][1] = to_f32(v0[st + 8 * (n0 + n)]);
     }
-    mma3<kTail>(*reinterpret_cast<float(*)[kTail][4]>(&o[n0]), ab, as, vb2);
+    mma3<kTail, kBSmall>(*reinterpret_cast<float(*)[kTail][4]>(&o[n0]), ab,
+                         as, vb2);
   }
 }
 
@@ -165,7 +175,7 @@ __device__ __forceinline__ void p_fragment(float p0, float p1, float p2,
 }
 
 // 16-byte asynchronous copy; pred false fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
   const int n = pred ? 16 : 0;

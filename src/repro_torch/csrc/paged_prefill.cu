@@ -1,5 +1,5 @@
-// Fused chunked-prefill paged attention for Hopper (sm_90a), float32 data,
-// products on the tensor cores in 3xTF32.
+// Fused chunked-prefill paged attention for Hopper (sm_90a), float32 data
+// over float32 or bfloat16 pages, products on the tensor cores in 3xTF32.
 //
 // Replaces: src/repro/kernels/paged_prefill.py, paged_prefill_attention
 // (Pallas body _prefill_kernel).  One call per layer per prefill group
@@ -80,6 +80,21 @@
 // different lanes are exclusive after the engine's copy-on-write barrier
 // (PagedKVManager.ensure_writable).
 //
+// bf16 pages (page_types.cuh): K/V tiles are staged as bf16, rows padded
+// to hd + 8 elements (one 16-byte chunk, as hd + 4 is in fp32), so a tile
+// takes half the shared memory and the history's cp.async copies half the
+// bytes.  Padding by 16 bytes keeps the fragment reads conflict-free: a row
+// is hd / 2 + 4 words, 4, 20 or 28 mod 32 at head dims 128 / 64, 32 and
+// 112, so the 8 rows g of a K fragment start on 8 distinct multiples of 4
+// (the 4 columns t share 2 words) and the rows 2t of a V fragment on 4
+// distinct multiples of 8 (the 8 columns g share 4 words).  Values are
+// widened to fp32 as fragments are read; a bf16 value is exact in TF32, so
+// Q·Kᵀ and P·V each skip the product with K's or V's small half (zero).
+// The chunk's own rows are rounded to bf16 in registers as they are staged
+// (plain loads and shared stores, not cp.async), so the chunk attends over
+// exactly what it writes, as the reference reads its rows back from its
+// pages; the write rounds to nearest even (__float2bfloat16_rn).
+//
 // Output rows at i >= chunk_len[b] (padding) are zeros.  Masked scores are
 // NEG_INF = -1e30 and contribute exactly 0; the denominator is floored at
 // 1e-30, as in the TPU kernel.
@@ -87,9 +102,16 @@
 #include <stdint.h>
 
 #include "mma_tf32.cuh"
+#include "page_types.cuh"
 #include "split_merge.cuh"
 
 namespace {
+
+using repro_page::bf16;
+using repro_page::load4;
+using repro_page::stage_rounded;
+using repro_page::store4;
+using repro_page::to_f32;
 
 using repro_mma::cp_async16;
 using repro_mma::cp_async_commit;
@@ -104,13 +126,13 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kBM = 16 * kWarps;  // query rows per block
 constexpr int kBN = 64;           // keys per tile
 
-template <int HD>
+template <typename T, int HD>  // page element type, head dim
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const float* __restrict__ q,        // (B, S, H, hd)
     const float* __restrict__ k_new,    // (B, S, KVH, hd)
     const float* __restrict__ v_new,
-    float* __restrict__ k_pages,        // (n_pages, page, KVH, hd)
-    float* __restrict__ v_pages,
+    T* __restrict__ k_pages,            // (n_pages, page, KVH, hd)
+    T* __restrict__ v_pages,
     const int* __restrict__ block_table,  // (B, max_pages)
     const int* __restrict__ pos0_arr,     // (B,)
     const int* __restrict__ clen_arr,     // (B,)
@@ -120,14 +142,17 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     float* __restrict__ acc_ws,           // (B, KVH, n_split, S * G, hd)
     int S, int H, int KVH, int page, int max_pages, float scale, int window,
     int n_split) {
-  constexpr int ST = HD + 4;   // shared row stride in floats
-  constexpr int C4 = HD / 4;   // 16-byte chunks per row
-  constexpr int NK = HD / 8;   // k-steps of Q·Kᵀ, n-tiles of P·V
-  constexpr int NJ = kBN / 8;  // n-tiles of Q·Kᵀ, k-steps of P·V
+  constexpr int QST = HD + 4;   // shared query row stride in floats
+  constexpr int EC = repro_page::kPerChunk<T>;  // elements per 16 bytes
+  constexpr int ST = HD + EC;   // shared K/V row stride in elements of T
+  constexpr int C4 = HD / 4;    // fp32 16-byte chunks of a query row
+  constexpr int CK = HD / EC;   // 16-byte chunks of a staged K/V row
+  constexpr int NK = HD / 8;    // k-steps of Q·Kᵀ, n-tiles of P·V
+  constexpr int NJ = kBN / 8;   // n-tiles of Q·Kᵀ, k-steps of P·V
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // kBM x ST
-  float* k_s = q_s + kBM * ST;                    // 2 x kBN x ST
-  float* v_s = k_s + 2 * kBN * ST;                // 2 x kBN x ST
+  float* q_s = reinterpret_cast<float*>(smem4);  // kBM x QST
+  T* k_s = reinterpret_cast<T*>(q_s + kBM * QST);  // 2 x kBN x ST
+  T* v_s = k_s + 2 * kBN * ST;                     // 2 x kBN x ST
 
   const int b = blockIdx.x, kvh = blockIdx.y;
   // the last query tiles see the most keys: they are launched first
@@ -154,12 +179,12 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
       const int pos = pos0 + i;
       if (pos / page >= max_pages) continue;
       const long long pid = block_table[(long long)b * max_pages + pos / page];
-      const long long dst = (pid * page + pos % page) * row + (long long)kvh * HD;
-      const long long src = ((long long)b * S + i) * row + (long long)kvh * HD;
-      reinterpret_cast<float4*>(k_pages + dst)[c] =
-          reinterpret_cast<const float4*>(k_new + src)[c];
-      reinterpret_cast<float4*>(v_pages + dst)[c] =
-          reinterpret_cast<const float4*>(v_new + src)[c];
+      const long long dst =
+          (pid * page + pos % page) * row + (long long)kvh * HD + 4 * c;
+      const long long src =
+          ((long long)b * S + i) * row + (long long)kvh * HD + 4 * c;
+      store4(k_pages + dst, load4(k_new + src));
+      store4(v_pages + dst, load4(v_new + src));
     }
   }
 
@@ -182,40 +207,57 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   const int t_lo = (int)((long long)split_id * n_tiles / n_split);
   const int t_hi = (int)((long long)(split_id + 1) * n_tiles / n_split);
 
-  // a tile's kBN key rows: kTPK threads per row, each issuing its share of
-  // the row's 16-byte copies after one block-table lookup
+  // a tile's kBN key rows: kTPK threads per row, each issuing the row's
+  // 16-byte chunks ld_c, ld_c + kTPK, ... after one block-table lookup
+  // (CK need not be a multiple of kTPK: bf16 rows at hd 112 have 14)
   constexpr int kTPK = kThreads / kBN;  // threads per key row
-  static_assert(kTPK * kBN == kThreads && C4 % kTPK == 0, "tile split");
+  constexpr int kCPT = (CK + kTPK - 1) / kTPK;  // chunks per thread, at most
+  static_assert(kTPK * kBN == kThreads, "tile split");
   const int ld_p = tid / kTPK;
-  const int ld_c = (tid % kTPK) * (C4 / kTPK);
+  const int ld_c = tid % kTPK;
   auto load_tile = [&](int t, int buf) {
     const int pos = k_lo + t * kBN + ld_p;
-    const float* ks = k_new;
-    const float* vs = v_new;
+    T* kd = k_s + buf * kBN * ST + ld_p * ST;
+    T* vd = v_s + buf * kBN * ST + ld_p * ST;
+    const T* ks = k_pages;
+    const T* vs = v_pages;
     bool pred = false;
     if (pos < pos0) {              // history: pages this launch never writes
       const int slot = pos / page;
       if (slot < max_pages) {
         const long long pid = block_table[(long long)b * max_pages + slot];
         const long long off = (pid * page + (pos - slot * page)) * row +
-                              (long long)kvh * HD + 4 * ld_c;
+                              (long long)kvh * HD;
         ks = k_pages + off;
         vs = v_pages + off;
         pred = true;
       }
     } else if (pos < k_hi) {       // the chunk itself: from k_new / v_new
       const long long off = ((long long)b * S + (pos - pos0)) * row +
-                            (long long)kvh * HD + 4 * ld_c;
-      ks = k_new + off;
-      vs = v_new + off;
-      pred = true;
-    }
-    float* kd = k_s + buf * kBN * ST + ld_p * ST + 4 * ld_c;
-    float* vd = v_s + buf * kBN * ST + ld_p * ST + 4 * ld_c;
+                            (long long)kvh * HD;
+      if constexpr (repro_page::kSmallHalf<T>) {   // fp32: copied as it is
+        ks = reinterpret_cast<const T*>(k_new + off);
+        vs = reinterpret_cast<const T*>(v_new + off);
+        pred = true;
+      } else {                     // bf16: rounded in registers, staged
 #pragma unroll
-    for (int c = 0; c < C4 / kTPK; ++c) {
-      cp_async16(kd + 4 * c, ks + (pred ? 4 * c : 0), pred);
-      cp_async16(vd + 4 * c, vs + (pred ? 4 * c : 0), pred);
+        for (int j = 0; j < kCPT; ++j) {
+          const int c = ld_c + kTPK * j;
+          if (c < CK) {
+            stage_rounded(kd + EC * c, k_new + off + EC * c);
+            stage_rounded(vd + EC * c, v_new + off + EC * c);
+          }
+        }
+        return;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCPT; ++j) {
+      const int c = ld_c + kTPK * j;
+      if (c < CK) {
+        cp_async16(kd + EC * c, ks + (pred ? EC * c : 0), pred);
+        cp_async16(vd + EC * c, vs + (pred ? EC * c : 0), pred);
+      }
     }
   };
 
@@ -226,7 +268,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const float* src = q;
     if (r < live_end)
       src = q + (((long long)b * S + r / G) * H + (long long)kvh * G + r % G) * HD + 4 * c;
-    cp_async16(q_s + rr * ST + 4 * c, src, r < live_end);
+    cp_async16(q_s + rr * QST + 4 * c, src, r < live_end);
   }
   if (t_lo < t_hi) load_tile(t_lo, 0);
   cp_async_commit();
@@ -248,9 +290,9 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     cp_async_wait_1();               // tile t (and the queries) landed
     __syncthreads();
     if (warp_live) {
-      const float* kt = k_s + buf * kBN * ST;
-      const float* vt = v_s + buf * kBN * ST;
-      const float* qw = q_s + wr * ST;
+      const T* kt = k_s + buf * kBN * ST;
+      const T* vt = v_s + buf * kBN * ST;
+      const float* qw = q_s + wr * QST;
       // S = Q Kᵀ over this tile: 16 rows x kBN keys, NJ n-tiles of 8 keys
       float s[NJ][4];
 #pragma unroll
@@ -258,18 +300,18 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
 #pragma unroll
       for (int kk = 0; kk < NK; ++kk) {
         uint32_t ab[4], as[4];
-        split(qw[gq * ST + 8 * kk + tq], ab[0], as[0]);
-        split(qw[(gq + 8) * ST + 8 * kk + tq], ab[1], as[1]);
-        split(qw[gq * ST + 8 * kk + tq + 4], ab[2], as[2]);
-        split(qw[(gq + 8) * ST + 8 * kk + tq + 4], ab[3], as[3]);
+        split(qw[gq * QST + 8 * kk + tq], ab[0], as[0]);
+        split(qw[(gq + 8) * QST + 8 * kk + tq], ab[1], as[1]);
+        split(qw[gq * QST + 8 * kk + tq + 4], ab[2], as[2]);
+        split(qw[(gq + 8) * QST + 8 * kk + tq + 4], ab[3], as[3]);
         float kb2[NJ][2];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const float* kr = kt + (8 * j + gq) * ST + 8 * kk + tq;
-          kb2[j][0] = kr[0];
-          kb2[j][1] = kr[4];
+          const T* kr = kt + (8 * j + gq) * ST + 8 * kk + tq;
+          kb2[j][0] = to_f32(kr[0]);
+          kb2[j][1] = to_f32(kr[4]);
         }
-        mma3<NJ>(s, ab, as, kb2);
+        mma3<NJ, repro_page::kSmallHalf<T>>(s, ab, as, kb2);
       }
       // mask, scale, online softmax on the fragments
       const int kb = k_lo + t * kBN;
@@ -317,7 +359,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
         split(p2, ab[1], as[1]);
         split(p1, ab[2], as[2]);
         split(p3, ab[3], as[3]);
-        const float* v0 = vt + (8 * j + 2 * tq) * ST + gq;
+        const T* v0 = vt + (8 * j + 2 * tq) * ST + gq;
         pv_mma3<NK>(o, ab, as, v0, ST);
       }
     }
@@ -357,24 +399,27 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   }
 }
 
-template <int HD>
+template <typename T, int HD>
 int launch(const float* q, const float* k_new, const float* v_new,
-           float* k_pages, float* v_pages, const int* block_table,
+           T* k_pages, T* v_pages, const int* block_table,
            const int* pos0, const int* chunk_len, float* out, float* m_ws,
            float* l_ws, float* acc_ws, int B, int S, int H, int KVH, int page,
            int max_pages, float scale, int window, int n_split,
            cudaStream_t st) {
-  constexpr size_t smem = sizeof(float) * (size_t)(kBM + 4 * kBN) * (HD + 4);
+  constexpr size_t smem =
+      sizeof(float) * (size_t)kBM * (HD + 4) +
+      sizeof(T) * (size_t)4 * kBN * (HD + repro_page::kPerChunk<T>);
   static bool attr_set = false;
   if (smem > 48 * 1024 && !attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        paged_prefill_kernel<T, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   const int n_qt = (S * (H / KVH) + kBM - 1) / kBM;
-  paged_prefill_kernel<HD><<<dim3(B, KVH, n_qt * n_split), kThreads, smem, st>>>(
+  paged_prefill_kernel<T, HD>
+      <<<dim3(B, KVH, n_qt * n_split), kThreads, smem, st>>>(
       q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len, out,
       m_ws, l_ws, acc_ws, S, H, KVH, page, max_pages, scale, window, n_split);
   cudaError_t err = cudaGetLastError();
@@ -383,35 +428,53 @@ int launch(const float* q, const float* k_new, const float* v_new,
                                          S, H, KVH, HD, n_split, st);
 }
 
+template <typename T>
+int paged_prefill(const float* q, const float* k_new, const float* v_new,
+                  T* k_pages, T* v_pages, const int* block_table,
+                  const int* pos0, const int* chunk_len, float* out,
+                  float* m_ws, float* l_ws, float* acc_ws, int B, int S,
+                  int H, int KVH, int hd, int page, int max_pages,
+                  float scale, int window, int n_split, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define REPRO_PREFILL_HD(HD)                                                 \
+  return launch<T, HD>(q, k_new, v_new, k_pages, v_pages, block_table, pos0, \
+                       chunk_len, out, m_ws, l_ws, acc_ws, B, S, H, KVH,     \
+                       page, max_pages, scale, window, n_split, st)
+  switch (hd) {
+    case 32: REPRO_PREFILL_HD(32);
+    case 64: REPRO_PREFILL_HD(64);
+    case 112: REPRO_PREFILL_HD(112);
+    case 128: REPRO_PREFILL_HD(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_PREFILL_HD
+}
+
 }  // namespace
 
 // Returns 0 or a CUDA error code; cudaErrorInvalidValue (1) for a head dim
-// other than 32, 64, 112 or 128 (the wrapper refuses it first).
+// other than 32, 64, 112 or 128 (the wrapper refuses it first).  _f32
+// takes float32 pages, _bf16 bfloat16 pages.
 extern "C" int repro_paged_prefill_f32(
     const float* q, const float* k_new, const float* v_new, float* k_pages,
     float* v_pages, const int* block_table, const int* pos0,
     const int* chunk_len, float* out, float* m_ws, float* l_ws,
     float* acc_ws, int B, int S, int H, int KVH, int hd, int page,
     int max_pages, float scale, int window, int n_split, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
-    case 32:
-      return launch<32>(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
-                        chunk_len, out, m_ws, l_ws, acc_ws, B, S, H, KVH,
-                        page, max_pages, scale, window, n_split, st);
-    case 64:
-      return launch<64>(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
-                        chunk_len, out, m_ws, l_ws, acc_ws, B, S, H, KVH,
-                        page, max_pages, scale, window, n_split, st);
-    case 112:
-      return launch<112>(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
-                         chunk_len, out, m_ws, l_ws, acc_ws, B, S, H, KVH,
-                         page, max_pages, scale, window, n_split, st);
-    case 128:
-      return launch<128>(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
-                         chunk_len, out, m_ws, l_ws, acc_ws, B, S, H, KVH,
-                         page, max_pages, scale, window, n_split, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return paged_prefill<float>(q, k_new, v_new, k_pages, v_pages, block_table,
+                              pos0, chunk_len, out, m_ws, l_ws, acc_ws, B, S,
+                              H, KVH, hd, page, max_pages, scale, window,
+                              n_split, stream);
+}
+
+extern "C" int repro_paged_prefill_bf16(
+    const float* q, const float* k_new, const float* v_new, bf16* k_pages,
+    bf16* v_pages, const int* block_table, const int* pos0,
+    const int* chunk_len, float* out, float* m_ws, float* l_ws,
+    float* acc_ws, int B, int S, int H, int KVH, int hd, int page,
+    int max_pages, float scale, int window, int n_split, void* stream) {
+  return paged_prefill<bf16>(q, k_new, v_new, k_pages, v_pages, block_table,
+                             pos0, chunk_len, out, m_ws, l_ws, acc_ws, B, S,
+                             H, KVH, hd, page, max_pages, scale, window,
+                             n_split, stream);
 }

@@ -1,4 +1,5 @@
-// Fused speculative-verify paged attention for Hopper (sm_90a), float32.
+// Fused speculative-verify paged attention for Hopper (sm_90a), float32
+// data over float32 or bfloat16 pages.
 //
 // Replaces: src/repro/kernels/paged_prefill.py, paged_verify_attention
 // (which runs the Pallas body _prefill_kernel on the verify window).  The
@@ -60,15 +61,28 @@
 // position that this launch writes.  Pages written for a lane are
 // exclusive to it after the engine's copy-on-write barrier.
 //
+// bf16 pages (page_types.cuh): a lane loads its four elements of a
+// history key row as 8 bytes and widens them to fp32 in registers; the
+// window's own rows are read from k_new / v_new and rounded to bf16 in
+// registers, so the window attends over exactly what it writes (rounded
+// to nearest even), as the reference reads them back from its pages.
+// Which of the two a tile reads is the same for all of a warp's lanes.
+//
 // Semantics kept from the TPU kernel: masked scores are NEG_INF = -1e30,
 // the softmax denominator is floored at 1e-30, accumulation is float32.
 // Masked keys contribute exactly 0 (explicitly, not through exp of -1e30):
 // a key outside the split's range is never read from its own row.
 #include <cuda_runtime.h>
 
+#include "page_types.cuh"
 #include "split_merge.cuh"
 
 namespace {
+
+using repro_page::bf16;
+using repro_page::load4;
+using repro_page::round4;
+using repro_page::store4;
 
 using repro_split::inv_denominator;
 using repro_split::kNegInf;
@@ -110,12 +124,13 @@ __device__ __forceinline__ float transpose_sum16(const float (&v)[kTK],
   return d + __shfl_xor_sync(0xffffffffu, d, 1);
 }
 
+template <typename T>  // page element type
 __global__ void __launch_bounds__(kThreads, 1) paged_verify_kernel(
     const float* __restrict__ q,        // (B, S, H, hd)
     const float* __restrict__ k_new,    // (B, S, KVH, hd)
     const float* __restrict__ v_new,
-    float* __restrict__ k_pages,        // (n_pages, page, KVH, hd)
-    float* __restrict__ v_pages,
+    T* __restrict__ k_pages,            // (n_pages, page, KVH, hd)
+    T* __restrict__ v_pages,
     const int* __restrict__ block_table,  // (B, max_pages)
     const int* __restrict__ pos0_arr,     // (B,)
     const int* __restrict__ clen_arr,     // (B,)
@@ -143,7 +158,7 @@ __global__ void __launch_bounds__(kThreads, 1) paged_verify_kernel(
   const bool has_dims = lane < n4;
   const int pos0 = pos0_arr[b];
   const int n_tok = clen_arr[b];
-  const long long row = (long long)KVH * hd;  // floats per token slot
+  const long long row = (long long)KVH * hd;  // elements per token slot
 
   if (n_tok <= 0) {                      // masked lane: no write, zero rows
     if (split == 0)
@@ -165,12 +180,12 @@ __global__ void __launch_bounds__(kThreads, 1) paged_verify_kernel(
       const int slot = pos / page;
       if (slot >= max_pages) continue;
       const long long pid = block_table[(long long)b * max_pages + slot];
-      const long long dst = (pid * page + pos % page) * row + (long long)kvh * hd;
-      const long long src = ((long long)b * S + i) * row + (long long)kvh * hd;
-      reinterpret_cast<float4*>(k_pages + dst)[d4] =
-          reinterpret_cast<const float4*>(k_new + src)[d4];
-      reinterpret_cast<float4*>(v_pages + dst)[d4] =
-          reinterpret_cast<const float4*>(v_new + src)[d4];
+      const long long dst =
+          (pid * page + pos % page) * row + (long long)kvh * hd + 4 * d4;
+      const long long src =
+          ((long long)b * S + i) * row + (long long)kvh * hd + 4 * d4;
+      store4(k_pages + dst, load4(k_new + src));
+      store4(v_pages + dst, load4(v_new + src));
     }
   }
 
@@ -232,16 +247,25 @@ __global__ void __launch_bounds__(kThreads, 1) paged_verify_kernel(
         off = ((long long)b * S + min(jj, n_tok - 1)) * row +
               (long long)kvh * hd;
       }
-      const float* kb = (hist ? k_pages : k_new) + 4 * min(lane, n4 - 1);
-      const float* vb = (hist ? v_pages : v_new) + 4 * min(lane, n4 - 1);
+      const int d0 = 4 * min(lane, n4 - 1);
       // every K and V row of the tile in flight at once (lanes past hd / 4
-      // reread the last float4 and hold q = 0)
+      // reread the last four dims and hold q = 0); hist is the same for
+      // the whole warp
       float4 kv[kTK], vv[kTK];
+      if (hist) {
 #pragma unroll
-      for (int kk = 0; kk < kTK; ++kk) {
-        const long long o = __shfl_sync(0xffffffffu, off, 2 * kk);
-        kv[kk] = *reinterpret_cast<const float4*>(kb + o);
-        vv[kk] = *reinterpret_cast<const float4*>(vb + o);
+        for (int kk = 0; kk < kTK; ++kk) {
+          const long long o = __shfl_sync(0xffffffffu, off, 2 * kk) + d0;
+          kv[kk] = load4(k_pages + o);
+          vv[kk] = load4(v_pages + o);
+        }
+      } else {                           // the window's rows, as written
+#pragma unroll
+        for (int kk = 0; kk < kTK; ++kk) {
+          const long long o = __shfl_sync(0xffffffffu, off, 2 * kk) + d0;
+          kv[kk] = round4<T>(load4(k_new + o));
+          vv[kk] = round4<T>(load4(v_new + o));
+        }
       }
 
       // Every row slot runs, live or not (a slot past nr repeats the last
@@ -393,6 +417,24 @@ __global__ void __launch_bounds__(kThreads, 1) paged_verify_kernel(
   if (tid == 0) *counter = 0;            // ready for the next launch
 }
 
+template <typename T>
+int paged_verify(const float* q, const float* k_new, const float* v_new,
+                 T* k_pages, T* v_pages, const int* block_table,
+                 const int* pos0, const int* chunk_len, float* m_ws,
+                 float* l_ws, float* acc_ws, int* counters, float* out, int B,
+                 int S, int H, int KVH, int hd, int page, int max_pages,
+                 float scale, int window, int n_split, void* stream) {
+  if (hd % 4 != 0 || hd > kMaxHd || hd <= 0 || B > 65535 || KVH > 65535 ||
+      n_split < 1 || n_split > 65535 || H % KVH != 0)
+    return (int)cudaErrorInvalidValue;
+  paged_verify_kernel<T><<<dim3(B, KVH, n_split), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len, m_ws,
+      l_ws, acc_ws, counters, out, S, H, KVH, hd, page, max_pages, scale,
+      window, n_split);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // counters: B * KVH int32, zero before the launch, zero again after it
@@ -400,7 +442,8 @@ __global__ void __launch_bounds__(kThreads, 1) paged_verify_kernel(
 // (B, KVH, n_split, S * G) and acc_ws (B, KVH, n_split, S * G, hd): the
 // splits' partials.  Returns a cudaError_t (0 on success);
 // cudaErrorInvalidValue for a head dim that is no multiple of 4 or above
-// 128, or a grid the card cannot launch.
+// 128, or a grid the card cannot launch.  _f32 takes float32 pages, _bf16
+// bfloat16 pages.
 extern "C" int repro_paged_verify_f32(
     const float* q, const float* k_new, const float* v_new, float* k_pages,
     float* v_pages, const int* block_table, const int* pos0,
@@ -408,13 +451,21 @@ extern "C" int repro_paged_verify_f32(
     int* counters, float* out, int B, int S, int H, int KVH, int hd,
     int page, int max_pages, float scale, int window, int n_split,
     void* stream) {
-  if (hd % 4 != 0 || hd > kMaxHd || hd <= 0 || B > 65535 || KVH > 65535 ||
-      n_split < 1 || n_split > 65535 || H % KVH != 0)
-    return (int)cudaErrorInvalidValue;
-  paged_verify_kernel<<<dim3(B, KVH, n_split), kThreads, 0,
-                        (cudaStream_t)stream>>>(
-      q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len, m_ws,
-      l_ws, acc_ws, counters, out, S, H, KVH, hd, page, max_pages, scale,
-      window, n_split);
-  return (int)cudaGetLastError();
+  return paged_verify<float>(q, k_new, v_new, k_pages, v_pages, block_table,
+                             pos0, chunk_len, m_ws, l_ws, acc_ws, counters,
+                             out, B, S, H, KVH, hd, page, max_pages, scale,
+                             window, n_split, stream);
+}
+
+extern "C" int repro_paged_verify_bf16(
+    const float* q, const float* k_new, const float* v_new, bf16* k_pages,
+    bf16* v_pages, const int* block_table, const int* pos0,
+    const int* chunk_len, float* m_ws, float* l_ws, float* acc_ws,
+    int* counters, float* out, int B, int S, int H, int KVH, int hd,
+    int page, int max_pages, float scale, int window, int n_split,
+    void* stream) {
+  return paged_verify<bf16>(q, k_new, v_new, k_pages, v_pages, block_table,
+                            pos0, chunk_len, m_ws, l_ws, acc_ws, counters,
+                            out, B, S, H, KVH, hd, page, max_pages, scale,
+                            window, n_split, stream);
 }

@@ -13,6 +13,10 @@ and a stale library is never loaded.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all
 of them; ``chip_smoke.py`` calls it to build the kernels in parallel.
+
+The kernels that read and write KV pages (B1-B4) export a second
+launcher over bfloat16 pages (``BF16_LAUNCHERS``), with the same C
+signature as their float32 one; ``load(name, "bf16")`` returns it.
 """
 from __future__ import annotations
 
@@ -47,7 +51,16 @@ SIGNATURES = {
                         [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P]),
 }
 
-_FNS: dict[str, object] = {}
+# the launcher over bfloat16 pages of each source that has one (same
+# argument types as its float32 launcher in SIGNATURES)
+BF16_LAUNCHERS = {
+    "paged_decode": "repro_paged_decode_bf16",
+    "paged_prefill": "repro_paged_prefill_bf16",
+    "paged_verify": "repro_paged_verify_bf16",
+    "mla_paged_prefill": "repro_mla_paged_prefill_bf16",
+}
+
+_FNS: dict = {}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
@@ -116,16 +129,20 @@ def build_all() -> dict:
     return {"seconds": time.perf_counter() - t0, "ptxas": logs}
 
 
-def load(name: str):
-    """The exported launcher of ``csrc/<name>.cu``, building it if needed.
-    Its C signature is set once, when the library is loaded; later calls
-    return the same configured function."""
-    fn = _FNS.get(name)
+def load(name: str, pages: str = "f32"):
+    """The exported launcher of ``csrc/<name>.cu`` over ``pages`` ("f32",
+    or "bf16" for the sources in ``BF16_LAUNCHERS``), building the library
+    if needed.  Its C signature is set once, when the library is loaded;
+    later calls return the same configured function."""
+    key = name if pages == "f32" else (name, pages)
+    fn = _FNS.get(key)
     if fn is None:
         fn_name, argtypes = SIGNATURES[name]
+        if pages == "bf16":
+            fn_name = BF16_LAUNCHERS[name]
         _finish(name, _start(name))
         fn = getattr(ctypes.CDLL(str(_lib_path(name))), fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _FNS[name] = fn
+        _FNS[key] = fn
     return fn

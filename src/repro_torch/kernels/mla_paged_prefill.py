@@ -16,6 +16,11 @@ Output rows at ``i >= chunk_len[b]`` (bucket padding, masked lanes) are
 zeros in both versions, as for B2; the TPU kernel leaves them as attention
 over the lane's history, which no caller reads.
 
+The latent pools are float32 or bfloat16, both of one dtype
+(``paged_attention.py``): a bf16 write rounds each row to nearest even,
+and the chunk attends over its own rows as written.  The queries, the new
+rows and the output are float32.
+
 Dispatch is by the inputs' device, as in ``paged_attention.py``:
 CPU → plain version, CUDA → ``csrc/mla_paged_prefill.cu`` or raise.  The
 kernel is built for deepseek-v2's latent widths (r 512, rope 64); other
@@ -30,7 +35,8 @@ import math
 import torch
 
 from repro_torch.kernels.paged_attention import (
-    NEG_INF, check_aligned, check_tensor, sm_count, split_workspace)
+    NEG_INF, check_aligned, check_pages, check_tensor, sm_count,
+    split_workspace)
 
 COUNTS = {"kernel": 0, "plain": 0}
 
@@ -85,8 +91,8 @@ def _launch(q_lat, q_rope, ckv_new, krope_new, ckv_pages, krope_pages,
     check_tensor("q_rope", q_rope, torch.float32, dev, 4)
     check_tensor("ckv_new", ckv_new, torch.float32, dev, 3)
     check_tensor("krope_new", krope_new, torch.float32, dev, 3)
-    check_tensor("ckv_pages", ckv_pages, torch.float32, dev, 3)
-    check_tensor("krope_pages", krope_pages, torch.float32, dev, 3)
+    pages = check_pages("mla_paged_prefill_attention", dev, 3,
+                        ckv_pages=ckv_pages, krope_pages=krope_pages)
     check_tensor("block_table", block_table, torch.int32, dev, 2)
     check_tensor("pos0", pos0, torch.int32, dev, 1)
     check_tensor("chunk_len", chunk_len, torch.int32, dev, 1)
@@ -108,7 +114,7 @@ def _launch(q_lat, q_rope, ckv_new, krope_new, ckv_pages, krope_pages,
     ns = n_splits(B, S, H, page, max_pages, sm_count(dev))
     out = torch.empty_like(q_lat)
     _ws, ws = split_workspace(B, 1, ns, S * H, r, dev)
-    fn = build.load("mla_paged_prefill")
+    fn = build.load("mla_paged_prefill", pages)
     rc = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv_new.data_ptr(),
             krope_new.data_ptr(), ckv_pages.data_ptr(), krope_pages.data_ptr(),
             block_table.data_ptr(), pos0.data_ptr(), chunk_len.data_ptr(),

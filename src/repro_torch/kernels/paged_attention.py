@@ -16,6 +16,13 @@ version, so a run can show which of the two its main path went through.
 
 The kernel splits each lane's pages over ``n_splits`` blocks per (lane,
 KV head) and merges the splits in a second launch.
+
+Pools may be float32 or bfloat16 (``PAGE_DTYPES``; the engine's
+``EngineConfig.dtype``), both of one dtype: the CUDA kernel has an
+instantiation for each and widens bf16 rows to fp32 as it reads them;
+the plain version does the same with ``.float()``.  ``q`` and the output
+are float32.  Any other pool dtype, or two pools of different dtypes,
+raise on the card.
 """
 from __future__ import annotations
 
@@ -34,6 +41,10 @@ BLOCKS_PER_SM = 2
 # shared attention), and B1's largest GQA group
 HEAD_DIMS = (32, 64, 112, 128)
 MAX_GROUP = 8
+
+# page dtypes the CUDA kernels B1-B4 are built for, and the launcher of
+# each (kernels/build.py: "f32", or "bf16" for BF16_LAUNCHERS)
+PAGE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _SMS: dict[int, int] = {}
 
@@ -67,7 +78,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     """q: (B, H, hd); k/v_pages: (n_pages, page, KVH, hd); block_table:
     (B, max_pages) int32; seq_lens: (B,) int32, each >= 1; window: sliding
     window in tokens (None = full causal).  Returns (B, H, hd) in q's dtype,
-    accumulated in float32."""
+    accumulated in float32.  The pools are float32 or bfloat16."""
     B, H, hd = q.shape
     KVH = k_pages.shape[2]
     if H % KVH:
@@ -88,6 +99,22 @@ def check_tensor(name, t, dtype, device, ndim):
             f"{name}: need a contiguous {ndim}-d {dtype} tensor on {device}, "
             f"got {tuple(t.shape)} {t.dtype} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
+
+
+def check_pages(kernel: str, dev, ndim: int, **pools) -> str:
+    """Check the page pools a CUDA kernel reads and writes: contiguous,
+    ``ndim``-d, on ``dev``, all of one dtype of ``PAGE_DTYPES``.  Returns
+    that dtype's launcher ("f32" or "bf16").  A bf16 pool never reaches
+    a float32 launcher: there is no conversion and no fallback."""
+    dtypes = {t.dtype for t in pools.values()}
+    if len(dtypes) != 1 or not dtypes <= PAGE_DTYPES.keys():
+        got = ", ".join(f"{n} {t.dtype}" for n, t in pools.items())
+        raise ValueError(f"{kernel}: the pools must be all float32 or all "
+                         f"bfloat16, got {got}")
+    dtype = dtypes.pop()
+    for name, t in pools.items():
+        check_tensor(name, t, dtype, dev, ndim)
+    return PAGE_DTYPES[dtype]
 
 
 def check_head_dim(kernel: str, hd: int) -> None:
@@ -122,8 +149,8 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window):
     from repro_torch.kernels import build
     dev = q.device
     check_tensor("q", q, torch.float32, dev, 3)
-    check_tensor("k_pages", k_pages, torch.float32, dev, 4)
-    check_tensor("v_pages", v_pages, torch.float32, dev, 4)
+    pages = check_pages("paged_decode_attention", dev, 4, k_pages=k_pages,
+                        v_pages=v_pages)
     check_tensor("block_table", block_table, torch.int32, dev, 2)
     check_tensor("seq_lens", seq_lens, torch.int32, dev, 1)
     B, H, hd = q.shape
@@ -141,7 +168,7 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window):
     ns = n_splits(B, KVH, page, max_pages, window, sm_count(dev))
     out = torch.empty_like(q)
     _ws, ws = split_workspace(B, KVH, ns, G, hd, dev)
-    fn = build.load("paged_decode")
+    fn = build.load("paged_decode", pages)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), *ws,
             B, H, KVH, hd, page, max_pages, scale,

@@ -13,6 +13,11 @@ Output rows at ``i >= chunk_len[b]`` (bucket padding, masked lanes) are
 zeros in both versions; the TPU kernel leaves them as attention over the
 lane's history, which no caller reads.
 
+Pools are float32 or bfloat16, both of one dtype (``paged_attention.py``):
+a bf16 write rounds each row to nearest even, and the chunk attends over
+its own rows as written (rounded), as the reference reads them back from
+its pages.  ``q``, ``k_new``, ``v_new`` and the output are float32.
+
 Dispatch is by the inputs' device, as in ``paged_attention.py``:
 CPU → plain version, CUDA → ``csrc/paged_prefill.cu`` or raise.
 ``COUNTS["kernel"]`` counts calls that launched the kernel, one per call
@@ -26,8 +31,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.paged_attention import (
-    BLOCKS_PER_SM, NEG_INF, check_aligned, check_head_dim, check_tensor,
-    sm_count, split_workspace)
+    BLOCKS_PER_SM, NEG_INF, check_aligned, check_head_dim, check_pages,
+    check_tensor, sm_count, split_workspace)
 
 COUNTS = {"kernel": 0, "plain": 0}
 
@@ -87,8 +92,8 @@ def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
     check_tensor("q", q, torch.float32, dev, 4)
     check_tensor("k_new", k_new, torch.float32, dev, 4)
     check_tensor("v_new", v_new, torch.float32, dev, 4)
-    check_tensor("k_pages", k_pages, torch.float32, dev, 4)
-    check_tensor("v_pages", v_pages, torch.float32, dev, 4)
+    pages = check_pages("paged_prefill_attention", dev, 4, k_pages=k_pages,
+                        v_pages=v_pages)
     check_tensor("block_table", block_table, torch.int32, dev, 2)
     check_tensor("pos0", pos0, torch.int32, dev, 1)
     check_tensor("chunk_len", chunk_len, torch.int32, dev, 1)
@@ -107,7 +112,7 @@ def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
     ns = n_splits(B, S, G, KVH, page, max_pages, window, sm_count(dev))
     out = torch.empty_like(q)
     _ws, ws = split_workspace(B, KVH, ns, S * G, hd, dev)
-    fn = build.load("paged_prefill")
+    fn = build.load("paged_prefill", pages)
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
             pos0.data_ptr(), chunk_len.data_ptr(), out.data_ptr(), *ws,
@@ -131,8 +136,10 @@ def paged_prefill_plain(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
 
 def prefill_math(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
                  chunk_len, *, scale: float, window: Optional[int] = None):
-    """Scatter the chunk's rows into the pages (in place), gather each
-    lane's stream, masked softmax; the plain version of B2 and of B3.
+    """Scatter the chunk's rows into the pages (in place, rounded to the
+    pools' dtype), gather each lane's stream (widened to float32: the
+    chunk's own rows as written), masked softmax; the plain version of B2
+    and of B3.
     The scatter selects the written rows with a boolean mask, which waits
     on the device; this arithmetic is never on the CUDA main path."""
     B, S, H, hd = q.shape

@@ -12,8 +12,9 @@ the history's 16-key tiles over the warps of ``n_splits`` blocks per
 (lane, KV head), and the last block of each pair to finish merges the
 pair's splits: one launch per call.
 
-Dispatch is by the inputs' device: CPU → plain version, CUDA → the kernel
-or raise.  The kernel takes head dims that are multiples of 4 up to 128.
+Pools are float32 or bfloat16, both of one dtype, as for B2.  Dispatch is
+by the inputs' device: CPU → plain version, CUDA → the kernel or raise.
+The kernel takes head dims that are multiples of 4 up to 128.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.paged_attention import (
-    check_aligned, check_tensor, sm_count, split_workspace)
+    check_aligned, check_pages, check_tensor, sm_count, split_workspace)
 from repro_torch.kernels.paged_prefill import prefill_math
 
 COUNTS = {"kernel": 0, "plain": 0}
@@ -97,8 +98,8 @@ def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
     check_tensor("q", q, torch.float32, dev, 4)
     check_tensor("k_new", k_new, torch.float32, dev, 4)
     check_tensor("v_new", v_new, torch.float32, dev, 4)
-    check_tensor("k_pages", k_pages, torch.float32, dev, 4)
-    check_tensor("v_pages", v_pages, torch.float32, dev, 4)
+    pages = check_pages("paged_verify_attention", dev, 4, k_pages=k_pages,
+                        v_pages=v_pages)
     check_tensor("block_table", block_table, torch.int32, dev, 2)
     check_tensor("pos0", pos0, torch.int32, dev, 1)
     check_tensor("chunk_len", chunk_len, torch.int32, dev, 1)
@@ -120,7 +121,7 @@ def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
                               direct=False)
     counters = merge_counters(B * KVH, dev)
     out = torch.empty_like(q)
-    fn = build.load("paged_verify")
+    fn = build.load("paged_verify", pages)
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
             pos0.data_ptr(), chunk_len.data_ptr(), *ws, counters.data_ptr(),

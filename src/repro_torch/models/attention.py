@@ -17,7 +17,11 @@ Two execution modes share ``attn_forward``:
     decode kernel (B1, ``kernels/paged_attention.py``).
 
 Pools are updated in place: ``attn_forward`` returns the same tensors it
-was given.  Every pool the engine owns ends in one WRITE-OFF page
+was given.  They are float32 or bfloat16 (``EngineConfig.dtype``) and are
+passed to the kernels as they are: a bf16 pool takes each written row
+rounded to nearest even (the kernels' in-kernel writes and
+``paged_write``'s ``.to(pages.dtype)`` alike) and is widened to float32
+where it is read, so queries, new rows and outputs stay float32.  Every pool the engine owns ends in one WRITE-OFF page
 (``pages[-1]``) that no block table maps: ``paged_write`` routes masked
 rows there.  JAX drops them with ``mode="drop"``; torch has no such mode,
 and routing them to "the old value" would race with lane 0's real write,

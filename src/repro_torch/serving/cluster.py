@@ -25,8 +25,9 @@ wall-time; the §4.2 routing delay is below this step granularity).
 This module is ``repro/serving/cluster.py`` with its imports rewritten.
 What differs is ``build``: every replica's engine runs on the one
 ``device`` it is given (on one card all replicas share it, and share the
-same parameter tensors), in float32 only; mesh-sharded replicas
-(``mesh``, ``devices_per_replica``) are not ported and raise.
+same parameter tensors), its KV pools in ``dtype`` (float32 or
+bfloat16); mesh-sharded replicas (``mesh``, ``devices_per_replica``) are
+not ported and raise.
 """
 from __future__ import annotations
 
@@ -171,15 +172,14 @@ class ClusterFrontend:
         ``device`` (``resolve_device``: CUDA unless named) carries every
         replica's engine, the autoscaler's too; ``params`` must live on
         it and are shared, not copied.  ``token_level_prefix`` goes to
-        every replica's ``EngineConfig``.  ``mesh`` and
-        ``devices_per_replica`` (mesh-sharded replicas) and any ``dtype``
-        but float32 are not ported and raise."""
+        every replica's ``EngineConfig``, and so does ``dtype``, the KV
+        pools' dtype (float32 or bfloat16; ``ServingEngine`` refuses any
+        other, and bf16 for an SSM model).  ``mesh`` and
+        ``devices_per_replica`` (mesh-sharded replicas) are not ported and
+        raise."""
         if mesh is not None or devices_per_replica is not None:
             raise NotImplementedError(
                 "mesh-sharded replicas are not yet ported")
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f"the port's engine runs in float32 only, not {dtype}")
         device = resolve_device(device)
         budget = SharedPageBudget(total_pages)
         if replica_pages is None:
@@ -205,7 +205,8 @@ class ClusterFrontend:
                 model_cfg, params,
                 EngineConfig(max_slots=max_slots, max_len=max_len,
                              page_size=page_size, total_pages=replica_pages,
-                             seed=seed + i, share_prefix=share_prefix,
+                             dtype=dtype, seed=seed + i,
+                             share_prefix=share_prefix,
                              token_level_prefix=token_level_prefix,
                              **spill_kw),
                 draft=draft, kv_budget=budget, device=device)

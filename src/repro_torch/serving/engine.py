@@ -27,8 +27,15 @@ The engine executes planner ``Batch`` objects:
     ``serving/spec_decode.SpecDecoder``: draft steps, then one verify
     forward of the target through the verify kernel (``"verify"`` span).
 
-The engine runs in float32, the reference's default dtype and the one
-the kernels take; on the card TF32 is off (``device.resolve_device``).
+Weights and activations are float32; on the card TF32 is off
+(``device.resolve_device``).  ``EngineConfig.dtype`` sets the dtype of
+the KV page pools, as the reference's does: float32 (the default) or
+bfloat16.  In bf16 each K/V row is rounded to nearest even when it is
+written and widened to float32 when it is read, by the paged kernels
+(B1-B4) and by the plain ``paged_write`` scatter alike, so a chunk attends
+over its own rows as stored.  Float16 pools and bf16 serving of an
+SSM-bearing model raise ``NotImplementedError`` (the reference fails on
+the latter: its decode scan's carry changes dtype).
 MoE models run with the reference's dropless capacity factor E / k; their
 MoE layers read the per-expert unit counts on the host (``models/moe.py``),
 one more sync per MoE layer per step than a dense model's decode loop.
@@ -80,6 +87,7 @@ import torch
 from repro_torch.core.batch import Batch
 from repro_torch.core.slo import StageKind
 from repro_torch.device import generator, resolve_device
+from repro_torch.kernels.paged_attention import PAGE_DTYPES
 from repro_torch.models import attention as _attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import dropless_capacity_factor
@@ -138,7 +146,30 @@ class EngineConfig:
             "REPRO_HOST_SPILL_PAGES",
             256 if _env_flag("REPRO_HOST_SPILL", False) else 0))
     h2d_gbps: float = 16.0
+    # dtype of the KV page pools (and SSM lane rows): float32 or bfloat16
+    dtype: torch.dtype = torch.float32
     mesh: object = None               # not None raises: not yet ported
+
+
+def check_kv_dtype(cfg: ModelConfig, dtype) -> None:
+    """Refuse a pool dtype the port does not serve: anything but float32
+    and bfloat16 (the reference also takes float16), and any dtype but
+    float32 for a model with SSM layers, which the reference cannot serve
+    either: its first decode group raises ``TypeError: scan body function
+    carry input and carry output must have equal types``
+    (``repro/serving/engine.py:341``; the bf16 conv carry comes back as
+    float32 from ``ssm_decode_step``)."""
+    if dtype not in PAGE_DTYPES:              # the paged kernels' dtypes
+        raise NotImplementedError(
+            f"KV pools of {dtype} are not yet ported (float32, bfloat16)")
+    if dtype != torch.float32 and any(
+            kind == "ssm" for kind, _ in cfg.segments()):
+        raise NotImplementedError(
+            f"{cfg.name}: serving an SSM model with {dtype} lane rows is "
+            "not ported, as the reference cannot serve it: its first "
+            "decode group raises 'TypeError: scan body function carry "
+            "input and carry output must have equal types' "
+            "(repro/serving/engine.py:341)")
 
 
 @dataclasses.dataclass
@@ -165,6 +196,7 @@ class ServingEngine:
         self.ecfg = ecfg or EngineConfig()
         if self.ecfg.mesh is not None:
             raise NotImplementedError("mesh-sharded serving is not yet ported")
+        check_kv_dtype(cfg, self.ecfg.dtype)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -172,7 +204,7 @@ class ServingEngine:
                                  page_size=self.ecfg.page_size,
                                  max_seqs=self.ecfg.max_slots,
                                  max_len=self.ecfg.max_len,
-                                 dtype=torch.float32,
+                                 dtype=self.ecfg.dtype,
                                  budget=kv_budget,
                                  share_prefix=self.ecfg.share_prefix,
                                  token_level=self.ecfg.token_level_prefix,

@@ -52,8 +52,8 @@ class SpecDecoder:
         # draft page is cheaper by the ratio of per-page KV bytes).
         want = min(e.total_pages,
                    e.max_slots * max(1, math.ceil(e.max_len / e.page_size)))
-        tgt_bytes = kv_page_bytes(engine.cfg, e.page_size)
-        dft_bytes = kv_page_bytes(draft_cfg, e.page_size)
+        tgt_bytes = kv_page_bytes(engine.cfg, e.page_size, e.dtype)
+        dft_bytes = kv_page_bytes(draft_cfg, e.page_size, e.dtype)
         ratio = dft_bytes / tgt_bytes if tgt_bytes > 0 else 0.0
         self.budget_pages = 0       # target-page equivalents reserved
         budget = engine.kv.budget
@@ -71,7 +71,7 @@ class SpecDecoder:
             self.budget_pages = charge
         self.kv = PagedKVManager(draft_cfg, total_pages=want,
                                  page_size=e.page_size, max_seqs=e.max_slots,
-                                 max_len=e.max_len, dtype=torch.float32,
+                                 max_len=e.max_len, dtype=e.dtype,
                                  device=engine.device)
 
     # ------------------------- device programs -------------------------- #

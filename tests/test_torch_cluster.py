@@ -2,9 +2,9 @@
 (``tests/test_cluster.py``, ``tests/test_kv_spill.py``): both clusters
 come from ``make_real_cluster`` over the same bridged weights and run the
 same scenario (routing order, hop limit and backup decline; prefix
-affinity; the burst with overflow, best-effort and preemption; a drain
-with migration and spill to the survivor; a draft-armed run; a placement
-pass).  Each scenario asserts that every request streams what it streams
+affinity; the burst with overflow, best-effort and preemption, also
+with bf16 KV pools; a drain with migration and spill to the survivor; a
+draft-armed run; a placement pass).  Each scenario asserts that every request streams what it streams
 on the JAX cluster, that ``ClusterStats.as_dict()`` is equal (but for the
 keys in ``TIE_BREAK_KEYS``) and that the shared budget and every replica's
 page accounting hold after every step of the port's cluster."""
@@ -238,10 +238,14 @@ def test_prefix_affinity_routes_to_warm_replica(sides):
     same_stats(want, got)
 
 
-def test_burst_overflow_routes_and_preempts(sides):
+def _burst(sides, jax_over=None, port_over=None):
+    """The burst scenario on both packages' clusters (``*_over`` go to
+    each side's ``cluster``): eight requests at once, then four more once
+    best-effort KV is resident.  Returns each side's (stats, streams,
+    preempted rids, budget used at the end)."""
     out = []
-    for side in sides:
-        cl = side.cluster()
+    for side, over in zip(sides, (jax_over or {}, port_over or {})):
+        cl = side.cluster(**over)
         rng = np.random.default_rng(3)
         streams, prompts = {}, {}
 
@@ -259,13 +263,31 @@ def test_burst_overflow_routes_and_preempts(sides):
         stats = run(cl, check=check)
         preempted = set().union(*(d.preempted_rids for d in cl.drivers))
         out.append((stats, streams, preempted, cl.budget.used))
-    (want, ws, wp, _), (got, gs, gp, used) = out
+    return out
+
+
+def test_burst_overflow_routes_and_preempts(sides):
+    (want, ws, wp, _), (got, gs, gp, used) = _burst(sides)
     assert gs == ws
     assert gp == wp and gp
     assert got.served == got.submitted == 12 and got.dropped == 0
     assert got.routed >= 1 and got.best_effort >= 1 and got.preempted >= 1
     assert used == 0
     same_stats(want, got)
+
+
+def test_bf16_cluster_matches_jax(sides):
+    """The burst scenario with every replica's KV pools in bfloat16
+    (``build(dtype=...)``) on both packages: equal streams, preemptions and
+    ``ClusterStats``, every replica's pool leaves bf16."""
+    (want, ws, wp, _), (got, gs, gp, used) = _burst(
+        sides, dict(dtype=jax.numpy.bfloat16), dict(dtype=torch.bfloat16))
+    assert gs == ws and gp == wp and gp
+    assert got.served == got.submitted == 12 and used == 0
+    same_stats(want, got)
+    cl = sides[1].cluster(dtype=torch.bfloat16)
+    assert all(leaf.dtype == torch.bfloat16 for d in cl.drivers
+               for pool in d.engine.kv.pools for leaf in pool["self"].values())
 
 
 def test_drain_migrates_and_spills_to_survivor(sides):
@@ -372,7 +394,7 @@ def test_placement_pass_and_affinity_to_placed_chain(sides):
 def test_build_options_not_ported_raise(sides):
     side = sides[1]
     for over in (dict(mesh=object()), dict(devices_per_replica=1),
-                 dict(dtype=torch.bfloat16)):
+                 dict(dtype=torch.float16)):
         with pytest.raises(NotImplementedError):
             side.cluster(**over)
 

@@ -822,6 +822,65 @@ def test_load_configures_each_launcher_once(monkeypatch):
     assert fn.restype is build.ctypes.c_int
 
 
+def _launch_args(kernel, pools):
+    """A kernel's ``_launch`` and its CPU arguments at a small shape, with
+    the page pools of ``pools`` (dtypes of its two pools)."""
+    B, S, H, KV, hd, page, n_pages = 1, 8, 4, 2, 32, 8, 4
+    table = torch.zeros(B, 2, dtype=torch.int32)
+    p0 = torch.zeros(B, dtype=torch.int32)
+    cl = torch.full((B,), 4, dtype=torch.int32)
+    if kernel == "mla":
+        r, rope = mk.KERNEL_RANK, mk.KERNEL_ROPE
+        kp = torch.zeros(n_pages, page, r, dtype=pools[0])
+        vp = torch.zeros(n_pages, page, rope, dtype=pools[1])
+        return mk, mk._launch, (
+            torch.zeros(B, S, H, r), torch.zeros(B, S, H, rope),
+            torch.zeros(B, S, r), torch.zeros(B, S, rope), kp, vp, table,
+            p0, cl, 1.0)
+    kp = torch.zeros(n_pages, page, KV, hd, dtype=pools[0])
+    vp = torch.zeros(n_pages, page, KV, hd, dtype=pools[1])
+    if kernel == "decode":
+        return pa, pa._launch, (torch.zeros(B, H, hd), kp, vp, table,
+                                torch.ones(B, dtype=torch.int32), 1.0, None)
+    mod = pp if kernel == "prefill" else pv
+    kn = torch.zeros(B, S, KV, hd)
+    return mod, mod._launch, (torch.zeros(B, S, H, hd), kn, kn.clone(), kp,
+                              vp, table, p0, cl, 1.0, None)
+
+
+@pytest.mark.parametrize("pools", [
+    (torch.bfloat16, torch.float32),    # mixed: never one launcher
+    (torch.float16, torch.float16),     # no float16 instantiation
+    (torch.bfloat16, torch.bfloat16),   # the bf16 launcher, never f32
+], ids=["mixed", "float16", "bf16"])
+@pytest.mark.parametrize("kernel", ["decode", "prefill", "verify", "mla"])
+def test_wrapper_page_dtype_checks(kernel, pools, monkeypatch):
+    """The CUDA wrappers of B1-B4 take float32 or bfloat16 pools, both of
+    one dtype: a bf16 pool with a float32 one, or float16 pools, raise
+    before anything is built or launched; bf16 pools ask ``build.load``
+    for the source's bf16 launcher."""
+    from repro_torch.kernels import build
+    asked = []
+
+    def load(name, pages="f32"):
+        asked.append((name, pages))
+        raise RuntimeError("stop before the launch")
+    monkeypatch.setattr(build, "load", load)
+    mod, launch, args = _launch_args(kernel, pools)
+    monkeypatch.setattr(mod, "sm_count", lambda dev: 132)   # no card here
+    n0 = dict(mod.COUNTS)
+    if pools == (torch.bfloat16, torch.bfloat16):
+        with pytest.raises(RuntimeError, match="stop before"):
+            launch(*args)
+        assert len(asked) == 1 and asked[0][1] == "bf16"
+        assert asked[0][0] in build.BF16_LAUNCHERS
+    else:
+        with pytest.raises(ValueError, match="float32 or all bfloat16"):
+            launch(*args)
+        assert asked == []
+    assert mod.COUNTS == n0
+
+
 # ------------- B5 and B3 as their redesigned kernels cut them ------------- #
 def _ssd_np(B, S, H, P, N, seed, pad=()):
     """numpy inputs at mamba2's scales (chip_smoke's ``ssd_inputs``): x, B
