@@ -254,9 +254,35 @@ script exits non-zero before the final line:
     B1-B4 as ``*_bf16`` entries with the bf16 replays' launches), the
     card line, and ``{"ok": true, "device": ...}``.
 
+22. ``dense_cache`` (run right after the cluster phase, on its weights):
+    full-width smollm-135m generates 32 tokens greedily after a 48-token
+    prompt through the dense fixed-buffer caches (``init_cache``: the
+    prompt in one call, then one token a call, attended by the masked
+    ``sdpa``), against plain generation under the tie rule; no kernel and
+    no plain version runs.
+23. Training (run after the phi3.5-moe replay, before the gateway), each
+    phase with the launch counts of all six kernels and their plain
+    versions unchanged over it, its step time (from the second logged
+    step to the last), tokens per second, peak memory and the card line:
+    ``train_dense``: smollm-135m at its published width and depth through
+    ``launch.train.main`` (8 x 1024 of the Markov stream at the seed, 200
+    steps, AdamW at lr 3e-3): every loss finite and the last logged below
+    the first by 0.25; then one step (2 x 256) from CPU-drawn weights on
+    the CPU and on the card with remat off and on, loss within rel 1e-5
+    and gradient norm within rel 1e-4 of the CPU's and of each other.
+    ``train_ssm``: mamba2-2.7b at its published widths cut to 16 layers:
+    one step at 2 layers (1 x 256) against the CPU; then it fits one 4 x
+    512 batch of the stream (``SSM_TRAIN``: 10 steps at lr 1e-3), the
+    loss falling by ``FIT_DROP`` (5 nats), the peak under 60 GiB.
+    ``train_moe``: phi3.5-moe at its published widths cut to 2 layers:
+    one step at 1 layer (1 x 64) against the CPU, remat on and off agree
+    on one step at 4 x 512, the load-balance loss is finite and above 0;
+    then it fits one 4 x 512 batch (``MOE_TRAIN``: 10 steps at lr 3e-4),
+    the loss falling by 5 nats.
+
 Every earlier replay also checks that B6 never launched: only the
-no-cache attention of plain generation (steps 3, 5, 6, 15, 17-19) and
-the encoder / cross-attention of steps 15-16 run it.
+no-cache attention of plain generation (steps 3, 5, 6, 15, 17-19, 22)
+and the encoder / cross-attention of steps 15-16 run it.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -265,10 +291,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import importlib.util
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -292,7 +320,15 @@ TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 N_TIMED = 20
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``t_s``, the seconds since
+    the script started, so that each phase's share of the time limit
+    shows."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1003,8 +1039,9 @@ def greedy_reference(params, cfg, prompt, n, dev, enc=None):
     toks, margins = list(prompt), []
     with torch.no_grad():
         for _ in range(n):
-            h, _ = model_forward(params, cfg, torch.tensor([toks], device=dev),
-                                 moe_cf=moe_cf, enc_states=enc)
+            h, _, _ = model_forward(params, cfg,
+                                    torch.tensor([toks], device=dev),
+                                    moe_cf=moe_cf, enc_states=enc)
             lg = logits_fn(params, cfg, h[0, -1])
             top = torch.topk(lg, 2).values
             margins.append((top[0] - top[1]).item())
@@ -1858,9 +1895,9 @@ def mla_decode_breakdown(cfg, params, eng):
     positions = pos0[:, None]
 
     def step():
-        h, _ = model_forward(params, cfg, tok, cache=eng.kv.pools, pos0=pos0,
-                             block_tables=table, chunk_len=none,
-                             moe_cf=eng._moe_cf)
+        h, _, _ = model_forward(params, cfg, tok, cache=eng.kv.pools,
+                                pos0=pos0, block_tables=table,
+                                chunk_len=none, moe_cf=eng._moe_cf)
         return logits_fn(params, cfg, h[:, -1])
     parts = {
         "step_ms": step,
@@ -2262,8 +2299,8 @@ def ssm_decode_breakdown(cfg, params, eng):
     keep = frozen > 0
 
     def step():
-        hid, _ = model_forward(params, cfg, tok, cache=cache, pos0=pos0,
-                               chunk_len=frozen)
+        hid, _, _ = model_forward(params, cfg, tok, cache=cache, pos0=pos0,
+                                  chunk_len=frozen)
         return logits_fn(params, cfg, hid[:, -1])
     parts = {
         "step_ms": step,
@@ -2719,9 +2756,9 @@ def whisper_decode_breakdown(cfg, params, eng, frames):
         h = apply_norm(p0["norm1"], x, cfg.norm)
 
     def step():
-        hid, _ = model_forward(params, cfg, tok, cache=eng.kv.pools,
-                               pos0=pos0, block_tables=table,
-                               chunk_len=none, enc_states=enc)
+        hid, _, _ = model_forward(params, cfg, tok, cache=eng.kv.pools,
+                                  pos0=pos0, block_tables=table,
+                                  chunk_len=none, enc_states=enc)
         return logits_fn(params, cfg, hid[:, -1])
     parts = {
         "step_ms": step,
@@ -2952,9 +2989,9 @@ def hybrid_breakdown(cfg, params, eng):
             rows = {k: t[0] for k, t in lanes[0].items()}
 
             def step():
-                hid, _ = model_forward(params, cfg, tok, cache=lanes,
-                                       pos0=pos0, block_tables=table,
-                                       chunk_len=clen)
+                hid, _, _ = model_forward(params, cfg, tok, cache=lanes,
+                                          pos0=pos0, block_tables=table,
+                                          chunk_len=clen)
                 return logits_fn(params, cfg, hid[:, -1])
 
             def ssm_block():
@@ -3169,9 +3206,9 @@ def main_step_breakdown(cfg, params, eng):
                 (f"prefill_B{pB}_S{pS}_live{p_live}_pos{p_pos0}",
                  shape(pB, pS, p_pos0, p_live), "paged_prefill_attention")):
             def call():
-                hid, _ = model_forward(params, cfg, tok, cache=eng.kv.pools,
-                                       pos0=pos0, block_tables=table,
-                                       chunk_len=clen)
+                hid, _, _ = model_forward(params, cfg, tok, cache=eng.kv.pools,
+                                          pos0=pos0, block_tables=table,
+                                          chunk_len=clen)
                 return logits_fn(params, cfg, hid[:, -1])
             call_ms = time_ms(call)
             reading = cuda_profile(call, n=1, flush=False)
@@ -3615,7 +3652,7 @@ def plain_over_history(params, cfg, log: HistoryLog, rid: int, dev):
                 "min_top2_margin": None, "ok": True}, []
     hist, pre, toks = log.history[rid], log.prefix[rid], log.tokens[rid]
     with torch.no_grad():
-        h, _ = model_forward(params, cfg, torch.tensor([hist], device=dev))
+        h, _, _ = model_forward(params, cfg, torch.tensor([hist], device=dev))
         rows = torch.tensor([p - 1 for p in pre], device=dev)
         lg = logits_fn(params, cfg, h[0, rows])
         top = torch.topk(lg, 2, dim=-1).values
@@ -3951,6 +3988,322 @@ def gateway_phase(cfg, params, kernels, seed: int):
     return part1["launches"]
 
 
+# -------------------------- dense-cache phase --------------------------- #
+DENSE_CACHE = dict(prompt=48, new=32, max_len=128)
+
+
+def dense_cache_phase(cfg, params, kernels, seed: int):
+    """Greedy generation of full-width smollm-135m through the dense
+    fixed-buffer caches (``init_cache``: the prompt in one prefill, then
+    one token a call, each written at its position and attended by the
+    masked ``sdpa``) against plain full-causal generation
+    (``greedy_reference``, B6) under the tie rule.  No kernel and no plain
+    version may run on the dense path."""
+    from repro_torch.models import init_cache, logits_fn, model_forward
+
+    dev = torch.device("cuda")
+    prompt = script_prompts(cfg, seed + 12, {1: DENSE_CACHE["prompt"]})[1]
+    want, margins = greedy_reference(params, cfg, prompt,
+                                     DENSE_CACHE["new"], dev)
+    before = kernel_counts(kernels)
+    cache = init_cache(cfg, 1, DENSE_CACHE["max_len"], device=dev)
+    got, x, pos = [], torch.tensor([prompt], device=dev), 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(DENSE_CACHE["new"]):
+            h, _, _ = model_forward(params, cfg, x, cache=cache,
+                                    pos0=torch.tensor([pos], device=dev,
+                                                      dtype=torch.int32))
+            got.append(int(torch.argmax(logits_fn(params, cfg, h[0, -1]))))
+            pos += x.shape[1]
+            x = torch.tensor([[got[-1]]], device=dev)
+    wall = time.perf_counter() - t0
+    cmp = compare_stream(got, want, margins)
+    checks = {"stream_equals_plain": cmp["ok"],
+              "no_kernel_no_plain": kernel_counts(kernels) == before}
+    emit({"phase": "dense_cache", "model": cfg.name, "layers": cfg.n_layers,
+          **DENSE_CACHE, "stream": cmp, "wall_s": wall,
+          "ms_per_token": 1e3 * wall / DENSE_CACHE["new"], "checks": checks})
+    if not all(checks.values()):
+        raise SystemExit(f"dense_cache checks failed: {checks}")
+
+
+# ------------------------------ training -------------------------------- #
+# Training takes the reference's plain branches (``model_forward(train=
+# True)``: the masked ``sdpa`` or ``sdpa_chunked``, the SSM's
+# ``ssd_chunked``): the hand kernels have no backward and every wrapper
+# refuses an input that requires grad.  Each phase checks that neither a
+# kernel nor a kernel's plain version ran.
+# 200 steps: on the card the loss fell 0.141 in 120 and 0.373 in 200
+# (PERF.md)
+TRAIN_DENSE_ARGS = ["--arch", "smollm-135m", "--full-config", "--steps",
+                    "200", "--batch", "8", "--seq-len", "1024", "--lr",
+                    "3e-3"]
+TRAIN_DROP = 0.25             # the margin of tests/test_training.py
+LOG_EVERY = 10                # train()'s default
+# one step on the card against the port on the CPU (same weights, same
+# batch; float32 sums in other orders, TF32 off), and remat on against off
+LOSS_RTOL, GNORM_RTOL = 1e-5, 1e-4
+# mamba2-2.7b and phi3.5-moe fit one batch of the stream (``fit``).  On
+# the stream itself, in 40 steps, neither loss fell by more than 0.11 at
+# a rate at which it did not climb, against rises of up to 0.05 from one
+# step to the next (``scripts/sweep_train_schedule.py``; PERF.md): a
+# batch of 2048 tokens holds a sliver of a 32k- or 50k-token
+# vocabulary's transitions.  One batch trained on again falls by several
+# nats in ten steps.  The rates: the largest at which the stream's loss
+# did not climb (phi3.5-moe's climbed at 1e-3, 2e-3 and 3e-3 with a
+# warmup of 10; mamba2's jumped by up to 1.3 at 3e-3).
+FIT_DROP = 5.0
+# mamba2-2.7b at its published widths, 64 layers cut to 16 (this script's
+# time limit bounds it; the peak stays under 60 GiB)
+SSM_TRAIN = dict(layers=16, batch=4, seq_len=512, steps=10, lr=1e-3,
+                 warmup=2)
+# phi3.5-moe at its published widths cut to 2 layers (1.26 B parameters a
+# layer; AdamW's 16 bytes a parameter make 46 GiB with the embeddings);
+# its one step against the CPU at 1 layer, 64 tokens
+MOE_TRAIN = dict(layers=2, batch=4, seq_len=512, steps=10, lr=3e-4,
+                 warmup=2, cpu_layers=1, cpu_seq_len=64)
+
+
+def kernel_counts(kernels) -> dict:
+    return {k: dict(m.COUNTS) for k, m in kernels.items()}
+
+
+def cut_depth(cfg, n: int):
+    return dataclasses.replace(cfg, n_layers=n,
+                               block_pattern=cfg.block_pattern[:n])
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def grad_reading(cfg, params, batch) -> dict:
+    """One step's loss, MoE aux loss and gradient norm (no update)."""
+    from repro_torch.training import optimizer, train_loop
+    loss, parts, grads = train_loop.loss_and_grads(params, cfg, batch)
+    return {"loss": float(loss), "aux": float(parts["aux"]),
+            "grad_norm": float(optimizer.global_norm(grads))}
+
+
+def markov_batch(cfg, batch: int, seq_len: int, seed: int, dev) -> dict:
+    from repro_torch.training.data import batches
+    return {k: torch.from_numpy(v).long().to(dev) for k, v in
+            next(batches(cfg.vocab, batch, seq_len, seed)).items()}
+
+
+def remat_readings(cfg, params, batch) -> dict:
+    """``grad_reading`` with remat off and on, and their relative
+    differences."""
+    off, on = (grad_reading(dataclasses.replace(cfg, remat=r), params, batch)
+               for r in (False, True))
+    return {"off": off, "on": on, "loss_rel": rel(on["loss"], off["loss"]),
+            "grad_norm_rel": rel(on["grad_norm"], off["grad_norm"])}
+
+
+def card_vs_cpu(cfg, seed: int, batch: int, seq_len: int,
+                remats=(False,)) -> dict:
+    """One step's loss and gradient norm on the CPU, and on the card for
+    each remat setting, each against the CPU's: the same seeded weights
+    (drawn on the card, copied to the CPU, where drawing a billion takes
+    tens of seconds) and the same Markov batch.  The CPU runs once,
+    without remat (the CPU tests hold remat on and off equal there)."""
+    from repro_torch.device import generator
+    from repro_torch.models import init_params
+    from repro_torch.training.train_loop import trainable
+    from repro_torch.training.tree import tree_map
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    card = trainable(init_params(cfg, generator(dev, seed), device=dev))
+    params = trainable(tree_map(lambda t: t.detach().to(cpu), card))
+    b = markov_batch(cfg, batch, seq_len, seed, cpu)
+    bd = {k: v.to(dev) for k, v in b.items()}
+    t0 = time.perf_counter()
+    on_cpu = grad_reading(cfg, params, b)
+    out = {"layers": cfg.n_layers, "batch": batch, "seq_len": seq_len,
+           "cpu": on_cpu, "cpu_s": time.perf_counter() - t0}
+    for remat in remats:
+        on_card = grad_reading(dataclasses.replace(cfg, remat=remat), card,
+                               bd)
+        out[f"card_remat_{remat}"] = {
+            **on_card, "loss_rel": rel(on_card["loss"], on_cpu["loss"]),
+            "grad_norm_rel": rel(on_card["grad_norm"], on_cpu["grad_norm"])}
+    return out
+
+
+def agree(name: str, r: dict) -> dict:
+    return {f"{name}_loss": r["loss_rel"] <= LOSS_RTOL,
+            f"{name}_grad_norm": r["grad_norm_rel"] <= GNORM_RTOL}
+
+
+def train_run(phase: str, cfg, res, batch: int, seq_len: int, peak: float,
+              before: dict, after: dict, drop: float,
+              log_every: int = LOG_EVERY):
+    """The phase's record and checks of a training run: steady step time
+    from the second logged step to the last (reading a logged loss waits
+    for the device to finish that step), tokens per second, peak memory;
+    every loss finite, the last logged below the first by ``drop``, no
+    kernel and no plain version launched."""
+    step_s = ((res.logged_at[-1] - res.logged_at[1])
+              / (res.steps - 1 - log_every))
+    rec = {"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "batch": batch,
+           "seq_len": seq_len, "steps": res.steps, "losses": res.losses,
+           "wall_s": res.wallclock, "step_ms": 1e3 * step_s,
+           "tokens_per_s": batch * seq_len / step_s, "peak_mem_gib": peak,
+           "launches_before": before, "launches_after": after}
+    checks = {"losses_finite": all(math.isfinite(x) for x in res.losses),
+              "loss_falls": res.losses[-1] < res.losses[0] - drop,
+              "no_kernel_no_plain": before == after}
+    return rec, checks
+
+
+def finish(rec: dict, checks: dict, card: str) -> None:
+    rec.update({"gpu": card, "checks": checks})
+    emit(rec)
+    if not all(checks.values()):
+        raise SystemExit(f"{rec['phase']} checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
+def fit(cfg, spec: dict, seed: int):
+    """``spec["steps"]`` AdamW steps of ``make_train_step`` (``train``'s
+    step) on the card, each on the Markov stream's first batch at the
+    seed, fresh seeded weights, every step's loss read.  Returns
+    (TrainResult, peak GiB)."""
+    from repro_torch.device import generator
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import (TrainResult,
+                                                 make_train_step, trainable)
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = trainable(init_params(cfg, generator(dev, seed), device=dev))
+    state = init_opt_state(params)
+    step = make_train_step(cfg, AdamWConfig(
+        lr=spec["lr"], total_steps=spec["steps"],
+        warmup_steps=spec["warmup"]))
+    b = markov_batch(cfg, spec["batch"], spec["seq_len"], seed, dev)
+    losses, at = [], []
+    t0 = time.perf_counter()
+    for _ in range(spec["steps"]):
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        at.append(time.perf_counter() - t0)
+    res = TrainResult(losses=losses, steps=spec["steps"], wallclock=at[-1],
+                      logged_at=at)
+    return res, torch.cuda.max_memory_allocated() / 2**30
+
+
+def train_dense_phase(kernels, card: str, seed: int):
+    """smollm-135m at its published width and depth trained through the
+    launcher (``launch.train.main``: the Markov stream from the seed,
+    AdamW at lr 3e-3), then one step (2 x 256) against the port on the CPU
+    with remat off and on, and remat on against off on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_config("smollm-135m")
+    args = TRAIN_DENSE_ARGS + ["--seed", str(seed), "--device", "cuda"]
+    batch, seq_len = (int(args[args.index(k) + 1])
+                      for k in ("--batch", "--seq-len"))
+    before = kernel_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    res = launch_train.main(args)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    free_device_memory()
+    cmp = card_vs_cpu(cfg, seed, 2, 256, (False, True))
+    off, on = cmp["card_remat_False"], cmp["card_remat_True"]
+    cmp["card_remat_on_off"] = {
+        "loss_rel": rel(on["loss"], off["loss"]),
+        "grad_norm_rel": rel(on["grad_norm"], off["grad_norm"])}
+    rec, checks = train_run("train_dense", cfg, res, batch, seq_len, peak,
+                            before, kernel_counts(kernels), TRAIN_DROP)
+    rec.update({"lr": float(args[args.index("--lr") + 1]),
+                "card_vs_cpu": cmp})
+    checks.update({
+        "model_published": (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                            cfg.n_kv_heads, cfg.head_dim, cfg.vocab)
+        == (30, 576, 9, 3, 64, 49152),
+        "steps_at_least_60": res.steps >= 60,
+        **agree("card_cpu", cmp["card_remat_False"]),
+        **agree("card_remat_cpu", cmp["card_remat_True"]),
+        **agree("card_remat_on_off", cmp["card_remat_on_off"])})
+    finish(rec, checks, card)
+
+
+def train_ssm_phase(kernels, card: str, seed: int):
+    """mamba2-2.7b (d 2560, 80 heads of 64, state 128) cut in depth to
+    ``SSM_TRAIN["layers"]``: one step (1 x 256, two chunks of 128) at 2
+    layers against the port on the CPU; then it fits one batch on the
+    card (``fit``)."""
+    from repro_torch.configs import get_config
+
+    full = get_config(SSM_ARCH)
+    cfg = cut_depth(full, SSM_TRAIN["layers"])
+    before = kernel_counts(kernels)
+    cmp = card_vs_cpu(cut_depth(full, 2), seed, 1, 256)
+    free_device_memory()
+    res, peak = fit(cfg, SSM_TRAIN, seed)
+    rec, checks = train_run("train_ssm", cfg, res, SSM_TRAIN["batch"],
+                            SSM_TRAIN["seq_len"], peak, before,
+                            kernel_counts(kernels), FIT_DROP, log_every=1)
+    rec.update({"lr": SSM_TRAIN["lr"], "warmup": SSM_TRAIN["warmup"],
+                "fit_one_batch": True, "card_vs_cpu": cmp})
+    s = cfg.ssm
+    checks.update({
+        "model_published_widths": (cfg.d_model, s.expand * cfg.d_model
+                                   // s.head_dim, s.head_dim, s.d_state)
+        == (2560, 80, 64, 128),
+        "peak_under_60_gib": peak < 60,
+        **agree("card_cpu", cmp["card_remat_False"])})
+    finish(rec, checks, card)
+
+
+def train_moe_phase(kernels, card: str, seed: int):
+    """phi3.5-moe at its published widths cut to 2 layers: one step
+    (``MOE_TRAIN``'s 1 layer, 64 tokens) against the port on the CPU;
+    remat on and off agree on one step's loss and gradient norm (fresh
+    weights, the training batch), the load-balance loss is finite and
+    above 0; then it fits one batch on the card (``fit``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import init_params
+    from repro_torch.training.train_loop import trainable
+
+    dev = torch.device("cuda")
+    full = get_config(MOE_ARCH)
+    cfg = cut_depth(full, MOE_TRAIN["layers"])
+    before = kernel_counts(kernels)
+    cmp = card_vs_cpu(cut_depth(full, MOE_TRAIN["cpu_layers"]), seed, 1,
+                      MOE_TRAIN["cpu_seq_len"])
+    free_device_memory()
+    params = trainable(init_params(cfg, generator(dev, seed), device=dev))
+    remat = remat_readings(cfg, params, markov_batch(
+        cfg, MOE_TRAIN["batch"], MOE_TRAIN["seq_len"], seed, dev))
+    del params
+    free_device_memory()
+    res, peak = fit(cfg, MOE_TRAIN, seed)
+    rec, checks = train_run("train_moe", cfg, res, MOE_TRAIN["batch"],
+                            MOE_TRAIN["seq_len"], peak, before,
+                            kernel_counts(kernels), FIT_DROP, log_every=1)
+    rec.update({"lr": MOE_TRAIN["lr"], "warmup": MOE_TRAIN["warmup"],
+                "fit_one_batch": True, "remat": remat, "card_vs_cpu": cmp})
+    m = cfg.moe
+    checks.update({
+        "model_published_widths": (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                   m.n_experts, m.top_k, m.d_ff_expert,
+                                   cfg.vocab)
+        == (4096, 32, 8, 16, 2, 6400, 32064),
+        "aux_finite_positive": all(
+            math.isfinite(r["aux"]) and r["aux"] > 0
+            for r in (remat["off"], remat["on"], cmp["cpu"])),
+        **agree("card_cpu", cmp["card_remat_False"]),
+        **agree("remat_on_off", remat)})
+    finish(rec, checks, card)
+
+
 def main(argv=()) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA card.")
@@ -4014,6 +4367,7 @@ def main(argv=()) -> int:
                "ssd": sk, "flash": fa}
     paths = {"main_path": launches}
     paths["cluster_replay"] = cluster_phase(cfg, params, kernels, seed)
+    dense_cache_phase(cfg, params, kernels, seed)
     del params
     free_device_memory()
     cfg, params = spec_model(seed)
@@ -4087,6 +4441,12 @@ def main(argv=()) -> int:
     free_device_memory()
     paths["moe_replay"] = moe_replay_phase(cfg, params, kernels, seed)
     del params
+    free_device_memory()
+    train_dense_phase(kernels, card, seed)
+    free_device_memory()
+    train_ssm_phase(kernels, card, seed)
+    free_device_memory()
+    train_moe_phase(kernels, card, seed)
     free_device_memory()
     # last: run ahead of the kernel phases, it left the profiler
     # recording no launch at all in several of their readings

@@ -33,7 +33,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.paged_attention import (
-    NEG_INF, check_aligned, check_tensor, sm_count, split_workspace)
+    NEG_INF, check_aligned, check_no_grad, check_tensor, sm_count,
+    split_workspace)
 
 COUNTS = {"kernel": 0, "plain": 0}
 
@@ -93,6 +94,7 @@ def flash_attention_bh(q, k, v, *, causal: bool = True, q_offset: int = 0,
                        scale: Optional[float] = None):
     """q: (BH, Sq, hd); k/v: (BH, Sk, hd).  Returns (BH, Sq, hd) in q's
     dtype."""
+    check_no_grad("flash_attention_bh", q, k, v)
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
     kv_len = Sk if kv_len is None else int(kv_len)

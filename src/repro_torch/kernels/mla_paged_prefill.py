@@ -35,8 +35,8 @@ import math
 import torch
 
 from repro_torch.kernels.paged_attention import (
-    NEG_INF, check_aligned, check_pages, check_tensor, sm_count,
-    split_workspace)
+    NEG_INF, check_aligned, check_no_grad, check_pages, check_tensor,
+    sm_count, split_workspace)
 
 COUNTS = {"kernel": 0, "plain": 0}
 
@@ -72,6 +72,8 @@ def mla_paged_prefill_attention(q_lat, q_rope, ckv_new, krope_new, ckv_pages,
     ckv/krope_pages: (n_pages, page, r | rope), written in place;
     block_table: (B, max_pages) int32; pos0/chunk_len: (B,) int32.
     Returns (ctx_lat (B, S, H, r), ckv_pages, krope_pages)."""
+    check_no_grad("mla_paged_prefill_attention", q_lat, q_rope, ckv_new,
+                  krope_new, ckv_pages, krope_pages)
     if q_lat.device.type == "cpu":
         return mla_paged_prefill_plain(q_lat, q_rope, ckv_new, krope_new,
                                        ckv_pages, krope_pages, block_table,

@@ -83,6 +83,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     KVH = k_pages.shape[2]
     if H % KVH:
         raise ValueError(f"{H} query heads do not group over {KVH} KV heads")
+    check_no_grad("paged_decode_attention", q, k_pages, v_pages)
     scale = hd ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, block_table, seq_lens,
@@ -90,6 +91,19 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_decode_attention: no kernel for {q.device}")
     return _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window)
+
+
+def check_no_grad(kernel: str, *ts) -> None:
+    """Refuse inputs that autograd would differentiate through, on every
+    device.  The CUDA kernels are called through ``ctypes`` and have no
+    backward: their outputs carry no autograd history, so a weight ahead
+    of one would silently get its gradient through the residual stream
+    only.  Training takes the plain branches of ``models/`` (``train=True``)
+    instead, as the reference trains through XLA, never a Pallas kernel."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in ts):
+        raise RuntimeError(f"{kernel}: an input requires grad; the kernel has "
+                           "no backward (train with train=True)")
 
 
 def check_tensor(name, t, dtype, device, ndim):

@@ -31,8 +31,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.paged_attention import (
-    BLOCKS_PER_SM, NEG_INF, check_aligned, check_head_dim, check_pages,
-    check_tensor, sm_count, split_workspace)
+    BLOCKS_PER_SM, NEG_INF, check_aligned, check_head_dim, check_no_grad,
+    check_pages, check_tensor, sm_count, split_workspace)
 
 COUNTS = {"kernel": 0, "plain": 0}
 
@@ -74,6 +74,7 @@ def paged_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_table,
     KVH = k_pages.shape[2]
     if H % KVH:
         raise ValueError(f"{H} query heads do not group over {KVH} KV heads")
+    check_no_grad("paged_prefill_attention", q, k_new, v_new, k_pages, v_pages)
     scale = hd ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return paged_prefill_plain(q, k_new, v_new, k_pages, v_pages,

@@ -24,7 +24,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.paged_attention import (
-    check_aligned, check_pages, check_tensor, sm_count, split_workspace)
+    check_aligned, check_no_grad, check_pages, check_tensor, sm_count,
+    split_workspace)
 from repro_torch.kernels.paged_prefill import prefill_math
 
 COUNTS = {"kernel": 0, "plain": 0}
@@ -80,6 +81,7 @@ def paged_verify_attention(q, k_new, v_new, k_pages, v_pages, block_table,
     KVH = k_pages.shape[2]
     if H % KVH:
         raise ValueError(f"{H} query heads do not group over {KVH} KV heads")
+    check_no_grad("paged_verify_attention", q, k_new, v_new, k_pages, v_pages)
     scale = hd ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return paged_verify_plain(q, k_new, v_new, k_pages, v_pages,

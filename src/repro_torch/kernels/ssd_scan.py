@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.paged_attention import check_tensor
+from repro_torch.kernels.paged_attention import check_no_grad, check_tensor
 
 COUNTS = {"kernel": 0, "plain": 0}
 
@@ -66,6 +66,7 @@ def ssd_scan(xh, dt, A, Bm, Cm, *, chunk: int, init_state=None):
     if xh.shape[1] % chunk:
         raise ValueError(f"ssd_scan: chunk {chunk} does not divide "
                          f"S {xh.shape[1]}")
+    check_no_grad("ssd_scan", xh, dt, A, Bm, Cm, init_state)
     if xh.device.type == "cpu":
         return ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk, init_state)
     if xh.device.type != "cuda":

@@ -7,9 +7,11 @@ llama-3.2-vision VLM), DeepSeek-V2 (``mla`` / ``mla_moe`` blocks), Mamba2
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import (encdec_forward, encoder_forward,
                                        init_encdec_params, init_encoder)
-from repro_torch.models.transformer import (init_paged_cache, init_params,
-                                            logits_fn, model_forward)
+from repro_torch.models.transformer import (init_cache, init_paged_cache,
+                                            init_params, logits_fn,
+                                            model_forward)
 
-__all__ = ["ModelConfig", "init_params", "init_paged_cache", "model_forward",
+__all__ = ["ModelConfig", "init_params", "init_cache", "init_paged_cache",
+           "model_forward",
            "logits_fn", "init_encoder", "encoder_forward",
            "init_encdec_params", "encdec_forward"]

@@ -3,9 +3,14 @@ self-attention over paged KV (RoPE, qk-norm, sliding window),
 cross-attention (``cross_attn_forward``) and MLA (DeepSeek-V2 multi-head
 latent attention, ``mla_forward``).
 
-Two execution modes share ``attn_forward``:
+Three execution modes share ``attn_forward``:
   * no cache (``cache=None``): causal, or bidirectional with
     ``causal=False``, attention over the chunk;
+  * dense (``cache = {"k", "v"}``): fixed-capacity buffers (B, S_max, KVH,
+    hd) from ``transformer.init_cache``, written at ``pos0`` in place and
+    attended through the masked ``sdpa`` (or ``sdpa_chunked``), as in the
+    reference, which keeps this layout for naive references and
+    training-time evaluation;
   * paged (``cache = {"k_pages", "v_pages"}``): page pools addressed by
     per-lane block tables.  A multi-token chunk goes to the fused prefill
     kernel (B2, ``kernels/paged_prefill.py``), which writes the chunk's KV
@@ -32,7 +37,17 @@ No-cache attention (plain generation, whisper's encoder) and every
 cross-attention (``cross_attn_forward``: whisper's decoder, the VLM's image
 layers) run through the dense flash attention kernel (B6,
 ``kernels/flash_attention.py``), causal or bidirectional; a windowed
-no-cache call keeps the masked ``sdpa`` here, since B6 has no window.
+no-cache call takes the reference's plain branch (the masked ``sdpa``, or
+``sdpa_chunked``), since B6 has no window.
+
+``train=True`` is the training forward.  The kernels are called through
+``ctypes`` and have no backward, so it takes the reference's own no-cache
+branches line for line: ``sdpa_chunked`` when ``cfg.attn_impl`` is
+"chunked" and the chunk is longer than ``cfg.attn_chunk``, else the masked
+``sdpa`` (causal, windowed or bidirectional); cross-attention takes
+``sdpa`` too.  The caller chooses it (``model_forward(train=True)``);
+nothing switches on grad mode, and every kernel wrapper refuses an input
+that requires grad.
 
 ``OP_STATS`` keeps the reference's keys, but the port runs eagerly and
 counts per call, where JAX counts once per traced program.
@@ -55,6 +70,19 @@ NEG_INF = -1e30
 
 OP_STATS = {"paged_write": 0, "prefill_attn": 0, "fused_prefill": 0,
             "verify_write": 0, "verify_attn": 0, "fused_verify": 0}
+
+
+# ----------------------------- dense KV --------------------------------- #
+def dense_write(buf, vals, pos0):
+    """Write a chunk's per-token rows into fixed buffers, in place: buf
+    (B, S_max, ...), vals (B, S, ...), lane b at offsets pos0[b] (B,).  A
+    start past S_max - S is clamped to it, as the reference's
+    ``lax.dynamic_update_slice`` clamps it."""
+    B, S = vals.shape[:2]
+    start = pos0.long().clamp(0, buf.shape[1] - S)
+    idx = start[:, None] + torch.arange(S, device=buf.device)[None, :]
+    buf[torch.arange(B, device=buf.device)[:, None], idx] = vals.to(buf.dtype)
+    return buf
 
 
 # ----------------------------- paged KV --------------------------------- #
@@ -146,18 +174,68 @@ def causal_mask(B, Sq, Sk, pos0, kv_len, window: Optional[int] = None):
     return m[:, None, :, :]
 
 
+def sdpa_chunked(q, k, v, *, pos0, kv_len, window=None, causal=True,
+                 chunk: int = 1024, scale=None):
+    """Flash-style attention in plain PyTorch: a loop over key chunks with
+    a running (max, denominator, accumulator), so no (Sq, Sk) score matrix
+    is built at once; the reference's ``sdpa_chunked``, whose
+    ``lax.scan`` becomes a Python loop.  q: (B, Sq, H, hd); k/v: (B, Sk,
+    KV, hd); pos0 / kv_len: (B,) int.  Key j is visible to query i iff j <
+    kv_len, and with ``causal`` j <= pos0 + i, and with a window j > pos0
+    + i - window.  Keys are zero-padded to a whole number of chunks."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if H != KV:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    scale = hd ** -0.5 if scale is None else scale
+    chunk = min(chunk, Sk)
+    if Sk % chunk:
+        pad = chunk - Sk % chunk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        Sk += pad
+    dev = q.device
+    qf = q.float() * scale
+    q_pos = pos0[:, None] + torch.arange(Sq, device=dev)[None, :]  # (B, Sq)
+    m = torch.full((B, H, Sq, 1), NEG_INF, device=dev)
+    l = torch.zeros(B, H, Sq, 1, device=dev)
+    acc = torch.zeros(B, H, Sq, hd, device=dev)
+    for c0 in range(0, Sk, chunk):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, k[:, c0:c0 + chunk].float())
+        k_pos = c0 + torch.arange(chunk, device=dev)[None, None, :]
+        mask = k_pos < kv_len[:, None, None]
+        if causal:
+            mask = mask & (k_pos <= q_pos[:, :, None])
+        if window is not None:
+            mask = mask & (k_pos > q_pos[:, :, None] - window)
+        s = torch.where(mask[:, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", p,
+                                         v[:, c0:c0 + chunk].float())
+        m = m_new
+    out = acc / l.clamp(min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)                 # (B, Sq, H, hd)
+
+
 # --------------------------- self-attention ----------------------------- #
 def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
                  pos0=None, block_tables=None, chunk_len=None, verify=False,
-                 causal: bool = True):
+                 causal: bool = True, train: bool = False):
     """Returns (ctx (B, Sq, H, hd), cache).
 
     cache: None (no cache kept: causal, or bidirectional with
-    ``causal=False`` as in an encoder) or dict(k_pages, v_pages) page pools
-    addressed through ``block_tables`` and updated in place.  pos0: (B,)
-    write offsets; chunk_len: (B,) true (unpadded) chunk lengths; verify:
-    the chunk is a speculative-decoding verify window (same function, own
-    kernel and ``OP_STATS`` key)."""
+    ``causal=False`` as in an encoder), dict(k, v) fixed buffers, or
+    dict(k_pages, v_pages) page pools addressed through ``block_tables``;
+    either is updated in place.  pos0: (B,) write offsets; chunk_len: (B,)
+    true (unpadded) chunk lengths; verify: the chunk is a
+    speculative-decoding verify window (same function, own kernel and
+    ``OP_STATS`` key); train: the no-cache call takes the reference's
+    plain branches (``sdpa_chunked`` or the masked ``sdpa``), never a
+    kernel."""
     B, Sq, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"].reshape(d, h * hd)).reshape(B, Sq, h, hd)
@@ -172,16 +250,37 @@ def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window
+    # the reference's one decision between sdpa_chunked and sdpa
+    chunked = (cfg.attn_impl == "chunked"
+               and (cache["k"].shape[1]
+                    if cache is not None and "k" in cache else Sq)
+               > cfg.attn_chunk)
 
     if cache is None:
-        if causal and window is not None:
-            zeros = torch.zeros(B, dtype=torch.int32, device=x.device)
-            full = torch.full((B,), Sq, dtype=torch.int32, device=x.device)
-            return sdpa(q, k, v,
-                        causal_mask(B, Sq, Sq, zeros, full, window)), None
-        return attention(q, k, v, causal=causal), None
-    if "k_pages" not in cache:
-        raise NotImplementedError("only paged KV caches are ported")
+        if not train and not (causal and window is not None):
+            return attention(q, k, v, causal=causal), None
+        # training, and a sliding window (B6 has none), take the
+        # reference's plain branches
+        zeros = torch.zeros(B, dtype=torch.int32, device=x.device)
+        full = torch.full((B,), Sq, dtype=torch.int32, device=x.device)
+        if chunked and causal:
+            return sdpa_chunked(q, k, v, pos0=zeros, kv_len=full,
+                                window=window, chunk=cfg.attn_chunk), None
+        if causal:
+            mask = causal_mask(B, Sq, Sq, zeros, full, window)
+        else:
+            mask = torch.ones(B, 1, Sq, Sq, dtype=torch.bool,
+                              device=x.device)
+        return sdpa(q, k, v, mask), None
+    if "k" in cache:
+        ck = dense_write(cache["k"], k, pos0).to(q.dtype)
+        cv = dense_write(cache["v"], v, pos0).to(q.dtype)
+        kv_len = pos0 + Sq
+        if chunked:
+            return sdpa_chunked(q, ck, cv, pos0=pos0, kv_len=kv_len,
+                                window=window, chunk=cfg.attn_chunk), cache
+        mask = causal_mask(B, Sq, ck.shape[1], pos0, kv_len, window)
+        return sdpa(q, ck, cv, mask), cache
 
     kp, vp = cache["k_pages"], cache["v_pages"]
     if chunk_len is None:
@@ -221,10 +320,12 @@ def attn_output(p, ctx):
 
 
 # --------------------------- cross-attention ---------------------------- #
-def cross_attn_forward(p, x, enc_kv, gated: bool = False):
+def cross_attn_forward(p, x, enc_kv, gated: bool = False,
+                       train: bool = False):
     """Attention of the decoder's rows over encoder (or image) states, all
     of them visible: B6 with ``causal=False`` and ``kv_len`` the encoder
-    length.  enc_kv: dict(k, v) from ``project_cross_kv``, (B, Sk, KV, hd).
+    length, or with ``train`` the reference's ``sdpa`` under an all-true
+    mask.  enc_kv: dict(k, v) from ``project_cross_kv``, (B, Sk, KV, hd).
     ``gated``: the VLM's ``tanh(gate)`` scales the output.  (The
     reference's optional per-lane ``enc_len`` mask has no caller there
     and is not ported.)"""
@@ -234,7 +335,11 @@ def cross_attn_forward(p, x, enc_kv, gated: bool = False):
     if "bq" in p:
         q = q + p["bq"]
     k, v = enc_kv["k"].to(q.dtype), enc_kv["v"].to(q.dtype)
-    ctx = attention(q, k, v, causal=False, kv_len=k.shape[1])
+    if train:
+        ctx = sdpa(q, k, v, torch.ones(B, 1, Sq, k.shape[1], dtype=torch.bool,
+                                       device=x.device))
+    else:
+        ctx = attention(q, k, v, causal=False, kv_len=k.shape[1])
     out = attn_output(p, ctx)
     if gated and "gate" in p:
         out = torch.tanh(p["gate"]) * out
@@ -281,21 +386,26 @@ def init_mla(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
 
 
 def mla_forward(p, x, cfg: ModelConfig, *, positions, cache=None, pos0=None,
-                block_tables=None, chunk_len=None):
+                block_tables=None, chunk_len=None, train: bool = False):
     """MLA over a compressed cache: per token one ``kv_lora_rank`` latent
     (``ckv``) plus one shared rope key (``krope``), no head axis.  Returns
     (out (B, Sq, D), cache): unlike ``attn_forward`` the output is already
     projected through ``wo``.
 
-    cache: None (full causal over the chunk) or the paged pools
-    ``{"ckv_pages": (P + 1, page, r), "krope_pages": (P + 1, page, rope)}``
-    (the last page is the write-off page), updated in place.  A
-    multi-token chunk goes to the fused latent-page prefill kernel (B4)
-    with absorbed queries ``q_lat = q_nope . w_uk``; a decode token is
-    written by ``paged_write`` and attends over the gathered latents, by
-    the naive expansion (per-head keys and values built from every cached
-    latent, the reference's default) or, with ``cfg.mla_absorb``, in
-    latent space.  The dense fixed-buffer cache is not ported."""
+    cache: None (full causal over the chunk), the fixed buffers ``{"ckv":
+    (B, S_max, r), "krope": (B, S_max, rope)}`` of
+    ``transformer.init_cache``, or the paged pools ``{"ckv_pages": (P + 1,
+    page, r), "krope_pages": (P + 1, page, rope)}`` (the last page is the
+    write-off page); either is updated in place.  A paged multi-token
+    chunk goes to the fused latent-page prefill kernel (B4) with absorbed
+    queries ``q_lat = q_nope . w_uk``; a paged decode token is written by
+    ``paged_write`` and attends over the gathered latents.  Every call
+    but B4's attends in plain PyTorch, by the naive expansion (per-head
+    keys and values built from every latent, the reference's default) or,
+    with ``cfg.mla_absorb`` and at most 4 rows, in latent space.  No-cache
+    calls launch no kernel, so ``train`` (the training forward, threaded
+    down from ``model_forward`` as for the other mixers) changes
+    nothing here."""
     c = cfg.mla
     B, Sq, _ = x.shape
     nope, rope_hd = c.qk_nope_head_dim, c.qk_rope_head_dim
@@ -315,8 +425,10 @@ def mla_forward(p, x, cfg: ModelConfig, *, positions, cache=None, pos0=None,
         ckv_all, krope_all = ckv, krope
         q_pos0 = torch.zeros(B, dtype=torch.int32, device=x.device)
         kv_len = torch.full((B,), Sq, dtype=torch.int32, device=x.device)
-    elif "ckv_pages" not in cache:
-        raise NotImplementedError("only paged MLA caches are ported")
+    elif "ckv" in cache:
+        ckv_all = dense_write(cache["ckv"], ckv, pos0).to(x.dtype)
+        krope_all = dense_write(cache["krope"], krope, pos0).to(x.dtype)
+        q_pos0, kv_len = pos0, pos0 + Sq
     else:
         cp, rp = cache["ckv_pages"], cache["krope_pages"]
         if chunk_len is None:

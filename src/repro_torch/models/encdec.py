@@ -20,8 +20,9 @@ from repro_torch.models.attention import attn_forward, attn_output, init_attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
                                        init_norm)
-from repro_torch.models.transformer import (_layer, _set_layer, _stacked_like,
-                                            init_params, model_forward)
+from repro_torch.models.transformer import (_set_layer, _stacked_like,
+                                            _unstack, init_params,
+                                            model_forward)
 
 
 def init_encoder(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
@@ -59,8 +60,7 @@ def encoder_forward(params, cfg: ModelConfig, frames):
     B, T, _ = frames.shape
     x = frames + params["pos"][None, :T]
     positions = torch.arange(T, device=frames.device)[None, :].expand(B, T)
-    for i in range(cfg.encoder.n_layers):
-        p = _layer(params["layers"], i)
+    for p in _unstack(params["layers"], cfg.encoder.n_layers):
         h = apply_norm(p["norm1"], x, "layernorm")
         ctx, _ = attn_forward(p["attn"], h, cfg, positions=positions,
                               causal=False)
@@ -83,7 +83,8 @@ def init_encdec_params(cfg: ModelConfig, gen: torch.Generator,
 def encdec_forward(params, cfg: ModelConfig, frames, tokens, *,
                    enc_states=None, **kw):
     """Run the encoder (unless ``enc_states`` is given), then the
-    cross-attending decoder; returns ``model_forward``'s (hidden, cache).
+    cross-attending decoder; returns ``model_forward``'s (hidden, cache,
+    aux).
     Further keywords (``cache``, ``pos0``, ``block_tables``,
     ``chunk_len``) go to ``model_forward``."""
     if enc_states is None:

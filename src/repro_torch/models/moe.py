@@ -137,13 +137,16 @@ def _dispatch(p, xt, topv, topi, m, capacity_factor):
     order = torch.argsort(e_u, stable=True)
     counts = torch.bincount(e_u, minlength=E).tolist()       # host sync
     unit_out = torch.zeros(T * k, D, dtype=xt.dtype, device=xt.device)
+    # one unbind a weight: its backward stacks the experts' gradients,
+    # where indexing each expert would add a zero-filled gradient of all E
+    w_gate, w_up, w_down = (p[w].unbind(0)
+                            for w in ("w_gate", "w_up", "w_down"))
     start = 0
     for e, n in enumerate(counts):
         if n:
             idx = order[start:start + min(n, C)]
             h = xt[t_u[idx]]
-            unit_out[idx] = (F.silu(h @ p["w_gate"][e])
-                             * (h @ p["w_up"][e])) @ p["w_down"][e]
+            unit_out[idx] = (F.silu(h @ w_gate[e]) * (h @ w_up[e])) @ w_down[e]
         start += n
     unit_out = unit_out * topv.reshape(-1).to(xt.dtype)[:, None]
     per_slot = unit_out.reshape(T, k, D)

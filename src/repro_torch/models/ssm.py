@@ -4,6 +4,8 @@ of ``repro/models/ssm.py``.
 Prefill runs the chunked SSD scan through ``kernels.ssd_scan`` (kernel B5
 on the card, its plain version on the CPU); decode is the O(1) recurrent
 update in plain PyTorch, as in the reference (it has no Pallas kernel).
+The training forward (``ssm_forward(train=True)``) runs this module's own
+``ssd_chunked``, the reference's pure-jnp scan, since B5 has no backward.
 Per-lane state is ``{"conv": (B, d_conv - 1, C), "state": (B, H, P, N)}``,
 C = d_inner + 2 d_state.  ``write_lane_rows`` stores a call's new state
 into the caller's rows in place.
@@ -84,7 +86,54 @@ def _rmsnorm_gated(scale, x, z, eps=1e-6):
     return (xf * scale).to(x.dtype)
 
 
-def ssm_forward(p, x, cfg: ModelConfig, *, cache=None, chunk_len=None):
+def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
+    """Chunked SSD scan (the reference's ``ssd_chunked``; its
+    ``lax.scan`` over chunks is a Python loop here).
+
+    xh: (B, S, H, P); dt: (B, S, H); A: (H,) negative decay rates; Bm, Cm:
+    (B, S, N), one SSM group shared across heads; init_state: (B, H, P, N)
+    or None.  Returns (y (B, S, H, P), final_state (B, H, P, N))."""
+    Bsz, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"ssd_chunked: chunk {chunk} does not divide S {S}")
+    nc = S // chunk
+    xc = xh.reshape(Bsz, nc, chunk, H, P)
+    dtc = dt.reshape(Bsz, nc, chunk, H)
+    Bc = Bm.reshape(Bsz, nc, chunk, N)
+    Cc = Cm.reshape(Bsz, nc, chunk, N)
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=xh.device))
+    h = (torch.zeros(Bsz, H, P, N, device=xh.device) if init_state is None
+         else init_state.float())
+    ys = []
+    for c in range(nc):
+        xk, dtk, Bk, Ck = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
+        dA = dtk.float() * A[None, None, :]                 # (B, L, H) <= 0
+        seg = torch.cumsum(dA, dim=1)
+        diff = seg[:, :, None, :] - seg[:, None, :, :]
+        # mask BEFORE exp: exp of the (masked) positive upper triangle
+        # overflows to inf and poisons gradients through the where
+        diff = torch.where(mask[None, :, :, None], diff, -1e30)
+        decay = torch.exp(diff)
+        cb = torch.einsum("bln,bmn->blm", Ck, Bk)            # (B, L, M)
+        att = cb[..., None] * decay                         # (B, L, M, H)
+        y_intra = torch.einsum("blmh,bmh,bmhp->blhp", att, dtk, xk)
+        # inter-chunk: contribution of the incoming state
+        y_inter = torch.einsum("bln,blh,bhpn->blhp", Ck,
+                               torch.exp(seg).to(Ck.dtype), h.to(Ck.dtype))
+        # state at the end of the chunk
+        decay_to_end = torch.exp(seg[:, -1:, :] - seg)      # (B, L, H)
+        st = torch.einsum("bln,blh,blh,blhp->bhpn", Bk, dtk,
+                          decay_to_end.to(Bk.dtype), xk)
+        h = h * torch.exp(dA.sum(dim=1))[..., None, None] + st.float()
+        ys.append((y_intra + y_inter).to(xh.dtype))
+    y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
+    return y, h.to(xh.dtype)
+
+
+def ssm_forward(p, x, cfg: ModelConfig, *, cache=None, chunk_len=None,
+                train: bool = False):
     """Full-sequence (prefill) Mamba2 block.  Returns (out, new_cache).
 
     cache: None or ``{"conv", "state"}`` lane rows carried across chunks;
@@ -92,7 +141,8 @@ def ssm_forward(p, x, cfg: ModelConfig, *, cache=None, chunk_len=None):
     chunk_len: (B,) true lengths of a bucket-padded chunk.  Pad tokens get
     dt = 0, so the SSD neither decays nor integrates them and the carried
     state is exactly the state after the real tokens; a lane with
-    chunk_len 0 keeps its state."""
+    chunk_len 0 keeps its state.  train: the scan is ``ssd_chunked``,
+    never the kernel."""
     s = cfg.ssm
     proj = x @ p["w_in"]
     xi, z, Bm, Cm, dt, d_in, nheads = _split_proj(cfg, proj)
@@ -115,9 +165,12 @@ def ssm_forward(p, x, cfg: ModelConfig, *, cache=None, chunk_len=None):
     if S % chunk:
         chunk = S                    # odd shapes: a single chunk
     init_state = cache["state"] if cache is not None else None
-    y, hT = _ssd.ssd_scan(xh.contiguous(), dt.contiguous(), A,
-                          Bm.contiguous(), Cm.contiguous(), chunk=chunk,
-                          init_state=init_state)
+    if train:
+        y, hT = ssd_chunked(xh, dt, A, Bm, Cm, chunk, init_state)
+    else:
+        y, hT = _ssd.ssd_scan(xh.contiguous(), dt.contiguous(), A,
+                              Bm.contiguous(), Cm.contiguous(), chunk=chunk,
+                              init_state=init_state)
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(*xi.shape[:2], d_in)
     y = _rmsnorm_gated(p["norm_scale"], y, z)

@@ -18,10 +18,18 @@ at every occurrence, each occurrence with its own page pools: zamba2),
 empty marker ``{}`` in ``params["segments"]``.  Learned positions
 (``cfg.learned_pos``, whisper) are added to the embeddings, clipped to
 the table.
+
+``model_forward(train=True)`` is the training forward: every mixer takes
+the reference's plain branches (``sdpa`` / ``sdpa_chunked``, the SSM's
+``ssd_chunked``), since the hand kernels have no backward.  With
+``cfg.remat`` each layer of a segment of several layers then runs under
+``torch.utils.checkpoint`` (its activations recomputed in the backward),
+as the reference wraps its scan body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (attn_forward, attn_output,
@@ -74,18 +82,21 @@ def init_block(gen, kind: str, cfg: ModelConfig, dtype=torch.float32,
 
 def block_forward(p, kind: str, cfg: ModelConfig, x, *, positions,
                   cache=None, pos0=None, block_tables=None, chunk_len=None,
-                  verify=False, moe_cf=None, enc_kv=None):
+                  verify=False, moe_cf=None, enc_kv=None, train=False):
     """One block: pre-norm attention (GQA or MLA) then a pre-norm dense MLP
-    or MoE FFN, or a pre-norm Mamba2 mixer.  A ``cross_attn`` block adds a
-    pre-norm cross-attention over ``enc_kv`` (dict(k, v), this layer's
-    projection of the encoder states) after the self-attention residual,
-    gated by ``tanh(gate)`` in a VLM.  MLA takes no ``verify`` flag: its
-    verify window is a chunked prefill, as in the reference.
+    or MoE FFN, or a pre-norm Mamba2 mixer.  Returns (x, aux): aux is the
+    MoE layer's load-balance ``aux_loss``, None for any other block.  A
+    ``cross_attn`` block adds a pre-norm cross-attention over ``enc_kv``
+    (dict(k, v), this layer's projection of the encoder states) after the
+    self-attention residual, gated by ``tanh(gate)`` in a VLM.  MLA takes
+    no ``verify`` flag: its verify window is a chunked prefill, as in the
+    reference.
 
     An ``ssm`` block with a cache takes a decode step when S == 1, else a
     prefill chunk, and stores its new lane rows into ``cache`` in place; a
     lane with ``chunk_len`` 0 keeps its rows (a padded prefill lane by
-    construction, a frozen decode lane by ``where``)."""
+    construction, a frozen decode lane by ``where``).  ``train``: the
+    training forward (the module docstring)."""
     h = apply_norm(p["norm1"], x, cfg.norm)
     if kind == "ssm":
         if cache is not None and x.shape[1] == 1:
@@ -94,32 +105,35 @@ def block_forward(p, kind: str, cfg: ModelConfig, x, *, positions,
         else:
             y, new = ssm_forward(
                 p["ssm"], h, cfg, cache=cache,
-                chunk_len=chunk_len if cache is not None else None)
+                chunk_len=chunk_len if cache is not None else None,
+                train=train)
             keep = None
         if cache is not None:
             write_lane_rows(cache, new, keep)
-        return x + y.to(x.dtype)
+        return x + y.to(x.dtype), None
     if kind in MLA_KINDS:
         y, _ = mla_forward(p["attn"], h, cfg, positions=positions,
                            cache=cache, pos0=pos0, block_tables=block_tables,
-                           chunk_len=chunk_len)
+                           chunk_len=chunk_len, train=train)
     else:
         ctx, _ = attn_forward(p["attn"], h, cfg, positions=positions,
                               cache=cache, pos0=pos0,
                               block_tables=block_tables,
-                              chunk_len=chunk_len, verify=verify)
+                              chunk_len=chunk_len, verify=verify, train=train)
         y = attn_output(p["attn"], ctx)
     x = x + y.to(x.dtype)
     if kind == "cross_attn":
         hx = apply_norm(p["norm_x"], x, cfg.norm)
         x = x + cross_attn_forward(p["cross"], hx, enc_kv,
-                                   gated=cfg.arch_type == "vlm")
+                                   gated=cfg.arch_type == "vlm", train=train)
     h2 = apply_norm(p["norm2"], x, cfg.norm)
+    aux = None
     if kind in MOE_KINDS:
-        y2, _ = moe_forward(p["moe"], h2, cfg, capacity_factor=moe_cf)
+        y2, moe_aux = moe_forward(p["moe"], h2, cfg, capacity_factor=moe_cf)
+        aux = moe_aux["aux_loss"]
     else:
         y2 = apply_mlp(p["mlp"], h2, cfg.act)
-    return x + y2.to(x.dtype)
+    return x + y2.to(x.dtype), aux
 
 
 def _stacked_like(tree, n: int):
@@ -141,6 +155,17 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, n: int) -> list:
+    """The n per-layer trees of a stacked segment, views through one
+    ``unbind`` per leaf: its backward stacks the layers' gradients into
+    one tensor, where indexing each layer would add a zero-filled
+    gradient of the whole stack per layer."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    return tree.unbind(0)
 
 
 # ----------------------------- model init ------------------------------ #
@@ -187,6 +212,43 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 
 
 # ------------------------------ caches --------------------------------- #
+def _ssm_lane_shapes(cfg: ModelConfig, lanes: int) -> dict:
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    return {"conv": (lanes, s.d_conv - 1, d_in + 2 * s.d_state),
+            "state": (lanes, d_in // s.head_dim, s.head_dim, s.d_state)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, device=None):
+    """Per-segment dense fixed-buffer caches, the reference's
+    ``init_cache``: ``{"self": {"k", "v"}}`` of shape (batch, max_len, KVH,
+    hd) for attention segments, ``{"self": {"ckv", "krope"}}`` of shape
+    (batch, max_len, kv_lora_rank | qk_rope_head_dim) for MLA segments and
+    the SSM lane rows ``{"conv", "state"}`` (one row per lane), each
+    stacked on a leading layer axis for a segment of several layers, each
+    layer with its own zeroed memory.  ``model_forward`` writes a chunk at
+    ``pos0`` in place.  ``device`` follows ``resolve_device``: CUDA unless
+    named."""
+    _check_ported(cfg)
+    device = resolve_device(device)
+    caches = []
+    for kind, n in cfg.segments():
+        lead = (n,) if n > 1 else ()
+        if kind == "ssm":
+            shapes = _ssm_lane_shapes(cfg, batch)
+        elif kind in MLA_KINDS:
+            shapes = {"ckv": (batch, max_len, cfg.mla.kv_lora_rank),
+                      "krope": (batch, max_len, cfg.mla.qk_rope_head_dim)}
+        else:
+            kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            shapes = {"k": kv, "v": kv}
+        c = {name: torch.zeros(lead + shape, dtype=dtype, device=device)
+             for name, shape in shapes.items()}
+        caches.append(c if kind == "ssm" else {"self": c})
+    return caches
+
+
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
                      max_seqs: int = 1, dtype=torch.float32, device=None):
     """Per-segment page pools, ``{"self": {"k_pages", "v_pages"}}`` of
@@ -208,11 +270,7 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     for kind, n in cfg.segments():
         lead = (n,) if n > 1 else ()
         if kind == "ssm":
-            s = cfg.ssm
-            d_in = s.expand * cfg.d_model
-            shapes = {"conv": (max_seqs, s.d_conv - 1, d_in + 2 * s.d_state),
-                      "state": (max_seqs, d_in // s.head_dim, s.head_dim,
-                                s.d_state)}
+            shapes = _ssm_lane_shapes(cfg, max_seqs)
             caches.append({name: torch.zeros(lead + shape, dtype=dtype,
                                              device=device)
                            for name, shape in shapes.items()})
@@ -231,13 +289,27 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 
 
 # ---------------------------- full forward ----------------------------- #
+def _layer_forward(p, kind: str, cfg: ModelConfig, x, enc_states, **kw):
+    """``block_forward`` of one layer, its cross-attention K/V projected
+    from ``enc_states`` inside (so that remat recomputes them too)."""
+    enc_kv = (project_cross_kv(p["cross"], enc_states)
+              if kind == "cross_attn" else None)
+    return block_forward(p, kind, cfg, x, enc_kv=enc_kv, **kw)
+
+
 def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
                   block_tables=None, chunk_len=None, verify=False,
-                  moe_cf=None, enc_states=None):
-    """Returns (hidden (B, S, D), cache).
+                  moe_cf=None, enc_states=None, train=False):
+    """Returns (hidden (B, S, D), cache, aux): aux is the sum of every MoE
+    layer's load-balance ``aux_loss`` (a float32 scalar, 0 without MoE).
 
     ``cache=None`` is full causal attention over ``tokens`` (through B6,
-    or the masked ``sdpa`` for a sliding window).
+    or the masked ``sdpa`` for a sliding window); with ``train`` it is the
+    training forward (the module docstring).  Without a cache, under
+    ``cfg.remat``, each layer of a segment of several layers is
+    checkpointed.  With the fixed buffers of ``init_cache``, the S new
+    tokens are written at ``pos0`` in place and attend through the masked
+    ``sdpa``.
     ``enc_states`` (B, T, D): the encoder output (whisper) or image
     embeddings (VLM) that every ``cross_attn`` layer attends to; each such
     layer projects its own K/V from them on every call, as the reference
@@ -262,6 +334,7 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
     if cfg.learned_pos:
         x = x + params["pos_embed"][
             positions.clamp(0, cfg.learned_pos - 1).long()]
+    auxes = []
     for i, (kind, n) in enumerate(cfg.segments()):
         # a shared_attn marker segment runs the one shared block
         seg_p = (params["shared_attn"] if kind == "shared_attn"
@@ -269,22 +342,32 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
         seg_c = None
         if cache is not None:
             seg_c = cache[i] if kind == "ssm" else cache[i]["self"]
+        if kind == "cross_attn" and enc_states is None:
+            raise ValueError(f"{cfg.name}: cross_attn layers need enc_states")
+        # the reference checkpoints the body of a scanned segment only
+        remat = (cfg.remat and cache is None and n > 1
+                 and kind != "shared_attn")
+        per_layer = (None if n == 1 or kind == "shared_attn"
+                     else _unstack(seg_p, n))
         for l in range(n):
-            p = seg_p if n == 1 or kind == "shared_attn" else _layer(seg_p, l)
+            p = seg_p if per_layer is None else per_layer[l]
             c = None
             if seg_c is not None:
                 c = seg_c if n == 1 else {k: t[l] for k, t in seg_c.items()}
-            enc_kv = None
-            if kind == "cross_attn":
-                if enc_states is None:
-                    raise ValueError(f"{cfg.name}: cross_attn layers need "
-                                     "enc_states")
-                enc_kv = project_cross_kv(p["cross"], enc_states)
-            x = block_forward(p, kind, cfg, x, positions=positions, cache=c,
-                              pos0=pos0, block_tables=block_tables,
-                              chunk_len=chunk_len, verify=verify,
-                              moe_cf=moe_cf, enc_kv=enc_kv)
-    return apply_norm(params["final_norm"], x, cfg.norm), cache
+            args = (p, kind, cfg, x, enc_states)
+            kw = dict(positions=positions, cache=c, pos0=pos0,
+                      block_tables=block_tables, chunk_len=chunk_len,
+                      verify=verify, moe_cf=moe_cf, train=train)
+            if remat:
+                x, aux = checkpoint(_layer_forward, *args, use_reentrant=False,
+                                    **kw)
+            else:
+                x, aux = _layer_forward(*args, **kw)
+            if aux is not None:
+                auxes.append(aux)
+    aux_total = (torch.stack(auxes).sum() if auxes else
+                 torch.zeros((), dtype=torch.float32, device=x.device))
+    return apply_norm(params["final_norm"], x, cfg.norm), cache, aux_total
 
 
 def logits_fn(params, cfg: ModelConfig, hidden):

@@ -252,7 +252,7 @@ class ServingEngine:
         sampled.  Only that hidden row per lane goes through the unembed,
         so the logits never grow with the chunk.  ``sample_rows`` lists the
         lanes whose sample is kept; only they draw random numbers."""
-        h, _ = model_forward(self.params, self.cfg, tokens, cache=cache,
+        h, _, _ = model_forward(self.params, self.cfg, tokens, cache=cache,
                              pos0=pos0, block_tables=bt, chunk_len=true_len,
                              moe_cf=self._moe_cf, enc_states=enc_states)
         idx = (true_len.long() - 1).clamp(min=0)
@@ -271,7 +271,7 @@ class ServingEngine:
         """Spec-decode verify: one pass over [last, drafts...] through the
         verify kernel; the greedy target token at every row, on the
         device (the caller reads it once)."""
-        h, _ = model_forward(self.params, self.cfg, tokens, cache=cache,
+        h, _, _ = model_forward(self.params, self.cfg, tokens, cache=cache,
                              pos0=pos0, block_tables=bt, chunk_len=true_len,
                              verify=True, moe_cf=self._moe_cf,
                              enc_states=enc_states)
@@ -297,7 +297,7 @@ class ServingEngine:
         emitted = torch.empty((B, n_steps), dtype=torch.int32, device=dev)
         for i in range(n_steps):
             active = (~done) & (steps > i)
-            h, _ = model_forward(self.params, self.cfg, tok[:, None],
+            h, _, _ = model_forward(self.params, self.cfg, tok[:, None],
                                  cache=cache, pos0=pos, block_tables=bt,
                                  chunk_len=active.to(torch.int32),
                                  moe_cf=self._moe_cf, enc_states=enc_states)

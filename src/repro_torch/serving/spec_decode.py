@@ -84,7 +84,7 @@ class SpecDecoder:
         one = torch.ones_like(pos)
         for i in range(n_steps):
             active = i < sl
-            h, _ = model_forward(self.params, self.cfg, tok[:, None],
+            h, _, _ = model_forward(self.params, self.cfg, tok[:, None],
                                  cache=cache, pos0=pos, block_tables=bt,
                                  chunk_len=one if active else one * 0,
                                  moe_cf=self._moe_cf)

@@ -185,14 +185,14 @@ def test_logits_with_enc_states_match_jax(arch, whisper, vlm):
     want = np.asarray(jmodels.logits_fn(jp, jcfg, jh))
     n_cross = sum(k == "cross_attn" for k in cfg.block_pattern)
     plain0 = fa.COUNTS["plain"]
-    h, _ = model_forward(params, cfg, torch.from_numpy(toks),
+    h, _, _ = model_forward(params, cfg, torch.from_numpy(toks),
                          enc_states=torch.from_numpy(enc))
     # B6 for every causal self-attention and every cross-attention
     assert fa.COUNTS["plain"] - plain0 == cfg.n_layers + n_cross
     np.testing.assert_allclose(logits_fn(params, cfg, h).numpy(), want,
                                atol=ATOL_LOGITS, rtol=0)
     if arch == WHISPER:
-        h2, _ = encdec_forward(params, cfg, torch.from_numpy(_np(
+        h2, _, _ = encdec_forward(params, cfg, torch.from_numpy(_np(
             3, cfg.encoder.n_frames, cfg.d_model, seed=10)),
             torch.from_numpy(toks))
         np.testing.assert_allclose(logits_fn(params, cfg, h2).numpy(), want,

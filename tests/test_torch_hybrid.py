@@ -166,7 +166,7 @@ def test_logits_match_jax(models, arch, variant):
     toks = rng.integers(0, cfg.vocab, (B, L + 1)).astype(np.int32)
     h, _, _ = _jax_forward(jparams, jcfg, jnp.asarray(toks))
     want = np.asarray(jmodels.logits_fn(jparams, jcfg, h))
-    th, _ = model_forward(tparams, cfg, torch.from_numpy(toks).long())
+    th, _, _ = model_forward(tparams, cfg, torch.from_numpy(toks).long())
     np.testing.assert_allclose(logits_fn(tparams, cfg, th).numpy(), want,
                                atol=ATOL_LOGITS, rtol=0)
 
@@ -184,7 +184,7 @@ def test_logits_match_jax(models, arch, variant):
             pos0=jnp.asarray(pos0), block_tables=jnp.asarray(table),
             chunk_len=jnp.asarray(cl), moe_cf=cf)
         want = np.asarray(jmodels.logits_fn(jparams, jcfg, h))
-        th, _ = model_forward(tparams, cfg, torch.from_numpy(x).long(),
+        th, _, _ = model_forward(tparams, cfg, torch.from_numpy(x).long(),
                               cache=tcache, pos0=torch.from_numpy(pos0),
                               block_tables=torch.from_numpy(table),
                               chunk_len=torch.from_numpy(cl), moe_cf=cf)
@@ -212,7 +212,7 @@ def test_occurrences_share_params_and_keep_own_pools(models, monkeypatch):
 
     def spy(p, kind, *a, **k):
         out = block(p, kind, *a, **k)
-        seen.append((kind, p, out))
+        seen.append((kind, p, out[0]))
         return out
     monkeypatch.setattr(transformer, "block_forward", spy)
     rng = np.random.default_rng(1)

@@ -299,7 +299,7 @@ def test_logits_match_jax(models, layers):
     toks = rng.integers(0, cfg.vocab, (B, 2 * L + 1)).astype(np.int32)
     h, _, _ = _jax_forward(jparams, jcfg, jnp.asarray(toks))
     want = np.asarray(jmodels.logits_fn(jparams, jcfg, h))
-    th, _ = model_forward(tparams, cfg, torch.from_numpy(toks).long())
+    th, _, _ = model_forward(tparams, cfg, torch.from_numpy(toks).long())
     np.testing.assert_allclose(logits_fn(tparams, cfg, th).numpy(), want,
                                atol=ATOL_LOGITS, rtol=0)
     if layers == 2:
@@ -317,7 +317,7 @@ def test_logits_match_jax(models, layers):
             pos0=jnp.asarray(pos0), block_tables=jnp.asarray(table),
             chunk_len=jnp.asarray(clen))
         want = np.asarray(jmodels.logits_fn(jparams, jcfg, h))
-        th, _ = model_forward(
+        th, _, _ = model_forward(
             tparams, cfg, torch.from_numpy(x).long(), cache=tcache,
             pos0=torch.from_numpy(pos0), block_tables=torch.from_numpy(table),
             chunk_len=torch.from_numpy(clen))

@@ -54,7 +54,7 @@ def test_logits_match_jax(arch):
 
     h, _, _ = _jax_forward(jparams, jcfg, jnp.asarray(toks))
     want = np.asarray(jmodels.logits_fn(jparams, jcfg, h))
-    th, _ = model_forward(tparams, cfg, torch.from_numpy(toks).long())
+    th, _, _ = model_forward(tparams, cfg, torch.from_numpy(toks).long())
     np.testing.assert_allclose(logits_fn(tparams, cfg, th).numpy(), want,
                                atol=ATOL, rtol=0)
 
@@ -71,7 +71,7 @@ def test_logits_match_jax(arch):
             pos0=jnp.asarray(pos0), block_tables=jnp.asarray(table),
             chunk_len=jnp.asarray(clen))
         want = np.asarray(jmodels.logits_fn(jparams, jcfg, h))
-        th, _ = model_forward(
+        th, _, _ = model_forward(
             tparams, cfg, torch.from_numpy(x).long(), cache=tcache,
             pos0=torch.from_numpy(pos0), block_tables=torch.from_numpy(table),
             chunk_len=torch.from_numpy(clen))
@@ -93,7 +93,7 @@ def test_logits_match_jax(arch):
         jparams, jcfg, jnp.asarray(x), cache=jcache, pos0=jnp.asarray(pos0),
         block_tables=jnp.asarray(table), chunk_len=jnp.asarray(one))
     want = np.asarray(jmodels.logits_fn(jparams, jcfg, h))
-    th, _ = model_forward(tparams, cfg, torch.from_numpy(x).long(),
+    th, _, _ = model_forward(tparams, cfg, torch.from_numpy(x).long(),
                           cache=tcache, pos0=torch.from_numpy(pos0),
                           block_tables=torch.from_numpy(table),
                           chunk_len=torch.from_numpy(one))
@@ -114,7 +114,7 @@ def test_dense_zoo_logits_match_jax(arch):
     toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 40))
     h, _, _ = _jax_forward(jparams, jcfg, jnp.asarray(toks, jnp.int32))
     want = np.asarray(jmodels.logits_fn(jparams, jcfg, h))
-    th, _ = model_forward(tparams, cfg, torch.from_numpy(toks).long())
+    th, _, _ = model_forward(tparams, cfg, torch.from_numpy(toks).long())
     np.testing.assert_allclose(logits_fn(tparams, cfg, th).numpy(), want,
                                atol=ATOL, rtol=0)
 

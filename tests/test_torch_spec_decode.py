@@ -216,7 +216,7 @@ def _greedy(eng, prompt, n):
     """Plain full-causal greedy generation of the port's target."""
     toks = list(prompt)
     for _ in range(n):
-        h, _ = model_forward(eng.params, eng.cfg, torch.tensor([toks]))
+        h, _, _ = model_forward(eng.params, eng.cfg, torch.tensor([toks]))
         toks.append(int(torch.argmax(logits_fn(eng.params, eng.cfg,
                                                h[0, -1]))))
     return toks[len(prompt):]

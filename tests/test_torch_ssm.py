@@ -247,7 +247,7 @@ def test_logits_and_lane_rows_match_jax(model):
     toks = rng.integers(0, cfg.vocab, (B, L + 1)).astype(np.int32)
     h, _, _ = _jax_forward(jparams, jcfg, jnp.asarray(toks))
     want = np.asarray(jmodels.logits_fn(jparams, jcfg, h))
-    th, _ = model_forward(tparams, cfg, torch.from_numpy(toks).long())
+    th, _, _ = model_forward(tparams, cfg, torch.from_numpy(toks).long())
     np.testing.assert_allclose(logits_fn(tparams, cfg, th).numpy(), want,
                                atol=ATOL_LOGITS, rtol=0)
 
@@ -263,7 +263,7 @@ def test_logits_and_lane_rows_match_jax(model):
             pos0=jnp.asarray(pos0), block_tables=jnp.asarray(table),
             chunk_len=jnp.asarray(cl))
         want = np.asarray(jmodels.logits_fn(jparams, jcfg, h))
-        th, _ = model_forward(tparams, cfg, torch.from_numpy(x).long(),
+        th, _, _ = model_forward(tparams, cfg, torch.from_numpy(x).long(),
                               cache=tcache, pos0=torch.from_numpy(pos0),
                               block_tables=torch.from_numpy(table),
                               chunk_len=torch.from_numpy(cl))
@@ -443,7 +443,7 @@ def test_reused_slot_starts_from_zero_state(model):
             eng.finish(rid)
     toks = list(prompt)
     for _ in range(len(got)):
-        h, _ = model_forward(tparams, cfg, torch.tensor([toks]))
+        h, _, _ = model_forward(tparams, cfg, torch.tensor([toks]))
         toks.append(int(torch.argmax(logits_fn(tparams, cfg, h[0, -1]))))
     _assert_streams_equal(got, toks[len(prompt):], prompt, model)
 
