@@ -59,8 +59,9 @@ script exits non-zero before the final line:
    groups whose lanes freeze at uneven budgets (a difference counts only
    if the reference's top-2 logit margin there is at least 1e-4).
 4. The main path: ``repro_torch.launch.serve`` replays 16 chatbot requests
-   at their own lengths on full-width smollm-135m (random weights from the
-   seed, float32).  The kernel launch counts are zeroed just before and read
+   at their own lengths on full-width smollm-135m, its 30 layers cut to 6
+   (``--layers``, ``MAIN_LAYERS``; random weights from the seed,
+   float32).  The kernel launch counts are zeroed just before and read
    just after: every decode step must launch the decode kernel once per
    layer, every prefill group the prefill kernel once per layer (a call
    counts once, with or without its merge launch), B6 and the plain
@@ -69,7 +70,7 @@ script exits non-zero before the final line:
    longest seq_len of the decode steps), which must include the replay
    shapes of step 2.
 5. The multi-replica cluster (§4.2): ``ClusterFrontend.build`` stands up
-   two replicas of the main path's full-width smollm-135m on the card,
+   two replicas of the main path's smollm-135m (6 layers) on the card,
    sharing its parameter tensors and one page budget (256 pages a
    replica over 384, page 16), with the host spill tier on (64 pages a
    replica) and ``ClusterTelemetry`` enabled.  Twelve requests at chatbot
@@ -212,10 +213,11 @@ script exits non-zero before the final line:
     nothing else.
 19. The serving surface: ``repro_torch.launch.serve.http_gateway`` (the
     launcher's ``--http`` cluster) stands up two replicas of phi4-mini-3.8b
-    at its published width and depth (32 layers, 24 query / 8 KV heads of
-    128, vocab 200064; random weights from the seed, float32, about 15.3
-    GB) sharing one parameter copy, 256 pages a replica over 512 (page
-    16), max_len 1024, 8 slots, behind the HTTP/SSE gateway.  The traffic
+    at its published width, its 32 layers cut to 4 (24 query / 8 KV heads
+    of 128, vocab 200064; random weights from the seed, float32) sharing
+    one parameter copy, 512 pages a replica over 1024 (page 16; the
+    launcher's 1 GiB a replica, capped by what 8 slots can fill), max_len
+    1024, 8 slots, behind the HTTP/SSE gateway.  The traffic
     is the paper's six-scenario trace (``core/trace.py``; 18 entries,
     stage lengths scaled by 0.25 and capped at 128), saved with
     ``save_trace`` and replayed from ``load_trace``.  Part 1: every entry
@@ -255,7 +257,7 @@ script exits non-zero before the final line:
     card line, and ``{"ok": true, "device": ...}``.
 
 22. ``dense_cache`` (run right after the cluster phase, on its weights):
-    full-width smollm-135m generates 32 tokens greedily after a 48-token
+    the main path's smollm-135m generates 32 tokens greedily after a 48-token
     prompt through the dense fixed-buffer caches (``init_cache``: the
     prompt in one call, then one token a call, attended by the masked
     ``sdpa``), against plain generation under the tie rule; no kernel and
@@ -292,6 +294,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import gc
 import importlib.util
 import io
@@ -627,15 +630,18 @@ BF16_DECODE_TIMED = ("main", "replay")
 
 
 def decode_phase(pa, dtype=torch.float32, cases=None, timed=DECODE_TIMED,
-                 seed=1):
+                 seed=1, case_list=DECODE_CASES, split_heads=None):
     """B1 against its plain version on the same pools of ``dtype`` (the
-    cases named in ``cases``, every case when None); then every key no
-    query may see is set to 1e4 and the output must not move."""
+    cases of ``case_list`` named in ``cases``, every case when None); then
+    every key no query may see is set to 1e4 and the output must not
+    move.  ``split_heads``: the KV head count handed to the wrapper's
+    split rule, as a mesh shard hands it the unsharded count."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kw = {} if split_heads is None else {"split_heads": split_heads}
     results = {}
-    for name, B, H, KVH, hd, page, max_pages, lens, window in DECODE_CASES:
+    for name, B, H, KVH, hd, page, max_pages, lens, window in case_list:
         if cases is not None and name not in cases:
             continue
         kp, vp, table = pools_and_tables(gen, B, KVH, hd, page, max_pages,
@@ -647,7 +653,8 @@ def decode_phase(pa, dtype=torch.float32, cases=None, timed=DECODE_TIMED,
         q = torch.randn(B, H, hd, generator=gen, device="cuda")
         sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
         scale = hd ** -0.5
-        got = pa.paged_decode_attention(q, kp, vp, table, sl, window=window)
+        got = pa.paged_decode_attention(q, kp, vp, table, sl, window=window,
+                                        **kw)
         want = pa.paged_decode_plain(q, kp, vp, table, sl, scale=scale,
                                      window=window)
         torch.cuda.synchronize()
@@ -668,7 +675,7 @@ def decode_phase(pa, dtype=torch.float32, cases=None, timed=DECODE_TIMED,
         kpp.view(-1, KVH, hd)[flat[bad]] = 1e4
         vpp.view(-1, KVH, hd)[flat[bad]] = 1e4
         poisoned = pa.paged_decode_attention(q, kpp, vpp, table, sl,
-                                             window=window)
+                                             window=window, **kw)
         perr = (poisoned - got).abs().max().item()
         ok = err <= lim and perr <= lim and bool(torch.isfinite(got).all())
         rec = {"phase": "kernel", "kernel": "paged_decode_attention",
@@ -676,11 +683,13 @@ def decode_phase(pa, dtype=torch.float32, cases=None, timed=DECODE_TIMED,
                "B": B, "H": H, "KVH": KVH, "hd": hd,
                "page": page, "seq_lens": lens, "padded_lanes": padded,
                "window": window,
-               "splits": pa.n_splits(B, KVH, page, max_pages, window, n_sms),
+               "splits": pa.n_splits(B, split_heads or KVH, page, max_pages,
+                                     window, n_sms),
                "max_abs_err": err, "max_abs_plain": want.abs().max().item(),
                "limit": lim, "poisoned_err": perr, "ok": ok}
         if name in timed:
-            rec.update(decode_timing(pa, q, kp, vp, table, sl, lens, window))
+            rec.update(decode_timing(pa, q, kp, vp, table, sl, lens, window,
+                                     kw))
             results[name] = rec
         emit(rec)
         if not ok:
@@ -702,7 +711,8 @@ def gathered_kv(kp, vp, table, n_keys, G):
     return one(kp), one(vp)
 
 
-def decode_timing(pa, q, kp, vp, table, sl, lens, window):
+def decode_timing(pa, q, kp, vp, table, sl, lens, window, kw=None):
+    kw = kw or {}
     B, H, hd = q.shape
     _, page, KVH, _ = kp.shape
     G = H // KVH
@@ -717,10 +727,10 @@ def decode_timing(pa, q, kp, vp, table, sl, lens, window):
     qs = q[:, :, None, :]
     F = torch.nn.functional
     kernel_ms = time_ms(lambda: pa.paged_decode_attention(
-        q, kp, vp, table, sl, window=window))
+        q, kp, vp, table, sl, window=window, **kw))
     kernel_dev_ms, dev_parts, dev_seen = device_ms(
         lambda: pa.paged_decode_attention(q, kp, vp, table, sl,
-                                          window=window),
+                                          window=window, **kw),
         "paged_decode_attention")
     plain_ms = time_ms(lambda: pa.paged_decode_plain(
         q, kp, vp, table, sl, scale=scale, window=window))
@@ -829,25 +839,33 @@ BF16_VERIFY_TIMED = ("main", "hist2000")
 
 
 def prefill_phase(pp, dtype=torch.float32, cases=None, timed=PREFILL_TIMED,
-                  seed=2):
+                  seed=2, case_list=PREFILL_CASES, split_heads=None):
+    """B2's cases (``split_heads`` as in ``decode_phase``)."""
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kw = {} if split_heads is None else {"split_heads": split_heads}
     return chunk_phase(
-        "paged_prefill_attention", pp.paged_prefill_attention,
-        pp.paged_prefill_plain, PREFILL_CASES, seed=seed, timed=timed,
+        "paged_prefill_attention",
+        functools.partial(pp.paged_prefill_attention, **kw),
+        pp.paged_prefill_plain, case_list, seed=seed, timed=timed,
         extra=lambda B, S, H, KVH, page, max_pages, window: {
-            "splits": pp.n_splits(B, S, H // KVH, KVH, page, max_pages,
-                                  window, n_sms)},
+            "splits": pp.n_splits(B, S, H // KVH, split_heads or KVH, page,
+                                  max_pages, window, n_sms)},
         dtype=dtype, only=cases)
 
 
 def verify_phase(pv, parent=None, dtype=torch.float32, cases=None,
-                 timed=VERIFY_TIMED, seed=3):
+                 timed=VERIFY_TIMED, seed=3, case_list=VERIFY_CASES,
+                 split_heads=None):
+    """B3's cases (``split_heads`` as in ``decode_phase``)."""
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kw = {} if split_heads is None else {"split_heads": split_heads}
     return chunk_phase(
-        "paged_verify_attention", pv.paged_verify_attention,
-        pv.paged_verify_plain, VERIFY_CASES, seed=seed, timed=timed,
+        "paged_verify_attention",
+        functools.partial(pv.paged_verify_attention, **kw),
+        pv.paged_verify_plain, case_list, seed=seed, timed=timed,
         extra=lambda B, S, H, KVH, page, max_pages, window: {
-            "splits": pv.n_splits(B, KVH, page, max_pages, window, n_sms)},
+            "splits": pv.n_splits(B, split_heads or KVH, page, max_pages,
+                                  window, n_sms)},
         parent=None if parent is None else parent.verify, dtype=dtype,
         only=cases)
 
@@ -1229,17 +1247,19 @@ def spec_prompts(cfg, seed: int):
             for rid, n in SPEC_PROMPTS.items()}
 
 
-def spec_script(cfg, params, prompts, draft, dtype=torch.float32):
+def spec_script(cfg, params, prompts, draft, dtype=torch.float32,
+                mesh=None):
     """The spec stream script through a fresh engine over KV pools of
-    ``dtype`` with ``draft``: the prompts prefilled in one group, then
-    the spec cycles of SPEC_CYCLES.  Returns ({rid: stream}, the
-    engine's counters)."""
+    ``dtype`` with ``draft`` (over ``mesh`` when given): the prompts
+    prefilled in one group, then the spec cycles of SPEC_CYCLES.  Returns
+    ({rid: stream}, the engine's counters)."""
     from repro_torch.core.batch import Batch
     from repro_torch.core.slo import StageKind
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     eng = ServingEngine(cfg, params, EngineConfig(
-        max_slots=4, max_len=256, total_pages=64, dtype=dtype), draft=draft,
-        device=torch.device("cuda"))
+        max_slots=4, max_len=256, total_pages=64, dtype=dtype, mesh=mesh),
+        draft=draft, device=None if mesh is not None else
+        torch.device("cuda"))
     b = Batch()
     for rid, prompt in prompts.items():
         assert eng.add_request(rid, prompt, expected_total=128)
@@ -1442,22 +1462,28 @@ def plain_paged_attention():
     from repro_torch.kernels import paged_verify as pv
     from repro_torch.models import attention as at
 
-    def decode(q, kp, vp, table, lens, *, scale=None, window=None):
+    # split_heads (a mesh shard's split rule) means nothing to a plain
+    # version, which does not split
+    def decode(q, kp, vp, table, lens, *, scale=None, window=None,
+               split_heads=None):
         return pa.paged_decode_plain(
             q, kp, vp, table, lens, window=window,
             scale=q.shape[-1] ** -0.5 if scale is None else scale)
 
     def chunk(plain):
         def run(q, kn, vn, kp, vp, table, p0, cl, *, scale=None,
-                window=None):
+                window=None, split_heads=None):
             return plain(q, kn, vn, kp, vp, table, p0, cl, window=window,
                          scale=q.shape[-1] ** -0.5 if scale is None
                          else scale)
         return run
+
+    def mla(*args, scale, split_heads=None):
+        return mk.mla_paged_prefill_plain(*args, scale=scale)
     swap = {"paged_decode_attention": decode,
             "paged_prefill_attention": chunk(pp.paged_prefill_plain),
             "paged_verify_attention": chunk(pv.paged_verify_plain),
-            "mla_paged_prefill_attention": mk.mla_paged_prefill_plain}
+            "mla_paged_prefill_attention": mla}
     saved = {name: getattr(at, name) for name in swap}
     for name, fn in swap.items():
         setattr(at, name, fn)
@@ -1586,20 +1612,23 @@ BF16_MLA_TIMED = ("main",)
 
 
 def mla_prefill_phase(mk, dtype=torch.float32, cases=None, timed=MLA_TIMED,
-                      seed=4):
+                      seed=4, case_list=MLA_CASES, H=MLA_H,
+                      split_heads=None):
     """B4 against its plain version on the same pools of ``dtype`` at
     full-width heads (the cases named in ``cases``, every case when None),
     with every key no live row may see poisoned: unmapped pages, and in
     each live lane's pages the positions at or past pos0 (the chunk's keys
     come from ckv_new / krope_new).  Each line names the key splits the
-    wrapper chose."""
+    wrapper chose.  ``H``: the query heads (a mesh shard's fewer);
+    ``split_heads`` as in ``decode_phase``."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    H, r, rope = MLA_H, MLA_R, MLA_ROPE
+    r, rope = MLA_R, MLA_ROPE
     scale = (128 + rope) ** -0.5          # (qk_nope + rope)^-0.5
+    kw = {} if split_heads is None else {"split_heads": split_heads}
     results = {}
-    for name, B, S, page, max_pages, pos0, clen in MLA_CASES:
+    for name, B, S, page, max_pages, pos0, clen in case_list:
         if cases is not None and name not in cases:
             continue
         n_pages = B * max_pages + 5
@@ -1632,7 +1661,7 @@ def mla_prefill_phase(mk, dtype=torch.float32, cases=None, timed=MLA_TIMED,
                 rp.view(-1, rope)[flat[b][pos >= pos0[b]]] = 1e4
         cp_k, rp_k = cp.clone(), rp.clone()
         got, _, _ = mk.mla_paged_prefill_attention(
-            ql, qr, cn, rn, cp_k, rp_k, table, p0, cl, scale=scale)
+            ql, qr, cn, rn, cp_k, rp_k, table, p0, cl, scale=scale, **kw)
         cp_p, rp_p = cp.clone(), rp.clone()
         want, _, _ = mk.mla_paged_prefill_plain(
             ql, qr, cn, rn, cp_p, rp_p, table, p0, cl, scale=scale)
@@ -1656,7 +1685,8 @@ def mla_prefill_phase(mk, dtype=torch.float32, cases=None, timed=MLA_TIMED,
                "case": name, "page_dtype": str(dtype).split(".")[-1],
                "B": B, "S": S, "H": H, "r": r, "rope": rope,
                "page": page, "pos0": pos0, "chunk_len": clen,
-               "splits": mk.n_splits(B, S, H, page, max_pages, n_sms),
+               "splits": mk.n_splits(B, S, split_heads or H, page,
+                                     max_pages, n_sms),
                "max_abs_err": err,
                "max_abs_plain": want[valid].abs().max().item(), "limit": lim,
                "unrounded_chunk_err": None if dtype == torch.float32 else (
@@ -1668,7 +1698,7 @@ def mla_prefill_phase(mk, dtype=torch.float32, cases=None, timed=MLA_TIMED,
                "padded_rows_zero": padded_zero, "ok": ok}
         if name in timed:
             rec.update(mla_timing(mk, ql, qr, cn, rn, cp, rp, table, p0, cl,
-                                  pos0, clen, scale))
+                                  pos0, clen, scale, kw))
         if name == "main":
             results = rec
         emit(rec)
@@ -1677,7 +1707,9 @@ def mla_prefill_phase(mk, dtype=torch.float32, cases=None, timed=MLA_TIMED,
     return results
 
 
-def mla_timing(mk, ql, qr, cn, rn, cp, rp, table, p0, cl, pos0, clen, scale):
+def mla_timing(mk, ql, qr, cn, rn, cp, rp, table, p0, cl, pos0, clen, scale,
+               kw=None):
+    kw = kw or {}
     B, S, H, r = ql.shape
     _, page, rope = rp.shape
     F = torch.nn.functional
@@ -1700,10 +1732,10 @@ def mla_timing(mk, ql, qr, cn, rn, cp, rp, table, p0, cl, pos0, clen, scale):
     mask = (k_pos <= q_pos) & (k_pos < (p0 + cl).long()[:, None, None])
     mask = (mask | (k_pos == 0))[:, None]    # padded rows finite; unread
     kernel_ms = time_ms(lambda: mk.mla_paged_prefill_attention(
-        ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale))
+        ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale, **kw))
     kernel_dev_ms, dev_parts, dev_seen = device_ms(
         lambda: mk.mla_paged_prefill_attention(
-            ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale),
+            ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale, **kw),
         "mla_paged_prefill_attention")
     plain_ms = time_ms(lambda: mk.mla_paged_prefill_plain(
         ql, qr, cn, rn, cp, rp, table, p0, cl, scale=scale))
@@ -3222,10 +3254,19 @@ def main_step_breakdown(cfg, params, eng):
     return out
 
 
+# The main path's depth: smollm-135m's 30 layers cut to 6, which the
+# cluster and dense-cache phases inherit, so that the script keeps within
+# its time limit on a slow host (each host-bound step's time grows with
+# the layers; the planner's virtual clock and the page counts, not the
+# depth, set the schedule, so the shapes are the uncut replay's).
+MAIN_LAYERS = 6
+
+
 def main_path(pa, pp, fa, seed: int):
     from repro_torch.launch import serve
     args = serve.parse_args(["--time-scale", "1.0", "--max-requests", "16",
-                             "--duration", "10", "--seed", str(seed)])
+                             "--duration", "10", "--seed", str(seed),
+                             "--layers", str(MAIN_LAYERS)])
     fe, eng = serve.build(args)
     timer = SpanTimer()
     eng.tracer = timer
@@ -3337,9 +3378,9 @@ class KVCopyLog:
 
     @staticmethod
     def _leaves(kv, p):
-        return [leaf.select(ax, p) for pool, ax in
-                zip(kv.pools, kv._paged_axes()) if ax is not None
-                for leaf in pool["self"].values()]
+        # whole pages, concatenated over a mesh's shards
+        return [leaf for page in kv.page_view(p) if page is not None
+                for leaf in page.values()]
 
     def _timed(self, key, fn, *a):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -3587,10 +3628,14 @@ def cluster_phase(cfg, params, kernels, seed: int):
 # lengths scaled by 0.25 and capped at 128, token ids over the model's
 # whole vocabulary; 2612 prefill and 1272 decode tokens, at most 532 in
 # one request (a tool loop of six stages).
-GATEWAY = dict(arch="phi4-mini-3.8b", replicas=2, rate=4.0, duration=4.0,
-               time_scale=0.25, max_stage_tokens=128, entries=18,
-               page=16, replica_pages=256, total_pages=512, max_len=1024,
-               max_slots=8, greedy_max_tokens=32, max_steps=20_000)
+# phi4-mini's 32 layers cut to 4 (its widths unchanged): the launcher
+# sizes each replica's pools to 1 GiB over the cut model's bytes a page,
+# which its 8 slots of 1024 tokens cap at 512 pages.
+GATEWAY = dict(arch="phi4-mini-3.8b", layers=4, replicas=2, rate=4.0,
+               duration=4.0, time_scale=0.25, max_stage_tokens=128,
+               entries=18, page=16, replica_pages=512, total_pages=1024,
+               max_len=1024, max_slots=8, greedy_max_tokens=32,
+               max_steps=20_000)
 
 
 def gateway_model(seed: int):
@@ -3598,7 +3643,7 @@ def gateway_model(seed: int):
     from repro_torch.device import generator
     from repro_torch.models import init_params
 
-    cfg = get_config(GATEWAY["arch"])
+    cfg = cut_depth(get_config(GATEWAY["arch"]), GATEWAY["layers"])
     dev = torch.device("cuda")
     return cfg, init_params(cfg, generator(dev, seed), device=dev)
 
@@ -3934,7 +3979,7 @@ def gateway_phase(cfg, params, kernels, seed: int):
     checks = {
         "model_full_width": (L, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                              cfg.head_dim, cfg.vocab)
-        == (32, 3072, 24, 8, 128, 200064),
+        == (g["layers"], 3072, 24, 8, 128, 200064),
         "cluster_shape": shape == {
             "page": g["page"], "replica_pages": g["replica_pages"],
             "total_pages": g["total_pages"], "max_len": g["max_len"],
@@ -4304,6 +4349,402 @@ def train_moe_phase(kernels, card: str, seed: int):
     finish(rec, checks, card)
 
 
+# ------------------------------ mesh replay ------------------------------ #
+# Mesh-sharded serving (EngineConfig.mesh) with MESH_SHARDS shards sharing
+# cuda:0: each case serves the same requests through an unsharded engine
+# and then through a sharded one, on the same weights.  The prompts arrive
+# in two chunks (the second from mid-page) and then decode in one burst.
+MESH_SHARDS = 2
+MESH_ENGINE = dict(max_slots=4, max_len=1024, page_size=16, total_pages=256)
+# name, arch, layers kept (None: uncut), requests, prompt, chunks, decode
+# tokens, the plan flags the case must turn on
+MESH_CASES = [
+    ("qwen3", "qwen3-1.7b", None, 4, 512, (263, 249), 32, ("heads", "mlp")),
+    ("phi35_moe", "phi3.5-moe-42b-a6.6b", 2, 4, 160, (87, 73), 16,
+     ("heads", "experts")),
+    ("deepseek_v2", "deepseek-v2-236b", 2, 4, 160, (87, 73), 16,
+     ("mla_heads", "experts")),
+    ("mamba2", "mamba2-2.7b", 8, 4, 160, (87, 73), 16, ("ssm_lanes",)),
+]
+MESH_SPEC_LAYERS = 4        # qwen3-1.7b cut, with the spec phase's draft
+# the 2 x 2 carve: two replicas of qwen3-1.7b cut to 4 layers, each over
+# two shards of a [cuda:0] * 4 device list, the host tier on
+MESH_CLUSTER = dict(layers=4, total_pages=24, replica_pages=12, page=4,
+                    max_slots=8, max_len=64, spill=16, shared=12)
+# the kernels at their shard shapes: B1 and B2 at qwen3-1.7b's 8 / 4
+# heads of 128 a shard (its four 512-token prompts: the second chunk of
+# 249 rows from 263, decode lanes past 512 keys), B3 at the spec replay's
+# window with those heads, B4 at deepseek-v2's 64 of 128 heads a shard
+# (the mla replay's chunk); each wrapper is handed the unsharded heads
+MESH_DECODE_CASES = [
+    ("qwen3_shard", 4, 8, 4, 128, 16, 64, [513, 530, 544, 520], None)]
+MESH_PREFILL_CASES = [
+    ("qwen3_shard", 4, 256, 8, 4, 128, 16, 64, [263] * 4, [249] * 4, None)]
+MESH_VERIFY_CASES = [
+    ("qwen3_shard", 1, 8, 8, 4, 128, 16, 64, [524], [2], None)]
+MESH_MLA_CASES = [("deepseek_shard", 1, 16, 16, 64, [120], [15])]
+
+
+def mesh_kernel_phase(pa, pp, pv, mk):
+    """B1-B4 at their shard shapes against their plain versions, timed,
+    each wrapper told the unsharded head count for its key splits as the
+    engine's shards tell it."""
+    decode_phase(pa, case_list=MESH_DECODE_CASES, timed=("qwen3_shard",),
+                 split_heads=8)
+    prefill_phase(pp, case_list=MESH_PREFILL_CASES, timed=("qwen3_shard",),
+                  split_heads=8)
+    verify_phase(pv, case_list=MESH_VERIFY_CASES, timed=("qwen3_shard",),
+                 split_heads=8)
+    mla_prefill_phase(mk, case_list=MESH_MLA_CASES, timed=("deepseek_shard",),
+                      H=64, split_heads=128)
+
+
+class LogitsLog:
+    """Every ``logits_fn`` output of the engine module while it is on,
+    per thread: the unsharded engine's on the caller's thread, each mesh
+    shard's on its own."""
+
+    def __init__(self):
+        import threading
+
+        from repro_torch.serving import engine
+        self._engine, self._lock = engine, threading.Lock()
+        self.rows: dict[str, list] = {}
+        self._inner = engine.logits_fn
+
+        def rec(params, cfg, hidden):
+            out = self._inner(params, cfg, hidden)
+            with self._lock:
+                self.rows.setdefault(threading.current_thread().name,
+                                     []).append(out.detach().clone())
+            return out
+        engine.logits_fn = rec
+
+    def close(self) -> dict:
+        self._engine.logits_fn = self._inner
+        return self.rows
+
+
+def mesh_expected(cfg, c, shards, draft_layers=0) -> dict:
+    """Each kernel's launches for an engine's counters ``c``: every shard
+    launches a paged kernel once per layer per call (B1 per decode step),
+    the SSM scan too (its compute replicates); a draft's layers launch on
+    one device."""
+    L, kinds = cfg.n_layers, set(cfg.block_pattern)
+    exp = dict.fromkeys(("decode", "prefill", "verify", "mla_prefill",
+                         "ssd", "flash"), 0)
+    if kinds & {"attn", "attn_moe", "shared_attn"}:
+        exp["prefill"] = shards * L * c["prefill_calls"]
+        exp["decode"] = shards * L * c["decode_steps"]
+    if kinds & {"mla", "mla_moe"}:
+        exp["mla_prefill"] = shards * L * c["prefill_calls"]
+    if "ssm" in kinds:
+        exp["ssd"] = shards * L * c["prefill_calls"]
+    exp["verify"] = shards * L * c["spec_verify_calls"]
+    exp["prefill"] += draft_layers * c["spec_catch_up_calls"]
+    exp["decode"] += draft_layers * c["spec_draft_steps"]
+    return exp
+
+
+def launches_ok(kernels, expected) -> bool:
+    return all(m.COUNTS["kernel"] == expected[k] and m.COUNTS["plain"] == 0
+               for k, m in kernels.items())
+
+
+def zero_counts(kernels) -> None:
+    for m in kernels.values():
+        m.COUNTS["kernel"] = m.COUNTS["plain"] = 0
+
+
+def mesh_script(cfg, params, mesh, prompts, chunks, n_decode):
+    """The mesh case's requests through a fresh engine (over ``mesh``, on
+    one device when None): every prompt admitted, the first chunks
+    prefilled in one group, the second (from mid-page) in another, then
+    one decode burst for all.  Returns (streams, counters, per-thread
+    logits rows, the engine's shard count)."""
+    from repro_torch.core.batch import Batch
+    from repro_torch.core.slo import StageKind
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    eng = ServingEngine(cfg, params, EngineConfig(mesh=mesh, **MESH_ENGINE),
+                        device=None if mesh is not None else
+                        torch.device("cuda"))
+    log = LogitsLog()
+    try:
+        got = {rid: [] for rid in prompts}
+        for rid, p in prompts.items():
+            assert eng.add_request(rid, p, expected_total=len(p) + n_decode)
+        for i, n in enumerate(chunks):
+            b = Batch()
+            for rid in prompts:
+                b.add(rid, StageKind.PREFILL, n)
+            for rid, t in eng.execute(b).items():
+                got[rid] += t
+        b = Batch()
+        for rid in prompts:
+            b.add(rid, StageKind.DECODE, n_decode)
+        for rid, t in eng.execute(b).items():
+            got[rid] += t
+    finally:
+        rows = log.close()
+    return got, dict(eng.counters), rows
+
+
+def top2_margins(rows, rids) -> dict:
+    """The top-2 logit margin behind each emitted token: token 0 from the
+    second prefill group's row of the lane, token i from decode step
+    i - 1 (lanes in request order)."""
+    seq = rows[1:]
+    out = {}
+    for lane, rid in enumerate(rids):
+        out[rid] = []
+        for lg in seq:
+            top = torch.topk(lg[lane].float(), 2).values
+            out[rid].append((top[0] - top[1]).item())
+    return out
+
+
+def logits_reading(rows, want) -> dict:
+    """Each shard's logits, call for call, against the unsharded engine's:
+    bit-equal, or the largest difference."""
+    out = {}
+    for name, seq in sorted(rows.items()):
+        same_len = len(seq) == len(want)
+        diff = max(((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(seq, want)), default=0.0)
+        out[name] = {"calls": len(seq), "calls_equal": same_len,
+                     "bit_equal": same_len and all(
+                         torch.equal(a, b) for a, b in zip(seq, want)),
+                     "max_abs_diff": diff}
+    return out
+
+
+def mesh_case(name, cfg, params, kernels, prompts, chunks, n_decode, flags,
+              mesh):
+    """One mesh case: the unsharded engine, then the sharded one."""
+    from repro_torch.distributed.sharding import serving_shard_plan
+    plan = serving_shard_plan(cfg, mesh, max_seqs=MESH_ENGINE["max_slots"])
+    t0 = time.perf_counter()
+    zero_counts(kernels)
+    want, wc, wrows = mesh_script(cfg, params, None, prompts, chunks,
+                                  n_decode)
+    base_launch = launches_ok(kernels, mesh_expected(cfg, wc, 1))
+    (want_rows,) = wrows.values()
+    margins = top2_margins(want_rows, list(prompts))
+    del wrows
+    free_device_memory()
+    zero_counts(kernels)
+    got, gc, rows = mesh_script(cfg, params, mesh, prompts, chunks, n_decode)
+    launches = {k: dict(m.COUNTS) for k, m in kernels.items()}
+    expected = mesh_expected(cfg, gc, mesh.size)
+    streams = {rid: compare_stream(got[rid], want[rid], margins[rid])
+               for rid in prompts}
+    checks = {
+        "plan_flags": all(getattr(plan, f) for f in flags),
+        "streams": all(s["ok"] for s in streams.values()),
+        "shards_emit_equal_tokens": True,   # the engine raises otherwise
+        "counters_equal": all(gc[k] == wc[k] for k in
+                              ("prefill_calls", "decode_calls",
+                               "decode_steps", "decode_tokens")),
+        "launches_unsharded": base_launch,
+        "launches_sharded": launches_ok(kernels, expected),
+        "shards_reported": sorted(rows) == [f"mesh-shard-{i}" for i in
+                                            range(mesh.size)],
+    }
+    rec = {"phase": "mesh_case", "case": name, "arch": cfg.name,
+           "layers": cfg.n_layers, "shards": mesh.size,
+           "plan": dataclasses.asdict(plan), "requests": len(prompts),
+           "prompt": len(next(iter(prompts.values()))), "chunks": chunks,
+           "decode": n_decode, "streams": streams,
+           "logits": logits_reading(rows, want_rows),
+           "counters": {k: gc[k] for k in ("prefill_calls", "decode_calls",
+                                           "decode_steps")},
+           "launches": launches, "expected_launches": expected,
+           "seconds": time.perf_counter() - t0, "checks": checks,
+           "ok": all(checks.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"mesh case {name} failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
+def mesh_spec_case(cfg, params, draft, kernels, prompts, mesh):
+    """Spec decoding over the mesh: the verify through B3 at shard widths
+    on every shard, the draft unsharded on shard 0's device."""
+    t0 = time.perf_counter()
+    zero_counts(kernels)
+    want, wc = spec_script(cfg, params, prompts, draft)
+    Ld = draft[0].n_layers
+    base_launch = launches_ok(kernels, mesh_expected(cfg, wc, 1, Ld))
+    zero_counts(kernels)
+    got, gc = spec_script(cfg, params, prompts, draft, mesh=mesh)
+    launches = {k: dict(m.COUNTS) for k, m in kernels.items()}
+    expected = mesh_expected(cfg, gc, mesh.size, Ld)
+    fused = ("prefill_fused_ops", "verify_fused_ops")
+    checks = {"streams_equal": got == want,
+              "counters_equal": all(gc[k] == wc[k] for k in gc
+                                    if k not in fused),
+              "verify_ran": gc["spec_verify_calls"] > 0,
+              "launches_unsharded": base_launch,
+              "launches_sharded": launches_ok(kernels, expected)}
+    rec = {"phase": "mesh_case", "case": "qwen3_spec", "arch": cfg.name,
+           "layers": cfg.n_layers, "shards": mesh.size,
+           "accepted": gc["spec_accepted_tokens"],
+           "drafted": gc["spec_drafted_tokens"], "launches": launches,
+           "expected_launches": expected,
+           "seconds": time.perf_counter() - t0, "checks": checks,
+           "ok": all(checks.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"mesh spec case failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
+def mesh_cluster_case(cfg, params, kernels, seed: int):
+    """``ClusterFrontend.build(devices_per_replica=2, devices=[cuda:0] *
+    4)``: two replicas, each over its own 2-shard slice, the host tier
+    on, against the same cluster unsharded.  Three waves of requests (odd
+    ones sharing a prefix); the third re-sends the first, whose evicted
+    pages were spilled.  Every prefetched page must hold, bit for bit,
+    the bytes its chain had when it was spilled."""
+    from repro_torch.core.perf_model import cpu_scale_perf_model
+    from repro_torch.core.request import simple_request
+    from repro_torch.core.router import RoutingPolicy
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.serving.cluster import ClusterFrontend
+    C = MESH_CLUSTER
+    g = torch.Generator().manual_seed(seed + 9)
+
+    def draw(n):
+        return torch.randint(1, cfg.vocab, (n,), generator=g).tolist()
+    shared = draw(C["shared"])
+    prompts = {rid: (shared if rid % 2 else draw(C["shared"]))
+               + draw(4 + rid) for rid in range(1, 7)}
+    dev = torch.device("cuda")
+
+    def run(**kw):
+        cl = ClusterFrontend.build(
+            cfg, params, 2, cpu_scale_perf_model(),
+            policy=RoutingPolicy(max_hops=1), total_pages=C["total_pages"],
+            replica_pages=C["replica_pages"], page_size=C["page"],
+            max_slots=C["max_slots"], max_len=C["max_len"],
+            host_spill_pages=C["spill"],
+            sched_cfg=SchedulerConfig(page_size=C["page"],
+                                      prefill_emits_first_token=True), **kw)
+        copies = KVCopyLog(cl.drivers)
+        got: dict[int, list] = {}
+        for w, wave in enumerate(((1, 2, 3), (4, 5, 6), (1, 2, 3))):
+            for rid in wave:
+                cl.submit(simple_request(rid + 10 * w, cl.clock,
+                                         prompt=len(prompts[rid]), output=4,
+                                         ttft_slowdown=8.0, tpot=0.15),
+                          prompt=prompts[rid],
+                          on_token=lambda r, t: got.setdefault(
+                              r, []).extend(t))
+            cl.run_until_idle()
+        kv = [d.engine.kv for d in cl.drivers]
+        return cl, got, copies, [(k.spilled_pages, k.prefetched_pages)
+                                 for k in kv]
+    t0 = time.perf_counter()
+    _, want, _, want_spill = run(device=dev)
+    free_device_memory()
+    zero_counts(kernels)
+    cl, got, copies, spill = run(devices_per_replica=2, devices=[dev] * 4)
+    launches = {k: dict(m.COUNTS) for k, m in kernels.items()}
+    meshes = [d.engine.mesh for d in cl.drivers]
+    prefill = sum(d.engine.counters["prefill_calls"] for d in cl.drivers)
+    steps = sum(d.engine.counters["decode_steps"] for d in cl.drivers)
+    L = cfg.n_layers
+    checks = {
+        "streams_equal": got == want and len(got) == 9,
+        "slices": all(m is not None and m.size == 2 for m in meshes)
+        and meshes[0] is not meshes[1],
+        "spill_equal": spill == want_spill,
+        "spilled_and_prefetched": sum(s for s, _ in spill) > 0
+        and sum(p for _, p in spill) > 0,
+        "prefetched_bit_equal": copies.compared > 0
+        and copies.equal == copies.compared,
+        "launches": (launches["prefill"]["kernel"] == 2 * L * prefill
+                     and launches["decode"]["kernel"] == 2 * L * steps
+                     and all(m["plain"] == 0 for m in launches.values())),
+    }
+    rec = {"phase": "mesh_case", "case": "cluster_2x2", "arch": cfg.name,
+           "layers": L, "replicas": 2, "shards_per_replica": 2,
+           "spilled_prefetched": spill, "prefetch_compared": copies.compared,
+           "launches": launches, "seconds": time.perf_counter() - t0,
+           "checks": checks, "ok": all(checks.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"mesh cluster case failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
+def mesh_replay_phase(kernels, seed: int, cfg_of=None) -> dict:
+    """Every mesh case at published widths (``cfg_of(arch)``: the card's
+    configs; the CPU rehearsal passes reduced ones): streams against the
+    unsharded engine's with the tie rule, every shard's tokens equal (the
+    engine raises otherwise), logits bit-equal or the largest
+    difference, and every launch count shards x layers x the engine's
+    counters.  Returns the kernels' launches summed over the cases."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.distributed.sharding import make_serving_mesh
+    from repro_torch.models import init_params
+    cfg_of = cfg_of or get_config
+    dev = torch.device("cuda")
+    mesh = make_serving_mesh([dev] * MESH_SHARDS)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = {k: {"kernel": 0, "plain": 0} for k in kernels}
+
+    def add(launches):
+        for k, v in launches.items():
+            for kk in v:
+                total[k][kk] += v[kk]
+    for name, arch, layers, n_req, n_prompt, chunks, n_dec, flags in \
+            MESH_CASES:
+        cfg = cfg_of(arch)
+        if layers is not None and layers < cfg.n_layers:
+            cfg = cut_depth(cfg, layers)
+        params = init_params(cfg, generator(dev, seed), device=dev)
+        g = torch.Generator().manual_seed(seed + 5)
+        prompts = {rid: torch.randint(1, cfg.vocab, (n_prompt,),
+                                      generator=g).tolist()
+                   for rid in range(1, n_req + 1)}
+        add(mesh_case(name, cfg, params, kernels, prompts, chunks, n_dec,
+                      flags, mesh))
+        if name == "qwen3":
+            n = min(MESH_SPEC_LAYERS, cfg.n_layers)
+            cut = cut_depth(cfg, n)
+            cut_params = {**params, "segments": [
+                {"p": _slice_layers(params["segments"][0]["p"], n)}]}
+            draft = one_layer_draft(cut, dev, seed + 7)
+            add(mesh_spec_case(cut, cut_params, draft, kernels,
+                               spec_prompts(cut, seed), mesh))
+            add(mesh_cluster_case(cut, cut_params, kernels, seed))
+            del cut_params, draft
+        del params
+        free_device_memory()
+    torch.cuda.synchronize()
+    emit({"phase": "mesh_replay", "shards": MESH_SHARDS,
+          "cases": [c[0] for c in MESH_CASES] + ["qwen3_spec",
+                                                 "cluster_2x2"],
+          "seconds": time.perf_counter() - t0,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "launches": total, "ok": True})
+    return total
+
+
+def _slice_layers(tree, n):
+    """The first n layers of a stacked segment's parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _slice_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
 def main(argv=()) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA card.")
@@ -4447,6 +4888,10 @@ def main(argv=()) -> int:
     train_ssm_phase(kernels, card, seed)
     free_device_memory()
     train_moe_phase(kernels, card, seed)
+    free_device_memory()
+    mesh_kernel_phase(pa, pp, pv, mk)
+    free_device_memory()
+    paths["mesh_replay"] = mesh_replay_phase(kernels, seed)
     free_device_memory()
     # last: run ahead of the kernel phases, it left the profiler
     # recording no launch at all in several of their readings

@@ -6,7 +6,8 @@ drain, the disconnect) depends on page counts and the planner's virtual
 clock, not on the weights or the device, so it can be checked here
 before it costs chip time.  This runs ``gateway_phase`` at the reduced
 phi4-mini width on the CPU with the card's page counts (the launcher's
-full-width sizing reads the published model's bytes a page): the
+full-width sizing reads the bytes a page of the published widths at the
+phase's depth): the
 phase's CUDA-only calls are replaced by host stand-ins, the plain kernel
 versions count as the kernel launches (as in
 ``scripts/rehearse_cluster_phase.py``), and the phase's checks run
@@ -48,7 +49,7 @@ def main(argv=None) -> int:
     cs.card_line = lambda: "cpu rehearsal"
     for mod in (paged_attention, paged_prefill):
         _count_plain_as_kernel(mod)
-    full = get_config(cs.GATEWAY["arch"])
+    full = cs.cut_depth(get_config(cs.GATEWAY["arch"]), cs.GATEWAY["layers"])
     per_page = serve.kv_bytes_per_page
     serve.kv_bytes_per_page = lambda cfg, page: per_page(full, page)
     cfg = get_reduced(cs.GATEWAY["arch"])

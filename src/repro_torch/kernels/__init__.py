@@ -8,3 +8,14 @@ version: B1 ``paged_attention.paged_decode_attention``, B2
 ``../csrc``, built by ``build.py`` at first use).  ``ref.py`` holds the
 oracles: loop-per-lane, token-by-token, one head block at a time.
 Importing this package needs neither ``nvcc`` nor a card."""
+import threading
+
+_COUNT_LOCK = threading.Lock()
+
+
+def bump(counts: dict, key: str, n: int = 1) -> None:
+    """Add ``n`` to ``counts[key]`` under one lock: the shards of a mesh
+    (``distributed/sharding.py``) launch kernels from threads of their
+    own, and ``+=`` on a dict entry is not atomic across threads."""
+    with _COUNT_LOCK:
+        counts[key] += n

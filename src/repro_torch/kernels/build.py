@@ -26,6 +26,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -61,6 +62,7 @@ BF16_LAUNCHERS = {
 }
 
 _FNS: dict = {}
+_LOAD_LOCK = threading.Lock()   # mesh shards load from threads of their own
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
@@ -136,13 +138,17 @@ def load(name: str, pages: str = "f32"):
     later calls return the same configured function."""
     key = name if pages == "f32" else (name, pages)
     fn = _FNS.get(key)
-    if fn is None:
-        fn_name, argtypes = SIGNATURES[name]
-        if pages == "bf16":
-            fn_name = BF16_LAUNCHERS[name]
-        _finish(name, _start(name))
-        fn = getattr(ctypes.CDLL(str(_lib_path(name))), fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[key] = fn
+    if fn is not None:
+        return fn
+    with _LOAD_LOCK:
+        fn = _FNS.get(key)
+        if fn is None:
+            fn_name, argtypes = SIGNATURES[name]
+            if pages == "bf16":
+                fn_name = BF16_LAUNCHERS[name]
+            _finish(name, _start(name))
+            fn = getattr(ctypes.CDLL(str(_lib_path(name))), fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _FNS[key] = fn
     return fn

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import bump
 from repro_torch.kernels.paged_attention import (
     NEG_INF, check_aligned, check_no_grad, check_tensor, sm_count,
     split_workspace)
@@ -134,7 +135,7 @@ def _launch(q, k, v, causal, q_offset, kv_len, scale):
     if rc != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {rc}")
-    COUNTS["kernel"] += 1
+    bump(COUNTS, "kernel")
     return out
 
 
@@ -142,7 +143,7 @@ def flash_attention_plain(q, k, v, *, causal: bool, q_offset: int,
                           kv_len: int, scale: float):
     """The kernel's function in plain PyTorch: the whole (Sq, Sk) score
     matrix, masked, one softmax."""
-    COUNTS["plain"] += 1
+    bump(COUNTS, "plain")
     Sq, Sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     k_pos = torch.arange(Sk, device=q.device)[None, :]

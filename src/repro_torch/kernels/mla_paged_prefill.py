@@ -31,9 +31,11 @@ launch.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
+from repro_torch.kernels import bump
 from repro_torch.kernels.paged_attention import (
     NEG_INF, check_aligned, check_no_grad, check_pages, check_tensor,
     sm_count, split_workspace)
@@ -66,12 +68,16 @@ def n_splits(B: int, S: int, H: int, page: int, max_pages: int,
 
 def mla_paged_prefill_attention(q_lat, q_rope, ckv_new, krope_new, ckv_pages,
                                 krope_pages, block_table, pos0, chunk_len, *,
-                                scale: float):
+                                scale: float,
+                                split_heads: Optional[int] = None):
     """q_lat: (B, S, H, r) absorbed queries (``q_nope . w_uk``); q_rope:
     (B, S, H, rope); ckv_new: (B, S, r); krope_new: (B, S, rope);
     ckv/krope_pages: (n_pages, page, r | rope), written in place;
     block_table: (B, max_pages) int32; pos0/chunk_len: (B,) int32.
-    Returns (ctx_lat (B, S, H, r), ckv_pages, krope_pages)."""
+    Returns (ctx_lat (B, S, H, r), ckv_pages, krope_pages).
+    ``split_heads``: the head count the split rule reads (default H; a
+    mesh shard holds H / n heads and passes the unsharded count, so that
+    every head runs the key split of the unsharded call)."""
     check_no_grad("mla_paged_prefill_attention", q_lat, q_rope, ckv_new,
                   krope_new, ckv_pages, krope_pages)
     if q_lat.device.type == "cpu":
@@ -82,11 +88,11 @@ def mla_paged_prefill_attention(q_lat, q_rope, ckv_new, krope_new, ckv_pages,
         raise RuntimeError(
             f"mla_paged_prefill_attention: no kernel for {q_lat.device}")
     return _launch(q_lat, q_rope, ckv_new, krope_new, ckv_pages, krope_pages,
-                   block_table, pos0, chunk_len, float(scale))
+                   block_table, pos0, chunk_len, float(scale), split_heads)
 
 
 def _launch(q_lat, q_rope, ckv_new, krope_new, ckv_pages, krope_pages,
-            block_table, pos0, chunk_len, scale):
+            block_table, pos0, chunk_len, scale, split_heads=None):
     from repro_torch.kernels import build
     dev = q_lat.device
     check_tensor("q_lat", q_lat, torch.float32, dev, 4)
@@ -113,7 +119,7 @@ def _launch(q_lat, q_rope, ckv_new, krope_new, ckv_pages, krope_pages,
     check_aligned("mla_paged_prefill_attention", q_lat, q_rope, ckv_new,
                   krope_new, ckv_pages, krope_pages)
     max_pages = block_table.shape[1]
-    ns = n_splits(B, S, H, page, max_pages, sm_count(dev))
+    ns = n_splits(B, S, split_heads or H, page, max_pages, sm_count(dev))
     out = torch.empty_like(q_lat)
     _ws, ws = split_workspace(B, 1, ns, S * H, r, dev)
     fn = build.load("mla_paged_prefill", pages)
@@ -125,7 +131,7 @@ def _launch(q_lat, q_rope, ckv_new, krope_new, ckv_pages, krope_pages,
     if rc != 0:
         raise RuntimeError(
             f"mla_paged_prefill kernel launch failed: CUDA error {rc}")
-    COUNTS["kernel"] += 1
+    bump(COUNTS, "kernel")
     return out, ckv_pages, krope_pages
 
 
@@ -137,7 +143,7 @@ def mla_paged_prefill_plain(q_lat, q_rope, ckv_new, krope_new, ckv_pages,
     masked two-term softmax.  The scatter selects the written rows with a
     boolean mask, which waits on the device; this arithmetic is never on
     the CUDA main path."""
-    COUNTS["plain"] += 1
+    bump(COUNTS, "plain")
     B, S, H, r = q_lat.shape
     _, page, rope = krope_pages.shape
     dev = q_lat.device

@@ -31,6 +31,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import bump
+
 NEG_INF = -1e30
 
 COUNTS = {"kernel": 0, "plain": 0}
@@ -74,11 +76,16 @@ def n_splits(B: int, KVH: int, page: int, max_pages: int,
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *,
                            scale: Optional[float] = None,
-                           window: Optional[int] = None):
+                           window: Optional[int] = None,
+                           split_heads: Optional[int] = None):
     """q: (B, H, hd); k/v_pages: (n_pages, page, KVH, hd); block_table:
     (B, max_pages) int32; seq_lens: (B,) int32, each >= 1; window: sliding
     window in tokens (None = full causal).  Returns (B, H, hd) in q's dtype,
-    accumulated in float32.  The pools are float32 or bfloat16."""
+    accumulated in float32.  The pools are float32 or bfloat16.
+    ``split_heads``: the KV head count the split rule reads (default KVH).
+    A mesh shard holds KVH / n heads and passes the unsharded count, so
+    that every head runs the key split, and so the summation order, of
+    the unsharded call."""
     B, H, hd = q.shape
     KVH = k_pages.shape[2]
     if H % KVH:
@@ -90,7 +97,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *,
                                   scale=scale, window=window)
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_decode_attention: no kernel for {q.device}")
-    return _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window)
+    return _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window,
+                   split_heads)
 
 
 def check_no_grad(kernel: str, *ts) -> None:
@@ -159,7 +167,8 @@ def split_workspace(B: int, KVH: int, ns: int, R: int, hd: int, dev, *,
     return ws, [t.data_ptr() for t in ws]
 
 
-def _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window):
+def _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window,
+            split_heads=None):
     from repro_torch.kernels import build
     dev = q.device
     check_tensor("q", q, torch.float32, dev, 3)
@@ -179,7 +188,8 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window):
                          f"groups of at most {MAX_GROUP}, not {G}")
     check_aligned("paged_decode_attention", q, k_pages, v_pages)
     max_pages = block_table.shape[1]
-    ns = n_splits(B, KVH, page, max_pages, window, sm_count(dev))
+    ns = n_splits(B, split_heads or KVH, page, max_pages, window,
+                  sm_count(dev))
     out = torch.empty_like(q)
     _ws, ws = split_workspace(B, KVH, ns, G, hd, dev)
     fn = build.load("paged_decode", pages)
@@ -190,7 +200,7 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window):
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {rc}")
-    COUNTS["kernel"] += 1
+    bump(COUNTS, "kernel")
     return out
 
 
@@ -198,7 +208,7 @@ def paged_decode_plain(q, k_pages, v_pages, block_table, seq_lens, *,
                        scale: float, window: Optional[int] = None):
     """The kernel's function in plain PyTorch: gather each lane's pages,
     then a masked softmax over the whole gathered stream."""
-    COUNTS["plain"] += 1
+    bump(COUNTS, "plain")
     B, H, hd = q.shape
     _, page, KVH, _ = k_pages.shape
     G = H // KVH

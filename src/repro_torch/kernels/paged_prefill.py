@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import bump
 from repro_torch.kernels.paged_attention import (
     BLOCKS_PER_SM, NEG_INF, check_aligned, check_head_dim, check_no_grad,
     check_pages, check_tensor, sm_count, split_workspace)
@@ -65,11 +66,14 @@ def n_splits(B: int, S: int, G: int, KVH: int, page: int, max_pages: int,
 
 def paged_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_table,
                             pos0, chunk_len, *, scale: Optional[float] = None,
-                            window: Optional[int] = None):
+                            window: Optional[int] = None,
+                            split_heads: Optional[int] = None):
     """q: (B, S, H, hd); k_new/v_new: (B, S, KVH, hd); k/v_pages:
     (n_pages, page, KVH, hd), written in place; block_table: (B, max_pages)
     int32; pos0/chunk_len: (B,) int32.  Returns (out (B, S, H, hd),
-    k_pages, v_pages)."""
+    k_pages, v_pages).  ``split_heads``: the KV head count the split rule
+    reads (default KVH; a mesh shard passes the unsharded count, as for
+    ``paged_decode_attention``)."""
     B, S, H, hd = q.shape
     KVH = k_pages.shape[2]
     if H % KVH:
@@ -83,11 +87,11 @@ def paged_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_table,
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_prefill_attention: no kernel for {q.device}")
     return _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
-                   chunk_len, scale, window)
+                   chunk_len, scale, window, split_heads)
 
 
 def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
-            scale, window):
+            scale, window, split_heads=None):
     from repro_torch.kernels import build
     dev = q.device
     check_tensor("q", q, torch.float32, dev, 4)
@@ -110,7 +114,8 @@ def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
     check_aligned("paged_prefill_attention", q, k_new, v_new, k_pages,
                   v_pages)
     max_pages = block_table.shape[1]
-    ns = n_splits(B, S, G, KVH, page, max_pages, window, sm_count(dev))
+    ns = n_splits(B, S, G, split_heads or KVH, page, max_pages, window,
+                  sm_count(dev))
     out = torch.empty_like(q)
     _ws, ws = split_workspace(B, KVH, ns, S * G, hd, dev)
     fn = build.load("paged_prefill", pages)
@@ -122,7 +127,7 @@ def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_prefill kernel launch failed: CUDA error {rc}")
-    COUNTS["kernel"] += 1
+    bump(COUNTS, "kernel")
     return out, k_pages, v_pages
 
 
@@ -130,7 +135,7 @@ def paged_prefill_plain(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
                         chunk_len, *, scale: float,
                         window: Optional[int] = None):
     """The kernel's function in plain PyTorch (``prefill_math``)."""
-    COUNTS["plain"] += 1
+    bump(COUNTS, "plain")
     return prefill_math(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
                         chunk_len, scale=scale, window=window)
 

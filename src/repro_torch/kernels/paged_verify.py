@@ -19,10 +19,12 @@ The kernel takes head dims that are multiples of 4 up to 128.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import bump
 from repro_torch.kernels.paged_attention import (
     check_aligned, check_no_grad, check_pages, check_tensor, sm_count,
     split_workspace)
@@ -42,6 +44,7 @@ BLOCKS_PER_SM = 1
 # per device: the int32 tickets of the in-kernel merge, one per (lane, KV
 # head), zero between launches (each launch's last block resets its own)
 _COUNTERS: dict = {}
+_COUNTERS_LOCK = threading.Lock()   # mesh shards launch from threads
 
 
 def n_splits(B: int, KVH: int, page: int, max_pages: int,
@@ -63,20 +66,24 @@ def n_splits(B: int, KVH: int, page: int, max_pages: int,
 def merge_counters(n: int, dev) -> torch.Tensor:
     """At least ``n`` zeroed int32 tickets on ``dev``, allocated once (and
     again only to grow), not per call."""
-    c = _COUNTERS.get(dev)
-    if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
-        _COUNTERS[dev] = c
+    with _COUNTERS_LOCK:
+        c = _COUNTERS.get(dev)
+        if c is None or c.numel() < n:
+            c = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+            _COUNTERS[dev] = c
     return c
 
 
 def paged_verify_attention(q, k_new, v_new, k_pages, v_pages, block_table,
                            pos0, chunk_len, *, scale: Optional[float] = None,
-                           window: Optional[int] = None):
+                           window: Optional[int] = None,
+                           split_heads: Optional[int] = None):
     """q: (B, S, H, hd); k_new/v_new: (B, S, KVH, hd); k/v_pages:
     (n_pages, page, KVH, hd), written in place; block_table: (B, max_pages)
     int32; pos0/chunk_len: (B,) int32.  Returns (out (B, S, H, hd),
-    k_pages, v_pages)."""
+    k_pages, v_pages).  ``split_heads``: the KV head count the split rule
+    reads (default KVH; a mesh shard passes the unsharded count, as for
+    ``paged_decode_attention``)."""
     B, S, H, hd = q.shape
     KVH = k_pages.shape[2]
     if H % KVH:
@@ -90,11 +97,11 @@ def paged_verify_attention(q, k_new, v_new, k_pages, v_pages, block_table,
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_verify_attention: no kernel for {q.device}")
     return _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
-                   chunk_len, scale, window)
+                   chunk_len, scale, window, split_heads)
 
 
 def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
-            scale, window):
+            scale, window, split_heads=None):
     from repro_torch.kernels import build
     dev = q.device
     check_tensor("q", q, torch.float32, dev, 4)
@@ -117,7 +124,8 @@ def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
                          f"head dims that are multiples of 4 up to "
                          f"{MAX_HEAD_DIM}, not {hd}")
     check_aligned("paged_verify_attention", q, k_new, v_new, k_pages, v_pages)
-    ns = n_splits(B, KVH, page, block_table.shape[1], window, sm_count(dev))
+    ns = n_splits(B, split_heads or KVH, page, block_table.shape[1], window,
+                  sm_count(dev))
     # every block writes its partial, even with one split
     _ws, ws = split_workspace(B, KVH, ns, S * (H // KVH), hd, dev,
                               direct=False)
@@ -133,7 +141,7 @@ def _launch(q, k_new, v_new, k_pages, v_pages, block_table, pos0, chunk_len,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_verify kernel launch failed: CUDA error {rc}")
-    COUNTS["kernel"] += 1
+    bump(COUNTS, "kernel")
     return out, k_pages, v_pages
 
 
@@ -142,6 +150,6 @@ def paged_verify_plain(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
                        window: Optional[int] = None):
     """The kernel's function in plain PyTorch: the fused prefill's plain
     arithmetic (scatter the window's rows, gather, masked softmax)."""
-    COUNTS["plain"] += 1
+    bump(COUNTS, "plain")
     return prefill_math(q, k_new, v_new, k_pages, v_pages, block_table, pos0,
                         chunk_len, scale=scale, window=window)

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bump
 from repro_torch.kernels.paged_attention import check_no_grad, check_tensor
 
 COUNTS = {"kernel": 0, "plain": 0}
@@ -109,7 +110,7 @@ def _launch(xh, dt, A, Bm, Cm, chunk, init_state):
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
-    COUNTS["kernel"] += 1
+    bump(COUNTS, "kernel")
     return y, final
 
 
@@ -117,7 +118,7 @@ def ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
     """The reference's ``ssd_chunked`` line for line: a loop over chunks
     carrying the state, the intra-chunk decay masked to -1e30 BEFORE the
     exp (the upper triangle would overflow), in float32."""
-    COUNTS["plain"] += 1
+    bump(COUNTS, "plain")
     Bsz, S, H, P = xh.shape
     N = Bm.shape[-1]
     nc = S // chunk

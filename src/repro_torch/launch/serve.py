@@ -7,7 +7,8 @@ JAX launcher (``cpu_scale_perf_model``), so served / attained / dropped
 counts are comparable between the two; the engine executes every planned
 token for real.  On the card (the default) the full published config is
 served; ``--reduced`` picks the CPU-test variant, which runs on the CPU
-with ``--device cpu``:
+with ``--device cpu``.  ``--layers N`` serves the config's first N layers
+at its widths (a depth cut, for a run that must fit a time budget):
 
   PYTHONPATH=src python -m repro_torch.launch.serve              # CUDA
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
@@ -30,6 +31,7 @@ in-flight stream drains to its done event, then the process exits.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import time
 
@@ -53,6 +55,9 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the reduced (CPU-test) config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve only the config's first N layers (its "
+                         "widths unchanged)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--scenario", default="chatbot")
@@ -68,6 +73,18 @@ def parse_args(argv=None):
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--replicas", type=int, default=2)
     return ap.parse_args(argv)
+
+
+def model_config(args):
+    """The served config: published or reduced, cut to ``--layers``."""
+    cfg = (get_reduced if args.reduced else get_config)(args.arch)
+    if args.layers is not None and args.layers < 1:
+        raise ValueError(f"--layers must be at least 1, got {args.layers}")
+    if args.layers is not None and args.layers < cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers,
+                                  block_pattern=cfg.block_pattern[
+                                      :args.layers])
+    return cfg
 
 
 def engine_config(reduced: bool) -> EngineConfig:
@@ -146,7 +163,7 @@ def serve_http(args) -> None:
     import signal
 
     device = resolve_device(args.device)
-    cfg = (get_reduced if args.reduced else get_config)(args.arch)
+    cfg = model_config(args)
     params = init_params(cfg, generator(device, args.seed), device=device)
     gw = http_gateway(cfg, params, args.replicas, reduced=args.reduced,
                       device=device, host=args.host, port=args.port,
@@ -177,7 +194,7 @@ def build(args):
     """Engine, scheduler and frontend with the trace submitted.  Returns
     (frontend, engine)."""
     device = resolve_device(args.device)
-    cfg = (get_reduced if args.reduced else get_config)(args.arch)
+    cfg = model_config(args)
     params = init_params(cfg, generator(device, args.seed), device=device)
     engine = ServingEngine(cfg, params, engine_config(args.reduced),
                            device=device)

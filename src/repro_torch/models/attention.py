@@ -50,7 +50,16 @@ nothing switches on grad mode, and every kernel wrapper refuses an input
 that requires grad.
 
 ``OP_STATS`` keeps the reference's keys, but the port runs eagerly and
-counts per call, where JAX counts once per traced program.
+counts per call, where JAX counts once per traced program (and under a
+mesh once per shard: each shard's thread adds its own, under a lock).
+
+``shard`` (a mesh shard's ``ShardCtx``, ``distributed/sharding.py``):
+the weights hold this shard's heads, so the head counts are read from
+them, and the per-head context is all-gathered before the replicated
+``wo`` (``attn_output``; MLA inside ``mla_forward``).  Each paged kernel
+is told the unsharded head count for its key-split rule
+(``split_heads``): a shard with fewer heads would pick more splits and
+merge its partial sums in another order.
 """
 from __future__ import annotations
 
@@ -58,6 +67,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import bump
 from repro_torch.kernels.flash_attention import attention
 from repro_torch.kernels.mla_paged_prefill import mla_paged_prefill_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
@@ -94,7 +104,7 @@ def paged_write(pages, vals, block_table, pos0, chunk_len):
     (B,) int32.  Token i of lane b lands at global position pos0[b] + i
     of the lane's block table; rows at or past chunk_len[b] go to the
     write-off page.  No host sync."""
-    OP_STATS["paged_write"] += 1
+    bump(OP_STATS, "paged_write")
     P1, page = pages.shape[:2]
     B, S = vals.shape[:2]
     tail = pages.shape[2:]
@@ -224,7 +234,7 @@ def sdpa_chunked(q, k, v, *, pos0, kv_len, window=None, causal=True,
 # --------------------------- self-attention ----------------------------- #
 def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
                  pos0=None, block_tables=None, chunk_len=None, verify=False,
-                 causal: bool = True, train: bool = False):
+                 causal: bool = True, train: bool = False, shard=None):
     """Returns (ctx (B, Sq, H, hd), cache).
 
     cache: None (no cache kept: causal, or bidirectional with
@@ -235,9 +245,10 @@ def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
     speculative-decoding verify window (same function, own kernel and
     ``OP_STATS`` key); train: the no-cache call takes the reference's
     plain branches (``sdpa_chunked`` or the masked ``sdpa``), never a
-    kernel."""
+    kernel; shard: a mesh shard's context (the module docstring)."""
     B, Sq, d = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h, kv, hd = p["wq"].shape[1], p["wk"].shape[1], cfg.head_dim
+    split = None if shard is None else cfg.n_kv_heads
     q = (x @ p["wq"].reshape(d, h * hd)).reshape(B, Sq, h, hd)
     k = (x @ p["wk"].reshape(d, kv * hd)).reshape(B, Sq, kv, hd)
     v = (x @ p["wv"].reshape(d, kv * hd)).reshape(B, Sq, kv, hd)
@@ -289,29 +300,37 @@ def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
         # fused spec verify: B3 writes the window's KV into the pages and
         # attends over the paged history (the engine's CoW barrier ran
         # over the window first)
-        OP_STATS["fused_verify"] += 1
+        bump(OP_STATS, "fused_verify")
         out, _, _ = paged_verify_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), kp[:-1],
-            vp[:-1], block_tables, pos0, chunk_len, window=window)
+            vp[:-1], block_tables, pos0, chunk_len, window=window,
+            split_heads=split)
         return out, cache
     if Sq > 1:
         # fused chunked prefill: the kernel writes the chunk's KV into the
         # pages and attends over the paged history in the same launch (the
         # engine's CoW barrier made every written page exclusive).  The
         # write-off page is left out: the kernel never writes masked rows.
-        OP_STATS["fused_prefill"] += 1
+        bump(OP_STATS, "fused_prefill")
         out, _, _ = paged_prefill_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), kp[:-1],
-            vp[:-1], block_tables, pos0, chunk_len, window=window)
+            vp[:-1], block_tables, pos0, chunk_len, window=window,
+            split_heads=split)
         return out, cache
     paged_write(kp, k, block_tables, pos0, chunk_len)
     paged_write(vp, v, block_tables, pos0, chunk_len)
     out = paged_decode_attention(q[:, 0].contiguous(), kp[:-1], vp[:-1],
-                                 block_tables, pos0 + 1, window=window)
+                                 block_tables, pos0 + 1, window=window,
+                                 split_heads=split)
     return out[:, None], cache
 
 
-def attn_output(p, ctx):
+def attn_output(p, ctx, shard=None):
+    """The per-head context through ``wo``; under ``shard.heads`` ``ctx``
+    holds this shard's heads and is all-gathered (in head order, the
+    unsharded context) before the replicated ``wo``."""
+    if shard is not None and shard.heads:
+        ctx = shard.all_gather(ctx, 2)
     B, S, h, hd = ctx.shape
     out = ctx.reshape(B, S, h * hd) @ p["wo"].reshape(h * hd, -1)
     if "bo" in p:
@@ -386,7 +405,8 @@ def init_mla(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
 
 
 def mla_forward(p, x, cfg: ModelConfig, *, positions, cache=None, pos0=None,
-                block_tables=None, chunk_len=None, train: bool = False):
+                block_tables=None, chunk_len=None, train: bool = False,
+                shard=None):
     """MLA over a compressed cache: per token one ``kv_lora_rank`` latent
     (``ckv``) plus one shared rope key (``krope``), no head axis.  Returns
     (out (B, Sq, D), cache): unlike ``attn_forward`` the output is already
@@ -405,7 +425,10 @@ def mla_forward(p, x, cfg: ModelConfig, *, positions, cache=None, pos0=None,
     with ``cfg.mla_absorb`` and at most 4 rows, in latent space.  No-cache
     calls launch no kernel, so ``train`` (the training forward, threaded
     down from ``model_forward`` as for the other mixers) changes
-    nothing here."""
+    nothing here.  ``shard`` (``shard.mla_heads``): the query and latent
+    up-projections hold this shard's heads while the latent pools
+    replicate (every shard writes the same rows); the per-head context
+    is all-gathered before ``wo``."""
     c = cfg.mla
     B, Sq, _ = x.shape
     nope, rope_hd = c.qk_nope_head_dim, c.qk_rope_head_dim
@@ -439,15 +462,16 @@ def mla_forward(p, x, cfg: ModelConfig, *, positions, cache=None, pos0=None,
             # rows into the pages and attends over the paged latent history
             # in one launch (the engine's CoW barrier made every written
             # page exclusive).  The write-off page is left out.
-            OP_STATS["fused_prefill"] += 1
+            bump(OP_STATS, "fused_prefill")
             q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, p["w_uk"])
             ctx_lat, _, _ = mla_paged_prefill_attention(
                 q_lat.contiguous(), q_rope.contiguous(), ckv.contiguous(),
                 krope.contiguous(), cp[:-1], rp[:-1], block_tables, pos0,
-                chunk_len, scale=scale)
+                chunk_len, scale=scale,
+                split_heads=None if shard is None else cfg.n_heads)
             ctx = torch.einsum("bqhr,rhv->bqhv", ctx_lat.to(x.dtype),
                                p["w_uv"])
-            return torch.einsum("bshk,hkd->bsd", ctx, p["wo"]), cache
+            return _mla_out(p, ctx, shard), cache
         paged_write(cp, ckv, block_tables, pos0, chunk_len)
         paged_write(rp, krope, block_tables, pos0, chunk_len)
         ckv_all = paged_gather(cp, block_tables).to(x.dtype)
@@ -467,7 +491,7 @@ def mla_forward(p, x, cfg: ModelConfig, *, positions, cache=None, pos0=None,
                               dim=-1).to(x.dtype)
         ctx_lat = torch.einsum("bhqk,bkr->bqhr", probs, ckv_all)
         ctx = torch.einsum("bqhr,rhv->bqhv", ctx_lat, p["w_uv"])
-        return torch.einsum("bshk,hkd->bsd", ctx, p["wo"]), cache
+        return _mla_out(p, ctx, shard), cache
     # naive: per-head keys and values expanded from every latent
     k_nope = torch.einsum("bsr,rhk->bshk", ckv_all, p["w_uk"])
     v = torch.einsum("bsr,rhk->bshk", ckv_all, p["w_uv"])
@@ -477,4 +501,12 @@ def mla_forward(p, x, cfg: ModelConfig, *, positions, cache=None, pos0=None,
     probs = torch.softmax(torch.where(mask, logits, NEG_INF),
                           dim=-1).to(x.dtype)
     ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"]), cache
+    return _mla_out(p, ctx, shard), cache
+
+
+def _mla_out(p, ctx, shard):
+    """MLA's per-head context through ``wo``, gathered over the shards
+    first under ``shard.mla_heads``."""
+    if shard is not None and shard.mla_heads:
+        ctx = shard.all_gather(ctx, 2)
+    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"])

@@ -68,7 +68,12 @@ def init_mlp(gen, d_model: int, d_ff: int, act: str = "swiglu",
     return p
 
 
-def apply_mlp(p, x, act: str = "swiglu"):
+def apply_mlp(p, x, act: str = "swiglu", shard=None):
+    """``shard``: a mesh shard's ``ShardCtx`` (``distributed/sharding``).
+    Under ``shard.mlp`` ``w_gate`` / ``w_up`` / ``b_up`` hold this shard's
+    columns of d_ff, and the hidden activation is all-gathered (a
+    concatenation: each column's value is the unsharded one) before the
+    replicated ``w_down``."""
     up = x @ p["w_up"]
     if "b_up" in p:
         up = up + p["b_up"]
@@ -76,6 +81,8 @@ def apply_mlp(p, x, act: str = "swiglu"):
         h = F.silu(x @ p["w_gate"]) * up
     else:
         h = F.gelu(up, approximate="tanh")    # jax.nn.gelu's default
+    if shard is not None and shard.mlp:
+        h = shard.all_gather(h, h.dim() - 1)
     out = h @ p["w_down"]
     if "b_down" in p:
         out = out + p["b_down"]

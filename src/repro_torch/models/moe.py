@@ -28,6 +28,16 @@ expert runs over every token and the outputs are combined by the top-k
 weights scattered into an (T, E) matrix (zero for an expert a token did
 not pick).  Nothing is dropped, so it equals a dropless dispatch.
 
+Expert parallel (``shard=``, a mesh shard's ``ShardCtx`` under
+``shard.experts``): the weights hold this shard's ``E / n`` experts, the
+router is replicated, and each shard runs only its experts' kept units.
+The reference then ``psum``s each token's sum of its local units, which
+is exact only for top-k <= 2 (a sum of k values, some of them zero, in
+another grouping).  Here the shards sum the (T, k, D) slot buffer
+instead, in which exactly one shard wrote each slot and the others hold
+zeros (x + 0 == x), and the k slots are then added in slot order as
+without a mesh: exact for any k (deepseek-v2 is top-6).
+
 ``jax.lax.top_k`` and ``torch.topk`` may order exactly tied probabilities
 differently.  With fp32 router probabilities from real activations exact
 ties do not arise, so no tie-break is added that the reference lacks.
@@ -93,14 +103,18 @@ def _dense(p, xt, probs, topv, topi):
 
 
 def moe_forward(p, x, cfg: ModelConfig, mode: str = "dispatch",
-                capacity_factor=None):
+                capacity_factor=None, shard=None):
     """Returns (out (B, S, D), aux) with aux ``{"aux_loss",
     "expert_density"}``.  ``mode`` is ``"dispatch"`` (capacity-based,
     the engine's) or ``"dense"`` (every expert on every token, no drops;
     ``capacity_factor`` unused).  ``capacity_factor`` None means 2.0 (the
-    reference's training default); any value >= E / k is dropless."""
+    reference's training default); any value >= E / k is dropless.
+    ``shard``: expert parallel over a mesh (the module docstring; the
+    dispatch mode only)."""
     if mode not in ("dispatch", "dense"):
         raise ValueError(f"moe_forward: unknown mode {mode!r}")
+    if shard is not None and shard.experts and mode != "dispatch":
+        raise ValueError("moe_forward: expert parallel is dispatch-only")
     m = cfg.moe
     B, S, D = x.shape
     xt = x.reshape(-1, D)
@@ -109,7 +123,7 @@ def moe_forward(p, x, cfg: ModelConfig, mode: str = "dispatch",
     if mode == "dense":
         out = _dense(p, xt, probs, topv, topi)
     else:
-        out = _dispatch(p, xt, topv, topi, m, capacity_factor)
+        out = _dispatch(p, xt, topv, topi, m, capacity_factor, shard)
 
     if m.n_shared:
         sh = F.silu(xt @ p["shared_gate"]) * (xt @ p["shared_up"])
@@ -122,9 +136,10 @@ def moe_forward(p, x, cfg: ModelConfig, mode: str = "dispatch",
                                   "expert_density": density}
 
 
-def _dispatch(p, xt, topv, topi, m, capacity_factor):
+def _dispatch(p, xt, topv, topi, m, capacity_factor, shard=None):
     """Each expert's SwiGLU over its kept units, combined in slot order
-    (the module docstring)."""
+    (the module docstring); under ``shard.experts`` only this shard's
+    experts, their slots summed over the shards first."""
     cf = 2.0 if capacity_factor is None else capacity_factor
     T, D = xt.shape
     E, k = m.n_experts, m.top_k
@@ -141,15 +156,22 @@ def _dispatch(p, xt, topv, topi, m, capacity_factor):
     # where indexing each expert would add a zero-filled gradient of all E
     w_gate, w_up, w_down = (p[w].unbind(0)
                             for w in ("w_gate", "w_up", "w_down"))
-    start = 0
-    for e, n in enumerate(counts):
+    parallel = shard is not None and shard.experts
+    # this shard's experts: [e0, e0 + len(w_gate)) of E
+    e0 = shard.index * len(w_gate) if parallel else 0
+    start = sum(counts[:e0])
+    for e in range(e0, e0 + len(w_gate)):
+        n = counts[e]
         if n:
             idx = order[start:start + min(n, C)]
             h = xt[t_u[idx]]
-            unit_out[idx] = (F.silu(h @ w_gate[e]) * (h @ w_up[e])) @ w_down[e]
+            unit_out[idx] = (F.silu(h @ w_gate[e - e0])
+                             * (h @ w_up[e - e0])) @ w_down[e - e0]
         start += n
     unit_out = unit_out * topv.reshape(-1).to(xt.dtype)[:, None]
     per_slot = unit_out.reshape(T, k, D)
+    if parallel:
+        per_slot = shard.psum(per_slot)       # one contributor per slot
     out = per_slot[:, 0]
     for j in range(1, k):                    # the reference's slot order
         out = out + per_slot[:, j]

@@ -25,6 +25,13 @@ the reference's plain branches (``sdpa`` / ``sdpa_chunked``, the SSM's
 ``cfg.remat`` each layer of a segment of several layers then runs under
 ``torch.utils.checkpoint`` (its activations recomputed in the backward),
 as the reference wraps its scan body in ``jax.checkpoint``.
+
+``model_forward(shard=...)`` is one shard's call of a mesh-sharded engine
+(``distributed/sharding.py``): attention heads, MoE experts and the dense
+FFN's hidden columns run shard-local and are combined by all-gathers and
+single-contributor sums; ``cross_attn`` blocks replicate whole (no shard
+reaches them, as in the reference), zamba2's ``shared_attn`` shards like
+``attn``, and SSM blocks compute replicated.
 """
 from __future__ import annotations
 
@@ -82,7 +89,8 @@ def init_block(gen, kind: str, cfg: ModelConfig, dtype=torch.float32,
 
 def block_forward(p, kind: str, cfg: ModelConfig, x, *, positions,
                   cache=None, pos0=None, block_tables=None, chunk_len=None,
-                  verify=False, moe_cf=None, enc_kv=None, train=False):
+                  verify=False, moe_cf=None, enc_kv=None, train=False,
+                  shard=None):
     """One block: pre-norm attention (GQA or MLA) then a pre-norm dense MLP
     or MoE FFN, or a pre-norm Mamba2 mixer.  Returns (x, aux): aux is the
     MoE layer's load-balance ``aux_loss``, None for any other block.  A
@@ -96,7 +104,10 @@ def block_forward(p, kind: str, cfg: ModelConfig, x, *, positions,
     prefill chunk, and stores its new lane rows into ``cache`` in place; a
     lane with ``chunk_len`` 0 keeps its rows (a padded prefill lane by
     construction, a frozen decode lane by ``where``).  ``train``: the
-    training forward (the module docstring)."""
+    training forward; ``shard``: a mesh shard's context (the module
+    docstring)."""
+    if kind == "cross_attn":
+        shard = None            # the whole block replicates
     h = apply_norm(p["norm1"], x, cfg.norm)
     if kind == "ssm":
         if cache is not None and x.shape[1] == 1:
@@ -114,13 +125,14 @@ def block_forward(p, kind: str, cfg: ModelConfig, x, *, positions,
     if kind in MLA_KINDS:
         y, _ = mla_forward(p["attn"], h, cfg, positions=positions,
                            cache=cache, pos0=pos0, block_tables=block_tables,
-                           chunk_len=chunk_len, train=train)
+                           chunk_len=chunk_len, train=train, shard=shard)
     else:
         ctx, _ = attn_forward(p["attn"], h, cfg, positions=positions,
                               cache=cache, pos0=pos0,
                               block_tables=block_tables,
-                              chunk_len=chunk_len, verify=verify, train=train)
-        y = attn_output(p["attn"], ctx)
+                              chunk_len=chunk_len, verify=verify, train=train,
+                              shard=shard)
+        y = attn_output(p["attn"], ctx, shard)
     x = x + y.to(x.dtype)
     if kind == "cross_attn":
         hx = apply_norm(p["norm_x"], x, cfg.norm)
@@ -129,10 +141,11 @@ def block_forward(p, kind: str, cfg: ModelConfig, x, *, positions,
     h2 = apply_norm(p["norm2"], x, cfg.norm)
     aux = None
     if kind in MOE_KINDS:
-        y2, moe_aux = moe_forward(p["moe"], h2, cfg, capacity_factor=moe_cf)
+        y2, moe_aux = moe_forward(p["moe"], h2, cfg, capacity_factor=moe_cf,
+                                  shard=shard)
         aux = moe_aux["aux_loss"]
     else:
-        y2 = apply_mlp(p["mlp"], h2, cfg.act)
+        y2 = apply_mlp(p["mlp"], h2, cfg.act, shard)
     return x + y2.to(x.dtype), aux
 
 
@@ -299,7 +312,7 @@ def _layer_forward(p, kind: str, cfg: ModelConfig, x, enc_states, **kw):
 
 def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
                   block_tables=None, chunk_len=None, verify=False,
-                  moe_cf=None, enc_states=None, train=False):
+                  moe_cf=None, enc_states=None, train=False, shard=None):
     """Returns (hidden (B, S, D), cache, aux): aux is the sum of every MoE
     layer's load-balance ``aux_loss`` (a float32 scalar, 0 without MoE).
 
@@ -323,7 +336,9 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
     ``verify=True`` marks the chunk as a speculative-decoding verify
     window, which the GQA layers send to the verify kernel.  ``moe_cf`` is
     the MoE capacity factor (None: the reference's default 2.0; the
-    engine passes the dropless E / k)."""
+    engine passes the dropless E / k).  ``shard``: one shard's call of a
+    mesh-sharded engine, whose ``params`` and ``cache`` are that shard's
+    (the module docstring)."""
     _check_ported(cfg)
     x = embed(params["embed"], tokens) if not tokens.is_floating_point() \
         else tokens
@@ -357,7 +372,8 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
             args = (p, kind, cfg, x, enc_states)
             kw = dict(positions=positions, cache=c, pos0=pos0,
                       block_tables=block_tables, chunk_len=chunk_len,
-                      verify=verify, moe_cf=moe_cf, train=train)
+                      verify=verify, moe_cf=moe_cf, train=train,
+                      shard=shard)
             if remat:
                 x, aux = checkpoint(_layer_forward, *args, use_reentrant=False,
                                     **kw)

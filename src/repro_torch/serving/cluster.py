@@ -26,8 +26,11 @@ This module is ``repro/serving/cluster.py`` with its imports rewritten.
 What differs is ``build``: every replica's engine runs on the one
 ``device`` it is given (on one card all replicas share it, and share the
 same parameter tensors), its KV pools in ``dtype`` (float32 or
-bfloat16); mesh-sharded replicas (``mesh``, ``devices_per_replica``) are
-not ported and raise.
+bfloat16).  Mesh-sharded replicas run as in the reference: ``mesh``
+puts every replica's engine over one mesh (sharing one cut of the
+parameters), ``devices_per_replica=k`` carves the ``devices`` list, the
+port's counterpart of ``jax.devices()`` (every visible CUDA device
+unless given), into contiguous k-device meshes.
 """
 from __future__ import annotations
 
@@ -42,6 +45,10 @@ from repro_torch.core.request import Request
 from repro_torch.core.router import RoutingPolicy
 from repro_torch.core.scheduler import SchedulerConfig, SLOsServeScheduler
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (ServingMesh,
+                                              make_serving_mesh,
+                                              serving_shard_plan,
+                                              shard_params)
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.serving.frontend import ReplicaDriver
@@ -152,6 +159,7 @@ class ClusterFrontend:
               host_spill_pages: int = None, h2d_gbps: float = None,
               telemetry=None, mesh=None,
               devices_per_replica: int = None,
+              shard_axes: str = "model", devices=None,
               device=None) -> "ClusterFrontend":
         """Carve ``total_pages`` (one shared budget) into per-replica paged
         KV pools and stand up N real engines over shared ``params``.
@@ -174,13 +182,44 @@ class ClusterFrontend:
         it and are shared, not copied.  ``token_level_prefix`` goes to
         every replica's ``EngineConfig``, and so does ``dtype``, the KV
         pools' dtype (float32 or bfloat16; ``ServingEngine`` refuses any
-        other, and bf16 for an SSM model).  ``mesh`` and
-        ``devices_per_replica`` (mesh-sharded replicas) are not ported and
-        raise."""
-        if mesh is not None or devices_per_replica is not None:
-            raise NotImplementedError(
-                "mesh-sharded replicas are not yet ported")
-        device = resolve_device(device)
+        other, and bf16 for an SSM model).
+
+        Mesh-sharded replicas: ``mesh`` (a ``ServingMesh``) runs EVERY
+        replica's engine over that one mesh, on one cut of ``params``;
+        ``devices_per_replica=k`` instead carves ``devices`` (default:
+        every visible CUDA device; ``["cpu"] * 4`` on the CPU) into
+        contiguous k-device slices and gives replica i slice ``i % n``,
+        its own mesh over ``shard_axes``, the params cut once per slice.
+        Autoscaler-grown replicas reuse the slices round-robin.  Either
+        way ``device`` is unused, and ``params`` may live anywhere."""
+        meshes = None
+        if devices_per_replica is not None:
+            if devices is None:
+                devices = make_serving_mesh().devices
+            devs = list(devices)
+            n_slices = max(1, len(devs) // devices_per_replica)
+            meshes = [make_serving_mesh(
+                devs[j * devices_per_replica:(j + 1) * devices_per_replica],
+                axis=shard_axes) for j in range(n_slices)]
+        elif mesh is not None:
+            if not isinstance(mesh, ServingMesh):
+                raise TypeError("build: mesh must be a ServingMesh "
+                                "(distributed.sharding.make_serving_mesh)")
+            meshes = [mesh]
+        cuts = {}
+
+        def replica_params(rep_mesh):
+            """The params cut once per mesh, shared by its replicas."""
+            if rep_mesh is None:
+                return params
+            if id(rep_mesh) not in cuts:
+                plan = serving_shard_plan(model_cfg, rep_mesh, shard_axes,
+                                          max_seqs=max_slots)
+                cuts[id(rep_mesh)] = shard_params(params, model_cfg,
+                                                  rep_mesh, plan)
+            return cuts[id(rep_mesh)]
+        if meshes is None:
+            device = resolve_device(device)
         budget = SharedPageBudget(total_pages)
         if replica_pages is None:
             replica_pages = max(1, total_pages // n_replicas)
@@ -193,6 +232,7 @@ class ClusterFrontend:
             """Spawn replica ``i`` — also the autoscaler's grow path, so
             added replicas are configured exactly like the initial pool
             (same shared budget, params, and scheduler config)."""
+            rep_mesh = None if meshes is None else meshes[i % len(meshes)]
             # host-spill knobs default to the EngineConfig env-driven
             # defaults (REPRO_HOST_SPILL / REPRO_HOST_SPILL_PAGES) unless
             # set explicitly here
@@ -202,14 +242,16 @@ class ClusterFrontend:
             if h2d_gbps is not None:
                 spill_kw["h2d_gbps"] = h2d_gbps
             eng = ServingEngine(
-                model_cfg, params,
+                model_cfg, replica_params(rep_mesh),
                 EngineConfig(max_slots=max_slots, max_len=max_len,
                              page_size=page_size, total_pages=replica_pages,
                              dtype=dtype, seed=seed + i,
                              share_prefix=share_prefix,
                              token_level_prefix=token_level_prefix,
+                             mesh=rep_mesh, shard_axes=shard_axes,
                              **spill_kw),
-                draft=draft, kv_budget=budget, device=device)
+                draft=draft, kv_budget=budget,
+                device=device if rep_mesh is None else None)
             kw = dict(page_size=page_size, prefill_emits_first_token=True)
             if spec_alpha is not None:
                 # only override when armed: passing None would defeat the

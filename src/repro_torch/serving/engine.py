@@ -69,9 +69,27 @@ explicitly wins.  ``prefix_aware_admission`` (default off) lets the
 frontend shave a request's up-front page reservation by its probed
 cached-prefix hit.
 
-Not ported yet: mesh-sharded serving (``EngineConfig.mesh``) and
-speculative decoding over an SSM model (rollback by truncation cannot
-roll back lane state); asking for either raises
+Mesh-sharded serving (``EngineConfig.mesh``, a
+``distributed.sharding.ServingMesh``): the engine cuts its parameters
+per the serving shard plan once (head-sharded GQA, column-sharded dense
+FFN, expert-parallel MoE, head-sharded MLA over replicated latent pools;
+``ShardedParams`` lets several engines share one cut) and places its KV
+pools (``PagedKVManager.place``).  Its host work (admission, the
+allocator, block tables, batch preparation) runs once; each device
+program (``_prefill_forward``, ``_verify_forward``, ``_decode_loop``)
+runs once per shard, on the shard's worker thread, with
+``model_forward(shard=...)``, and every shard samples with a generator
+of its own seeded with ``ecfg.seed``.  The engine reads shard 0's
+tokens and raises if any shard's differ: a shard that fed another next
+token would corrupt its own KV unseen.  Counters count device calls, as
+without a mesh; ``prefill_fused_ops`` and ``verify_fused_ops`` count
+every shard's launches.  A model with ``cross_attn`` layers cannot serve
+over a mesh that splits heads (its pools would split while the blocks
+replicate; the reference fails there too) and raises
+``NotImplementedError``.
+
+Not ported yet: speculative decoding over an SSM model (rollback by
+truncation cannot roll back lane state); asking for it raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -87,6 +105,9 @@ import torch
 from repro_torch.core.batch import Batch
 from repro_torch.core.slo import StageKind
 from repro_torch.device import generator, resolve_device
+from repro_torch.distributed.sharding import (ServingMesh, ShardedParams,
+                                              ShardWorkers, serving_shard_plan,
+                                              shard_params)
 from repro_torch.kernels.paged_attention import PAGE_DTYPES
 from repro_torch.models import attention as _attn
 from repro_torch.models.config import ModelConfig
@@ -148,7 +169,11 @@ class EngineConfig:
     h2d_gbps: float = 16.0
     # dtype of the KV page pools (and SSM lane rows): float32 or bfloat16
     dtype: torch.dtype = torch.float32
-    mesh: object = None               # not None raises: not yet ported
+    # mesh-sharded serving: a distributed.sharding.ServingMesh runs each
+    # device program once per shard over ``shard_axes`` (what shards is
+    # divisibility-gated per model: serving_shard_plan); None = one device
+    mesh: object = None
+    shard_axes: str = "model"
 
 
 def check_kv_dtype(cfg: ModelConfig, dtype) -> None:
@@ -194,9 +219,19 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig = None,
                  draft: Optional[tuple] = None, kv_budget=None, device=None):
         self.ecfg = ecfg or EngineConfig()
-        if self.ecfg.mesh is not None:
-            raise NotImplementedError("mesh-sharded serving is not yet ported")
         check_kv_dtype(cfg, self.ecfg.dtype)
+        self.mesh = self.ecfg.mesh
+        self._plan = None
+        if self.mesh is not None:
+            if not isinstance(self.mesh, ServingMesh):
+                raise TypeError("EngineConfig.mesh: need a ServingMesh "
+                                "(distributed.sharding.make_serving_mesh), "
+                                f"got {type(self.mesh).__name__}")
+            if device is not None and \
+                    resolve_device(device) != self.mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {self.mesh.devices[0]}")
+            device = self.mesh.devices[0]
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -214,6 +249,8 @@ class ServingEngine:
         self.reqs: dict[int, RequestCtx] = {}
         self.gen = generator(self.device, self.ecfg.seed)
         self._moe_cf = dropless_capacity_factor(cfg)
+        if self.mesh is not None:
+            self._shard(params)
         # the reference's keys, and the port's own decode_steps,
         # spec_draft_steps and spec_catch_up_calls (module docstring)
         self.counters = {"prefill_calls": 0, "decode_calls": 0,
@@ -244,6 +281,53 @@ class ServingEngine:
             from repro_torch.serving.spec_decode import SpecDecoder
             self.spec = SpecDecoder(self, draft[0], draft[1])
 
+    # ------------------------- mesh-sharded serving --------------------- #
+    def _shard(self, params) -> None:
+        """Cut the parameters and place the pools over ``self.mesh``, and
+        start one worker thread per shard."""
+        cfg, mesh = self.cfg, self.mesh
+        self._plan = serving_shard_plan(cfg, mesh, self.ecfg.shard_axes,
+                                        max_seqs=self.ecfg.max_slots)
+        if self._plan.heads and "cross_attn" in cfg.block_pattern:
+            raise NotImplementedError(
+                f"{cfg.name}: cross_attn layers replicate while a "
+                "head-sharded mesh splits their KV pools (the reference "
+                "fails on this too)")
+        if isinstance(params, ShardedParams):
+            if params.mesh != mesh or params.plan != self._plan:
+                raise ValueError("ShardedParams cut for another mesh or plan")
+            sharded = params
+            self.params = params.source
+        else:
+            sharded = shard_params(params, cfg, mesh, self._plan)
+        self.shard_params = sharded.trees
+        self.kv.place(mesh, self._plan)
+        self._gens = [generator(d, self.ecfg.seed) for d in mesh.devices]
+        self.gen = self._gens[0]
+        self._workers = ShardWorkers(mesh, self._plan)
+
+    def _program(self, body, cache, *args):
+        """Run a device program: ``body(params, gen, shard, cache, *args)``
+        once, or under a mesh once per shard on its worker thread with its
+        parameters, generator, ``ShardCtx`` and cache (``kv.lane_cache``
+        gives one per shard) and tensor arguments copied to its device.
+        Returns shard 0's tokens after checking that every shard's are
+        equal."""
+        if self.mesh is None:
+            return body(self.params, self.gen, None, cache, *args)
+        devs = self.mesh.devices
+
+        def one(i, ctx):
+            return body(self.shard_params[i], self._gens[i], ctx, cache[i],
+                        *[a.to(devs[i]) if isinstance(a, torch.Tensor) else a
+                          for a in args])
+        outs = self._workers.run(one)
+        for i, o in enumerate(outs[1:], 1):
+            if not torch.equal(outs[0], o.to(outs[0].device)):
+                raise RuntimeError(f"mesh shard {i} emitted other tokens "
+                                   "than shard 0")
+        return outs[0]
+
     # ------------------------- device programs -------------------------- #
     def _prefill_forward(self, cache, tokens, pos0, true_len, bt,
                          sample_rows, enc_states=None):
@@ -252,18 +336,24 @@ class ServingEngine:
         sampled.  Only that hidden row per lane goes through the unembed,
         so the logits never grow with the chunk.  ``sample_rows`` lists the
         lanes whose sample is kept; only they draw random numbers."""
-        h, _, _ = model_forward(self.params, self.cfg, tokens, cache=cache,
-                             pos0=pos0, block_tables=bt, chunk_len=true_len,
-                             moe_cf=self._moe_cf, enc_states=enc_states)
+        return self._program(self._prefill_body, cache, tokens, pos0,
+                             true_len, bt, sample_rows, enc_states)
+
+    def _prefill_body(self, params, gen, shard, cache, tokens, pos0,
+                      true_len, bt, sample_rows, enc_states):
+        h, _, _ = model_forward(params, self.cfg, tokens, cache=cache,
+                                pos0=pos0, block_tables=bt,
+                                chunk_len=true_len, moe_cf=self._moe_cf,
+                                enc_states=enc_states, shard=shard)
         idx = (true_len.long() - 1).clamp(min=0)
         last = h[torch.arange(h.shape[0], device=h.device), idx]   # (B, D)
         if self.ecfg.temperature <= 0.0:
-            return sample(logits_fn(self.params, self.cfg, last))
+            return sample(logits_fn(params, self.cfg, last))
         toks = torch.zeros(h.shape[0], dtype=torch.int32, device=h.device)
         if sample_rows:
             rows = torch.as_tensor(sample_rows, device=h.device)
-            lg = logits_fn(self.params, self.cfg, last[rows])
-            toks[rows] = sample(lg, self.gen, self.ecfg.temperature)
+            lg = logits_fn(params, self.cfg, last[rows])
+            toks[rows] = sample(lg, gen, self.ecfg.temperature)
         return toks
 
     def _verify_forward(self, cache, tokens, pos0, true_len, bt,
@@ -271,11 +361,17 @@ class ServingEngine:
         """Spec-decode verify: one pass over [last, drafts...] through the
         verify kernel; the greedy target token at every row, on the
         device (the caller reads it once)."""
-        h, _, _ = model_forward(self.params, self.cfg, tokens, cache=cache,
-                             pos0=pos0, block_tables=bt, chunk_len=true_len,
-                             verify=True, moe_cf=self._moe_cf,
-                             enc_states=enc_states)
-        return torch.argmax(logits_fn(self.params, self.cfg, h[0]),
+        return self._program(self._verify_body, cache, tokens, pos0,
+                             true_len, bt, enc_states)
+
+    def _verify_body(self, params, gen, shard, cache, tokens, pos0,
+                     true_len, bt, enc_states):
+        h, _, _ = model_forward(params, self.cfg, tokens, cache=cache,
+                                pos0=pos0, block_tables=bt,
+                                chunk_len=true_len, verify=True,
+                                moe_cf=self._moe_cf, enc_states=enc_states,
+                                shard=shard)
+        return torch.argmax(logits_fn(params, self.cfg, h[0]),
                             dim=-1).to(torch.int32)
 
     def _decode_loop(self, cache, tokens0, pos0, steps, eos, bt,
@@ -290,6 +386,11 @@ class ServingEngine:
         ``_decode_scan`` does for every lane-row leaf.  ``enc_states`` go to
         every step: the cross-attention layers project them again in each
         step, as the reference's scan does."""
+        return self._program(self._decode_body, cache, tokens0, pos0, steps,
+                             eos, bt, n_steps, enc_states)
+
+    def _decode_body(self, params, gen, shard, cache, tokens0, pos0, steps,
+                     eos, bt, n_steps, enc_states):
         B = tokens0.shape[0]
         dev = tokens0.device
         tok, pos = tokens0, pos0
@@ -297,12 +398,13 @@ class ServingEngine:
         emitted = torch.empty((B, n_steps), dtype=torch.int32, device=dev)
         for i in range(n_steps):
             active = (~done) & (steps > i)
-            h, _, _ = model_forward(self.params, self.cfg, tok[:, None],
-                                 cache=cache, pos0=pos, block_tables=bt,
-                                 chunk_len=active.to(torch.int32),
-                                 moe_cf=self._moe_cf, enc_states=enc_states)
-            logits = logits_fn(self.params, self.cfg, h[:, -1])
-            nxt = sample(logits, self.gen, self.ecfg.temperature)
+            h, _, _ = model_forward(params, self.cfg, tok[:, None],
+                                    cache=cache, pos0=pos, block_tables=bt,
+                                    chunk_len=active.to(torch.int32),
+                                    moe_cf=self._moe_cf,
+                                    enc_states=enc_states, shard=shard)
+            logits = logits_fn(params, self.cfg, h[:, -1])
+            nxt = sample(logits, gen, self.ecfg.temperature)
             emitted[:, i] = torch.where(active, nxt, -1)
             tok = torch.where(active, nxt, tok)
             pos = pos + active.to(pos.dtype)

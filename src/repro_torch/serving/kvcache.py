@@ -36,7 +36,17 @@ published pages); see the reference module's docstring.  What differs:
   every later kernel on that stream reads the prefetched bytes (the
   reference gets that order from a data dependency).  Host reads of
   spilled bytes (the flush's stacking, ``export_chain``) wait for the
-  spills' copies first.  Mesh placement (``place``) is not ported.
+  spills' copies first.
+* Mesh placement (``place``, ``distributed/sharding.py``): one host-side
+  allocator drives per-shard pools (``shard_pools[i]`` on the mesh's
+  device i).  GQA pools split on the KV-head axis, MLA latent pools and
+  block tables replicate, and SSM ``conv`` / ``state`` rows split on the
+  slot axis at rest: ``lane_cache`` gathers a call's lanes' rows from
+  their owners into a replicated copy per shard, and ``absorb`` gives
+  each owner its rows back from its own shard's result.  A host-tier
+  entry holds the whole page, concatenated over the shards, so
+  ``export_chain`` and ``install_host_chain`` do not depend on the mesh.
+  Without a mesh there is one shard and ``pools`` is its tree.
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import serving_cache_specs, shard_tree
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import MLA_KINDS, init_paged_cache
 
@@ -195,8 +206,14 @@ class PagedKVManager(PageAllocator):
         self.max_seqs = max_seqs
         self.max_len = max_len
         self.max_pages_per_seq = max(1, math.ceil(max_len / page_size))
-        self.pools = init_paged_cache(cfg, total_pages, page_size, max_seqs,
-                                      dtype, self.device)
+        # one pool tree per shard (one without a mesh: ``place``)
+        self.shard_pools = [init_paged_cache(cfg, total_pages, page_size,
+                                             max_seqs, dtype, self.device)]
+        self.devices = (self.device,)
+        self.mesh = None
+        self.plan = None
+        self._specs = None             # per pool leaf: shard axis or None
+        self._lanes_per_shard = None   # SSM slots per shard when split
         self.block_tables = np.zeros((max_seqs, self.max_pages_per_seq),
                                      np.int32)
         self.seq_len = np.zeros((max_seqs,), np.int64)
@@ -241,6 +258,59 @@ class PagedKVManager(PageAllocator):
         self.partial_head_copies = 0
         self.partial_hit_tokens = 0
         self._partial_pending = 0
+
+    # ----------------------- mesh placement ----------------------------- #
+    @property
+    def pools(self):
+        """The page pools and lane rows (one shard's tree; without a mesh
+        the only one)."""
+        if len(self.shard_pools) != 1:
+            raise RuntimeError("the pools of a placed manager are per shard: "
+                               "read shard_pools")
+        return self.shard_pools[0]
+
+    @pools.setter
+    def pools(self, value) -> None:
+        if self.mesh is not None:
+            raise RuntimeError("the pools of a placed manager are per shard")
+        self.shard_pools = [value]
+
+    def place(self, mesh, plan) -> None:
+        """Shard the at-rest device state over a serving mesh: attention
+        page pools split on the KV-head axis, SSM lane rows on the slot
+        axis, MLA latent pools replicated (``serving_cache_specs``), each
+        shard's on its device; block tables stay on the host and go to
+        every shard.  Logical accounting (free lists, refcounts, prefix
+        index, host tier) is host-side and unchanged: one allocator
+        drives every shard."""
+        if self.mesh is not None:
+            raise RuntimeError("place: the manager is placed already")
+        self.flush_prefetch()
+        self._sync_d2h()
+        pools = self.shard_pools[0]
+        specs = serving_cache_specs(pools, self.cfg, plan, lane_view=False)
+        self.shard_pools = shard_tree(pools, specs, mesh, copy=True,
+                                      consume=True)
+        self._specs = specs
+        self.mesh, self.plan = mesh, plan
+        self.devices = tuple(mesh.devices)
+        self.device = self.devices[0]
+        self._lanes_per_shard = (self.max_seqs // mesh.size
+                                 if plan.ssm_lanes else None)
+
+    def _leaf_axis(self, seg: int, name: str) -> Optional[int]:
+        """The shard axis of pool leaf ``name`` of segment ``seg`` at rest,
+        None when it replicates (or without a mesh)."""
+        if self._specs is None:
+            return None
+        sp = self._specs[seg]
+        return sp["self"][name] if "self" in sp else sp[name]
+
+    def _lane_owner(self, s: int) -> tuple:
+        """(shard, row) holding slot ``s``'s lane rows when they split
+        over the shards; (None, s) when every shard holds every row."""
+        per = self._lanes_per_shard
+        return (None, s) if per is None else (s // per, s % per)
 
     # ------------------------ physical page ops ------------------------- #
     @property
@@ -333,11 +403,15 @@ class PagedKVManager(PageAllocator):
 
     def _zero_lane_rows(self, s: int) -> None:
         """Reset slot s's SSM lane rows to the zero state (a device
-        fill; no host sync)."""
-        for pool, ax in zip(self.pools, self.lane_select_axes()):
-            if ax >= 0:
-                for leaf in pool.values():
-                    leaf.select(ax, s).zero_()
+        fill; no host sync), on every shard that holds them."""
+        owner, row = self._lane_owner(s)
+        for i, pools in enumerate(self.shard_pools):
+            if owner is not None and i != owner:
+                continue
+            for pool, ax in zip(pools, self.lane_select_axes()):
+                if ax >= 0:
+                    for leaf in pool.values():
+                        leaf.select(ax, row).zero_()
 
     def admit(self, rid: int, expected_total: int, tokens=None) -> bool:
         """Admission = a sequence slot + pages for the expected context;
@@ -448,16 +522,17 @@ class PagedKVManager(PageAllocator):
         ``{"self": {leaf: tensor}}`` per paged segment (``()`` for
         unpaged ones).  On a card each leaf goes into a fresh pinned
         buffer by one asynchronous copy on the current stream: the host
-        may read the buffers only after ``_sync_d2h``."""
+        may read the buffers only after ``_sync_d2h``.  Under a mesh the
+        page is whole: a leaf split over the shards is concatenated on
+        the first shard's device first."""
         cuda = self.device.type == "cuda"
         out = []
-        for pool, ax in zip(self.pools, self._paged_axes()):
-            if ax is None:
+        for page in self.page_view(p):
+            if page is None:
                 out.append(())
                 continue
             leaves = {}
-            for name, leaf in pool["self"].items():
-                src = leaf.select(ax, p)
+            for name, src in page.items():
                 if cuda:
                     dst = torch.empty(src.shape, dtype=src.dtype,
                                       pin_memory=True)
@@ -469,6 +544,28 @@ class PagedKVManager(PageAllocator):
         if cuda:
             self._d2h_done = torch.cuda.Event()
             self._d2h_done.record(torch.cuda.current_stream(self.device))
+        return out
+
+    def page_view(self, p: int) -> list:
+        """Page ``p`` of every paged pool leaf, ``{leaf: tensor}`` per
+        segment (None for unpaged ones): views of the pools, or under a
+        mesh the whole page, a leaf split over the shards concatenated on
+        the first shard's device."""
+        out = []
+        for seg, (pool, ax) in enumerate(zip(self.shard_pools[0],
+                                             self._paged_axes())):
+            if ax is None:
+                out.append(None)
+                continue
+            page = {}
+            for name, leaf in pool["self"].items():
+                page[name] = leaf.select(ax, p)
+                kv_ax = self._leaf_axis(seg, name)
+                if kv_ax is not None:          # the page axis precedes it
+                    page[name] = torch.cat(
+                        [sp[seg]["self"][name].select(ax, p).to(self.device)
+                         for sp in self.shard_pools], dim=kv_ax - 1)
+            out.append(page)
         return out
 
     def _sync_d2h(self) -> None:
@@ -556,10 +653,11 @@ class PagedKVManager(PageAllocator):
         if cuda:                  # drop staging the stream has passed
             self._h2d_inflight = [x for x in self._h2d_inflight
                                   if not x[0].query()]
-        di = torch.as_tensor([q for q, _ in pend], dtype=torch.long,
-                             device=self.device)
+        di = {dev: torch.as_tensor([q for q, _ in pend], dtype=torch.long,
+                                   device=dev) for dev in set(self.devices)}
         staged = []
-        for i, (pool, ax) in enumerate(zip(self.pools, self._paged_axes())):
+        for i, (pool, ax) in enumerate(zip(self.shard_pools[0],
+                                           self._paged_axes())):
             if ax is None:
                 continue
             for name, leaf in pool["self"].items():
@@ -574,7 +672,7 @@ class PagedKVManager(PageAllocator):
                     vals = buf.to(self.device, non_blocking=True)
                 else:
                     vals = torch.stack(xs, dim=ax)
-                leaf.index_copy_(ax, di, vals)
+                self._write_pages(i, name, ax, di, vals)
         if cuda:
             # the staging buffers live until the stream passes the copies
             ev = torch.cuda.Event()
@@ -582,6 +680,20 @@ class PagedKVManager(PageAllocator):
             self._h2d_inflight.append((ev, staged))
         self.prefetch_flushes += 1
         return len(pend)
+
+    def _write_pages(self, seg: int, name: str, ax: int, di: dict,
+                     vals: torch.Tensor) -> None:
+        """Write whole pages ``vals`` (page axis ``ax``) at the pages
+        ``di[device]`` of leaf ``name`` of segment ``seg``, each shard its
+        slice of a split leaf."""
+        kv_ax = self._leaf_axis(seg, name)
+        n = len(self.shard_pools)
+        for i, (sp, dev) in enumerate(zip(self.shard_pools, self.devices)):
+            v = vals
+            if kv_ax is not None:
+                w = vals.shape[kv_ax] // n
+                v = vals.narrow(kv_ax, i * w, w)
+            sp[seg]["self"][name].index_copy_(ax, di[dev], v.to(dev))
 
     def prefetch_seconds(self, n_pages: int) -> float:
         """Modeled H2D latency of prefetching ``n_pages`` spilled pages:
@@ -932,13 +1044,14 @@ class PagedKVManager(PageAllocator):
         prefetches flush first: a source may be a prefetched page whose
         copy is still queued."""
         self.flush_prefetch()
-        si = torch.as_tensor(src, dtype=torch.long, device=self.device)
-        di = torch.as_tensor(dst, dtype=torch.long, device=self.device)
-        for pool, ax in zip(self.pools, self._paged_axes()):
-            if ax is None:
-                continue                       # lane rows: nothing paged
-            for leaf in pool["self"].values():
-                leaf.index_copy_(ax, di, leaf.index_select(ax, si))
+        for pools, dev in zip(self.shard_pools, self.devices):
+            si = torch.as_tensor(src, dtype=torch.long, device=dev)
+            di = torch.as_tensor(dst, dtype=torch.long, device=dev)
+            for pool, ax in zip(pools, self._paged_axes()):
+                if ax is None:
+                    continue                   # lane rows: nothing paged
+                for leaf in pool["self"].values():
+                    leaf.index_copy_(ax, di, leaf.index_select(ax, si))
 
     # ------------------------ device-facing views ----------------------- #
     def table_rows(self, slots) -> torch.Tensor:
@@ -958,22 +1071,85 @@ class PagedKVManager(PageAllocator):
         (global, addressed by block tables, updated in place); SSM lane
         rows are gathered to one row per batch lane (``slots`` may repeat
         a slot for padded lanes).  Pending prefetches flush first, so the
-        view never exposes a page whose copy is still queued."""
+        view never exposes a page whose copy is still queued.  Under a mesh
+        a list with one such cache per shard: its own pools, and every
+        lane's rows (gathered from their owners when they split over the
+        shards) in memory of its own, since each shard computes them."""
         self.flush_prefetch()
-        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
-        return [pool if ax < 0 else
-                {k: v.index_select(ax, idx) for k, v in pool.items()}
-                for pool, ax in zip(self.pools, self.lane_select_axes())]
+        if self.mesh is None:
+            idx = torch.as_tensor(slots, dtype=torch.long,
+                                  device=self.device)
+            return [pool if ax < 0 else
+                    {k: v.index_select(ax, idx) for k, v in pool.items()}
+                    for pool, ax in zip(self.pools, self.lane_select_axes())]
+        axes = self.lane_select_axes()
+        rows = [None if ax < 0 else {k: self._gather_lanes(seg, k, ax, slots)
+                                     for k in pool}
+                for seg, (pool, ax) in enumerate(zip(self.shard_pools[0],
+                                                     axes))]
+        return [[pool if ax < 0 else
+                 {k: v.to(dev, copy=True) for k, v in rows[seg].items()}
+                 for seg, (pool, ax) in enumerate(zip(pools, axes))]
+                for pools, dev in zip(self.shard_pools, self.devices)]
+
+    def _gather_lanes(self, seg: int, name: str, ax: int, slots):
+        """The lane rows of ``slots`` (lane axis ``ax``) of leaf ``name``
+        of segment ``seg`` on the first shard's device, each read from a
+        shard that holds it."""
+        if self._lanes_per_shard is None:
+            idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+            return self.shard_pools[0][seg][name].index_select(ax, idx)
+        owners: dict = {}
+        for b, s in enumerate(slots):
+            j, row = self._lane_owner(s)
+            owners.setdefault(j, ([], []))
+            owners[j][0].append(b)
+            owners[j][1].append(row)
+        leaf0 = self.shard_pools[0][seg][name]
+        shape = list(leaf0.shape)
+        shape[ax] = len(slots)
+        out = torch.empty(shape, dtype=leaf0.dtype, device=self.device)
+        for j, (lanes, local) in owners.items():
+            src = self.shard_pools[j][seg][name]
+            got = src.index_select(ax, torch.as_tensor(
+                local, dtype=torch.long, device=src.device))
+            out.index_copy_(ax, torch.as_tensor(lanes, dtype=torch.long,
+                                                device=self.device),
+                            got.to(self.device))
+        return out
 
     def absorb(self, slots, new_cache) -> None:
         """Store a model call's updated cache: page pools were updated in
         place; the first ``len(slots)`` lane rows scatter back to their
         slots (padded lanes after them alias ``slots[0]`` and are
-        dropped)."""
-        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
-        for pool, new, ax in zip(self.pools, new_cache,
-                                 self.lane_select_axes()):
-            if ax < 0:
+        dropped).  Under a mesh ``new_cache`` has one cache per shard, and
+        each shard takes the rows it holds from its own."""
+        axes = self.lane_select_axes()
+        if all(ax < 0 for ax in axes):
+            return
+        if self.mesh is None:
+            idx = torch.as_tensor(slots, dtype=torch.long,
+                                  device=self.device)
+            for pool, new, ax in zip(self.pools, new_cache, axes):
+                if ax >= 0:
+                    for k, leaf in pool.items():
+                        leaf.index_copy_(ax, idx,
+                                         new[k].narrow(ax, 0, len(slots)))
+            return
+        for i, (pools, new_i, dev) in enumerate(zip(
+                self.shard_pools, new_cache, self.devices)):
+            lanes, rows = [], []
+            for b, s in enumerate(slots):
+                j, row = self._lane_owner(s)
+                if j is None or j == i:
+                    lanes.append(b)
+                    rows.append(row)
+            if not lanes:
                 continue
-            for k, leaf in pool.items():
-                leaf.index_copy_(ax, idx, new[k].narrow(ax, 0, len(slots)))
+            src = torch.as_tensor(lanes, dtype=torch.long, device=dev)
+            idx = torch.as_tensor(rows, dtype=torch.long, device=dev)
+            for pool, new, ax in zip(pools, new_i, axes):
+                if ax < 0:
+                    continue
+                for k, leaf in pool.items():
+                    leaf.index_copy_(ax, idx, new[k].index_select(ax, src))

@@ -392,11 +392,18 @@ def test_placement_pass_and_affinity_to_placed_chain(sides):
 
 
 def test_build_options_not_ported_raise(sides):
+    """float16 pools are not ported and raise; the mesh options are
+    ported (``tests/test_torch_mesh_serving.py``): a mesh that is not a
+    ``ServingMesh`` is refused, and one-device slices of a ``devices``
+    list give each replica a one-shard mesh."""
     side = sides[1]
-    for over in (dict(mesh=object()), dict(devices_per_replica=1),
-                 dict(dtype=torch.float16)):
-        with pytest.raises(NotImplementedError):
-            side.cluster(**over)
+    with pytest.raises(NotImplementedError):
+        side.cluster(dtype=torch.float16)
+    with pytest.raises(TypeError):
+        side.cluster(mesh=object())
+    cl = side.cluster(devices_per_replica=1, devices=["cpu"] * 2)
+    assert [d.engine.mesh.devices for d in cl.drivers] == \
+        [(torch.device("cpu"),)] * len(cl.drivers)
 
 
 def test_replicas_share_the_parameter_tensors(sides):

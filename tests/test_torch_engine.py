@@ -147,11 +147,17 @@ def test_preempt_replay_is_bit_identical(reference):
 
 
 def test_unported_engine_options_raise(reference):
+    """Mesh-sharded serving is ported (``tests/test_torch_mesh_serving.py``):
+    a mesh must be a ``ServingMesh``, and a two-shard CPU mesh builds."""
+    from repro_torch.distributed.sharding import make_serving_mesh
     _, _, params, _, _ = reference
     cfg = get_reduced(ARCH)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         ServingEngine(cfg, params, EngineConfig(mesh=object(), **ECFG),
                       device="cpu")
+    eng = ServingEngine(cfg, params, EngineConfig(
+        mesh=make_serving_mesh(["cpu"] * 2), **ECFG))
+    assert eng.device == torch.device("cpu") and len(eng.kv.shard_pools) == 2
     # encoder conditioning is ported: the request is admitted with its
     # states and shares no prefix pages
     eng = _port(params)

@@ -62,3 +62,28 @@ def test_launcher_counts_match_jax(monkeypatch):
     for key in COUNTERS:
         assert eng.counters[key] == jfe.engine.counters[key], key
     assert fe.clock == pytest.approx(jfe.clock)
+
+
+def test_layers_option_cuts_depth_not_the_schedule():
+    """``--layers N`` serves the config's first N layers at its widths, and
+    the replay's counts do not move: the planner's virtual clock and the
+    page counts, not the depth, set the schedule."""
+    full = serve.parse_args(ARGV)
+    cut = serve.parse_args(ARGV + ["--layers", "1"])
+    fe_full, eng_full = serve.build(full)
+    fe_cut, eng_cut = serve.build(cut)
+    assert eng_full.cfg.n_layers > 1
+    assert eng_cut.cfg.n_layers == len(eng_cut.cfg.block_pattern) == 1
+    assert eng_cut.cfg.block_pattern == eng_full.cfg.block_pattern[:1]
+    for key in ("d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
+                "vocab"):
+        assert getattr(eng_cut.cfg, key) == getattr(eng_full.cfg, key), key
+    serve.replay(fe_full)
+    serve.replay(fe_cut)
+    for key in ("submitted", "served", "attained", "dropped", "tokens_out"):
+        assert getattr(fe_cut.stats, key) == getattr(fe_full.stats, key), key
+    for key in COUNTERS:
+        assert eng_cut.counters[key] == eng_full.counters[key], key
+    assert fe_cut.clock == pytest.approx(fe_full.clock)
+    with pytest.raises(ValueError):
+        serve.model_config(serve.parse_args(ARGV + ["--layers", "0"]))

@@ -103,10 +103,14 @@ def test_kv_budget_and_page_bytes():
 
 
 def test_unported_options_raise():
-    """Mesh placement is the one manager option still not ported: the
-    manager has no ``place`` and a cluster of mesh-sharded replicas
-    raises.  The host spill tier is ported: asking for it builds the tier
-    (off without prefix sharing, as in the reference)."""
+    """The manager options once unported are ported now.  The host
+    spill tier: asking for it builds the tier (off without prefix sharing,
+    as in the reference).  Mesh placement: ``place`` splits the GQA pools
+    on the KV-head axis, one tree per shard, and the pools of a placed
+    manager are read per shard; a cluster refuses a mesh that is not a
+    ``ServingMesh``."""
+    from repro_torch.distributed.sharding import (make_serving_mesh,
+                                                  serving_shard_plan)
     from repro_torch.serving.cluster import ClusterFrontend
     cfg = get_reduced("smollm-135m")
     kv = PagedKVManager(cfg, total_pages=8, host_spill_pages=4,
@@ -114,7 +118,14 @@ def test_unported_options_raise():
     assert kv.host_spill_pages == 4 and not kv.host_index
     assert PagedKVManager(cfg, total_pages=8, host_spill_pages=4,
                           device="cpu").host_spill_pages == 0
-    assert not hasattr(kv, "place")
-    with pytest.raises(NotImplementedError):
+    whole = kv.pools[0]["self"]["k_pages"].shape
+    mesh = make_serving_mesh(["cpu"] * 2)
+    kv.place(mesh, serving_shard_plan(cfg, mesh, max_seqs=kv.max_seqs))
+    for pools in kv.shard_pools:
+        got = pools[0]["self"]["k_pages"].shape
+        assert got[-2] * 2 == whole[-2] and got[:-2] == whole[:-2]
+    with pytest.raises(RuntimeError):
+        kv.pools
+    with pytest.raises(TypeError):
         ClusterFrontend.build(cfg, None, 2, None, mesh=object(),
                               device="cpu")
