@@ -281,6 +281,22 @@ script exits non-zero before the final line:
     on one step at 4 x 512, the load-balance loss is finite and above 0;
     then it fits one 4 x 512 batch (``MOE_TRAIN``: 10 steps at lr 3e-4),
     the loss falling by 5 nats.
+24. Meshes: ``mesh_kernel`` (right after the bf16 kernel phases) holds
+    B1-B4 at a mesh shard's heads against their plain versions;
+    ``mesh_replay`` (after training) serves each mesh case sharded and
+    unsharded (streams equal, launches shards x layers x counters);
+    ``train_mesh`` (before it, ``TRAIN_MESH``) trains qwen3-1.7b at its
+    published widths cut to 4 layers for 3 AdamW steps (8 x 512 of the
+    Markov stream, lr 1e-3, float32) unsharded and over a data 2 x model
+    2 mesh on four shards of the card (``launch.steps``'
+    ``sharded_train_step``): step 1's loss and every gathered gradient
+    leaf against the unsharded step's (the gate at ``MESH_GRAD_RTOL``),
+    later losses within 1e-4, parameters within 2 x 3 x lr, replicated
+    parts bit-equal across shards after each step, each shard's resting
+    bytes those its specs predict, each shard's collectives of a step
+    those ``launch/dryrun.py``'s one-shard run of the same shapes counts,
+    no kernel or plain version launched; it prints the step times, the
+    peak and the phase's seconds.
 
 Every earlier replay also checks that B6 never launched: only the
 no-cache attention of plain generation (steps 3, 5, 6, 15, 17-19, 22)
@@ -4745,6 +4761,228 @@ def _slice_layers(tree, n):
     return tree[:n]
 
 
+# sharded training: qwen3-1.7b at its published widths (16 / 8 heads of
+# 128, d_ff 6144, vocab 151936) cut to 4 of its 28 layers, float32 with
+# TF32 off, over a data 2 x model 2 mesh of four shards on one card (the
+# model axis splits heads and FFN columns), three AdamW steps on the
+# Markov stream against the unsharded step on the same card
+TRAIN_MESH = dict(arch="qwen3-1.7b", layers=4, mesh=(2, 2), batch=8,
+                  seq_len=512, steps=3, lr=1e-3)
+# step 1's loss and gradients within rtol 1e-4, later losses within 1e-4
+# relative: sums in other orders (cuBLAS picks other kernels at half
+# widths; the data mean adds two halves).  A gradient leaf's atol is
+# MESH_GRAD_ATOL x max |g| of the leaf, or twice the largest |difference|
+# / max |g| that the unsharded step's own gradient moves by when only its
+# batch is summed as the data shards' halves (the phase's control), if
+# that is larger, but at most MESH_GRAD_ATOL_CAP x max |g|: at qwen3-1.7b's
+# widths on the card that control alone moved w_gate by 9.65e-6 of its
+# max |g| (PERF.md, PR 25), so 1e-6 cannot hold for any data-parallel
+# step there.  After the steps every parameter within 2 x steps x lr:
+# AdamW's normalised step can flip on a near-zero gradient.
+MESH_GRAD_RTOL, MESH_GRAD_ATOL, MESH_LOSS_RTOL = 1e-4, 1e-6, 1e-4
+MESH_GRAD_ATOL_CAP = 1e-4
+# seconds a shard waits in a collective before the phase fails
+TRAIN_MESH_TIMEOUT = 300.0
+
+
+def train_mesh_phase(kernels, card: str, seed: int, dev=None, cfg=None,
+                     spec=TRAIN_MESH):
+    """``TRAIN_MESH``: the unsharded port step (``launch.steps``'
+    ``make_train_step``) from the seed's weights, then the same weights
+    (drawn again from the seed) resting over the mesh as
+    ``params_shardings`` cuts them, stepped by ``sharded_train_step`` on
+    one worker thread a shard.  Checks the gates above, that the shards'
+    replicated parts stay bit-equal, that each shard rests on the bytes
+    its specs predict, that each shard's collectives of a step are those
+    ``launch/dryrun.py``'s one-shard run of the same shapes counts, and
+    that no kernel or plain version launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.cost_analysis import collective_counts
+    from repro_torch.models import init_params
+    from repro_torch.training.data import batches
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import loss_and_grads, trainable
+    from repro_torch.training.tree import flatten, tree_map
+
+    dev = dev or torch.device("cuda")
+    cuda = dev.type == "cuda"
+    cfg = cfg or cut_depth(get_config(spec["arch"]), spec["layers"])
+    t0 = time.perf_counter()
+    before = kernel_counts(kernels)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(lr=spec["lr"], warmup_steps=1, total_steps=10)
+    it = batches(cfg.vocab, spec["batch"], spec["seq_len"], seed)
+    data = [{k: torch.from_numpy(v).long().to(dev) for k, v in
+             next(it).items()} for _ in range(spec["steps"])]
+    cpu = torch.device("cpu")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # unsharded: step 1's gradients and the final parameters kept on the
+    # host
+    up = trainable(init_params(cfg, generator(dev, seed), device=dev))
+    _, _, g0 = loss_and_grads(up, cfg, data[0])
+    g0 = [g.detach().to(cpu) for g in flatten(g0)[1]]
+    # control: the same unsharded step's gradient as the mean of the data
+    # shards' row slices' gradients (the data axis's order of sums, no
+    # sharding code)
+    n_data = spec["mesh"][0]
+    rows = spec["batch"] // n_data
+    split = None
+    for j in range(n_data):
+        _, _, gj = loss_and_grads(up, cfg, {k: v[j * rows:(j + 1) * rows]
+                                            for k, v in data[0].items()})
+        gj = [g.detach() for g in flatten(gj)[1]]
+        split = gj if split is None else [a + b for a, b in zip(split, gj)]
+    split = [(g / n_data).to(cpu) for g in split]
+    del gj
+    uo = init_opt_state(up)
+    ustep = steps.make_train_step(cfg, opt)
+    ulosses, ums = [], []
+    for b in data:
+        sync()
+        ts = time.perf_counter()
+        up, uo, m = ustep(up, uo, b)
+        ulosses.append(float(m["loss"]))
+        ums.append(1e3 * (time.perf_counter() - ts))
+    paths, ufinal = flatten(up)
+    ufinal = [p.detach().to(cpu) for p in ufinal]
+    del up, uo, m
+    free_device_memory()
+
+    mesh = shd.make_mesh(spec["mesh"], ("data", "model"),
+                         [dev] * (spec["mesh"][0] * spec["mesh"][1]))
+    plan = shd.serving_shard_plan(cfg, mesh)
+    params = init_params(cfg, generator(dev, seed), device=dev)
+    pspecs = shd.params_shardings(params, cfg, mesh)
+    ospecs = {"mu": pspecs, "nu": pspecs, "step": ()}
+    meta = tree_map(lambda t: t.to("meta"), params)
+    predicted = (shd.shard_nbytes(meta, pspecs, mesh)
+                 + shd.shard_nbytes(init_opt_state(meta), ospecs, mesh))
+    sp = shd.shard_tree(params, pspecs, mesh, copy=True)
+    del params
+    so = [init_opt_state(p) for p in sp]
+    rest = [sum(t.numel() * t.element_size()
+                for t in flatten(p)[1] + flatten(o)[1])
+            for p, o in zip(sp, so)]
+    workers = shd.ShardWorkers(mesh, timeout=TRAIN_MESH_TIMEOUT)
+    prog = steps.sharded_train_step(cfg, mesh, pspecs, opt, keep_grads=True)
+    bspec = shd.batch_spec(mesh, spec["batch"])
+    slosses, sms, per_step, replicas = [], [], [], []
+    grad_read = None
+    for k, b in enumerate(data):
+        bb = shd.shard_tree(b, {"tokens": bspec, "labels": bspec}, mesh)
+        before_stats = [workers.comm.stats(i) for i in range(mesh.size)]
+        sync()
+        ts = time.perf_counter()
+        outs = workers.run(lambda i, ms: prog(ms, sp[i], so[i], bb[i]))
+        sync()
+        sms.append(1e3 * (time.perf_counter() - ts))
+        sp, so = [o[0] for o in outs], [o[1] for o in outs]
+        slosses.append(float(outs[0][2]["loss"]))
+        per_step.append([_stats_diff(workers.comm.stats(i), before_stats[i])
+                         for i in range(mesh.size)])
+        replicas.append(shd.replicas_equal(sp, pspecs, mesh)
+                        and shd.replicas_equal(so, ospecs, mesh)
+                        and len({float(o[2]["loss"]) for o in outs}) == 1)
+        if k == 0:
+            full = shd.unshard_tree([o[2]["grads"] for o in outs], pspecs,
+                                    mesh, device=cpu)
+            got = flatten(full)[1]
+            control = _grad_reading(split, g0, paths)
+            atol = min(max(MESH_GRAD_ATOL, 2 * control["worst_rel_to_max"]),
+                       MESH_GRAD_ATOL_CAP)
+            grad_read = _grad_reading(got, g0, paths, atol)
+            grad_read["ok_at_atol_1e-6"] = _grad_reading(
+                got, g0, paths)["ok"]
+            grad_read["split_control"] = control
+            grad_read["vs_split_control"] = _grad_reading(got, split, paths)
+            del full, got
+        del outs
+    sfinal = flatten(shd.unshard_tree(sp, pspecs, mesh, device=cpu))[1]
+    diffs = [(a - b).abs() for a, b in zip(sfinal, ufinal)]
+    bound = 2 * spec["steps"] * spec["lr"]
+    dry = dryrun.analyze_step(cfg, dict(seq_len=spec["seq_len"],
+                                        global_batch=spec["batch"],
+                                        kind="train"),
+                              shd.make_mesh(spec["mesh"], ("data", "model")),
+                              dtype=torch.float32)
+    shard_colls = [[collective_counts(s) for s in step] for step in per_step]
+    after = kernel_counts(kernels)
+    rec = {"phase": "train_mesh", "model": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "mesh": "x".join(map(str, spec["mesh"])),
+           "devices": f"{dev} x {mesh.size}",
+           "splits": [f for f in ("heads", "mla_heads", "experts", "mlp")
+                      if getattr(plan, f)],
+           "batch": spec["batch"], "seq_len": spec["seq_len"],
+           "lr": spec["lr"], "unsharded_losses": ulosses,
+           "sharded_losses": slosses,
+           "loss_rel": [rel(a, b) for a, b in zip(slosses, ulosses)],
+           "grads_step1": grad_read,
+           "param_max_abs_diff": max(float(d.max()) for d in diffs),
+           "param_bound": bound,
+           "param_elems_over_1e-5": int(sum(int((d > 1e-5).sum())
+                                            for d in diffs)),
+           "param_elems": int(sum(d.numel() for d in diffs)),
+           "rest_bytes": rest, "rest_bytes_predicted": predicted,
+           "collectives_per_step_shard0": shard_colls[0][0],
+           "dryrun_collectives": dry["collectives"],
+           "step_ms_unsharded": ums, "step_ms_sharded": sms,
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                        if cuda else None),
+           "seconds": time.perf_counter() - t0,
+           "launches_before": before, "launches_after": after}
+    checks = {
+        "model_axis_splits": bool(rec["splits"]),
+        "loss_step1": rec["loss_rel"][0] <= MESH_GRAD_RTOL,
+        "grads_step1": grad_read["ok"],
+        "losses_later": all(r <= MESH_LOSS_RTOL for r in rec["loss_rel"][1:]),
+        "params_within_bound": rec["param_max_abs_diff"] <= bound,
+        "replicas_bit_equal": all(replicas),
+        "rest_bytes": all(r == predicted for r in rest),
+        "collectives_match_dryrun": all(c == dry["collectives"]
+                                        for step in shard_colls
+                                        for c in step),
+        "no_kernel_no_plain": before == after}
+    del sp, so, workers
+    finish(rec, checks, card)
+    return rec
+
+
+def _stats_diff(now: dict, then: dict) -> dict:
+    out = {}
+    for kind, c in now.items():
+        t = then.get(kind, {"count": 0, "bytes": 0})
+        out[kind] = {"count": c["count"] - t["count"],
+                     "bytes": c["bytes"] - t["bytes"]}
+    return out
+
+
+def _grad_reading(got, want, paths, atol: float = MESH_GRAD_ATOL) -> dict:
+    """Every gradient leaf of ``got`` against ``want``'s within
+    ``MESH_GRAD_RTOL`` with atol ``atol`` x max |g| of the leaf; the
+    worst leaf's largest |difference| / max |g|."""
+    ok, worst = True, (0.0, None)
+    for path, g, w in zip(paths, got, want):
+        scale = float(w.abs().max())
+        d = (g - w).abs()
+        if not bool((d <= atol * scale + MESH_GRAD_RTOL * w.abs()).all()):
+            ok = False
+        r = float(d.max()) / scale if scale else float(d.max())
+        if r > worst[0]:
+            worst = (r, path)
+    return {"ok": ok, "atol_rel_to_max": atol, "worst_rel_to_max": worst[0],
+            "worst_leaf": worst[1], "leaves": len(paths)}
+
+
 def main(argv=()) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA card.")
@@ -4800,6 +5038,10 @@ def main(argv=()) -> int:
     dec16 = decode_phase(pa, bf16, timed=BF16_DECODE_TIMED)
     pre16 = prefill_phase(pp, bf16, timed=BF16_PREFILL_TIMED)
     ver16 = verify_phase(pv, None, bf16, timed=BF16_VERIFY_TIMED)
+    free_device_memory()
+    # early, beside the other kernel phases: late in the process the
+    # profiler dropped its launch records (row 3m of PERF.md)
+    mesh_kernel_phase(pa, pp, pv, mk)
     free_device_memory()
     stream_phase(seed)
     launches, cfg, params = main_path(pa, pp, fa, seed)
@@ -4889,7 +5131,7 @@ def main(argv=()) -> int:
     free_device_memory()
     train_moe_phase(kernels, card, seed)
     free_device_memory()
-    mesh_kernel_phase(pa, pp, pv, mk)
+    train_mesh_phase(kernels, card, seed)
     free_device_memory()
     paths["mesh_replay"] = mesh_replay_phase(kernels, seed)
     free_device_memory()

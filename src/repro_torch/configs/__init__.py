@@ -29,6 +29,12 @@ _MODULES = {
     "opt-125m": "opt", "opt-7b": "opt", "opt-13b": "opt", "opt-30b": "opt",
 }
 
+# the reference's dry-run list (its registry order): every architecture but
+# the OPT simulator family, and without the beyond-paper SWA variant
+ASSIGNED = ["whisper-large-v3", "phi4-mini-3.8b", "llama-3.2-vision-11b",
+            "command-r-plus-104b", "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b",
+            "mamba2-2.7b", "qwen3-1.7b", "smollm-135m", "zamba2-7b"]
+
 # architectures the JAX reference serves that this package does not yet
 _NOT_PORTED: tuple[str, ...] = ()
 

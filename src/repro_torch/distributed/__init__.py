@@ -1,4 +1,5 @@
 """Sharding of the port over several devices (port of
-``repro/distributed``): the serving section of ``sharding.py``, which
-splits one engine's heads, experts, FFN columns and SSM lane rows over
-the shards of a serving mesh."""
+``repro/distributed``): ``sharding.py``'s training section (the specs of
+parameters, batches and dense caches over a data x model mesh) and its
+serving section (one engine's heads, experts, FFN columns and SSM lane
+rows over the shards of a serving mesh)."""

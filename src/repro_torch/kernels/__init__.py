@@ -8,9 +8,31 @@ version: B1 ``paged_attention.paged_decode_attention``, B2
 ``../csrc``, built by ``build.py`` at first use).  ``ref.py`` holds the
 oracles: loop-per-lane, token-by-token, one head block at a time.
 Importing this package needs neither ``nvcc`` nor a card."""
+import contextlib
 import threading
 
 _COUNT_LOCK = threading.Lock()
+_SHAPES_ONLY = threading.local()
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Within it, on this thread, a wrapper given meta tensors runs its
+    plain version (the dry run: ``launch/steps.run_shard0``); outside it
+    a meta input raises like any device without a kernel."""
+    prev = getattr(_SHAPES_ONLY, "on", False)
+    _SHAPES_ONLY.on = True
+    try:
+        yield
+    finally:
+        _SHAPES_ONLY.on = prev
+
+
+def plain_here(t) -> bool:
+    """Does a wrapper run its plain version for an input on ``t``'s
+    device: the CPU, or meta inside ``shapes_only()``."""
+    return t.device.type == "cpu" or (
+        t.device.type == "meta" and getattr(_SHAPES_ONLY, "on", False))
 
 
 def bump(counts: dict, key: str, n: int = 1) -> None:

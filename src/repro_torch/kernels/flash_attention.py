@@ -32,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import bump
+from repro_torch.kernels import bump, plain_here
 from repro_torch.kernels.paged_attention import (
     NEG_INF, check_aligned, check_no_grad, check_tensor, sm_count,
     split_workspace)
@@ -100,7 +100,7 @@ def flash_attention_bh(q, k, v, *, causal: bool = True, q_offset: int = 0,
     Sk = k.shape[1]
     kv_len = Sk if kv_len is None else int(kv_len)
     scale = hd ** -0.5 if scale is None else float(scale)
-    if q.device.type == "cpu":
+    if plain_here(q):
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=int(q_offset), kv_len=kv_len,
                                      scale=scale)

@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import bump
+from repro_torch.kernels import bump, plain_here
 from repro_torch.kernels.paged_attention import (
     NEG_INF, check_aligned, check_no_grad, check_pages, check_tensor,
     sm_count, split_workspace)
@@ -80,7 +80,7 @@ def mla_paged_prefill_attention(q_lat, q_rope, ckv_new, krope_new, ckv_pages,
     every head runs the key split of the unsharded call)."""
     check_no_grad("mla_paged_prefill_attention", q_lat, q_rope, ckv_new,
                   krope_new, ckv_pages, krope_pages)
-    if q_lat.device.type == "cpu":
+    if plain_here(q_lat):
         return mla_paged_prefill_plain(q_lat, q_rope, ckv_new, krope_new,
                                        ckv_pages, krope_pages, block_table,
                                        pos0, chunk_len, scale=scale)

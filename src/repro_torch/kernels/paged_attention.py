@@ -9,7 +9,8 @@ addressed by a block table; with ``window`` the query at position
 ``paged_decode_attention`` dispatches on the device of its inputs, never
 on what happens to be installed: CPU tensors run the plain version, CUDA
 tensors launch the hand-written kernel in ``csrc/paged_decode.cu`` (or
-raise), anything else raises.  ``COUNTS["kernel"]`` counts calls that
+raise), anything else raises, but for meta tensors (shapes only) inside
+``kernels.shapes_only()``, which run the plain version (the dry run).  ``COUNTS["kernel"]`` counts calls that
 launched the kernel (one per call, whether the call splits the keys and
 adds a merge launch or not) and ``COUNTS["plain"]`` calls of the plain
 version, so a run can show which of the two its main path went through.
@@ -31,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import bump
+from repro_torch.kernels import bump, plain_here
 
 NEG_INF = -1e30
 
@@ -92,7 +93,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *,
         raise ValueError(f"{H} query heads do not group over {KVH} KV heads")
     check_no_grad("paged_decode_attention", q, k_pages, v_pages)
     scale = hd ** -0.5 if scale is None else float(scale)
-    if q.device.type == "cpu":
+    if plain_here(q):
         return paged_decode_plain(q, k_pages, v_pages, block_table, seq_lens,
                                   scale=scale, window=window)
     if q.device.type != "cuda":

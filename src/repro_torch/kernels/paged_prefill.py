@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import bump
+from repro_torch.kernels import bump, plain_here
 from repro_torch.kernels.paged_attention import (
     BLOCKS_PER_SM, NEG_INF, check_aligned, check_head_dim, check_no_grad,
     check_pages, check_tensor, sm_count, split_workspace)
@@ -80,7 +80,7 @@ def paged_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_table,
         raise ValueError(f"{H} query heads do not group over {KVH} KV heads")
     check_no_grad("paged_prefill_attention", q, k_new, v_new, k_pages, v_pages)
     scale = hd ** -0.5 if scale is None else float(scale)
-    if q.device.type == "cpu":
+    if plain_here(q):
         return paged_prefill_plain(q, k_new, v_new, k_pages, v_pages,
                                    block_table, pos0, chunk_len, scale=scale,
                                    window=window)

@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import bump
+from repro_torch.kernels import bump, plain_here
 from repro_torch.kernels.paged_attention import (
     check_aligned, check_no_grad, check_pages, check_tensor, sm_count,
     split_workspace)
@@ -90,7 +90,7 @@ def paged_verify_attention(q, k_new, v_new, k_pages, v_pages, block_table,
         raise ValueError(f"{H} query heads do not group over {KVH} KV heads")
     check_no_grad("paged_verify_attention", q, k_new, v_new, k_pages, v_pages)
     scale = hd ** -0.5 if scale is None else float(scale)
-    if q.device.type == "cpu":
+    if plain_here(q):
         return paged_verify_plain(q, k_new, v_new, k_pages, v_pages,
                                   block_table, pos0, chunk_len, scale=scale,
                                   window=window)

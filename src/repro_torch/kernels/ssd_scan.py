@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import bump
+from repro_torch.kernels import bump, plain_here
 from repro_torch.kernels.paged_attention import check_no_grad, check_tensor
 
 COUNTS = {"kernel": 0, "plain": 0}
@@ -68,7 +68,7 @@ def ssd_scan(xh, dt, A, Bm, Cm, *, chunk: int, init_state=None):
         raise ValueError(f"ssd_scan: chunk {chunk} does not divide "
                          f"S {xh.shape[1]}")
     check_no_grad("ssd_scan", xh, dt, A, Bm, Cm, init_state)
-    if xh.device.type == "cpu":
+    if plain_here(xh):
         return ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk, init_state)
     if xh.device.type != "cuda":
         raise RuntimeError(f"ssd_scan: no kernel for {xh.device}")
@@ -114,6 +114,16 @@ def _launch(xh, dt, A, Bm, Cm, chunk, init_state):
     return y, final
 
 
+def einsum_promoted(eq: str, *ops):
+    """``jnp.einsum``'s dtype rule: the operands are promoted to their
+    common dtype first (``torch.einsum`` refuses a bfloat16 operand beside
+    a float32 one); float32 operands are used as they are."""
+    dt = ops[0].dtype
+    for o in ops[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return torch.einsum(eq, *(o.to(dt) for o in ops))
+
+
 def ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
     """The reference's ``ssd_chunked`` line for line: a loop over chunks
     carrying the state, the intra-chunk decay masked to -1e30 BEFORE the
@@ -138,16 +148,17 @@ def ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
         diff = seg[:, :, None, :] - seg[:, None, :, :]
         diff = torch.where(mask[None, :, :, None], diff, -1e30)
         decay = torch.exp(diff)
-        cb = torch.einsum("bln,bmn->blm", Ck, Bk)            # (B, L, M)
+        cb = einsum_promoted("bln,bmn->blm", Ck, Bk)            # (B, L, M)
         att = cb[..., None] * decay                         # (B, L, M, H)
-        y_intra = torch.einsum("blmh,bmh,bmhp->blhp", att, dtk, xk)
+        y_intra = einsum_promoted("blmh,bmh,bmhp->blhp", att, dtk, xk)
         # inter-chunk: contribution of the incoming state
-        y_inter = torch.einsum("bln,blh,bhpn->blhp", Ck,
-                               torch.exp(seg).to(Ck.dtype), h.to(Ck.dtype))
+        y_inter = einsum_promoted("bln,blh,bhpn->blhp", Ck,
+                                  torch.exp(seg).to(Ck.dtype),
+                                  h.to(Ck.dtype))
         # state at the end of the chunk
         decay_to_end = torch.exp(seg[:, -1:, :] - seg)      # (B, L, H)
-        st = torch.einsum("bln,blh,blh,blhp->bhpn", Bk, dtk,
-                          decay_to_end.to(Bk.dtype), xk)
+        st = einsum_promoted("bln,blh,blh,blhp->bhpn", Bk, dtk,
+                             decay_to_end.to(Bk.dtype), xk)
         h = (h * torch.exp(dA.sum(dim=1))[..., None, None] + st.float())
         ys.append((y_intra + y_inter).to(xh.dtype))
     y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)

@@ -8,8 +8,11 @@ runs on the CPU with ``--device cpu``:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --full-config --batch 8 --seq-len 1024 --steps 60          # CUDA
 
-The reference's ``--dryrun-mesh`` mode (lower the step onto a TPU mesh)
-has no counterpart here.
+To run a step's program over a production mesh without a card (the
+counts of one shard's step on meta tensors), use ``launch/dryrun.py``:
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \
+      --shape train_4k
 """
 from __future__ import annotations
 

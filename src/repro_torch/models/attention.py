@@ -59,7 +59,15 @@ them, and the per-head context is all-gathered before the replicated
 ``wo`` (``attn_output``; MLA inside ``mla_forward``).  Each paged kernel
 is told the unsharded head count for its key-split rule
 (``split_heads``): a shard with fewer heads would pick more splits and
-merge its partial sums in another order.
+merge its partial sums in another order.  For training, every replicated
+tensor that feeds a shard's heads passes ``shard.enter`` (the identity;
+its gradient is summed over the shards): the input rows, Qwen3's q/k
+norm scales, and MLA's latents and query down-projection.  Under
+``shard.seq`` (sequence-sharded decode over a dense cache, the dry run's
+``long_500k``) each data shard holds a slice of the cache's positions,
+writes the rows that fall in it, attends over it, and the shards' partial
+(sum, max, denominator) triples are merged by log-sum-exp in shard order
+(``seq_sharded_attention``), the rule of ``csrc/split_merge.cuh``.
 """
 from __future__ import annotations
 
@@ -249,14 +257,20 @@ def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
     B, Sq, d = x.shape
     h, kv, hd = p["wq"].shape[1], p["wk"].shape[1], cfg.head_dim
     split = None if shard is None else cfg.n_kv_heads
+    qn, kn = p.get("q_norm"), p.get("k_norm")
+    if shard is not None and shard.heads:
+        if qn is None:
+            x = shard.enter(x)
+        else:
+            x, qn, kn = shard.enter(x, qn, kn)
     q = (x @ p["wq"].reshape(d, h * hd)).reshape(B, Sq, h, hd)
     k = (x @ p["wk"].reshape(d, kv * hd)).reshape(B, Sq, kv, hd)
     v = (x @ p["wv"].reshape(d, kv * hd)).reshape(B, Sq, kv, hd)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if "q_norm" in p:
-        q = rms_head_norm(p["q_norm"], q)
-        k = rms_head_norm(p["k_norm"], k)
+    if qn is not None:
+        q = rms_head_norm(qn, q)
+        k = rms_head_norm(kn, k)
     if cfg.learned_pos == 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -284,6 +298,9 @@ def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
                               device=x.device)
         return sdpa(q, k, v, mask), None
     if "k" in cache:
+        if shard is not None and shard.seq:
+            return seq_sharded_attention(q, k, v, cache, pos0, window,
+                                         shard), cache
         ck = dense_write(cache["k"], k, pos0).to(q.dtype)
         cv = dense_write(cache["v"], v, pos0).to(q.dtype)
         kv_len = pos0 + Sq
@@ -323,6 +340,56 @@ def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
                                  block_tables, pos0 + 1, window=window,
                                  split_heads=split)
     return out[:, None], cache
+
+
+def seq_sharded_attention(q, k, v, cache, pos0, window, shard):
+    """One decode token (Sq 1) over a dense cache whose sequence dim is
+    split over the data group: data shard i holds positions [i * S, (i +
+    1) * S) of ``cache["k"]`` / ``["v"]`` (B, S, KV, hd).  The shard
+    holding a lane's position writes its new row there (the others write
+    their row back unchanged); each shard attends over its positions
+    (keys at or before the query, within the window), and the partial
+    sums, maxima and denominators are all-gathered and merged in shard
+    order by log-sum-exp.  Returns (B, 1, H, hd)."""
+    B, Sq, H, hd = q.shape
+    if Sq != 1:
+        raise NotImplementedError("sequence-sharded attention: decode only")
+    ck, cv = cache["k"], cache["v"]
+    S = ck.shape[1]
+    local = pos0.long() - shard.data_index * S           # lane's row here
+    _write_row(ck, k[:, 0], local)
+    _write_row(cv, v[:, 0], local)
+    kk, vv = ck.to(q.dtype), cv.to(q.dtype)
+    if H != kk.shape[2]:
+        kk = kk.repeat_interleave(H // kk.shape[2], dim=2)
+        vv = vv.repeat_interleave(H // vv.shape[2], dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * hd ** -0.5
+    mask = causal_mask(B, Sq, S, local, local + Sq, window)
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)                  # (B, H, 1, 1)
+    pr = torch.where(mask, torch.exp(logits - m), 0.0)
+    l = pr.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhqk,bkhd->bhqd", pr, vv.float())
+    parts = shard.data_all_gather(torch.cat([acc, m, l], dim=-1)[None], 0)
+    acc, m, l = parts[..., :hd], parts[..., hd:hd + 1], parts[..., hd + 1:]
+    m_all = m.amax(dim=0)
+    scale = torch.exp(m - m_all)
+    out = ((acc * scale).sum(dim=0)
+           / (l * scale).sum(dim=0).clamp(min=1e-30))       # (B, H, 1, hd)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _write_row(buf, row, local):
+    """Write ``row`` (B, ...) at row ``local[b]`` of each lane's buffer
+    (B, S, ...), in place, where 0 <= local[b] < S; elsewhere the clamped
+    row is written back unchanged."""
+    B, S = buf.shape[:2]
+    valid = (local >= 0) & (local < S)
+    idx = local.clamp(0, S - 1)
+    lanes = torch.arange(B, device=buf.device)
+    cur = buf[lanes, idx]
+    keep = valid.view((B,) + (1,) * (row.dim() - 1))
+    buf[lanes, idx] = torch.where(keep, row.to(buf.dtype), cur)
 
 
 def attn_output(p, ctx, shard=None):
@@ -433,16 +500,21 @@ def mla_forward(p, x, cfg: ModelConfig, *, positions, cache=None, pos0=None,
     B, Sq, _ = x.shape
     nope, rope_hd = c.qk_nope_head_dim, c.qk_rope_head_dim
     scale = (nope + rope_hd) ** -0.5
-    if "w_dq" in p:
-        ql = rms_head_norm(p["q_norm"], x @ p["w_dq"])
-        q = torch.einsum("bsr,rhk->bshk", ql, p["w_uq"])
-    else:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    if shard is not None and shard.seq:
+        raise NotImplementedError("MLA: no sequence-sharded cache")
+    # the query's input and the latents are replicated and feed every
+    # shard's heads
+    qin = (rms_head_norm(p["q_norm"], x @ p["w_dq"]) if "w_dq" in p
+           else x)
     ckv = rms_head_norm(p["kv_norm"], x @ p["w_dkv"])          # (B, Sq, r)
     krope = apply_rope((x @ p["w_krope"])[:, :, None, :], positions,
                        cfg.rope_theta)[:, :, 0, :]             # (B, Sq, rope)
+    if shard is not None and shard.mla_heads:
+        qin, ckv, krope = shard.enter(qin, ckv, krope)
+    q = torch.einsum("bsr,rhk->bshk", qin,
+                     p["w_uq"] if "w_dq" in p else p["wq"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
     if cache is None:
         ckv_all, krope_all = ckv, krope

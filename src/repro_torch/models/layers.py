@@ -73,7 +73,10 @@ def apply_mlp(p, x, act: str = "swiglu", shard=None):
     Under ``shard.mlp`` ``w_gate`` / ``w_up`` / ``b_up`` hold this shard's
     columns of d_ff, and the hidden activation is all-gathered (a
     concatenation: each column's value is the unsharded one) before the
-    replicated ``w_down``."""
+    replicated ``w_down``; ``x`` passes ``shard.enter`` (for training:
+    its gradient is summed over the shards)."""
+    if shard is not None and shard.mlp:
+        x = shard.enter(x)
     up = x @ p["w_up"]
     if "b_up" in p:
         up = up + p["b_up"]

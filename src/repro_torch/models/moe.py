@@ -38,6 +38,18 @@ instead, in which exactly one shard wrote each slot and the others hold
 zeros (x + 0 == x), and the k slots are then added in slot order as
 without a mesh: exact for any k (deepseek-v2 is top-6).
 
+For training over a mesh (a ``ShardCtx`` with a data group) the step is
+the reference's one program over the global batch: the load-balance
+statistics (``density``, ``router_mean``) are averaged over the data
+group before their product, and capacity is counted over the global
+unit order: the capacity of the global token count, and each expert's
+units on earlier data shards ahead of this shard's (their counts are
+all-gathered).  Under expert parallel the experts' input rows and the
+top-k weights pass ``shard.enter``, whose gradient sums each shard's
+experts' share.  On the meta device (the dry run) no count can be read:
+every local expert is counted at that capacity, the static size the
+reference's compiled dispatch pads its buffer to.
+
 ``jax.lax.top_k`` and ``torch.topk`` may order exactly tied probabilities
 differently.  With fp32 router probabilities from real activations exact
 ties do not arise, so no tie-break is added that the reference lacks.
@@ -131,6 +143,9 @@ def moe_forward(p, x, cfg: ModelConfig, mode: str = "dispatch",
 
     density = F.one_hot(topi, E).float().sum(1).mean(0)
     router_mean = probs.mean(0)
+    if shard is not None:                    # global batch statistics
+        density = shard.data_mean(density)
+        router_mean = shard.data_mean(router_mean)
     aux_loss = E * torch.sum(density / k * router_mean)
     return out.reshape(B, S, D), {"aux_loss": aux_loss,
                                   "expert_density": density}
@@ -143,32 +158,49 @@ def _dispatch(p, xt, topv, topi, m, capacity_factor, shard=None):
     cf = 2.0 if capacity_factor is None else capacity_factor
     T, D = xt.shape
     E, k = m.n_experts, m.top_k
-    C = capacity(cf, k, T, E)
+    data = 1 if shard is None else shard.data_size
+    C = capacity(cf, k, T * data, E)           # of the global token count
     e_u = topi.reshape(-1)                                   # (T*k,)
     t_u = torch.arange(T, device=xt.device).repeat_interleave(k)
     # units grouped by expert, in unit order within each expert: expert e
     # keeps the first min(count_e, C) of its group; a dropped unit's output
     # stays 0
     order = torch.argsort(e_u, stable=True)
-    counts = torch.bincount(e_u, minlength=E).tolist()       # host sync
+    meta = xt.device.type == "meta"
+    cnt = (e_u.new_empty(E) if meta
+           else torch.bincount(e_u, minlength=E))
+    if data > 1:                   # every data shard's counts, in order
+        cnt = shard.data_all_gather(cnt, 0)
+    if meta:
+        counts, ahead = [C] * E, [0] * E
+    else:
+        rows = cnt.view(data, E).tolist()                    # host sync
+        counts = rows[shard.data_index if data > 1 else 0]
+        ahead = [sum(r[e] for r in rows[:shard.data_index]) if data > 1
+                 else 0 for e in range(E)]
     unit_out = torch.zeros(T * k, D, dtype=xt.dtype, device=xt.device)
     # one unbind a weight: its backward stacks the experts' gradients,
     # where indexing each expert would add a zero-filled gradient of all E
     w_gate, w_up, w_down = (p[w].unbind(0)
                             for w in ("w_gate", "w_up", "w_down"))
     parallel = shard is not None and shard.experts
+    w_u = topv.reshape(-1).to(xt.dtype)[:, None]
+    if parallel:
+        xt, w_u = shard.enter(xt, w_u)
     # this shard's experts: [e0, e0 + len(w_gate)) of E
     e0 = shard.index * len(w_gate) if parallel else 0
     start = sum(counts[:e0])
     for e in range(e0, e0 + len(w_gate)):
         n = counts[e]
-        if n:
-            idx = order[start:start + min(n, C)]
+        keep = max(0, min(n, C - ahead[e]))
+        if keep:
+            idx = (order.new_zeros(keep) if meta
+                   else order[start:start + keep])
             h = xt[t_u[idx]]
             unit_out[idx] = (F.silu(h @ w_gate[e - e0])
                              * (h @ w_up[e - e0])) @ w_down[e - e0]
         start += n
-    unit_out = unit_out * topv.reshape(-1).to(xt.dtype)[:, None]
+    unit_out = unit_out * w_u
     per_slot = unit_out.reshape(T, k, D)
     if parallel:
         per_slot = shard.psum(per_slot)       # one contributor per slot

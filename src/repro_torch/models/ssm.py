@@ -88,7 +88,8 @@ def _rmsnorm_gated(scale, x, z, eps=1e-6):
 
 def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
     """Chunked SSD scan (the reference's ``ssd_chunked``; its
-    ``lax.scan`` over chunks is a Python loop here).
+    ``lax.scan`` over chunks is a Python loop here, and its einsums
+    promote mixed dtypes as ``jnp.einsum`` does).
 
     xh: (B, S, H, P); dt: (B, S, H); A: (H,) negative decay rates; Bm, Cm:
     (B, S, N), one SSM group shared across heads; init_state: (B, H, P, N)
@@ -116,16 +117,18 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
         # overflows to inf and poisons gradients through the where
         diff = torch.where(mask[None, :, :, None], diff, -1e30)
         decay = torch.exp(diff)
-        cb = torch.einsum("bln,bmn->blm", Ck, Bk)            # (B, L, M)
+        cb = _ssd.einsum_promoted("bln,bmn->blm", Ck, Bk)      # (B, L, M)
         att = cb[..., None] * decay                         # (B, L, M, H)
-        y_intra = torch.einsum("blmh,bmh,bmhp->blhp", att, dtk, xk)
+        y_intra = _ssd.einsum_promoted("blmh,bmh,bmhp->blhp", att, dtk,
+                                       xk)
         # inter-chunk: contribution of the incoming state
-        y_inter = torch.einsum("bln,blh,bhpn->blhp", Ck,
-                               torch.exp(seg).to(Ck.dtype), h.to(Ck.dtype))
+        y_inter = _ssd.einsum_promoted("bln,blh,bhpn->blhp", Ck,
+                                       torch.exp(seg).to(Ck.dtype),
+                                       h.to(Ck.dtype))
         # state at the end of the chunk
         decay_to_end = torch.exp(seg[:, -1:, :] - seg)      # (B, L, H)
-        st = torch.einsum("bln,blh,blh,blhp->bhpn", Bk, dtk,
-                          decay_to_end.to(Bk.dtype), xk)
+        st = _ssd.einsum_promoted("bln,blh,blh,blhp->bhpn", Bk, dtk,
+                                  decay_to_end.to(Bk.dtype), xk)
         h = h * torch.exp(dA.sum(dim=1))[..., None, None] + st.float()
         ys.append((y_intra + y_inter).to(xh.dtype))
     y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)

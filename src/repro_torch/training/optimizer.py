@@ -66,11 +66,14 @@ def global_norm(tree):
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state):
+def adamw_update(cfg: AdamWConfig, params, grads, state, gnorm=None):
     """One AdamW step.  Returns (params, state, metrics {grad_norm, lr});
-    ``params`` and the moments are updated in place."""
+    ``params`` and the moments are updated in place.  ``gnorm``: the
+    global gradient norm when ``grads`` are one shard's slices of the
+    tree (default: the norm of ``grads``)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_schedule(cfg)(step)
     bc1 = 1 - cfg.b1 ** step.float()

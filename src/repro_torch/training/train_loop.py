@@ -26,11 +26,14 @@ from repro_torch.training.tree import leaves, tree_map, unflatten
 
 
 def lm_loss(params, cfg: ModelConfig, tokens, labels, *, enc_states=None,
-            moe_cf=None, aux_coef: float = 0.01):
+            moe_cf=None, aux_coef: float = 0.01, shard=None):
     """Mean next-token NLL over float32 logits plus ``aux_coef`` times the
-    summed MoE load-balance loss.  Returns (loss, {"nll", "aux"})."""
+    summed MoE load-balance loss.  Returns (loss, {"nll", "aux"}).
+    ``shard``: a mesh shard's ``ShardCtx`` (``distributed/sharding.py``):
+    ``params`` hold its heads, FFN columns or experts, and the loss is
+    that of its data shard's rows."""
     h, _, aux = model_forward(params, cfg, tokens, enc_states=enc_states,
-                              moe_cf=moe_cf, train=True)
+                              moe_cf=moe_cf, train=True, shard=shard)
     logits = logits_fn(params, cfg, h).float()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
@@ -46,16 +49,19 @@ def trainable(params):
 
 
 def loss_and_grads(params, cfg: ModelConfig, batch, *, moe_cf=None,
-                   has_enc: bool = False):
+                   has_enc: bool = False, shard=None):
     """``lm_loss`` and its gradient with respect to every leaf of
     ``params`` (which must require grad; see ``trainable``), as the
     reference's ``value_and_grad``.  Returns (loss, parts, grads), grads a
-    tree like ``params`` (zeros for a leaf the loss does not reach)."""
+    tree like ``params`` (zeros for a leaf the loss does not reach).
+    Under ``shard`` the backward pass runs on the calling thread (the
+    collectives inside it wait for the other shards' threads)."""
     enc = batch.get("enc_states") if has_enc else None
     loss, parts = lm_loss(params, cfg, batch["tokens"], batch["labels"],
-                          enc_states=enc, moe_cf=moe_cf)
+                          enc_states=enc, moe_cf=moe_cf, shard=shard)
     ps = leaves(params)
-    gs = torch.autograd.grad(loss, ps, allow_unused=True)
+    with torch.autograd.set_multithreading_enabled(shard is None):
+        gs = torch.autograd.grad(loss, ps, allow_unused=True)
     grads = unflatten(params, [torch.zeros_like(p) if g is None else g
                                for p, g in zip(ps, gs)])
     return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
