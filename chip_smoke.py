@@ -252,8 +252,12 @@ script exits non-zero before the final line:
     no plain call, no B5 or B6, pool bytes half the float32 replay's, and
     the float32 replay's served / attained / tokens printed beside.
 21. The kernels line (each kernel once, its launches summed over every
-    path's replay, with ``launches_by_path``; the bf16 instantiations of
-    B1-B4 as ``*_bf16`` entries with the bf16 replays' launches), the
+    path's replay, with ``launches_by_path``; the bf16 and fp16
+    instantiations of B1-B4 as ``*_bf16`` and ``*_f16`` entries with the
+    16-bit replays' launches, B1's bf16 queries as
+    ``paged_decode_attention_bf16q`` (no path passes them: 0 launches),
+    B5's and B6's bf16 inputs as ``ssd_scan_bf16`` and
+    ``flash_attention_bh_bf16`` with ``bf16_launch_steps``' launches), the
     card line, and ``{"ok": true, "device": ...}``.
 
 22. ``dense_cache`` (run right after the cluster phase, on its weights):
@@ -298,9 +302,35 @@ script exits non-zero before the final line:
     no kernel or plain version launched; it prints the step times, the
     peak and the phase's seconds.
 
+25. The kernels' remaining dtypes.  float16 KV (``EngineConfig(dtype=
+    torch.float16)``): every B1-B4 case again over fp16 pools (right after
+    the bf16 ones; held at the float32 limit, pools bit-equal as 16-bit
+    patterns, poisoned keys unread, ``self_midpage`` carried past the
+    limit by the unrounded chunk; the main shapes timed and B1's and B2's
+    replay shapes), ``fp16_streams`` (the spec and MLA stream scripts over
+    fp16 pools against the plain attention, as ``bf16_streams``; B5 and B6
+    never launch) and ``fp16_spec_replay`` / ``fp16_mla_replay`` (after
+    their bf16 replays: launches = layers x counters, pool bytes half of
+    float32's).  bf16 inputs (``lowp_kernel_phase``, with the kernel
+    phases): B1 with bf16 queries over bf16 pages, B6 and B5 over bf16
+    inputs, at the reference tests' shapes and the launch layer's
+    (whisper's encoder, cross prefill and cross decode of two lanes;
+    mamba2's 2 x 512-token prefill in chunks of 128), every element within
+    one bf16 rounding of the plain version's float32 result (``LOWP_RTOL``,
+    ``LOWP_ATOL``); timed at B1's main shape, the encoder and the prefill.
+    ``bf16_launch_steps`` (after the whisper replay): the launch layer's
+    bf16 prefill and serve steps on real tensors (``LAUNCH_STEPS``:
+    whisper-large-v3 and mamba2-2.7b at their published widths and depth,
+    2 lanes, 8 serve steps), B6 once per encoder and cross layer per step,
+    B5 once per SSM layer per prefill, against the same steps through the
+    plain versions (the gate read against a control run in the same call).
+    A ``new_phase_seconds`` line gives these phases' seconds and the
+    script's total.
+
 Every earlier replay also checks that B6 never launched: only the
-no-cache attention of plain generation (steps 3, 5, 6, 15, 17-19, 22)
-and the encoder / cross-attention of steps 15-16 run it.
+no-cache attention of plain generation (steps 3, 5, 6, 15, 17-19, 22),
+the encoder / cross-attention of steps 15-16 and step 25's launch steps
+run it.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -336,6 +366,10 @@ TIE = 1e-4                     # a top-2 logit margin below it is a tie
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+BF16 = torch.bfloat16
+# the 16-bit KV pool dtypes and the tags of their phases and paths
+DTYPE_TAG = {torch.bfloat16: "bf16", torch.float16: "fp16"}
 N_TIMED = 20
 
 
@@ -572,8 +606,11 @@ class ParentKernels:
                                         (got[1] - wh).abs().max().item()))
 
 
-def bound(n_bytes: float, n_flops: float):
-    t_b, t_f = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOP_PER_S
+def bound(n_bytes: float, n_flops: float, flop_rate: float = None):
+    """The least time (ms) of moving ``n_bytes`` or doing ``n_flops`` at
+    ``flop_rate`` (the float32 peak unless given), and which binds."""
+    t_b = n_bytes / HBM_BYTES_PER_S
+    t_f = n_flops / (flop_rate or FP32_FLOP_PER_S)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -713,28 +750,32 @@ def decode_phase(pa, dtype=torch.float32, cases=None, timed=DECODE_TIMED,
     return results
 
 
-def gathered_kv(kp, vp, table, n_keys, G):
+def gathered_kv(kp, vp, table, n_keys, G, dtype=torch.float32):
     """K/V of each lane's first ``n_keys`` positions, gathered from its
-    pages, converted to float32 and repeated over the query heads: (B, H,
-    T, hd) for SDPA."""
+    pages, converted to ``dtype`` (the queries') and repeated over the
+    query heads: (B, H, T, hd) for SDPA."""
     B = table.shape[0]
     _, page, KVH, hd = kp.shape
     idx = table.long()[:, :(n_keys + page - 1) // page]
 
     def one(pool):
-        return pool[idx].float().reshape(B, -1, KVH, hd).transpose(1, 2) \
+        return pool[idx].to(dtype).reshape(B, -1, KVH, hd).transpose(1, 2) \
             .repeat_interleave(G, 1).contiguous()
     return one(kp), one(vp)
 
 
-def decode_timing(pa, q, kp, vp, table, sl, lens, window, kw=None):
+def decode_timing(pa, q, kp, vp, table, sl, lens, window, kw=None,
+                  lib_dtype=torch.float32):
+    """Times and bounds of B1 at one case; ``lib_dtype``: the dtype of the
+    yardstick's SDPA call (the queries'), float32 but for bf16 queries,
+    whose flops the bound also takes at the bf16 rate."""
     kw = kw or {}
     B, H, hd = q.shape
     _, page, KVH, _ = kp.shape
     G = H // KVH
     scale = hd ** -0.5
     # the yardstick sees only the pages up to the longest lane
-    k, v = gathered_kv(kp, vp, table, max(lens), G)
+    k, v = gathered_kv(kp, vp, table, max(lens), G, lib_dtype)
     pos = torch.arange(k.shape[2], device="cuda")
     mask = pos[None] < sl[:, None]
     if window is not None:
@@ -762,14 +803,15 @@ def decode_timing(pa, q, kp, vp, table, sl, lens, window, kw=None):
     # (one KV head's row is hd contiguous elements of the pools' dtype, so
     # no whole pages); flops: 4*hd per (query head, visible key)
     kv_size = kp.element_size()
-    n_bytes = 4 * (2 * B * H * hd + B)
+    n_bytes = q.element_size() * 2 * B * H * hd + 4 * B
     n_flops = 0
     for n in lens:
         lo = 0 if window is None else max(n - window, 0)
         n_bytes += 4 * pages_visited(lo, n, page)
         n_bytes += kv_size * 2 * (n - lo) * KVH * hd
         n_flops += 4 * H * hd * (n - lo)
-    bound_ms, bound_by = bound(n_bytes, n_flops)
+    bound_ms, bound_by = bound(
+        n_bytes, n_flops, BF16_FLOP_PER_S if q.dtype == BF16 else None)
     return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
             "device_ms_parts": dev_parts, "device_launches_seen": dev_seen,
             "plain_ms": plain_ms,
@@ -777,7 +819,8 @@ def decode_timing(pa, q, kp, vp, table, sl, lens, window, kw=None):
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_call": "scaled_dot_product_attention over K/V gathered "
-                            "up to the longest lane (converted to float32)"}
+                            "up to the longest lane (converted to "
+                            f"{str(lib_dtype).split('.')[-1]})"}
 
 
 # -------------------- prefill and verify phases ------------------------ #
@@ -944,7 +987,7 @@ def chunk_phase(kernel_name, kernel, plain, cases, seed, timed, extra=None,
         valid = (torch.arange(S, device="cuda")[None] < cl[:, None])
         err = (got - want).abs()[valid].max().item()
         lim = limit(want[valid])
-        pools_equal = bool(torch.equal(kp_k, kp_p) and torch.equal(vp_k, vp_p))
+        pools_equal = bit_equal(kp_k, kp_p) and bit_equal(vp_k, vp_p)
         written = torch.zeros(kp.shape[0], dtype=torch.bool, device="cuda")
         for b in range(B):
             for slot in range(pos0[b] // page,
@@ -1420,7 +1463,8 @@ def spec_replay_phase(cfg, params, kernels, seed: int,
     pools = pool_bytes(eng.kv) + pool_bytes(eng.spec.kv)
     if f32 is not None:
         checks["pool_bytes_half"] = 2 * pools == f32["pool_bytes"]
-    rec = {"phase": "spec_replay" if f32 is None else "bf16_spec_replay",
+    rec = {"phase": ("spec_replay" if f32 is None
+                     else f"{DTYPE_TAG[dtype]}_spec_replay"),
            "page_dtype": str(dtype).split(".")[-1], "pool_bytes": pools,
            "model": cfg.name, "layers": L,
            "draft": "self", "draft_layers": Ld, "submitted": s.submitted,
@@ -1452,14 +1496,17 @@ def spec_replay_phase(cfg, params, kernels, seed: int,
     return rec
 
 
+def tree_leaves(tree):
+    """The tensors of a (nested) dict / list tree."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for x in items for t in tree_leaves(x)]
+
+
 def pool_bytes(kv) -> int:
     """Device bytes of a KV manager's pools (write-off pages included)."""
-    def leaves(tree):
-        if isinstance(tree, torch.Tensor):
-            return [tree]
-        items = tree.values() if isinstance(tree, dict) else tree
-        return [t for x in items for t in leaves(x)]
-    return sum(t.numel() * t.element_size() for t in leaves(kv.pools))
+    return sum(t.numel() * t.element_size() for t in tree_leaves(kv.pools))
 
 
 # --------------------------- bf16 KV serving ---------------------------- #
@@ -1557,40 +1604,46 @@ def bf16_compare(got, want, f32_want, margin):
             "ok": len(got) == len(want) and (first is None or tie)}
 
 
-def bf16_streams_phase(kind, cfg, params, prompts, run, f32_wants):
-    """``run(dtype)`` (a stream script, {rid: stream}) over bf16 pools
-    through the kernels and again with the plain attention swapped in:
-    the streams must be equal under the tie rule; each also gives how
-    many tokens it agrees with float32 plain generation (``f32_wants``).
-    The kernels' launch counts show the first run launched them and the
-    second none."""
+def kv16_streams_phase(kind, cfg, params, prompts, run, f32_wants, dtype):
+    """``run(dtype)`` (a stream script, {rid: stream}) over pools of
+    ``dtype`` through the kernels and again with the plain attention
+    swapped in: the streams must be equal under the tie rule; each also
+    gives how many tokens it agrees with float32 plain generation
+    (``f32_wants``).  The kernels' launch counts show the first run
+    launched them and the second none, and neither B5 nor B6 launched."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mla_paged_prefill as mk
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import paged_verify as pv
-    mods = {"decode": pa, "prefill": pp, "verify": pv, "mla_prefill": mk}
+    from repro_torch.kernels import ssd_scan as sk
+    mods = {"decode": pa, "prefill": pp, "verify": pv, "mla_prefill": mk,
+            "ssd": sk, "flash": fa}
     for m in mods.values():
         m.COUNTS["kernel"] = m.COUNTS["plain"] = 0
-    got = run(torch.bfloat16)
+    got = run(dtype)
     kernel_run = {k: dict(m.COUNTS) for k, m in mods.items()}
     free_device_memory()
     for m in mods.values():
         m.COUNTS["kernel"] = m.COUNTS["plain"] = 0
     with plain_paged_attention():
-        want = run(torch.bfloat16)
+        want = run(dtype)
     plain_run = {k: dict(m.COUNTS) for k, m in mods.items()}
     free_device_memory()
-    rec = {"phase": "bf16_streams", "path": kind, "model": cfg.name,
-           "layers": cfg.n_layers, "launches_kernel_run": kernel_run,
+    rec = {"phase": f"{DTYPE_TAG[dtype]}_streams", "path": kind,
+           "model": cfg.name, "layers": cfg.n_layers,
+           "launches_kernel_run": kernel_run,
            "launches_plain_run": plain_run}
     ok = (not any(v["plain"] for v in kernel_run.values())
           and not any(v["kernel"] for v in plain_run.values())
-          and any(v["kernel"] for v in kernel_run.values()))
+          and any(v["kernel"] for v in kernel_run.values())
+          and not any(r[k]["kernel"] + r[k]["plain"]
+                      for r in (kernel_run, plain_run)
+                      for k in ("ssd", "flash")))
     for rid, prompt in prompts.items():
         r = bf16_compare(got[rid], want[rid], f32_wants[rid],
                          lambda i: kv_margin(cfg, params,
-                                             prompt + want[rid][:i],
-                                             torch.bfloat16))
+                                             prompt + want[rid][:i], dtype))
         rec[f"rid{rid}"] = r
         ok = ok and r["ok"]
         if not r["ok"]:
@@ -1598,7 +1651,7 @@ def bf16_streams_phase(kind, cfg, params, prompts, run, f32_wants):
     rec["ok"] = ok
     emit(rec)
     if not ok:
-        raise SystemExit(f"bf16_streams ({kind}): the kernels' streams "
+        raise SystemExit(f"{rec['phase']} ({kind}): the kernels' streams "
                          "differ from the plain attention's")
 
 
@@ -1685,7 +1738,7 @@ def mla_prefill_phase(mk, dtype=torch.float32, cases=None, timed=MLA_TIMED,
         valid = torch.arange(S, device="cuda")[None] < cl[:, None]
         err = (got - want).abs()[valid].max().item()
         lim = limit(want[valid])
-        pools_equal = bool(torch.equal(cp_k, cp_p) and torch.equal(rp_k, rp_p))
+        pools_equal = bit_equal(cp_k, cp_p) and bit_equal(rp_k, rp_p)
         written = torch.zeros(n_pages, dtype=torch.bool, device="cuda")
         for b in range(B):
             for slot in range(pos0[b] // page,
@@ -1886,7 +1939,8 @@ def mla_replay_phase(cfg, params, kernels, seed: int, dtype=torch.float32,
     pools = pool_bytes(eng.kv)
     if f32 is not None:
         checks["pool_bytes_half"] = 2 * pools == f32["pool_bytes"]
-    rec = {"phase": "mla_replay" if f32 is None else "bf16_mla_replay",
+    rec = {"phase": ("mla_replay" if f32 is None
+                     else f"{DTYPE_TAG[dtype]}_mla_replay"),
            "page_dtype": str(dtype).split(".")[-1], "pool_bytes": pools,
            "model": cfg.name, "layers": L,
            "submitted": s.submitted, "served": s.served,
@@ -2077,12 +2131,17 @@ def ssd_timing(sk, xh, dt, A, Bm, Cm, h0, chunk):
     # per pair m <= l) and 4 L N P for the incoming state's output term
     # and the state update, and N L (L + 1) once for C . B (shared by the
     # heads); padded rows (dt = 0) are computed like live ones
-    n_bytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
-                   + (2 if h0 is not None else 1) * B * H * P * N)
+    # (x, B, C, y and the states in their dtype; dt and A float32, and
+    # the flops of bf16 data at the bf16 rate)
+    e = xh.element_size()
+    n_bytes = (e * (2 * B * S * H * P + 2 * B * S * N
+                    + (2 if h0 is not None else 1) * B * H * P * N)
+               + 4 * (B * S * H + H))
     L, nc = chunk, S // chunk
     n_flops = B * nc * (H * (P * L * (L + 1) + 4 * L * N * P)
                         + N * L * (L + 1))
-    bound_ms, bound_by = bound(n_bytes, n_flops)
+    bound_ms, bound_by = bound(
+        n_bytes, n_flops, BF16_FLOP_PER_S if xh.dtype == BF16 else None)
     return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
             "device_ms_parts": dev_parts, "device_launches_seen": dev_seen,
             "plain_ms": plain_ms,
@@ -2507,9 +2566,10 @@ def flash_timing(fa, qf, kf, vf, causal, q_offset, kv_len):
     library_dev_ms = library_device_ms(library)
     # bytes: q read and out written once, each visible key's K and V rows
     # read once; flops: 4 hd per visible (row, key) pair
-    n_bytes = 4 * BH * hd * (2 * Sq + 2 * max(n_vis))
+    n_bytes = qf.element_size() * BH * hd * (2 * Sq + 2 * max(n_vis))
     n_flops = 4 * hd * BH * sum(n_vis)
-    bound_ms, bound_by = bound(n_bytes, n_flops)
+    bound_ms, bound_by = bound(
+        n_bytes, n_flops, BF16_FLOP_PER_S if qf.dtype == BF16 else None)
     return {"ms": kernel_ms, "device_ms": kernel_dev_ms,
             "device_ms_parts": dev_parts, "device_launches_seen": dev_seen,
             "plain_ms": plain_ms,
@@ -2833,6 +2893,438 @@ def whisper_decode_breakdown(cfg, params, eng, frames):
     out["cross_attention_share_of_step"] = (
         cfg.n_layers * out["cross_attention_ms"] / out["step_ms"])
     return out
+
+
+# ----------------------- the kernels' remaining dtypes ------------------ #
+# float16 pools (EngineConfig.dtype = torch.float16): every case of B1-B4
+# runs again over fp16 pools (the same normal draws rounded to fp16), held
+# at the float32 limit with pools bit-equal as 16-bit patterns; the main
+# shape of each is timed, and the replay shape of B1 and B2.
+F16_DECODE_TIMED = ("main", "replay")
+F16_PREFILL_TIMED = ("main", "replay")
+F16_VERIFY_TIMED = ("main",)
+F16_MLA_TIMED = ("main",)
+# bf16 inputs (B1's queries over bf16 pages, B5 and B6 whole): the kernel
+# and its plain version widen the same bf16 inputs, sum in float32 and
+# round once, so every output element must lie within one bf16 rounding
+# of the plain version's float32 result over the same widened inputs:
+# |kernel - plain32| <= 2^-8 |plain32| + 1e-5 (bf16 keeps 8 significant
+# bits: a rounding moves a value by at most 2^-8 of it), far inside the
+# reference's own bf16 tolerances (3e-2, 5e-2, 2e-2:
+# tests/test_kernels.py).  Each line also gives the kernel's distance from
+# the plain version's own bf16 output (at most one bf16 step apart).
+LOWP_RTOL, LOWP_ATOL = 2.0 ** -8, 1e-5
+# B1 over bf16 queries and pages: the reference test's shapes (seq_lens
+# drawn in [1, max_pages page) as it draws them) and the main shape
+# (timed).  No engine path passes bf16 queries: the engine's activations
+# are float32.
+BF16Q_CASES = [   # name, B, H, KVH, hd, page, max_pages, lens (None: drawn)
+    ("ref_mha", 2, 4, 4, 64, 16, 4, None),
+    ("ref_gqa4", 3, 8, 2, 32, 8, 6, None),
+    ("ref_mqa", 1, 2, 1, 128, 32, 3, None),
+    ("main", 8, 9, 3, 64, 16, 256, [1, 17, 333, 780, 1024, 1500, 1999, 2048]),
+]
+# B6 over bf16 q, k, v through the GQA wrapper: the reference test's four
+# causal shapes (q at the cache's tail) and the launch layer's whisper
+# shapes (two lanes: the encoder over 1500 frames, a 64-row cross prefill
+# chunk, a cross decode step); the encoder timed
+FLASH_BF16_CASES = [  # name, B, Sq, Sk, H, KV, hd, causal, q_offset, kv_len
+    ("ref_128", 1, 128, 128, 2, 2, 64, True, 0, None),
+    ("ref_gqa", 2, 64, 64, 4, 2, 32, True, 0, None),
+    ("ref_mqa_256", 1, 256, 256, 2, 1, 64, True, 0, None),
+    ("ref_chunk_384", 2, 128, 384, 2, 2, 64, True, 256, None),
+    ("launch_encoder", 2, 1500, 1500, 20, 20, 64, False, 0, None),
+    ("launch_cross_prefill", 2, 64, 1500, 20, 20, 64, False, 0, None),
+    ("launch_cross_decode", 2, 1, 1500, 20, 20, 64, False, 0, None),
+]
+FLASH_BF16_TIMED = ("launch_encoder",)
+# B5 over bf16 x, B, C and state: the reference test's draws (x, B, C
+# normal, dt = softplus(normal) / 2, A = -exp(0.3 normal)) and its
+# S / chunk / heads at the kernel's widths (head dim 64, state 64 or 128:
+# the test's 16 / 32 are not built), one from a drawn state; and the
+# launch layer's mamba2 prefill (two lanes, 512 tokens in chunks of 128
+# from the zero state init_cache gives, at its widths and draws), timed
+SSD_BF16_CASES = [  # name, B, S, chunk, state ("zero", "drawn", None), widths
+    ("ref_S64_c16", 1, 64, 16, None, (2, 64, 64)),
+    ("ref_S128_c32", 2, 128, 32, None, (4, 64, 128)),
+    ("ref_S96_c32_state", 1, 96, 32, "drawn", (1, 64, 64)),
+    ("launch_prefill", 2, 512, 128, "zero", (SSM_H, SSM_P, SSM_N)),
+]
+SSD_BF16_TIMED = ("launch_prefill",)
+
+
+def bit_equal(a, b) -> bool:
+    """Equal bit for bit (compared as integers of the elements' width)."""
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16}
+    it = ints[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(it), b.view(it))
+
+
+def lowp_reading(got, want32, want16) -> dict:
+    """A bf16 output against the plain version's float32 result and its
+    own bf16 output (``LOWP_RTOL``, ``LOWP_ATOL``)."""
+    gf = got.float()
+    err = (gf - want32).abs()
+    excess = (err - (LOWP_RTOL * want32.abs() + LOWP_ATOL)).max().item()
+    return {"max_abs_err": err.max().item(),
+            "max_abs_plain": want32.abs().max().item(),
+            "worst_excess_over_limit": excess,
+            "max_abs_err_vs_plain_bf16": (gf - want16.float()).abs().max()
+            .item(),
+            "elements_off_plain_bf16": int((got != want16).sum().item()),
+            "elements": got.numel(), "ok": excess <= 0.0}
+
+
+def lowp_kernel_phase(pa, fa, sk, seed=12):
+    """B1 with bf16 queries over bf16 pages, B6 and B5 over bf16 inputs,
+    each against its plain version (``lowp_reading``), with the keys no
+    query may see poisoned for B1 and B6.  Returns the timed records by
+    kernel."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    out = {}
+    for name, B, H, KVH, hd, page, max_pages, lens in BF16Q_CASES:
+        kp, vp, table = pools_and_tables(gen, B, KVH, hd, page, max_pages,
+                                         BF16)
+        if lens is None:
+            lens = torch.randint(1, max_pages * page, (B,), generator=gen,
+                                 device="cuda").tolist()
+        q = torch.randn(B, H, hd, generator=gen, device="cuda").to(BF16)
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        scale = hd ** -0.5
+        got = pa.paged_decode_attention(q, kp, vp, table, sl)
+        want32 = pa.paged_decode_plain(q.float(), kp, vp, table, sl,
+                                       scale=scale)
+        want16 = pa.paged_decode_plain(q, kp, vp, table, sl, scale=scale)
+        kpp, vpp = kp.clone(), vp.clone()
+        mapped = torch.zeros(kp.shape[0], dtype=torch.bool, device="cuda")
+        mapped[table.long().flatten()] = True
+        kpp[~mapped] = 1e4
+        vpp[~mapped] = 1e4
+        pos = torch.arange(max_pages * page, device="cuda")
+        flat = (table.long()[:, :, None] * page
+                + torch.arange(page, device="cuda")).reshape(B, -1)
+        bad = pos[None] >= sl[:, None]
+        kpp.view(-1, KVH, hd)[flat[bad]] = 1e4
+        vpp.view(-1, KVH, hd)[flat[bad]] = 1e4
+        poisoned = pa.paged_decode_attention(q, kpp, vpp, table, sl)
+        torch.cuda.synchronize()
+        rec = {"phase": "kernel", "kernel": "paged_decode_attention",
+               "case": name, "query_dtype": "bfloat16",
+               "page_dtype": "bfloat16", "B": B, "H": H, "KVH": KVH,
+               "hd": hd, "page": page, "seq_lens": lens,
+               "out_dtype": str(got.dtype).split(".")[-1],
+               **lowp_reading(got, want32, want16),
+               "poisoned_unread": bit_equal(poisoned, got)}
+        rec["ok"] = (rec["ok"] and rec["poisoned_unread"]
+                     and got.dtype == BF16)
+        if name == "main":
+            rec.update(decode_timing(pa, q, kp, vp, table, sl, lens, None,
+                                     lib_dtype=BF16))
+            out["bf16q"] = rec
+        emit(rec)
+        if not rec["ok"]:
+            raise SystemExit(f"paged_decode_attention (bf16 q) disagrees "
+                             f"({name})")
+    for (name, B, Sq, Sk, H, KV, hd, causal, q_offset,
+         kv_len) in FLASH_BF16_CASES:
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device="cuda")
+                   .to(BF16) for S, n in ((Sq, H), (Sk, KV), (Sk, KV)))
+        if name.startswith("ref_chunk"):
+            q_offset = Sk - Sq
+        kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+        got = fa.attention(q, k, v, **kw)
+        qf, kf, vf = flat_heads(q, k, v)
+        n_k = Sk if kv_len is None else kv_len
+        want = [fa.flash_attention_plain(
+            *ts, causal=causal, q_offset=q_offset, kv_len=n_k,
+            scale=hd ** -0.5).reshape(B, H, Sq, hd).transpose(1, 2)
+            for ts in ((qf.float(), kf.float(), vf.float()), (qf, kf, vf))]
+        seen = max(visible_keys(Sq, Sk, causal, q_offset, kv_len))
+        kp, vp = k.clone(), v.clone()
+        kp[:, seen:] = 1e4
+        vp[:, seen:] = 1e4
+        poisoned = fa.attention(q, kp, vp, **kw)
+        torch.cuda.synchronize()
+        rec = {"phase": "kernel", "kernel": "flash_attention_bh",
+               "case": name, "dtype": "bfloat16", "B": B, "Sq": Sq,
+               "Sk": Sk, "H": H, "KV": KV, "hd": hd, "BH": B * H,
+               "causal": causal, "q_offset": q_offset, "kv_len": kv_len,
+               "warps_per_rows": fa.warps_per_rows(Sq),
+               "splits": fa.n_splits(B * H, Sq, seen, torch.cuda
+                                     .get_device_properties(0)
+                                     .multi_processor_count),
+               "keys_poisoned": Sk - seen,
+               "out_dtype": str(got.dtype).split(".")[-1],
+               **lowp_reading(got, *want),
+               "poisoned_unread": bit_equal(poisoned, got)}
+        rec["ok"] = (rec["ok"] and rec["poisoned_unread"]
+                     and got.dtype == BF16)
+        if name in FLASH_BF16_TIMED:
+            rec.update(flash_timing(fa, qf, kf, vf, causal, q_offset, kv_len))
+            out["flash"] = rec
+        emit(rec)
+        if not rec["ok"]:
+            raise SystemExit(f"flash_attention_bh (bf16) disagrees ({name})")
+    F = torch.nn.functional
+    for name, B, S, chunk, state, (H, P, N) in SSD_BF16_CASES:
+        if name.startswith("ref_"):
+            def normal(*shape):
+                return torch.randn(*shape, generator=gen, device="cuda")
+            xh, Bm, Cm = normal(B, S, H, P), normal(B, S, N), normal(B, S, N)
+            dt = F.softplus(normal(B, S, H)) * 0.5
+            A = -torch.exp(normal(H) * 0.3)
+            h0 = normal(B, H, P, N) * 0.3 if state == "drawn" else None
+        else:
+            xh, dt, A, Bm, Cm, h0 = ssd_inputs(gen, B, S, None, False,
+                                               (H, P, N))
+            h0 = torch.zeros(B, H, P, N, device="cuda")
+        xh, Bm, Cm = xh.to(BF16), Bm.to(BF16), Cm.to(BF16)
+        h0 = None if h0 is None else h0.to(BF16)
+        y, hT = sk.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk, init_state=h0)
+        w32 = sk.ssd_chunked_plain(xh.float(), dt, A, Bm.float(), Cm.float(),
+                                   chunk, None if h0 is None else h0.float())
+        w16 = sk.ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk, h0)
+        torch.cuda.synchronize()
+        ry = lowp_reading(y, w32[0], w16[0])
+        rh = lowp_reading(hT, w32[1], w16[1])
+        rec = {"phase": "kernel", "kernel": "ssd_scan", "case": name,
+               "dtype": "bfloat16", "B": B, "S": S, "chunk": chunk, "H": H,
+               "P": P, "N": N, "init_state": state,
+               "cb_workspace": sk.cb_workspace(chunk),
+               "out_dtypes": [str(t.dtype).split(".")[-1] for t in (y, hT)],
+               "max_abs_err": max(ry["max_abs_err"], rh["max_abs_err"]),
+               "y": ry, "state": rh,
+               "ok": ry["ok"] and rh["ok"] and y.dtype == hT.dtype == BF16}
+        if name in SSD_BF16_TIMED:
+            rec.update(ssd_timing(sk, xh, dt, A, Bm, Cm, h0, chunk))
+            out["ssd"] = rec
+        emit(rec)
+        if not rec["ok"]:
+            raise SystemExit(f"ssd_scan (bf16) disagrees ({name})")
+    return out
+
+
+# ------------------------ the launch layer in bf16 ----------------------- #
+# ``launch/steps.make_prefill_step`` and ``make_serve_step`` at their
+# default bf16, on real tensors on the card: params from ``init_params`` /
+# ``init_encdec_params`` at bf16, the dense caches of ``init_cache`` at
+# bf16.  whisper-large-v3 at its published width and depth runs its
+# encoder over 1500 frames and its cross attention through B6 (the serve
+# step re-encodes, as the reference's does); mamba2-2.7b at its published
+# widths runs its prefill through B5 (4 chunks of 128 from a zero state).
+LAUNCH_STEPS = {   # arch: lanes, prompt tokens, serve steps
+    "whisper-large-v3": dict(lanes=2, prompt=64, steps=8),
+    "mamba2-2.7b": dict(lanes=2, prompt=512, steps=8),
+}
+# Each step's last-position logits are held against the same step with B5
+# and B6 swapped for their plain versions (fed the kernel run's tokens).
+# Both runs round every bf16 product and activation, and a kernel's output
+# may round one bf16 step away from its plain version's (the kernel
+# phase's check); the layers after it carry such a step, and at depth
+# they grow it: a CPU rehearsal (scripts/rehearse_lowp_phase.py) whose
+# stand-in kernels moved the plain float32 results by 1e-6 relative
+# before rounding put mamba2's logits 1.42 x 2^-5 of their largest apart
+# at 64 layers (whisper's 0.67 x at 32).  So the gate is read in the same
+# call: a control run of the plain versions with their float32 results
+# moved by ``LAUNCH_CONTROL_REL`` x a normal draw before rounding (the
+# 3xTF32 kernels' float32 error) diverges from the plain run by some
+# reading; the kernel run may diverge by at most twice that, and never
+# less than 2^-5 of the largest logit (a few bf16 steps).  The greedy
+# tokens must be equal unless the plain run's top-2 margin there is below
+# that gate (a tie).
+LAUNCH_LOGIT_RTOL = 2.0 ** -5
+LAUNCH_CONTROL_REL = 1e-6
+
+
+@contextlib.contextmanager
+def plain_b5_b6(rel: float = 0.0, seed: int = 0):
+    """The model's calls of B5 and B6 through their plain versions, for
+    one run: the yardstick of the bf16 launch steps (the package has no
+    such switch).  ``models/ssm.py`` calls ``kernels.ssd_scan.ssd_scan``
+    and the GQA wrapper ``attention`` calls ``flash_attention_bh``, each
+    looked up in its module at call time.  Each computes the plain
+    version's float32 result over the widened inputs and rounds it to the
+    inputs' dtype, as the plain version does; ``rel`` > 0 first moves it
+    by ``rel`` x a normal draw (the control run)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def moved(t, dtype):
+        if rel:
+            t = t * (1 + rel * torch.randn(t.shape, generator=g,
+                                           device=t.device))
+        return t.to(dtype)
+
+    def ssd(xh, dt, A, Bm, Cm, *, chunk, init_state=None):
+        y, h = sk.ssd_chunked_plain(
+            xh.float(), dt, A, Bm.float(), Cm.float(), chunk,
+            None if init_state is None else init_state.float())
+        return moved(y, xh.dtype), moved(h, xh.dtype)
+
+    def flash(q, k, v, *, causal=True, q_offset=0, kv_len=None, scale=None):
+        return moved(fa.flash_attention_plain(
+            q.float(), k.float(), v.float(), causal=causal,
+            q_offset=int(q_offset),
+            kv_len=k.shape[1] if kv_len is None else int(kv_len),
+            scale=q.shape[-1] ** -0.5 if scale is None else float(scale)),
+            q.dtype)
+    saved = sk.ssd_scan, fa.flash_attention_bh
+    sk.ssd_scan, fa.flash_attention_bh = ssd, flash
+    try:
+        yield
+    finally:
+        sk.ssd_scan, fa.flash_attention_bh = saved
+
+
+def launch_steps_run(cfg, params, tokens, enc, n_steps, forced=None):
+    """``make_prefill_step`` over ``tokens`` (lanes, prompt), then
+    ``n_steps`` of ``make_serve_step`` from its greedy token (or the
+    tokens of ``forced``, (lanes, n_steps + 1), as a second run is fed the
+    first's).  Returns (each step's last-position logits as float32,
+    (lanes, n_steps + 1) greedy tokens, the bf16 dtypes seen)."""
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import init_cache
+    lanes, S = tokens.shape
+    dev = tokens.device
+    cache = init_cache(cfg, lanes, S + n_steps, BF16, dev)
+    logits, orig = [], steps.logits_fn
+
+    def record(p, c, h):
+        out = orig(p, c, h)
+        logits.append(out[:, -1].float())
+        return out
+    steps.logits_fn = record
+    try:
+        with torch.no_grad():
+            lg, cache = steps.make_prefill_step(cfg)(params, tokens, cache,
+                                                     enc)
+            dtypes = {"prefill_logits": str(lg.dtype).split(".")[-1]}
+            tok = lg[:, -1].float().argmax(-1).to(torch.int32)
+            toks = [tok]
+            serve = steps.make_serve_step(cfg)
+            for i in range(n_steps):
+                if forced is not None:
+                    tok = forced[:, i]
+                pos0 = torch.full((lanes,), S + i, dtype=torch.int32,
+                                  device=dev)
+                tok, cache = serve(params, tok[:, None], cache, pos0, enc)
+                toks.append(tok)
+            dtypes["cache"] = sorted({str(t.dtype).split(".")[-1]
+                                      for t in tree_leaves(cache)})
+    finally:
+        steps.logits_fn = orig
+    return logits, torch.stack(toks, 1), dtypes
+
+
+def launch_step_case(arch, kernels, seed, dev):
+    """One arch of ``LAUNCH_STEPS``: the steps through the kernels, then
+    through the plain B5 / B6 fed the same tokens; logits, tokens and
+    launch counts checked.  Returns the case's record."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import init_encdec_params, init_params
+    spec = LAUNCH_STEPS[arch]
+    cfg = get_config(arch)
+    init = init_encdec_params if cfg.arch_type == "encdec" else init_params
+    params = init(cfg, generator(dev, seed), BF16, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 13)
+    lanes, S, n = spec["lanes"], spec["prompt"], spec["steps"]
+    tokens = torch.randint(1, cfg.vocab, (lanes, S), generator=g,
+                           device=dev, dtype=torch.int32)
+    enc = None
+    if cfg.arch_type == "encdec":
+        enc = torch.randn(lanes, cfg.encoder.n_frames, cfg.d_model,
+                          generator=g, device=dev).to(BF16)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    got, toks, dtypes = launch_steps_run(cfg, params, tokens, enc, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernel_run = kernel_counts(kernels)
+    zero_counts(kernels)
+    with plain_b5_b6():
+        want, ptoks, _ = launch_steps_run(cfg, params, tokens, enc, n,
+                                          forced=toks)
+    torch.cuda.synchronize()
+    plain_run = kernel_counts(kernels)
+    with plain_b5_b6(LAUNCH_CONTROL_REL, seed):
+        ctrl, _, _ = launch_steps_run(cfg, params, tokens, enc, n,
+                                      forced=toks)
+
+    def spread(run):       # the worst step's distance over 2^-5 max |plain|
+        return max((a - b).abs().max().item()
+                   / (LAUNCH_LOGIT_RTOL * b.abs().max().item())
+                   for a, b in zip(run, want))
+    worst, control = spread(got), spread(ctrl)
+    gate = max(1.0, 2.0 * control)
+    ties, equal = [], True
+    for i, b in enumerate(want):
+        tol = gate * LAUNCH_LOGIT_RTOL * b.abs().max().item()
+        top = torch.topk(b, 2, dim=-1).values
+        for lane in range(lanes):
+            if int(toks[lane, i]) != int(ptoks[lane, i]):
+                margin = (top[lane, 0] - top[lane, 1]).item()
+                ties.append({"step": i, "lane": lane, "margin": margin,
+                             "tol": tol})
+                equal = equal and margin < tol
+    n_cross = sum(n for kind, n in cfg.segments() if kind == "cross_attn")
+    n_ssm = sum(n for kind, n in cfg.segments() if kind == "ssm")
+    flash_calls = ((cfg.encoder.n_layers if cfg.encoder else 0) + n_cross) \
+        * (n + 1)
+    others = [k for k in kernel_run if k not in ("ssd", "flash")]
+    checks = {
+        "logits_within_gate": worst <= gate,
+        "tokens_equal_or_tie": equal,
+        "flash_launches": kernel_run["flash"]["kernel"] == flash_calls,
+        "ssd_launches": kernel_run["ssd"]["kernel"] == n_ssm,
+        "no_plain_in_kernel_run": not any(v["plain"]
+                                          for v in kernel_run.values()),
+        "no_kernel_in_plain_run": not any(v["kernel"]
+                                          for v in plain_run.values()),
+        "no_paged_kernel": not any(kernel_run[k]["kernel"] for k in others),
+        "bf16_dtypes": dtypes == {"prefill_logits": "bfloat16",
+                                  "cache": ["bfloat16"]},
+    }
+    rec = {"arch": arch, "layers": cfg.n_layers, "lanes": lanes,
+           "prompt": S, "serve_steps": n, "dtypes": dtypes,
+           "worst_logit_err_over_tol": worst,
+           "control_logit_err_over_tol": control, "gate": gate,
+           "token_differences": ties,
+           "tokens": toks.tolist(), "kernel_run": kernel_run,
+           "plain_run": plain_run, "wall_s": wall, "checks": checks}
+    del params
+    return rec
+
+
+def bf16_launch_steps_phase(kernels, seed: int):
+    """The launch layer's bf16 prefill and serve steps on the card
+    (``LAUNCH_STEPS``): B6 once per encoder layer and cross layer per
+    step, B5 once per SSM layer per prefill, nothing else, against the
+    plain versions.  Returns {"bf16_launch_steps": its launches} for the
+    kernels line."""
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cases, launches = {}, None
+    for arch in LAUNCH_STEPS:
+        cases[arch] = launch_step_case(arch, kernels, seed, dev)
+        free_device_memory()
+        run = cases[arch]["kernel_run"]
+        launches = run if launches is None else {
+            k: {c: launches[k][c] + run[k][c] for c in run[k]} for k in run}
+    ok = all(all(c["checks"].values()) for c in cases.values())
+    rec = {"phase": "bf16_launch_steps", "cases": cases,
+           "launches": launches, "seconds": time.perf_counter() - t0,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "ok": ok}
+    emit(rec)
+    if not ok:
+        raise SystemExit("bf16_launch_steps checks failed")
+    return launches
 
 
 # ------------------------- hybrid and MoE phases ------------------------ #
@@ -5031,13 +5523,31 @@ def main(argv=()) -> int:
           "ptxas": ptxas,
           "parent": None if parent is None else {"dir": args.parent,
                                                  "ptxas": parent.ptxas}})
+    # the seconds of each phase this slice added (the fp16 pools' and the
+    # bf16 inputs'), printed before the "done" line
+    new_s: dict[str, float] = {}
+
+    def new_phase(name, fn, *a, **k):
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        new_s[name] = new_s.get(name, 0.0) + time.perf_counter() - t
+        return out
+
     dec = decode_phase(pa)
     pre = prefill_phase(pp)
     ver = verify_phase(pv, parent)
-    bf16 = torch.bfloat16
+    bf16, f16 = torch.bfloat16, torch.float16
     dec16 = decode_phase(pa, bf16, timed=BF16_DECODE_TIMED)
     pre16 = prefill_phase(pp, bf16, timed=BF16_PREFILL_TIMED)
     ver16 = verify_phase(pv, None, bf16, timed=BF16_VERIFY_TIMED)
+    dech = new_phase("fp16_kernels", decode_phase, pa, f16,
+                     timed=F16_DECODE_TIMED)
+    preh = new_phase("fp16_kernels", prefill_phase, pp, f16,
+                     timed=F16_PREFILL_TIMED)
+    verh = new_phase("fp16_kernels", verify_phase, pv, None, f16,
+                     timed=F16_VERIFY_TIMED)
+    free_device_memory()
+    lowp = new_phase("bf16_input_kernels", lowp_kernel_phase, pa, fa, sk)
     free_device_memory()
     # early, beside the other kernel phases: late in the process the
     # profiler dropped its launch records (row 3m of PERF.md)
@@ -5061,17 +5571,25 @@ def main(argv=()) -> int:
     free_device_memory()
     prompts = spec_prompts(cfg, seed)
     draft = one_layer_draft(cfg, torch.device("cuda"), seed + 7)
-    bf16_streams_phase(
-        "spec", cfg, params, prompts,
-        lambda dtype: spec_script(cfg, params, prompts, draft, dtype)[0],
-        spec_wants)
+    def spec_run(dtype):
+        return spec_script(cfg, params, prompts, draft, dtype)[0]
+    kv16_streams_phase("spec", cfg, params, prompts, spec_run, spec_wants,
+                       bf16)
+    new_phase("fp16_streams", kv16_streams_phase, "spec", cfg, params,
+              prompts, spec_run, spec_wants, f16)
     del draft
     paths["bf16_spec_replay"] = spec_replay_phase(
         cfg, params, kernels, seed, bf16, f32=spec)["launches"]
+    free_device_memory()
+    paths["fp16_spec_replay"] = new_phase(
+        "fp16_spec_replay", spec_replay_phase, cfg, params, kernels, seed,
+        f16, f32=spec)["launches"]
     del params
     free_device_memory()
     mla = mla_prefill_phase(mk)
     mla16 = mla_prefill_phase(mk, bf16, timed=BF16_MLA_TIMED)
+    mlah = new_phase("fp16_kernels", mla_prefill_phase, mk, f16,
+                     timed=F16_MLA_TIMED)
     free_device_memory()
     cfg, params = mla_model(seed)
     mla_wants = mla_stream_phase(cfg, params, seed)
@@ -5080,12 +5598,19 @@ def main(argv=()) -> int:
     paths["mla_replay"] = mla_rec["launches"]
     free_device_memory()
     prompts = script_prompts(cfg, seed + 3)
-    bf16_streams_phase(
-        "mla", cfg, params, prompts,
-        lambda dtype: run_script(cfg, params, prompts, STREAM_SCRIPT,
-                                 max_len=256, dtype=dtype)[0], mla_wants)
+    def mla_run(dtype):
+        return run_script(cfg, params, prompts, STREAM_SCRIPT, max_len=256,
+                          dtype=dtype)[0]
+    kv16_streams_phase("mla", cfg, params, prompts, mla_run, mla_wants,
+                       bf16)
+    new_phase("fp16_streams", kv16_streams_phase, "mla", cfg, params,
+              prompts, mla_run, mla_wants, f16)
     paths["bf16_mla_replay"] = mla_replay_phase(
         cfg, params, kernels, seed, bf16, f32=mla_rec)["launches"]
+    free_device_memory()
+    paths["fp16_mla_replay"] = new_phase(
+        "fp16_mla_replay", mla_replay_phase, cfg, params, kernels, seed, f16,
+        f32=mla_rec)["launches"]
     del params
     free_device_memory()
     ssd = ssd_phase(sk, parent)
@@ -5109,6 +5634,9 @@ def main(argv=()) -> int:
     paths["whisper_replay"] = whisper_replay_phase(cfg, params, kernels,
                                                    seed)
     del params
+    free_device_memory()
+    paths["bf16_launch_steps"] = new_phase(
+        "bf16_launch_steps", bf16_launch_steps_phase, kernels, seed)
     free_device_memory()
     ssd_phase(sk, cases=SSD_HYBRID_CASES, timed=SSD_HYBRID_TIMED, seed=11,
               widths=(HYBRID_H, HYBRID_P, HYBRID_N))
@@ -5142,14 +5670,20 @@ def main(argv=()) -> int:
     del params
     free_device_memory()
     torch.cuda.synchronize()
+    emit({"phase": "new_phase_seconds", "seconds": new_s,
+          "sum_s": sum(new_s.values()), "total_s": time.perf_counter() - t0})
     emit({"phase": "done", "total_s": time.perf_counter() - t0})
 
-    def entry(name, source, replaces, rec, key, pages="float32"):
-        # launches: the kernel's over every path's replay over pools of
-        # ``pages`` (the bf16 replays' paths start with "bf16_")
-        bf16_paths = pages != "float32"
+    def entry(name, source, replaces, rec, key, pages="float32", tag=None,
+              **extra):
+        # launches: the kernel's over every path's replay whose name has
+        # the prefix ``tag`` + "_" (the 16-bit runs: "bf16_", "fp16_"),
+        # or none of those for the float32 entries
+        def tag_of(path):
+            return next((t for t in DTYPE_TAG.values()
+                         if path.startswith(t + "_")), None)
         by_path = {p: v[key]["kernel"] for p, v in paths.items()
-                   if key in v and p.startswith("bf16_") == bf16_paths}
+                   if key in v and tag_of(p) == tag}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
@@ -5158,7 +5692,7 @@ def main(argv=()) -> int:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "library_device_ms": rec["library_device_ms"],
-                "page_dtype": pages}
+                "page_dtype": pages, **extra}
     emit({"kernels": [
         entry("paged_decode_attention", "src/repro_torch/csrc/paged_decode.cu",
               "src/repro/kernels/paged_attention.py:73", dec["main"],
@@ -5183,19 +5717,48 @@ def main(argv=()) -> int:
         entry("paged_decode_attention_bf16",
               "src/repro_torch/csrc/paged_decode.cu",
               "src/repro/kernels/paged_attention.py:73", dec16["main"],
-              "decode", "bfloat16"),
+              "decode", "bfloat16", "bf16"),
         entry("paged_prefill_attention_bf16",
               "src/repro_torch/csrc/paged_prefill.cu",
               "src/repro/kernels/paged_prefill.py:125", pre16["main"],
-              "prefill", "bfloat16"),
+              "prefill", "bfloat16", "bf16"),
         entry("paged_verify_attention_bf16",
               "src/repro_torch/csrc/paged_verify.cu",
               "src/repro/kernels/paged_prefill.py:308", ver16["main"],
-              "verify", "bfloat16"),
+              "verify", "bfloat16", "bf16"),
         entry("mla_paged_prefill_attention_bf16",
               "src/repro_torch/csrc/mla_paged_prefill.cu",
               "src/repro/kernels/paged_prefill.py:255", mla16,
-              "mla_prefill", "bfloat16"),
+              "mla_prefill", "bfloat16", "bf16"),
+        entry("paged_decode_attention_f16",
+              "src/repro_torch/csrc/paged_decode.cu",
+              "src/repro/kernels/paged_attention.py:73", dech["main"],
+              "decode", "float16", "fp16"),
+        entry("paged_prefill_attention_f16",
+              "src/repro_torch/csrc/paged_prefill.cu",
+              "src/repro/kernels/paged_prefill.py:125", preh["main"],
+              "prefill", "float16", "fp16"),
+        entry("paged_verify_attention_f16",
+              "src/repro_torch/csrc/paged_verify.cu",
+              "src/repro/kernels/paged_prefill.py:308", verh["main"],
+              "verify", "float16", "fp16"),
+        entry("mla_paged_prefill_attention_f16",
+              "src/repro_torch/csrc/mla_paged_prefill.cu",
+              "src/repro/kernels/paged_prefill.py:255", mlah,
+              "mla_prefill", "float16", "fp16"),
+        # no path passes bf16 queries (the engine's activations are
+        # float32): its launches are the kernel phase's alone, not counted
+        entry("paged_decode_attention_bf16q",
+              "src/repro_torch/csrc/paged_decode.cu",
+              "src/repro/kernels/paged_attention.py:73", lowp["bf16q"],
+              "decode", "bfloat16", "bf16q", query_dtype="bfloat16"),
+        entry("ssd_scan_bf16", "src/repro_torch/csrc/ssd_scan.cu",
+              "src/repro/kernels/ssd_scan.py:59", lowp["ssd"], "ssd",
+              None, "bf16", dtype="bfloat16"),
+        entry("flash_attention_bh_bf16",
+              "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:66", lowp["flash"],
+              "flash", None, "bf16", dtype="bfloat16"),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -86,10 +86,10 @@ def main(argv=None) -> int:
             f32 = cs.spec_replay_phase(cfg, params, kernels, seed)
             prompts = cs.spec_prompts(cfg, seed)
             draft = cs.one_layer_draft(cfg, torch.device("cpu"), seed + 7)
-            cs.bf16_streams_phase(
+            cs.kv16_streams_phase(
                 "spec", cfg, params, prompts,
                 lambda dtype: cs.spec_script(cfg, params, prompts, draft,
-                                             dtype)[0], wants)
+                                             dtype)[0], wants, bf16)
             cs.spec_replay_phase(cfg, params, kernels, seed, bf16, f32=f32)
         if args.only in (None, "mla"):
             cfg = dataclasses.replace(get_reduced(cs.MLA_ARCH), **cs.MLA_CUT)
@@ -98,11 +98,11 @@ def main(argv=None) -> int:
             wants = cs.mla_stream_phase(cfg, params, seed)
             f32 = cs.mla_replay_phase(cfg, params, kernels, seed)
             prompts = cs.script_prompts(cfg, seed + 3)
-            cs.bf16_streams_phase(
+            cs.kv16_streams_phase(
                 "mla", cfg, params, prompts,
                 lambda dtype: cs.run_script(cfg, params, prompts,
                                             cs.STREAM_SCRIPT, max_len=256,
-                                            dtype=dtype)[0], wants)
+                                            dtype=dtype)[0], wants, bf16)
             cs.mla_replay_phase(cfg, params, kernels, seed, bf16, f32=f32)
     except SystemExit as exc:
         print(exc, file=sys.stderr)

@@ -1,5 +1,5 @@
-// Dense flash attention for Hopper (sm_90a), float32 data, products on the
-// tensor cores in 3xTF32.
+// Dense flash attention for Hopper (sm_90a), float32 or bfloat16 data,
+// products on the tensor cores in 3xTF32.
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_bh
 // (Pallas body _flash_kernel).  Heads are pre-flattened and GQA
@@ -47,10 +47,20 @@
 // - Causal: query tiles are launched last first across all bh (they see
 //   the most keys), and key tiles past a tile's last visible key are never
 //   visited.
+// - bf16 q, k and v (the launch layer's bf16 steps: whisper's encoder and
+//   cross attention; the reference's all-bf16 kernel case): K/V tiles are
+//   staged by cp.async as bf16, rows padded to hd + 8 elements (B2's bf16
+//   layout, conflict-free fragment reads: csrc/paged_prefill.cu), and
+//   widened to fp32 as fragments are read; a bf16 value is exact in TF32,
+//   so both products skip the key's or value's small half.  The query rows
+//   are widened to fp32 as they are staged (plain loads).  The output is
+//   rounded to bf16 once, from the fp32 result (split_merge.cuh rounds it
+//   when the keys are split), as the Pallas kernel's o.astype(q.dtype).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_tf32.cuh"
+#include "page_types.cuh"
 #include "split_merge.cuh"
 
 namespace {
@@ -65,38 +75,54 @@ using repro_mma::p_fragment;
 using repro_mma::pv_mma3;
 using repro_mma::quad_max;
 using repro_mma::quad_sum;
+using repro_page::bf16;
+using repro_page::kPerChunk;
+using repro_page::kSmallHalf;
+using repro_page::load4;
+using repro_page::store2;
+using repro_page::to_f32;
 using repro_split::kNegInf;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBN = 64;           // keys per tile
 
-template <int HD, int KW>
+// fp32 query rows of hd + 4 floats; K/V tiles of T rows padded by one
+// 16-byte chunk (hd + 4 floats, hd + 8 bf16)
+template <typename T, int HD, int KW>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(16 * (kWarps / KW) + 4 * kBN) * (HD + 4);
+  return sizeof(float) * (size_t)(16 * (kWarps / KW)) * (HD + 4) +
+         sizeof(T) * (size_t)(4 * kBN) * (HD + kPerChunk<T>);
 }
 
-template <int HD, int KW>
+template <typename T, int HD, int KW>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const float* __restrict__ q,    // (BH, Sq, HD)
-    const float* __restrict__ k,    // (BH, Sk, HD)
-    const float* __restrict__ v,    // (BH, Sk, HD)
-    float* __restrict__ out,        // (BH, Sq, HD)             one split
+    const T* __restrict__ q,        // (BH, Sq, HD)
+    const T* __restrict__ k,        // (BH, Sk, HD)
+    const T* __restrict__ v,        // (BH, Sk, HD)
+    T* __restrict__ out,            // (BH, Sq, HD)             one split
     float* __restrict__ m_ws,       // (BH, n_split, Sq)
     float* __restrict__ l_ws,
     float* __restrict__ acc_ws,     // (BH, n_split, Sq, HD)
     int Sq, int Sk, int causal, int q_offset, int kv_len, float scale,
     int n_split) {
-  constexpr int ST = HD + 4;        // shared row stride in floats
-  constexpr int C4 = HD / 4;        // 16-byte chunks per row
+  constexpr int ST = HD + 4;        // shared query row stride in floats
+  constexpr int C4 = HD / 4;        // fp32 16-byte chunks per query row
+  constexpr int EC = kPerChunk<T>;  // elements per 16 bytes
+  constexpr int KST = HD + EC;      // shared K/V row stride in elements
+  constexpr int CK = HD / EC;       // 16-byte chunks per K/V row
   constexpr int NK = HD / 8;        // k-steps of Q·Kᵀ, n-tiles of P·V
   constexpr int RW = kWarps / KW;   // row groups of 16 per block
   constexpr int BM = 16 * RW;       // query rows per block
   constexpr int NJ = kBN / 8 / KW;  // a warp's n-tiles of a key tile
   constexpr int NP = NJ <= 2 ? 2 : 1;  // Q·Kᵀ accumulators by k-step parity
+  // the KW > 1 merge's scratch (every warp's fragments) reuses the tiles
+  static_assert(sizeof(float) * kWarps * (NK * 4 + 4) * 32 <=
+                    sizeof(T) * 4 * kBN * KST,
+                "the warps' partials fit in the K/V tiles");
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // BM x ST
-  float* k_s = q_s + BM * ST;                     // 2 x kBN x ST
-  float* v_s = k_s + 2 * kBN * ST;                // 2 x kBN x ST
+  T* k_s = reinterpret_cast<T*>(q_s + BM * ST);   // 2 x kBN x KST
+  T* v_s = k_s + 2 * kBN * KST;                   // 2 x kBN x KST
 
   const long long bh = blockIdx.x;
   const int n_qt = gridDim.y / n_split;
@@ -107,9 +133,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int rw = warp / KW, kw = warp % KW;
-  const float* qb = q + bh * Sq * HD;
-  const float* kb = k + bh * Sk * HD;
-  const float* vb = v + bh * Sk * HD;
+  const T* qb = q + bh * Sq * HD;
+  const T* kb = k + bh * Sk * HD;
+  const T* vb = v + bh * Sk * HD;
 
   // the keys any row of this tile may see: [0, k_hi), and this split's
   // share of its 64-key tiles
@@ -120,30 +146,41 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   const int t_hi = (int)((long long)(split_id + 1) * n_tiles / n_split);
 
   // a tile's kBN key rows: kTPK threads per row, each issuing its share of
-  // the row's 16-byte copies
+  // the row's 16-byte copies (fp32: a run of C4 / kTPK; bf16 rows at hd 112
+  // have 14 chunks, so every kTPK-th one)
   constexpr int kTPK = kThreads / kBN;
-  static_assert(kTPK * kBN == kThreads && C4 % kTPK == 0, "tile split");
+  constexpr int kCPT = (CK + kTPK - 1) / kTPK;  // chunks per thread, at most
+  static_assert(kTPK * kBN == kThreads, "tile split");
   const int ld_p = tid / kTPK;
-  const int ld_c = (tid % kTPK) * (C4 / kTPK);
+  const int ld_c = tid % kTPK;
   auto load_tile = [&](int t, int buf) {
     const int pos = t * kBN + ld_p;
     const bool pred = pos < k_hi;
-    const long long off = pred ? (long long)pos * HD + 4 * ld_c : 0;
-    float* kd = k_s + buf * kBN * ST + ld_p * ST + 4 * ld_c;
-    float* vd = v_s + buf * kBN * ST + ld_p * ST + 4 * ld_c;
+    const long long off = pred ? (long long)pos * HD : 0;
+    T* kd = k_s + buf * kBN * KST + ld_p * KST;
+    T* vd = v_s + buf * kBN * KST + ld_p * KST;
 #pragma unroll
-    for (int c = 0; c < C4 / kTPK; ++c) {
-      cp_async16(kd + 4 * c, kb + off + (pred ? 4 * c : 0), pred);
-      cp_async16(vd + 4 * c, vb + off + (pred ? 4 * c : 0), pred);
+    for (int j = 0; j < kCPT; ++j) {
+      const int c = CK % kTPK == 0 ? ld_c * kCPT + j : ld_c + kTPK * j;
+      if (c < CK) {
+        cp_async16(kd + EC * c, kb + off + (pred ? EC * c : 0), pred);
+        cp_async16(vd + EC * c, vb + off + (pred ? EC * c : 0), pred);
+      }
     }
   };
 
-  // query rows, zeros past Sq; with the first key tile
+  // query rows, zeros past Sq; with the first key tile (bf16 rows are
+  // widened by plain loads: the loop's first barrier publishes them)
   for (int e = tid; e < BM * C4; e += kThreads) {
     const int rr = e / C4, c = e % C4;
     const bool live = r0 + rr < Sq;
-    cp_async16(q_s + rr * ST + 4 * c,
-               live ? qb + (long long)(r0 + rr) * HD + 4 * c : qb, live);
+    const T* src = live ? qb + (long long)(r0 + rr) * HD + 4 * c : qb;
+    if constexpr (kSmallHalf<T>) {
+      cp_async16(q_s + rr * ST + 4 * c, src, live);
+    } else {
+      *reinterpret_cast<float4*>(q_s + rr * ST + 4 * c) =
+          live ? load4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
   if (t_lo < t_hi) load_tile(t_lo, 0);
   cp_async_commit();
@@ -167,8 +204,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     __syncthreads();
     if (warp_live) {
       // this warp's keys of the tile: n-tiles kw * NJ + [0, NJ)
-      const float* kt = k_s + buf * kBN * ST + kw * NJ * 8 * ST;
-      const float* vt = v_s + buf * kBN * ST + kw * NJ * 8 * ST;
+      const T* kt = k_s + buf * kBN * KST + kw * NJ * 8 * KST;
+      const T* vt = v_s + buf * kBN * KST + kw * NJ * 8 * KST;
       const float* qw = q_s + wr * ST;
       float sp[NP][NJ][4];
 #pragma unroll
@@ -183,11 +220,11 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
         float kb2[NJ][2];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const float* kr = kt + (8 * j + gq) * ST + 8 * kk + tq;
-          kb2[j][0] = kr[0];
-          kb2[j][1] = kr[4];
+          const T* kr = kt + (8 * j + gq) * KST + 8 * kk + tq;
+          kb2[j][0] = to_f32(kr[0]);
+          kb2[j][1] = to_f32(kr[4]);
         }
-        mma3<NJ>(sp[kk % NP], ab, as, kb2);
+        mma3<NJ, kSmallHalf<T>>(sp[kk % NP], ab, as, kb2);
       }
       // mask, scale, online softmax on the fragments
       const int kb0 = t * kBN + kw * NJ * 8;
@@ -228,8 +265,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
         l1 += p2 + p3;
         uint32_t ab[4], as[4];
         p_fragment(p0, p1, p2, p3, ab, as);
-        const float* v0 = vt + (8 * j + 2 * tq) * ST + gq;
-        pv_mma3<NK>(o, ab, as, v0, ST);
+        const T* v0 = vt + (8 * j + 2 * tq) * KST + gq;
+        pv_mma3<NK>(o, ab, as, v0, KST);
       }
     }
     __syncthreads();                 // buffer buf free for tile t + 2
@@ -243,7 +280,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     // tiles are consumed): every warp leaves its (m, l, acc) fragments,
     // the row group's first warp folds in the others in a fixed order
     __syncthreads();
-    float* xw = k_s + warp * (NK * 4 + 4) * 32;
+    float* xw = reinterpret_cast<float*>(k_s) + warp * (NK * 4 + 4) * 32;
     if (warp_live && kw > 0) {
 #pragma unroll
       for (int n = 0; n < NK; ++n)
@@ -287,11 +324,11 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const float l = half ? l1 : l0;
     if (n_split == 1) {
       const float inv = 1.f / fmaxf(l, 1e-30f);
-      float* orow = out + (bh * Sq + r) * HD;
+      T* orow = out + (bh * Sq + r) * HD;
 #pragma unroll
       for (int n = 0; n < NK; ++n)
-        *reinterpret_cast<float2*>(orow + 8 * n + 2 * tq) =
-            make_float2(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+        store2(orow + 8 * n + 2 * tq, o[n][2 * half] * inv,
+               o[n][2 * half + 1] * inv);
     } else {
       const long long w = (bh * n_split + split_id) * Sq + r;
       if (tq == 0) {
@@ -307,18 +344,18 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   }
 }
 
-template <int HD, int KW>
-int launch(const float* q, const float* k, const float* v, float* out,
-           float* m_ws, float* l_ws, float* acc_ws, int BH, int Sq, int Sk,
-           int causal, int q_offset, int kv_len, float scale, int n_split,
+template <typename T, int HD, int KW>
+int launch(const T* q, const T* k, const T* v, T* out, float* m_ws,
+           float* l_ws, float* acc_ws, int BH, int Sq, int Sk, int causal,
+           int q_offset, int kv_len, float scale, int n_split,
            cudaStream_t st) {
-  constexpr size_t smem = smem_bytes<HD, KW>();
+  constexpr size_t smem = smem_bytes<T, HD, KW>();
   // the attribute belongs to the instantiation: set it once, not on
   // every launch (as B2 does)
   static bool attr_set = false;
   if (smem > 48 * 1024 && !attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<HD, KW>,
+        flash_attention_kernel<T, HD, KW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
@@ -326,37 +363,53 @@ int launch(const float* q, const float* k, const float* v, float* out,
   constexpr int BM = 16 * (kWarps / KW);
   const int n_qt = (Sq + BM - 1) / BM;
   if ((long long)n_qt * n_split > 65535) return (int)cudaErrorInvalidValue;
-  flash_attention_kernel<HD, KW><<<dim3(BH, n_qt * n_split), kThreads, smem,
-                                   st>>>(q, k, v, out, m_ws, l_ws, acc_ws, Sq,
-                                         Sk, causal, q_offset, kv_len, scale,
-                                         n_split);
+  flash_attention_kernel<T, HD, KW>
+      <<<dim3(BH, n_qt * n_split), kThreads, smem, st>>>(
+          q, k, v, out, m_ws, l_ws, acc_ws, Sq, Sk, causal, q_offset, kv_len,
+          scale, n_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return (int)err;
   return repro_split::launch_split_merge(m_ws, l_ws, acc_ws, nullptr, out, BH,
                                          Sq, 1, 1, HD, n_split, st);
 }
 
-template <int HD>
-int launch_kw(const float* q, const float* k, const float* v, float* out,
-              float* m_ws, float* l_ws, float* acc_ws, int BH, int Sq, int Sk,
-              int causal, int q_offset, int kv_len, float scale, int n_split,
-              int kw, cudaStream_t st) {
+template <typename T, int HD>
+int launch_kw(const T* q, const T* k, const T* v, T* out, float* m_ws,
+              float* l_ws, float* acc_ws, int BH, int Sq, int Sk, int causal,
+              int q_offset, int kv_len, float scale, int n_split, int kw,
+              cudaStream_t st) {
+#define REPRO_FLASH_KW(KW)                                                  \
+  return launch<T, HD, KW>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,    \
+                           causal, q_offset, kv_len, scale, n_split, st)
   switch (kw) {
-    case 1:
-      return launch<HD, 1>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
-                           causal, q_offset, kv_len, scale, n_split, st);
-    case 2:
-      return launch<HD, 2>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
-                           causal, q_offset, kv_len, scale, n_split, st);
-    case 4:
-      return launch<HD, 4>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
-                           causal, q_offset, kv_len, scale, n_split, st);
-    case 8:
-      return launch<HD, 8>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
-                           causal, q_offset, kv_len, scale, n_split, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 1: REPRO_FLASH_KW(1);
+    case 2: REPRO_FLASH_KW(2);
+    case 4: REPRO_FLASH_KW(4);
+    case 8: REPRO_FLASH_KW(8);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef REPRO_FLASH_KW
+}
+
+template <typename T>
+int flash_attention(const T* q, const T* k, const T* v, T* out, float* m_ws,
+                    float* l_ws, float* acc_ws, int BH, int Sq, int Sk,
+                    int hd, int causal, int q_offset, int kv_len,
+                    float scale, int kw, int n_split, void* stream) {
+  if (BH <= 0 || Sq <= 0 || n_split < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define REPRO_FLASH_HD(HD)                                                  \
+  return launch_kw<T, HD>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,     \
+                          causal, q_offset, kv_len, scale, n_split, kw, s)
+  switch (hd) {
+    case 32: REPRO_FLASH_HD(32);
+    case 64: REPRO_FLASH_HD(64);
+    case 112: REPRO_FLASH_HD(112);
+    case 128: REPRO_FLASH_HD(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_FLASH_HD
 }
 
 }  // namespace
@@ -366,29 +419,24 @@ int launch_kw(const float* q, const float* k, const float* v, float* out,
 // m_ws / l_ws (BH, n_split, Sq) and acc_ws (BH, n_split, Sq, hd) when it is
 // above 1 (null otherwise).  Returns a cudaError_t (0 on success);
 // cudaErrorInvalidValue for a head dim other than 32, 64, 112 or 128, a kw
-// outside 1/2/4/8 or a grid the card cannot launch.
+// outside 1/2/4/8 or a grid the card cannot launch.  _f32 takes float32
+// q, k, v and out, _bf16 bf16 ones.
 extern "C" int repro_flash_attention_f32(
     const float* q, const float* k, const float* v, float* out, float* m_ws,
     float* l_ws, float* acc_ws, int BH, int Sq, int Sk, int hd, int causal,
     int q_offset, int kv_len, float scale, int kw, int n_split,
     void* stream) {
-  if (BH <= 0 || Sq <= 0 || n_split < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (hd) {
-    case 32:
-      return launch_kw<32>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
-                           causal, q_offset, kv_len, scale, n_split, kw, s);
-    case 64:
-      return launch_kw<64>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
-                           causal, q_offset, kv_len, scale, n_split, kw, s);
-    case 112:
-      return launch_kw<112>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
-                            causal, q_offset, kv_len, scale, n_split, kw, s);
-    case 128:
-      return launch_kw<128>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
-                            causal, q_offset, kv_len, scale, n_split, kw, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return flash_attention<float>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
+                                hd, causal, q_offset, kv_len, scale, kw,
+                                n_split, stream);
+}
+
+extern "C" int repro_flash_attention_bf16(
+    const bf16* q, const bf16* k, const bf16* v, bf16* out, float* m_ws,
+    float* l_ws, float* acc_ws, int BH, int Sq, int Sk, int hd, int causal,
+    int q_offset, int kv_len, float scale, int kw, int n_split,
+    void* stream) {
+  return flash_attention<bf16>(q, k, v, out, m_ws, l_ws, acc_ws, BH, Sq, Sk,
+                               hd, causal, q_offset, kv_len, scale, kw,
+                               n_split, stream);
 }

@@ -1,6 +1,6 @@
 // Fused MLA latent-page chunked prefill for Hopper (sm_90a), float32 data
-// over float32 or bfloat16 latent pages, products on the tensor cores in
-// 3xTF32.
+// over float32, bfloat16 or float16 latent pages, products on the tensor
+// cores in 3xTF32.
 //
 // Replaces: src/repro/kernels/paged_prefill.py, mla_paged_prefill_attention
 // (Pallas body _mla_prefill_kernel).  One launch per MLA layer per prefill
@@ -70,7 +70,8 @@
 // the key's small TF32 half (zero for a bf16 value).  The chunk's own
 // latent rows are rounded to bf16 in registers as they are staged, so the
 // chunk attends over exactly what it writes (rounded to nearest even), as
-// the reference reads them back from its pages.
+// the reference reads them back from its pages.  float16 latent pages
+// take the same layout and staging (an fp16 value is exact in TF32 too).
 //
 // Output rows at i >= chunk_len[b] (padding, masked lanes) are zeros.
 // Masked scores are NEG_INF = -1e30 and contribute an exact 0, and the
@@ -86,6 +87,7 @@
 namespace {
 
 using repro_page::bf16;
+using repro_page::f16;
 using repro_page::load4;
 using repro_page::stage_rounded;
 using repro_page::store4;
@@ -215,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, 1) mla_prefill_kernel(
     const int pos = t * kKeys + ld_row;
     T* d = k_s + (buf * kKeys + ld_row) * ST;
     if (pos >= pos0 && pos < k_hi && !repro_page::kSmallHalf<T>) {
-      // bf16: the chunk's own rows, rounded in registers and staged
+      // 16-bit: the chunk's own rows, rounded in registers and staged
       const long long src = (long long)b * S + (pos - pos0);
 #pragma unroll
       for (int j = 0; j < CK / kTPK; ++j) {
@@ -445,7 +447,7 @@ int mla_prefill(const float* q_lat, const float* q_rope, const float* ckv_new,
 // above 1 (null otherwise).  Returns 0 or a CUDA error code;
 // cudaErrorInvalidValue for latent widths other than r 512, rope 64 or a
 // grid the card cannot launch.  _f32 takes float32 pages, _bf16 bfloat16
-// pages.
+// pages, _f16 float16 pages.
 extern "C" int repro_mla_paged_prefill_f32(
     const float* q_lat, const float* q_rope, const float* ckv_new,
     const float* krope_new, float* ckv_pages, float* krope_pages,
@@ -470,4 +472,17 @@ extern "C" int repro_mla_paged_prefill_bf16(
                            krope_pages, block_table, pos0, chunk_len, out,
                            m_ws, l_ws, acc_ws, B, S, H, r, rope, page,
                            max_pages, scale, n_split, stream);
+}
+
+extern "C" int repro_mla_paged_prefill_f16(
+    const float* q_lat, const float* q_rope, const float* ckv_new,
+    const float* krope_new, f16* ckv_pages, f16* krope_pages,
+    const int* block_table, const int* pos0, const int* chunk_len, float* out,
+    float* m_ws, float* l_ws, float* acc_ws, int B, int S, int H, int r,
+    int rope, int page, int max_pages, float scale, int n_split,
+    void* stream) {
+  return mla_prefill<f16>(q_lat, q_rope, ckv_new, krope_new, ckv_pages,
+                          krope_pages, block_table, pos0, chunk_len, out,
+                          m_ws, l_ws, acc_ws, B, S, H, r, rope, page,
+                          max_pages, scale, n_split, stream);
 }

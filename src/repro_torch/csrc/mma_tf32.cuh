@@ -54,7 +54,7 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
 // fragment as two fp32 values b[n][0..1].  The three passes run over all N
 // accumulators in turn, so consecutive mma.sync are independent and their
 // latencies overlap.  With kBSmall false the B values are exact in TF32
-// (widened from bf16 pages: page_types.cuh), their small halves are zero
+// (widened from bf16 or fp16: page_types.cuh), their small halves are zero
 // and big·small is left out: two products instead of three, same sums.
 template <int N, bool kBSmall = true>
 __device__ __forceinline__ void mma3(float (&d)[N][4], const uint32_t (&ab)[4],
@@ -116,7 +116,7 @@ __device__ __forceinline__ void mma3_acc(float (&d)[N][4],
 // (head dim 112 has NK = 14: three groups of four and a tail of two), so
 // no product reaches past o.  V's B fragment of n-tile n is v0[8 n] and
 // v0[st + 8 n] (the k-step's rows 2t and 2t + 1, column g; p_fragment's
-// key order), fp32 or bf16 staged values (a bf16 V takes mma3's
+// key order), fp32 or 16-bit staged values (a bf16 or fp16 V takes mma3's
 // two-product form).
 template <int NK, typename T>
 __device__ __forceinline__ void pv_mma3(float (&o)[NK][4],

@@ -1,4 +1,5 @@
-// Paged decode attention for Hopper (sm_90a), float32 or bfloat16 pages.
+// Paged decode attention for Hopper (sm_90a), float32, bfloat16 or float16
+// pages; float32 queries and output, or bf16 ones over bf16 pages.
 //
 // Replaces: src/repro/kernels/paged_attention.py, paged_decode_attention
 // (Pallas body _paged_kernel).  One query token per lane attends over its
@@ -42,6 +43,14 @@
 //   registers as it uses them (the high half of an fp32 word: a shift or
 //   a mask).  A first design kept float32's four elements a lane (8-byte
 //   loads): it ran 1.4x float32's time on an H100 (PERF.md).
+// - float16 pages: the same 16-byte columns of 8 elements; an fp16 element
+//   has no such bit trick and is converted (cvt.f32.f16, exact) as it is
+//   used.
+// - bf16 queries over bf16 pages (the reference's all-bf16 case,
+//   tests/test_kernels.py): q is widened to fp32 as it is loaded, the
+//   arithmetic is the float32 kernel's, and the output is rounded to bf16
+//   once, from the fp32 result (split_merge.cuh rounds it when the keys
+//   are split).  No engine path passes it: its activations are float32.
 //
 // Semantics kept from the TPU kernel: masked scores are NEG_INF = -1e30
 // (they contribute exactly 0), the denominator is floored at 1e-30, all
@@ -54,6 +63,9 @@
 namespace {
 
 using repro_page::bf16;
+using repro_page::f16;
+using repro_page::load4;
+using repro_page::store1;
 using repro_split::kNegInf;
 
 // lanes a key row of c 16-byte columns takes: c rounded up to a power of
@@ -68,26 +80,30 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kU = 8;  // keys in flight per stream
 
 // element i of a 16-byte column of T values, as fp32 (bf16 is the high
-// half of an fp32 word: a shift or a mask, exact)
+// half of an fp32 word: a shift or a mask; fp16 a conversion; both exact)
 template <typename T>
 __device__ __forceinline__ float elem(const uint4& c, int i) {
   const uint32_t w = (&c.x)[sizeof(T) == 4 ? i : i / 2];
   if constexpr (sizeof(T) == 4) {
     return __uint_as_float(w);
-  } else {
+  } else if constexpr (std::is_same_v<T, bf16>) {
     return __uint_as_float(i % 2 ? w & 0xffff0000u : w << 16);
+  } else {
+    return __half2float(
+        __ushort_as_half((unsigned short)(i % 2 ? w >> 16 : w)));
   }
 }
 
-// T: page element type; head dim; largest group size G the build takes
-template <typename T, int HD, int MG>
+// T: page element type; Q: query and output type (float, or bf16 over bf16
+// pages); head dim; largest group size G the build takes
+template <typename T, typename Q, int HD, int MG>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const float* __restrict__ q,          // (B, H, hd)
+    const Q* __restrict__ q,              // (B, H, hd)
     const T* __restrict__ k_pages,        // (n_pages, page, KVH, hd)
     const T* __restrict__ v_pages,
     const int* __restrict__ block_table,  // (B, max_pages)
     const int* __restrict__ seq_lens,     // (B,)
-    float* __restrict__ out,              // (B, H, hd)      one split
+    Q* __restrict__ out,                  // (B, H, hd)      one split
     float* __restrict__ m_ws,             // (B, KVH, n_split, G)
     float* __restrict__ l_ws,
     float* __restrict__ acc_ws,           // (B, KVH, n_split, G, hd)
@@ -128,15 +144,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   float qv[MG][EPL];
   float m[MG], l[MG];
   float acc[MG][EPL];
-  const float* qrow = q + ((long long)b * H + (long long)kvh * G) * HD +
-                      EPL * li;
+  const Q* qrow = q + ((long long)b * H + (long long)kvh * G) * HD +
+                  EPL * li;
 #pragma unroll
   for (int g = 0; g < MG; ++g) {
 #pragma unroll
     for (int i = 0; i < EPL; i += 4) {
-      const float4 x = g < G && col
-                           ? *reinterpret_cast<const float4*>(qrow + g * HD + i)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 x = g < G && col ? load4(qrow + g * HD + i)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
       qv[g][i] = x.x;
       qv[g][i + 1] = x.y;
       qv[g][i + 2] = x.z;
@@ -231,8 +246,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       }
     }
     if (n_split == 1) {
-      out[((long long)b * H + (long long)kvh * G + g) * HD + d] =
-          num / fmaxf(den, 1e-30f);
+      store1(out + ((long long)b * H + (long long)kvh * G + g) * HD + d,
+             num / fmaxf(den, 1e-30f));
     } else {
       acc_ws[(ws_row + g) * HD + d] = num;
       if (d == 0) {
@@ -243,13 +258,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
-template <typename T, int HD, int MG>
-int launch(const float* q, const T* k_pages, const T* v_pages,
-           const int* block_table, const int* seq_lens, float* out,
+template <typename T, typename Q, int HD, int MG>
+int launch(const Q* q, const T* k_pages, const T* v_pages,
+           const int* block_table, const int* seq_lens, Q* out,
            float* m_ws, float* l_ws, float* acc_ws, int B, int H, int KVH,
            int page, int max_pages, float scale, int window, int n_split,
            cudaStream_t st) {
-  paged_decode_kernel<T, HD, MG><<<dim3(B, KVH, n_split), kThreads, 0, st>>>(
+  paged_decode_kernel<T, Q, HD, MG>
+      <<<dim3(B, KVH, n_split), kThreads, 0, st>>>(
       q, k_pages, v_pages, block_table, seq_lens, out, m_ws, l_ws, acc_ws, H,
       KVH, page, max_pages, scale, window, n_split);
   cudaError_t err = cudaGetLastError();
@@ -258,16 +274,16 @@ int launch(const float* q, const T* k_pages, const T* v_pages,
                                          1, H, KVH, HD, n_split, st);
 }
 
-template <typename T, int HD>
-int launch_hd(int G, const float* q, const T* k_pages,
+template <typename T, typename Q, int HD>
+int launch_hd(int G, const Q* q, const T* k_pages,
               const T* v_pages, const int* block_table,
-              const int* seq_lens, float* out, float* m_ws, float* l_ws,
+              const int* seq_lens, Q* out, float* m_ws, float* l_ws,
               float* acc_ws, int B, int H, int KVH, int page, int max_pages,
               float scale, int window, int n_split, cudaStream_t st) {
-#define REPRO_DECODE_LAUNCH(MG)                                           \
-  return launch<T, HD, MG>(q, k_pages, v_pages, block_table, seq_lens, out, \
-                           m_ws, l_ws, acc_ws, B, H, KVH, page, max_pages,  \
-                           scale, window, n_split, st)
+#define REPRO_DECODE_LAUNCH(MG)                                              \
+  return launch<T, Q, HD, MG>(q, k_pages, v_pages, block_table, seq_lens,    \
+                              out, m_ws, l_ws, acc_ws, B, H, KVH, page,      \
+                              max_pages, scale, window, n_split, st)
   if (G <= 1) REPRO_DECODE_LAUNCH(1);
   if (G <= 2) REPRO_DECODE_LAUNCH(2);
   if (G <= 4) REPRO_DECODE_LAUNCH(4);
@@ -276,18 +292,18 @@ int launch_hd(int G, const float* q, const T* k_pages,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int paged_decode(const float* q, const T* k_pages, const T* v_pages,
-                 const int* block_table, const int* seq_lens, float* out,
+template <typename T, typename Q = float>
+int paged_decode(const Q* q, const T* k_pages, const T* v_pages,
+                 const int* block_table, const int* seq_lens, Q* out,
                  float* m_ws, float* l_ws, float* acc_ws, int B, int H,
                  int KVH, int hd, int page, int max_pages, float scale,
                  int window, int n_split, void* stream) {
   const int G = H / KVH;
   cudaStream_t st = (cudaStream_t)stream;
-#define REPRO_DECODE_HD(HD)                                                   \
-  return launch_hd<T, HD>(G, q, k_pages, v_pages, block_table, seq_lens, out, \
-                          m_ws, l_ws, acc_ws, B, H, KVH, page, max_pages,     \
-                          scale, window, n_split, st)
+#define REPRO_DECODE_HD(HD)                                                  \
+  return launch_hd<T, Q, HD>(G, q, k_pages, v_pages, block_table, seq_lens,  \
+                             out, m_ws, l_ws, acc_ws, B, H, KVH, page,       \
+                             max_pages, scale, window, n_split, st)
   switch (hd) {
     case 32: REPRO_DECODE_HD(32);
     case 64: REPRO_DECODE_HD(64);
@@ -302,7 +318,9 @@ int paged_decode(const float* q, const T* k_pages, const T* v_pages,
 
 // Returns 0 or a CUDA error code; cudaErrorInvalidValue (1) for a head dim
 // other than 32, 64, 112, 128 or a group larger than 8 (the wrapper
-// refuses both first).  _f32 takes float32 pages, _bf16 bfloat16 pages.
+// refuses both first).  _f32 takes float32 pages, _bf16 bfloat16 pages,
+// _f16 float16 pages, all with float32 q and out; _bf16q bf16 q and out
+// over bf16 pages.
 extern "C" int repro_paged_decode_f32(
     const float* q, const float* k_pages, const float* v_pages,
     const int* block_table, const int* seq_lens, float* out, float* m_ws,
@@ -321,4 +339,25 @@ extern "C" int repro_paged_decode_bf16(
   return paged_decode<bf16>(q, k_pages, v_pages, block_table, seq_lens, out,
                             m_ws, l_ws, acc_ws, B, H, KVH, hd, page,
                             max_pages, scale, window, n_split, stream);
+}
+
+extern "C" int repro_paged_decode_f16(
+    const float* q, const f16* k_pages, const f16* v_pages,
+    const int* block_table, const int* seq_lens, float* out, float* m_ws,
+    float* l_ws, float* acc_ws, int B, int H, int KVH, int hd, int page,
+    int max_pages, float scale, int window, int n_split, void* stream) {
+  return paged_decode<f16>(q, k_pages, v_pages, block_table, seq_lens, out,
+                           m_ws, l_ws, acc_ws, B, H, KVH, hd, page,
+                           max_pages, scale, window, n_split, stream);
+}
+
+extern "C" int repro_paged_decode_bf16q(
+    const bf16* q, const bf16* k_pages, const bf16* v_pages,
+    const int* block_table, const int* seq_lens, bf16* out, float* m_ws,
+    float* l_ws, float* acc_ws, int B, int H, int KVH, int hd, int page,
+    int max_pages, float scale, int window, int n_split, void* stream) {
+  return paged_decode<bf16, bf16>(q, k_pages, v_pages, block_table, seq_lens,
+                                  out, m_ws, l_ws, acc_ws, B, H, KVH, hd,
+                                  page, max_pages, scale, window, n_split,
+                                  stream);
 }

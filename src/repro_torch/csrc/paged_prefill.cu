@@ -1,5 +1,6 @@
 // Fused chunked-prefill paged attention for Hopper (sm_90a), float32 data
-// over float32 or bfloat16 pages, products on the tensor cores in 3xTF32.
+// over float32, bfloat16 or float16 pages, products on the tensor cores in
+// 3xTF32.
 //
 // Replaces: src/repro/kernels/paged_prefill.py, paged_prefill_attention
 // (Pallas body _prefill_kernel).  One call per layer per prefill group
@@ -95,6 +96,10 @@
 // exactly what it writes, as the reference reads its rows back from its
 // pages; the write rounds to nearest even (__float2bfloat16_rn).
 //
+// float16 pages take the same layout and staging as bf16 (2-byte
+// elements): an fp16 value is exact in TF32 too (page_types.cuh), and a
+// write rounds to nearest even (__floats2half2_rn).
+//
 // Output rows at i >= chunk_len[b] (padding) are zeros.  Masked scores are
 // NEG_INF = -1e30 and contribute exactly 0; the denominator is floored at
 // 1e-30, as in the TPU kernel.
@@ -108,6 +113,7 @@
 namespace {
 
 using repro_page::bf16;
+using repro_page::f16;
 using repro_page::load4;
 using repro_page::stage_rounded;
 using repro_page::store4;
@@ -209,7 +215,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
 
   // a tile's kBN key rows: kTPK threads per row, each issuing the row's
   // 16-byte chunks ld_c, ld_c + kTPK, ... after one block-table lookup
-  // (CK need not be a multiple of kTPK: bf16 rows at hd 112 have 14)
+  // (CK need not be a multiple of kTPK: 16-bit rows at hd 112 have 14)
   constexpr int kTPK = kThreads / kBN;  // threads per key row
   constexpr int kCPT = (CK + kTPK - 1) / kTPK;  // chunks per thread, at most
   static_assert(kTPK * kBN == kThreads, "tile split");
@@ -239,7 +245,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
         ks = reinterpret_cast<const T*>(k_new + off);
         vs = reinterpret_cast<const T*>(v_new + off);
         pred = true;
-      } else {                     // bf16: rounded in registers, staged
+      } else {                     // 16-bit: rounded in registers, staged
 #pragma unroll
         for (int j = 0; j < kCPT; ++j) {
           const int c = ld_c + kTPK * j;
@@ -454,7 +460,7 @@ int paged_prefill(const float* q, const float* k_new, const float* v_new,
 
 // Returns 0 or a CUDA error code; cudaErrorInvalidValue (1) for a head dim
 // other than 32, 64, 112 or 128 (the wrapper refuses it first).  _f32
-// takes float32 pages, _bf16 bfloat16 pages.
+// takes float32 pages, _bf16 bfloat16 pages, _f16 float16 pages.
 extern "C" int repro_paged_prefill_f32(
     const float* q, const float* k_new, const float* v_new, float* k_pages,
     float* v_pages, const int* block_table, const int* pos0,
@@ -477,4 +483,16 @@ extern "C" int repro_paged_prefill_bf16(
                              pos0, chunk_len, out, m_ws, l_ws, acc_ws, B, S,
                              H, KVH, hd, page, max_pages, scale, window,
                              n_split, stream);
+}
+
+extern "C" int repro_paged_prefill_f16(
+    const float* q, const float* k_new, const float* v_new, f16* k_pages,
+    f16* v_pages, const int* block_table, const int* pos0,
+    const int* chunk_len, float* out, float* m_ws, float* l_ws,
+    float* acc_ws, int B, int S, int H, int KVH, int hd, int page,
+    int max_pages, float scale, int window, int n_split, void* stream) {
+  return paged_prefill<f16>(q, k_new, v_new, k_pages, v_pages, block_table,
+                            pos0, chunk_len, out, m_ws, l_ws, acc_ws, B, S,
+                            H, KVH, hd, page, max_pages, scale, window,
+                            n_split, stream);
 }

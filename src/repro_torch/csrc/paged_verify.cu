@@ -1,5 +1,5 @@
 // Fused speculative-verify paged attention for Hopper (sm_90a), float32
-// data over float32 or bfloat16 pages.
+// data over float32, bfloat16 or float16 pages.
 //
 // Replaces: src/repro/kernels/paged_prefill.py, paged_verify_attention
 // (which runs the Pallas body _prefill_kernel on the verify window).  The
@@ -67,6 +67,7 @@
 // registers, so the window attends over exactly what it writes (rounded
 // to nearest even), as the reference reads them back from its pages.
 // Which of the two a tile reads is the same for all of a warp's lanes.
+// float16 pages are read, widened and rounded the same way.
 //
 // Semantics kept from the TPU kernel: masked scores are NEG_INF = -1e30,
 // the softmax denominator is floored at 1e-30, accumulation is float32.
@@ -80,6 +81,7 @@
 namespace {
 
 using repro_page::bf16;
+using repro_page::f16;
 using repro_page::load4;
 using repro_page::round4;
 using repro_page::store4;
@@ -443,7 +445,7 @@ int paged_verify(const float* q, const float* k_new, const float* v_new,
 // splits' partials.  Returns a cudaError_t (0 on success);
 // cudaErrorInvalidValue for a head dim that is no multiple of 4 or above
 // 128, or a grid the card cannot launch.  _f32 takes float32 pages, _bf16
-// bfloat16 pages.
+// bfloat16 pages, _f16 float16 pages.
 extern "C" int repro_paged_verify_f32(
     const float* q, const float* k_new, const float* v_new, float* k_pages,
     float* v_pages, const int* block_table, const int* pos0,
@@ -468,4 +470,17 @@ extern "C" int repro_paged_verify_bf16(
                             pos0, chunk_len, m_ws, l_ws, acc_ws, counters,
                             out, B, S, H, KVH, hd, page, max_pages, scale,
                             window, n_split, stream);
+}
+
+extern "C" int repro_paged_verify_f16(
+    const float* q, const float* k_new, const float* v_new, f16* k_pages,
+    f16* v_pages, const int* block_table, const int* pos0,
+    const int* chunk_len, float* m_ws, float* l_ws, float* acc_ws,
+    int* counters, float* out, int B, int S, int H, int KVH, int hd,
+    int page, int max_pages, float scale, int window, int n_split,
+    void* stream) {
+  return paged_verify<f16>(q, k_new, v_new, k_pages, v_pages, block_table,
+                           pos0, chunk_len, m_ws, l_ws, acc_ws, counters,
+                           out, B, S, H, KVH, hd, page, max_pages, scale,
+                           window, n_split, stream);
 }

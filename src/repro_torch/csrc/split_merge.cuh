@@ -14,10 +14,13 @@
 // and group member g).  This launch writes
 //   out[b, i, h, :] = sum_s acc_s * exp(m_s - M) / max(sum_s l_s * exp(m_s - M), 1e-30)
 // over the splits with l_s > 0, M = max of their m_s, for out (B, S, H, hd)
-// (decode passes S = 1).  Rows i >= clen[b] are zeros; clen may be null
-// (every row live).
+// (decode passes S = 1), float32 or bf16 (B1's bf16 queries, B6's bf16
+// inputs: each element rounded once from the fp32 merge).  Rows i >=
+// clen[b] are zeros; clen may be null (every row live).
 #pragma once
 #include <cuda_runtime.h>
+
+#include "page_types.cuh"
 
 namespace repro_split {
 
@@ -67,10 +70,11 @@ __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) 
 // of a 512-row chunk gained 10% at most with it: PERF.md, section 6.)
 // Every split writes its accumulator rows for the rows it covers (zeros
 // when its share is empty), so the weighted sum reads no unwritten memory.
+template <typename OT>
 __global__ void __launch_bounds__(kMergeThreads) split_merge_kernel(
     const float* __restrict__ m_ws, const float* __restrict__ l_ws,
     const float* __restrict__ acc_ws, const int* __restrict__ clen,
-    float* __restrict__ out, int S, int H, int KVH, int hd, int n_split) {
+    OT* __restrict__ out, int S, int H, int KVH, int hd, int n_split) {
   extern __shared__ float4 w_s4[];       // n_split weights, then the slices
   float* w_s = reinterpret_cast<float*>(w_s4);
   __shared__ float red[kMergeThreads / 32];
@@ -79,9 +83,10 @@ __global__ void __launch_bounds__(kMergeThreads) split_merge_kernel(
   const int i = (row / H) % S;
   const int b = row / (H * S);
   const int tid = threadIdx.x;
-  float* ob = out + (long long)row * hd;
+  OT* ob = out + (long long)row * hd;
   if (clen != nullptr && i >= clen[b]) {
-    for (int d = tid; d < hd; d += kMergeThreads) ob[d] = 0.f;
+    for (int d = tid; d < hd; d += kMergeThreads)
+      repro_page::store1(ob + d, 0.f);
     return;
   }
   const int G = H / KVH;
@@ -131,24 +136,25 @@ __global__ void __launch_bounds__(kMergeThreads) split_merge_kernel(
       t.z += v.z;
       t.w += v.w;
     }
-    reinterpret_cast<float4*>(ob)[tid] =
-        make_float4(t.x * inv, t.y * inv, t.z * inv, t.w * inv);
+    repro_page::store4(ob + 4 * tid, make_float4(t.x * inv, t.y * inv,
+                                                 t.z * inv, t.w * inv));
   }
 }
 
 // Launch the merge on `stream`; returns the CUDA error code (0 on success).
 // hd must be a multiple of 4 and at most 4 * kMergeThreads, the rows
-// 16-byte aligned, and B * S * H below 2^31.
-inline int launch_split_merge(const float* m_ws, const float* l_ws,
-                              const float* acc_ws, const int* clen,
-                              float* out, int B, int S, int H, int KVH,
-                              int hd, int n_split, cudaStream_t stream) {
+// aligned to 4 elements, and B * S * H below 2^31.
+template <typename OT>
+int launch_split_merge(const float* m_ws, const float* l_ws,
+                       const float* acc_ws, const int* clen, OT* out, int B,
+                       int S, int H, int KVH, int hd, int n_split,
+                       cudaStream_t stream) {
   const int slices = kMergeThreads / (hd / 4);
   const size_t smem =
       sizeof(float) * ((size_t)((n_split + 3) & ~3) + (size_t)slices * hd);
-  split_merge_kernel<<<(unsigned)((long long)B * S * H), kMergeThreads, smem,
-                       stream>>>(m_ws, l_ws, acc_ws, clen, out, S, H, KVH, hd,
-                                 n_split);
+  split_merge_kernel<OT><<<(unsigned)((long long)B * S * H), kMergeThreads,
+                           smem, stream>>>(m_ws, l_ws, acc_ws, clen, out, S,
+                                           H, KVH, hd, n_split);
   return (int)cudaGetLastError();
 }
 

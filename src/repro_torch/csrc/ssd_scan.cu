@@ -1,5 +1,5 @@
 // Chunked SSD scan (Mamba2 state-space duality) for Hopper (sm_90a),
-// float32 data, products on the tensor cores in 3xTF32.
+// float32 or bfloat16 data, products on the tensor cores in 3xTF32.
 //
 // Replaces: src/repro/kernels/ssd_scan.py, ssd_scan (Pallas body
 // _ssd_kernel), extended to the function the serving path needs, the
@@ -70,6 +70,14 @@
 //    at A = -16 and exp(seg) underflows to 0 there, as in the reference.
 //  * The dynamic shared-memory attribute is set once, at the first call.
 //
+// bf16 x, B, C and h0 (the launch layer's bf16 steps; the reference's
+// all-bf16 kernel case), with dt and A float32 (the wrapper widens them):
+// every tile is widened to fp32 as it is staged (plain 8-byte loads in
+// place of cp.async), the arithmetic is the float32 kernel's, and y and hT
+// are rounded to bf16 once, from fp32, as the Pallas body's astype on
+// entry and y.astype(o_ref.dtype) (hT as the reference's ssd_chunked
+// returns it).  The state is carried in fp32 across chunks.
+//
 // Padded lanes (chunk_len 0 in the engine) arrive with dt = 0: nothing
 // decays or integrates (exp(0) = 1 and every product added is an exact 0),
 // so hT equals h0 bit for bit.  hT is written to its own output, never in
@@ -78,6 +86,7 @@
 #include <stdint.h>
 
 #include "mma_tf32.cuh"
+#include "page_types.cuh"
 
 namespace {
 
@@ -89,6 +98,10 @@ using repro_mma::load_a;
 using repro_mma::mma3_acc;
 using repro_mma::p_fragment;
 using repro_mma::split;
+using repro_page::bf16;
+using repro_page::kSmallHalf;
+using repro_page::load4;
+using repro_page::store4;
 
 constexpr int kP = 64;                   // head_dim the kernel is built for
 constexpr int kWarps = 4;
@@ -149,18 +162,30 @@ __device__ __forceinline__ void float4_to_pairs(float4 v, int t, float2& lo,
   hi = (t & 1) ? make_float2(y2, y3) : make_float2(y0, y1);
 }
 
+// 4 elements of T from s into the fp32 shared row at d, zeros when not
+// live: a cp.async of 16 bytes in fp32, a plain load widened from bf16
+template <typename T>
+__device__ __forceinline__ void stage4(float* d, const T* s, bool live) {
+  if constexpr (kSmallHalf<T>) {
+    cp_async16(d, s, live);
+  } else {
+    *reinterpret_cast<float4*>(d) =
+        live ? load4(s) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
 // rows [row0, row0 + n_rows) of a (tokens, N) matrix from token tok into
 // shared memory rows of N + 4 floats, by nt threads; rows at or past L zeros
-template <int N>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+template <int N, typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src,
                                            long long tok, int row0,
                                            int n_rows, int L, int tid,
                                            int nt) {
   for (int e = tid; e < n_rows * (N / 4); e += nt) {
     const int r = e / (N / 4), q = e % (N / 4);
     const bool live = row0 + r < L;
-    const float* s = live ? src + (tok + row0 + r) * N + 4 * q : src;
-    cp_async16(dst + r * ld_of<N>() + 4 * q, s, live);
+    const T* s = live ? src + (tok + row0 + r) * N + 4 * q : src;
+    stage4(dst + r * ld_of<N>() + 4 * q, s, live);
   }
 }
 
@@ -191,9 +216,9 @@ __device__ __forceinline__ void cb_tile(const float* Cw, const float* Bt,
 // C.B^T per (lane, chunk): block (lane * n_chunks + chunk, row tile r);
 // each warp takes key tiles warp, warp + 4, ... up to r (the lower
 // triangle) and writes the raw products, rows of Lp floats.
-template <int N>
+template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
-ssd_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
+ssd_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
               float* __restrict__ cb, int L) {
   __shared__ __align__(16) float Cs[kT * ld_of<N>()];
   __shared__ __align__(16) float Bs[kWarps][kT * ld_of<N>()];
@@ -228,13 +253,13 @@ ssd_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
 
 // N: the state width; each warp owns N / 4 state columns (a multiple of
 // 16: one float4 exchange covers 16 columns)
-template <int N>
+template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
-ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ A, const float* __restrict__ Bm,
-           const float* __restrict__ Cm, const float* __restrict__ h0,
-           const float* __restrict__ cb, float* __restrict__ y,
-           float* __restrict__ hT, int S, int H, int L) {
+ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+           const float* __restrict__ A, const T* __restrict__ Bm,
+           const T* __restrict__ Cm, const T* __restrict__ h0,
+           const float* __restrict__ cb, T* __restrict__ y,
+           T* __restrict__ hT, int S, int H, int L) {
   constexpr int NT = kPS / 8;            // 8-column tiles of a y row
   constexpr int kLd = ld_of<N>();
   constexpr int CW = N / kWarps;         // state columns of a warp
@@ -271,8 +296,8 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     for (int i = 0; i < NJ / 2; ++i) {
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (h0 != nullptr)
-        v = *reinterpret_cast<const float4*>(
-            h0 + hbase + (g + 8 * half) * N + CW * warp + 16 * i + 4 * t);
+        v = load4(h0 + hbase + (g + 8 * half) * N + CW * warp + 16 * i +
+                  4 * t);
       float2 lo, hi;
       float4_to_pairs(v, t, lo, hi);
       hs[2 * i][2 * half] = lo.x;
@@ -293,8 +318,8 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         const int rr = e / (kPS / 4), q = e % (kPS / 4);
         const int l = kT * kt + rr;
         const bool live = l < L;
-        const float* s = live ? x + ((tok + l) * H + h) * kP + p0 + 4 * q : x;
-        cp_async16(Xs + buf * kT * kLdX + rr * kLdX + 4 * q, s, live);
+        const T* s = live ? x + ((tok + l) * H + h) * kP + p0 + 4 * q : x;
+        stage4(Xs + buf * kT * kLdX + rr * kLdX + 4 * q, s, live);
       }
     };
     // a row group's C rows and its first key tile, as one cp.async group
@@ -461,8 +486,7 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 ya[2 * i + 1][2 * half + 1] + e * yi[2 * i + 1][2 * half + 1]);
             const float4 v = pairs_to_float4(lo, hi, t);
             if (l < L)
-              *reinterpret_cast<float4*>(y + ((tok + l) * H + h) * kP + p0 +
-                                         16 * i + 4 * t) = v;
+              store4(y + ((tok + l) * H + h) * kP + p0 + 16 * i + 4 * t, v);
           }
         }
       }
@@ -476,19 +500,19 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       const float4 v = pairs_to_float4(
           make_float2(hs[2 * i][2 * half], hs[2 * i][2 * half + 1]),
           make_float2(hs[2 * i + 1][2 * half], hs[2 * i + 1][2 * half + 1]), t);
-      *reinterpret_cast<float4*>(hT + hbase + (g + 8 * half) * N + CW * warp +
-                                 16 * i + 4 * t) = v;
+      store4(hT + hbase + (g + 8 * half) * N + CW * warp + 16 * i + 4 * t,
+             v);
     }
 }
 
-template <int N>
-int launch(const float* x, const float* dt, const float* A, const float* Bm,
-           const float* Cm, const float* h0, float* y, float* hT, float* cb,
-           int B, int S, int H, int L, cudaStream_t st) {
+template <typename T, int N>
+int launch(const T* x, const float* dt, const float* A, const T* Bm,
+           const T* Cm, const T* h0, T* y, T* hT, float* cb, int B, int S,
+           int H, int L, cudaStream_t st) {
   if (cb != nullptr) {
-    ssd_cb_kernel<N><<<dim3((unsigned)((long long)B * (S / L)),
-                            round16(L) / kT),
-                       kThreads, 0, st>>>(Bm, Cm, cb, L);
+    ssd_cb_kernel<T, N><<<dim3((unsigned)((long long)B * (S / L)),
+                               round16(L) / kT),
+                          kThreads, 0, st>>>(Bm, Cm, cb, L);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -497,14 +521,29 @@ int launch(const float* x, const float* dt, const float* A, const float* Bm,
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssd_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes<N>(kMaxChunk));
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  ssd_kernel<N><<<dim3(kP / kPS, H, B), kThreads, smem_bytes<N>(L), st>>>(
+  ssd_kernel<T, N><<<dim3(kP / kPS, H, B), kThreads, smem_bytes<N>(L), st>>>(
       x, dt, A, Bm, Cm, h0, cb, y, hT, S, H, L);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int ssd_scan(const T* x, const float* dt, const float* A, const T* Bm,
+             const T* Cm, const T* h0, T* y, T* hT, float* cb, int B, int S,
+             int H, int P, int N, int L, void* stream) {
+  if (P != kP || L < 1 || L > kMaxChunk || S % L != 0 || B < 1 ||
+      B > 65535 || H < 1 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N == 128)
+    return launch<T, 128>(x, dt, A, Bm, Cm, h0, y, hT, cb, B, S, H, L, st);
+  if (N == 64)
+    return launch<T, 64>(x, dt, A, Bm, Cm, h0, y, hT, cb, B, S, H, L, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -514,19 +553,22 @@ int launch(const float* x, const float* dt, const float* A, const float* Bm,
 // launch fills.  Returns 0 or the CUDA error of the attribute call or a
 // launch; cudaErrorInvalidValue for widths other than P 64 and N 64 or
 // 128, a chunk that does not divide S or exceeds kMaxChunk, or a grid the
-// card cannot launch.
+// card cannot launch.  _f32 takes float32 x, B, C, h0, y and hT; _bf16
+// bf16 ones (dt and A float32 in both).
 extern "C" int repro_ssd_scan_f32(const float* x, const float* dt,
                                   const float* A, const float* Bm,
                                   const float* Cm, const float* h0, float* y,
                                   float* hT, float* cb, int B, int S, int H,
                                   int P, int N, int L, void* stream) {
-  if (P != kP || L < 1 || L > kMaxChunk || S % L != 0 || B < 1 ||
-      B > 65535 || H < 1 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (N == 128)
-    return launch<128>(x, dt, A, Bm, Cm, h0, y, hT, cb, B, S, H, L, st);
-  if (N == 64)
-    return launch<64>(x, dt, A, Bm, Cm, h0, y, hT, cb, B, S, H, L, st);
-  return (int)cudaErrorInvalidValue;
+  return ssd_scan<float>(x, dt, A, Bm, Cm, h0, y, hT, cb, B, S, H, P, N, L,
+                         stream);
+}
+
+extern "C" int repro_ssd_scan_bf16(const bf16* x, const float* dt,
+                                   const float* A, const bf16* Bm,
+                                   const bf16* Cm, const bf16* h0, bf16* y,
+                                   bf16* hT, float* cb, int B, int S, int H,
+                                   int P, int N, int L, void* stream) {
+  return ssd_scan<bf16>(x, dt, A, Bm, Cm, h0, y, hT, cb, B, S, H, P, N, L,
+                        stream);
 }

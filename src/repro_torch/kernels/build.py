@@ -14,9 +14,11 @@ and a stale library is never loaded.
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all
 of them; ``chip_smoke.py`` calls it to build the kernels in parallel.
 
-The kernels that read and write KV pages (B1-B4) export a second
-launcher over bfloat16 pages (``BF16_LAUNCHERS``), with the same C
-signature as their float32 one; ``load(name, "bf16")`` returns it.
+Beside its float32 launcher each source exports the variants of
+``LAUNCHERS``, each with the float32 launcher's C signature: B1-B4 over
+bfloat16 and float16 pages ("bf16", "f16"), B1 with bf16 queries and
+output over bf16 pages ("bf16q"), and B5 and B6 over bf16 inputs and
+outputs ("bf16"); ``load(name, variant)`` returns one.
 """
 from __future__ import annotations
 
@@ -52,13 +54,17 @@ SIGNATURES = {
                         [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P]),
 }
 
-# the launcher over bfloat16 pages of each source that has one (same
-# argument types as its float32 launcher in SIGNATURES)
-BF16_LAUNCHERS = {
-    "paged_decode": "repro_paged_decode_bf16",
-    "paged_prefill": "repro_paged_prefill_bf16",
-    "paged_verify": "repro_paged_verify_bf16",
-    "mla_paged_prefill": "repro_mla_paged_prefill_bf16",
+# the launchers beside each source's float32 one, by variant (same
+# argument types as the float32 launcher in SIGNATURES): pages in bf16 or
+# f16 (B1-B4); B1's bf16 queries and output over bf16 pages; bf16 inputs
+# and outputs of B5 and B6
+_PAGED = ("paged_decode", "paged_prefill", "paged_verify",
+          "mla_paged_prefill")
+LAUNCHERS = {
+    "bf16": {name: f"repro_{name}_bf16"
+             for name in _PAGED + ("ssd_scan", "flash_attention")},
+    "f16": {name: f"repro_{name}_f16" for name in _PAGED},
+    "bf16q": {"paged_decode": "repro_paged_decode_bf16q"},
 }
 
 _FNS: dict = {}
@@ -131,12 +137,12 @@ def build_all() -> dict:
     return {"seconds": time.perf_counter() - t0, "ptxas": logs}
 
 
-def load(name: str, pages: str = "f32"):
-    """The exported launcher of ``csrc/<name>.cu`` over ``pages`` ("f32",
-    or "bf16" for the sources in ``BF16_LAUNCHERS``), building the library
-    if needed.  Its C signature is set once, when the library is loaded;
-    later calls return the same configured function."""
-    key = name if pages == "f32" else (name, pages)
+def load(name: str, variant: str = "f32"):
+    """The exported launcher of ``csrc/<name>.cu`` for ``variant`` ("f32",
+    or a key of ``LAUNCHERS`` that lists the source), building the
+    library if needed.  Its C signature is set once, when the library is
+    loaded; later calls return the same configured function."""
+    key = name if variant == "f32" else (name, variant)
     fn = _FNS.get(key)
     if fn is not None:
         return fn
@@ -144,8 +150,8 @@ def load(name: str, pages: str = "f32"):
         fn = _FNS.get(key)
         if fn is None:
             fn_name, argtypes = SIGNATURES[name]
-            if pages == "bf16":
-                fn_name = BF16_LAUNCHERS[name]
+            if variant != "f32":
+                fn_name = LAUNCHERS[variant][name]
             _finish(name, _start(name))
             fn = getattr(ctypes.CDLL(str(_lib_path(name))), fn_name)
             fn.argtypes = argtypes

@@ -14,7 +14,12 @@ plain version the mean of V.
 
 Dispatch is by the inputs' device, as in ``paged_attention.py``: CPU →
 ``flash_attention_plain``, CUDA → ``csrc/flash_attention.cu`` or raise.
-The kernel takes head dims 32, 64, 112 and 128.  ``COUNTS["kernel"]`` counts
+The kernel takes head dims 32, 64, 112 and 128, and q, k and v all
+float32 or all bfloat16 (``KERNEL_DTYPES``; the launch layer's bf16
+steps): bf16 inputs are widened to float32 as the kernel stages them, and
+the output, in q's dtype, is rounded once from the float32 result, as the
+Pallas kernel's ``astype``.  The plain version widens the same inputs
+with ``.float()``.  ``COUNTS["kernel"]`` counts
 calls that launched the kernel, one per call whether or not a key split
 adds a merge launch.
 
@@ -40,8 +45,10 @@ from repro_torch.kernels.paged_attention import (
 COUNTS = {"kernel": 0, "plain": 0}
 
 # the head dims csrc/flash_attention.cu is compiled for (112: zamba2's
-# shared attention in plain generation)
+# shared attention in plain generation), and its input dtypes with their
+# launchers (kernels/build.py)
 KERNEL_HEAD_DIMS = (32, 64, 112, 128)
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the CUDA kernel's tiles: warps per block, query rows per warp's row
 # group, keys per staged tile
 WARPS, ROW_GROUP, KEY_TILE = 8, 16, 64
@@ -112,9 +119,11 @@ def flash_attention_bh(q, k, v, *, causal: bool = True, q_offset: int = 0,
 def _launch(q, k, v, causal, q_offset, kv_len, scale):
     from repro_torch.kernels import build
     dev = q.device
-    check_tensor("q", q, torch.float32, dev, 3)
-    check_tensor("k", k, torch.float32, dev, 3)
-    check_tensor("v", v, torch.float32, dev, 3)
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"flash_attention_bh: the kernel takes float32 or "
+                         f"bfloat16 inputs, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_tensor(name, t, q.dtype, dev, 3)
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
     if k.shape != (BH, Sk, hd) or v.shape != k.shape:
@@ -128,7 +137,7 @@ def _launch(q, k, v, causal, q_offset, kv_len, scale):
                   sm_count(dev))
     out = torch.empty_like(q)
     _ws, ws = split_workspace(BH, 1, ns, Sq, hd, dev)
-    fn = build.load("flash_attention")
+    fn = build.load("flash_attention", KERNEL_DTYPES[q.dtype])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *ws,
             BH, Sq, Sk, hd, int(causal), q_offset, kv_len, scale, kw, ns,
             torch.cuda.current_stream(dev).cuda_stream)

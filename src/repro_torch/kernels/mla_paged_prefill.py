@@ -16,8 +16,8 @@ Output rows at ``i >= chunk_len[b]`` (bucket padding, masked lanes) are
 zeros in both versions, as for B2; the TPU kernel leaves them as attention
 over the lane's history, which no caller reads.
 
-The latent pools are float32 or bfloat16, both of one dtype
-(``paged_attention.py``): a bf16 write rounds each row to nearest even,
+The latent pools are float32, bfloat16 or float16, both of one dtype
+(``paged_attention.py``): a 16-bit write rounds each row to nearest even,
 and the chunk attends over its own rows as written.  The queries, the new
 rows and the output are float32.
 

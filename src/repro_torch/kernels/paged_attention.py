@@ -18,12 +18,14 @@ version, so a run can show which of the two its main path went through.
 The kernel splits each lane's pages over ``n_splits`` blocks per (lane,
 KV head) and merges the splits in a second launch.
 
-Pools may be float32 or bfloat16 (``PAGE_DTYPES``; the engine's
-``EngineConfig.dtype``), both of one dtype: the CUDA kernel has an
-instantiation for each and widens bf16 rows to fp32 as it reads them;
-the plain version does the same with ``.float()``.  ``q`` and the output
-are float32.  Any other pool dtype, or two pools of different dtypes,
-raise on the card.
+Pools may be float32, bfloat16 or float16 (``PAGE_DTYPES``; the
+engine's ``EngineConfig.dtype``), both of one dtype: the CUDA kernel has
+an instantiation for each and widens 16-bit rows to fp32 as it reads
+them; the plain version does the same with ``.float()``.  ``q`` and the
+output are float32, or both bfloat16 over bfloat16 pools (the
+reference's all-bf16 kernel case; the output is rounded once from the
+float32 result).  Any other pool dtype, two pools of different dtypes,
+or another query dtype raise on the card.
 """
 from __future__ import annotations
 
@@ -46,8 +48,9 @@ HEAD_DIMS = (32, 64, 112, 128)
 MAX_GROUP = 8
 
 # page dtypes the CUDA kernels B1-B4 are built for, and the launcher of
-# each (kernels/build.py: "f32", or "bf16" for BF16_LAUNCHERS)
-PAGE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# each (kernels/build.py: "f32", or a variant of LAUNCHERS)
+PAGE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float16: "f16"}
 
 _SMS: dict[int, int] = {}
 
@@ -82,7 +85,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     """q: (B, H, hd); k/v_pages: (n_pages, page, KVH, hd); block_table:
     (B, max_pages) int32; seq_lens: (B,) int32, each >= 1; window: sliding
     window in tokens (None = full causal).  Returns (B, H, hd) in q's dtype,
-    accumulated in float32.  The pools are float32 or bfloat16.
+    accumulated in float32.  The pools are float32, bfloat16 or float16;
+    on the card q is float32, or bfloat16 over bfloat16 pools.
     ``split_heads``: the KV head count the split rule reads (default KVH).
     A mesh shard holds KVH / n heads and passes the unsharded count, so
     that every head runs the key split, and so the summation order, of
@@ -127,13 +131,13 @@ def check_tensor(name, t, dtype, device, ndim):
 def check_pages(kernel: str, dev, ndim: int, **pools) -> str:
     """Check the page pools a CUDA kernel reads and writes: contiguous,
     ``ndim``-d, on ``dev``, all of one dtype of ``PAGE_DTYPES``.  Returns
-    that dtype's launcher ("f32" or "bf16").  A bf16 pool never reaches
-    a float32 launcher: there is no conversion and no fallback."""
+    that dtype's launcher ("f32", "bf16" or "f16").  A 16-bit pool never
+    reaches a float32 launcher: there is no conversion and no fallback."""
     dtypes = {t.dtype for t in pools.values()}
     if len(dtypes) != 1 or not dtypes <= PAGE_DTYPES.keys():
         got = ", ".join(f"{n} {t.dtype}" for n, t in pools.items())
-        raise ValueError(f"{kernel}: the pools must be all float32 or all "
-                         f"bfloat16, got {got}")
+        raise ValueError(f"{kernel}: the pools must be all float16, all "
+                         f"float32 or all bfloat16, got {got}")
     dtype = dtypes.pop()
     for name, t in pools.items():
         check_tensor(name, t, dtype, dev, ndim)
@@ -172,9 +176,11 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window,
             split_heads=None):
     from repro_torch.kernels import build
     dev = q.device
-    check_tensor("q", q, torch.float32, dev, 3)
     pages = check_pages("paged_decode_attention", dev, 4, k_pages=k_pages,
                         v_pages=v_pages)
+    # bf16 queries (and output) only over bf16 pools
+    bf16q = pages == "bf16" and q.dtype == torch.bfloat16
+    check_tensor("q", q, torch.bfloat16 if bf16q else torch.float32, dev, 3)
     check_tensor("block_table", block_table, torch.int32, dev, 2)
     check_tensor("seq_lens", seq_lens, torch.int32, dev, 1)
     B, H, hd = q.shape
@@ -193,7 +199,7 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens, scale, window,
                   sm_count(dev))
     out = torch.empty_like(q)
     _ws, ws = split_workspace(B, KVH, ns, G, hd, dev)
-    fn = build.load("paged_decode", pages)
+    fn = build.load("paged_decode", "bf16q" if bf16q else pages)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), *ws,
             B, H, KVH, hd, page, max_pages, scale,

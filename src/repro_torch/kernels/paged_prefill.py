@@ -13,10 +13,10 @@ Output rows at ``i >= chunk_len[b]`` (bucket padding, masked lanes) are
 zeros in both versions; the TPU kernel leaves them as attention over the
 lane's history, which no caller reads.
 
-Pools are float32 or bfloat16, both of one dtype (``paged_attention.py``):
-a bf16 write rounds each row to nearest even, and the chunk attends over
-its own rows as written (rounded), as the reference reads them back from
-its pages.  ``q``, ``k_new``, ``v_new`` and the output are float32.
+Pools are float32, bfloat16 or float16, both of one dtype
+(``paged_attention.py``): a 16-bit write rounds each row to nearest even,
+and the chunk attends over its own rows as written (rounded), as the
+reference reads them back from its pages.  ``q``, ``k_new``, ``v_new`` and the output are float32.
 
 Dispatch is by the inputs' device, as in ``paged_attention.py``:
 CPU → plain version, CUDA → ``csrc/paged_prefill.cu`` or raise.

@@ -12,9 +12,9 @@ the history's 16-key tiles over the warps of ``n_splits`` blocks per
 (lane, KV head), and the last block of each pair to finish merges the
 pair's splits: one launch per call.
 
-Pools are float32 or bfloat16, both of one dtype, as for B2.  Dispatch is
-by the inputs' device: CPU → plain version, CUDA → the kernel or raise.
-The kernel takes head dims that are multiples of 4 up to 128.
+Pools are float32, bfloat16 or float16, both of one dtype, as for B2.
+Dispatch is by the inputs' device: CPU → plain version, CUDA → the kernel
+or raise.  The kernel takes head dims that are multiples of 4 up to 128.
 """
 from __future__ import annotations
 

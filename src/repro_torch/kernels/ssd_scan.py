@@ -20,6 +20,13 @@ whether or not the C.B^T workspace adds a first launch.
 The wrapper picks the kernel's regime: ``cb_workspace``, from the chunk
 length, whether a first launch computes C.B^T once per lane and chunk for
 all heads.
+
+``xh``, ``Bm``, ``Cm`` and ``init_state`` are all float32 or all bfloat16
+on the card (``KERNEL_DTYPES``; the launch layer's bf16 steps); ``dt``
+and ``A`` may be either and are widened to float32 by the wrapper (S·H
+and H elements).  Both the kernel and the plain version compute the
+Pallas body's function: every input widened to float32, float32
+accumulation, and y and the final state rounded once to ``xh``'s dtype.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ COUNTS = {"kernel": 0, "plain": 0}
 KERNEL_HEAD_DIM, KERNEL_STATES, KERNEL_MAX_CHUNK = 64, (64, 128), 8192
 # chunks longer than this get C.B^T from the workspace launch
 CB_WORKSPACE_ABOVE = 32
+# the data dtypes the kernel is built for, and their launchers
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def cb_workspace(chunk: int) -> bool:
@@ -63,7 +72,7 @@ def ssd_scan(xh, dt, A, Bm, Cm, *, chunk: int, init_state=None):
     """xh: (B, S, H, P); dt: (B, S, H); A: (H,) (negative decay rates);
     Bm / Cm: (B, S, N) (one SSM group, shared across heads); init_state:
     (B, H, P, N) or None.  Returns (y (B, S, H, P), final_state
-    (B, H, P, N)), all float32."""
+    (B, H, P, N)), both in xh's dtype."""
     if xh.shape[1] % chunk:
         raise ValueError(f"ssd_scan: chunk {chunk} does not divide "
                          f"S {xh.shape[1]}")
@@ -78,18 +87,22 @@ def ssd_scan(xh, dt, A, Bm, Cm, *, chunk: int, init_state=None):
 def _launch(xh, dt, A, Bm, Cm, chunk, init_state):
     from repro_torch.kernels import build
     dev = xh.device
-    check_tensor("xh", xh, torch.float32, dev, 4)
+    if xh.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"ssd_scan: the kernel takes float32 or bfloat16 "
+                         f"data, got {xh.dtype}")
+    dt, A = dt.float(), A.float()
+    check_tensor("xh", xh, xh.dtype, dev, 4)
     check_tensor("dt", dt, torch.float32, dev, 3)
     check_tensor("A", A, torch.float32, dev, 1)
-    check_tensor("Bm", Bm, torch.float32, dev, 3)
-    check_tensor("Cm", Cm, torch.float32, dev, 3)
+    check_tensor("Bm", Bm, xh.dtype, dev, 3)
+    check_tensor("Cm", Cm, xh.dtype, dev, 3)
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
     if dt.shape != (B, S, H) or A.shape != (H,) or Bm.shape != (B, S, N) \
             or Cm.shape != (B, S, N):
         raise ValueError("ssd_scan: inconsistent shapes")
     if init_state is not None:
-        check_tensor("init_state", init_state, torch.float32, dev, 4)
+        check_tensor("init_state", init_state, xh.dtype, dev, 4)
         if init_state.shape != (B, H, P, N):
             raise ValueError("ssd_scan: init_state must be (B, H, P, N)")
     if P != KERNEL_HEAD_DIM or N not in KERNEL_STATES \
@@ -99,11 +112,11 @@ def _launch(xh, dt, A, Bm, Cm, chunk, init_state):
             f"{KERNEL_STATES} and chunks up to {KERNEL_MAX_CHUNK}, got P {P}, "
             f"N {N}, chunk {chunk}")
     y = torch.empty_like(xh)
-    final = torch.empty(B, H, P, N, dtype=torch.float32, device=dev)
+    final = torch.empty(B, H, P, N, dtype=xh.dtype, device=dev)
     h0 = None if init_state is None else init_state.data_ptr()
     cb = (torch.empty(workspace_floats(B, S, chunk), dtype=torch.float32,
                       device=dev) if cb_workspace(chunk) else None)
-    fn = build.load("ssd_scan")
+    fn = build.load("ssd_scan", KERNEL_DTYPES[xh.dtype])
     rc = fn(xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), h0, y.data_ptr(), final.data_ptr(),
             None if cb is None else cb.data_ptr(), B, S, H, P, N, chunk,
@@ -114,21 +127,18 @@ def _launch(xh, dt, A, Bm, Cm, chunk, init_state):
     return y, final
 
 
-def einsum_promoted(eq: str, *ops):
-    """``jnp.einsum``'s dtype rule: the operands are promoted to their
-    common dtype first (``torch.einsum`` refuses a bfloat16 operand beside
-    a float32 one); float32 operands are used as they are."""
-    dt = ops[0].dtype
-    for o in ops[1:]:
-        dt = torch.promote_types(dt, o.dtype)
-    return torch.einsum(eq, *(o.to(dt) for o in ops))
-
-
 def ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
     """The reference's ``ssd_chunked`` line for line: a loop over chunks
     carrying the state, the intra-chunk decay masked to -1e30 BEFORE the
-    exp (the upper triangle would overflow), in float32."""
+    exp (the upper triangle would overflow), in float32.  Every input is
+    widened to float32 first and y and the final state are rounded once to
+    ``xh``'s dtype, as the Pallas body does (``repro/kernels/ssd_scan.py``:
+    ``astype(jnp.float32)`` on entry, ``y.astype(o_ref.dtype)``); the
+    model's ``ssd_chunked`` instead runs bf16 operands through bf16
+    einsums.  Float32 inputs are used as they are."""
     bump(COUNTS, "plain")
+    out_dtype = xh.dtype
+    xh, dt, A, Bm, Cm = (t.float() for t in (xh, dt, A, Bm, Cm))
     Bsz, S, H, P = xh.shape
     N = Bm.shape[-1]
     nc = S // chunk
@@ -143,23 +153,21 @@ def ssd_chunked_plain(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
     ys = []
     for c in range(nc):
         xk, dtk, Bk, Ck = xc[c], dtc[c], Bc[c], Cc[c]
-        dA = dtk.float() * A[None, None, :]                 # (B, L, H) <= 0
+        dA = dtk * A[None, None, :]                         # (B, L, H) <= 0
         seg = torch.cumsum(dA, dim=1)
         diff = seg[:, :, None, :] - seg[:, None, :, :]
         diff = torch.where(mask[None, :, :, None], diff, -1e30)
         decay = torch.exp(diff)
-        cb = einsum_promoted("bln,bmn->blm", Ck, Bk)            # (B, L, M)
+        cb = torch.einsum("bln,bmn->blm", Ck, Bk)           # (B, L, M)
         att = cb[..., None] * decay                         # (B, L, M, H)
-        y_intra = einsum_promoted("blmh,bmh,bmhp->blhp", att, dtk, xk)
+        y_intra = torch.einsum("blmh,bmh,bmhp->blhp", att, dtk, xk)
         # inter-chunk: contribution of the incoming state
-        y_inter = einsum_promoted("bln,blh,bhpn->blhp", Ck,
-                                  torch.exp(seg).to(Ck.dtype),
-                                  h.to(Ck.dtype))
+        y_inter = torch.einsum("bln,blh,bhpn->blhp", Ck, torch.exp(seg), h)
         # state at the end of the chunk
         decay_to_end = torch.exp(seg[:, -1:, :] - seg)      # (B, L, H)
-        st = einsum_promoted("bln,blh,blh,blhp->bhpn", Bk, dtk,
-                             decay_to_end.to(Bk.dtype), xk)
-        h = (h * torch.exp(dA.sum(dim=1))[..., None, None] + st.float())
-        ys.append((y_intra + y_inter).to(xh.dtype))
+        st = torch.einsum("bln,blh,blh,blhp->bhpn", Bk, dtk, decay_to_end,
+                          xk)
+        h = h * torch.exp(dA.sum(dim=1))[..., None, None] + st
+        ys.append((y_intra + y_inter).to(out_dtype))
     y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
-    return y, h.to(xh.dtype)
+    return y, h.to(out_dtype)

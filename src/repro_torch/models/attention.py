@@ -22,11 +22,12 @@ Three execution modes share ``attn_forward``:
     decode kernel (B1, ``kernels/paged_attention.py``).
 
 Pools are updated in place: ``attn_forward`` returns the same tensors it
-was given.  They are float32 or bfloat16 (``EngineConfig.dtype``) and are
-passed to the kernels as they are: a bf16 pool takes each written row
-rounded to nearest even (the kernels' in-kernel writes and
+was given.  They are float32, bfloat16 or float16 (``EngineConfig.dtype``)
+and are passed to the kernels as they are: a 16-bit pool takes each
+written row rounded to nearest even (the kernels' in-kernel writes and
 ``paged_write``'s ``.to(pages.dtype)`` alike) and is widened to float32
-where it is read, so queries, new rows and outputs stay float32.  Every pool the engine owns ends in one WRITE-OFF page
+where it is read, so queries, new rows and outputs stay float32.  Every
+pool the engine owns ends in one WRITE-OFF page
 (``pages[-1]``) that no block table maps: ``paged_write`` routes masked
 rows there.  JAX drops them with ``mode="drop"``; torch has no such mode,
 and routing them to "the old value" would race with lane 0's real write,
@@ -82,7 +83,8 @@ from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
 from repro_torch.kernels.paged_verify import paged_verify_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, rms_head_norm
+from repro_torch.models.layers import (apply_rope, matmul_promoted, promote,
+                                       rms_head_norm)
 
 NEG_INF = -1e30
 
@@ -263,9 +265,9 @@ def attn_forward(p, x, cfg: ModelConfig, *, positions, cache=None,
             x = shard.enter(x)
         else:
             x, qn, kn = shard.enter(x, qn, kn)
-    q = (x @ p["wq"].reshape(d, h * hd)).reshape(B, Sq, h, hd)
-    k = (x @ p["wk"].reshape(d, kv * hd)).reshape(B, Sq, kv, hd)
-    v = (x @ p["wv"].reshape(d, kv * hd)).reshape(B, Sq, kv, hd)
+    q = matmul_promoted(x, p["wq"].reshape(d, h * hd)).view(B, Sq, h, hd)
+    k = matmul_promoted(x, p["wk"].reshape(d, kv * hd)).view(B, Sq, kv, hd)
+    v = matmul_promoted(x, p["wv"].reshape(d, kv * hd)).view(B, Sq, kv, hd)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if qn is not None:
@@ -399,7 +401,8 @@ def attn_output(p, ctx, shard=None):
     if shard is not None and shard.heads:
         ctx = shard.all_gather(ctx, 2)
     B, S, h, hd = ctx.shape
-    out = ctx.reshape(B, S, h * hd) @ p["wo"].reshape(h * hd, -1)
+    out = matmul_promoted(ctx.reshape(B, S, h * hd),
+                          p["wo"].reshape(h * hd, -1))
     if "bo" in p:
         out = out + p["bo"]
     return out
@@ -417,7 +420,7 @@ def cross_attn_forward(p, x, enc_kv, gated: bool = False,
     and is not ported.)"""
     B, Sq, d = x.shape
     h, hd = p["wq"].shape[1], p["wq"].shape[2]
-    q = (x @ p["wq"].reshape(d, h * hd)).reshape(B, Sq, h, hd)
+    q = matmul_promoted(x, p["wq"].reshape(d, h * hd)).view(B, Sq, h, hd)
     if "bq" in p:
         q = q + p["bq"]
     k, v = enc_kv["k"].to(q.dtype), enc_kv["v"].to(q.dtype)
@@ -428,7 +431,9 @@ def cross_attn_forward(p, x, enc_kv, gated: bool = False,
         ctx = attention(q, k, v, causal=False, kv_len=k.shape[1])
     out = attn_output(p, ctx)
     if gated and "gate" in p:
-        out = torch.tanh(p["gate"]) * out
+        # jnp's rule: the 0-d float32 gate promotes a bf16 output
+        g, out = promote(torch.tanh(p["gate"]), out)
+        out = g * out
     return out
 
 

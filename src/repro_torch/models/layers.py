@@ -15,6 +15,29 @@ def init_norm(d: int, kind: str = "rmsnorm", device=None):
     return p
 
 
+def promote(*ts):
+    """``ts`` cast to their common dtype as ``jnp`` promotes mixed
+    operands before an op (``torch`` refuses a float32 operand beside a
+    bfloat16 one in a matmul, and lets a 0-d float32 tensor take a bf16
+    tensor's dtype).  Tensors already of that dtype are returned as they
+    are, so a float32 model's ops are unchanged."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
+def matmul_promoted(a, b):
+    """``a @ b`` with ``jnp``'s dtype rule (``promote``)."""
+    a, b = promote(a, b)
+    return a @ b
+
+
+def einsum_promoted(eq: str, *ops):
+    """``torch.einsum`` with ``jnp.einsum``'s dtype rule (``promote``)."""
+    return torch.einsum(eq, *promote(*ops))
+
+
 def apply_norm(p, x, kind: str = "rmsnorm", eps: float = 1e-6):
     xf = x.float()
     if kind == "rmsnorm":
@@ -77,16 +100,16 @@ def apply_mlp(p, x, act: str = "swiglu", shard=None):
     its gradient is summed over the shards)."""
     if shard is not None and shard.mlp:
         x = shard.enter(x)
-    up = x @ p["w_up"]
+    up = matmul_promoted(x, p["w_up"])
     if "b_up" in p:
         up = up + p["b_up"]
     if act == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * up
+        h = F.silu(matmul_promoted(x, p["w_gate"])) * up
     else:
         h = F.gelu(up, approximate="tanh")    # jax.nn.gelu's default
     if shard is not None and shard.mlp:
         h = shard.all_gather(h, h.dim() - 1)
-    out = h @ p["w_down"]
+    out = matmul_promoted(h, p["w_down"])
     if "b_down" in p:
         out = out + p["b_down"]
     return out

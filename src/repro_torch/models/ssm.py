@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import einsum_promoted, matmul_promoted
 
 
 def init_ssm(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
@@ -117,18 +118,17 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
         # overflows to inf and poisons gradients through the where
         diff = torch.where(mask[None, :, :, None], diff, -1e30)
         decay = torch.exp(diff)
-        cb = _ssd.einsum_promoted("bln,bmn->blm", Ck, Bk)      # (B, L, M)
+        cb = einsum_promoted("bln,bmn->blm", Ck, Bk)        # (B, L, M)
         att = cb[..., None] * decay                         # (B, L, M, H)
-        y_intra = _ssd.einsum_promoted("blmh,bmh,bmhp->blhp", att, dtk,
-                                       xk)
+        y_intra = einsum_promoted("blmh,bmh,bmhp->blhp", att, dtk, xk)
         # inter-chunk: contribution of the incoming state
-        y_inter = _ssd.einsum_promoted("bln,blh,bhpn->blhp", Ck,
-                                       torch.exp(seg).to(Ck.dtype),
-                                       h.to(Ck.dtype))
+        y_inter = einsum_promoted("bln,blh,bhpn->blhp", Ck,
+                                  torch.exp(seg).to(Ck.dtype),
+                                  h.to(Ck.dtype))
         # state at the end of the chunk
         decay_to_end = torch.exp(seg[:, -1:, :] - seg)      # (B, L, H)
-        st = _ssd.einsum_promoted("bln,blh,blh,blhp->bhpn", Bk, dtk,
-                                  decay_to_end.to(Bk.dtype), xk)
+        st = einsum_promoted("bln,blh,blh,blhp->bhpn", Bk, dtk,
+                             decay_to_end.to(Bk.dtype), xk)
         h = h * torch.exp(dA.sum(dim=1))[..., None, None] + st.float()
         ys.append((y_intra + y_inter).to(xh.dtype))
     y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
@@ -177,7 +177,7 @@ def ssm_forward(p, x, cfg: ModelConfig, *, cache=None, chunk_len=None,
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(*xi.shape[:2], d_in)
     y = _rmsnorm_gated(p["norm_scale"], y, z)
-    out = y @ p["w_out"]
+    out = matmul_promoted(y, p["w_out"])
     new_cache = ({"conv": new_conv, "state": hT}
                  if cache is not None else None)
     return out, new_cache
@@ -207,7 +207,7 @@ def ssm_decode_step(p, x, cfg: ModelConfig, cache):
     y = y + xh.float() * p["D"][None, :, None]
     y = y.reshape(x.shape[0], 1, d_in).to(x.dtype)
     y = _rmsnorm_gated(p["norm_scale"], y, z)
-    out = y @ p["w_out"]
+    out = matmul_promoted(y, p["w_out"])
     return out, {"conv": new_conv, "state": h.to(cache["state"].dtype)}
 
 

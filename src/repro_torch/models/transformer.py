@@ -46,7 +46,7 @@ from repro_torch.models.attention import (attn_forward, attn_output,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed,
                                        init_embed, init_mlp, init_norm,
-                                       init_unembed)
+                                       init_unembed, matmul_promoted)
 from repro_torch.models.moe import init_moe, moe_forward
 from repro_torch.models.ssm import (init_ssm, ssm_decode_step, ssm_forward,
                                     write_lane_rows)
@@ -388,4 +388,4 @@ def model_forward(params, cfg: ModelConfig, tokens, *, cache=None, pos0=None,
 
 def logits_fn(params, cfg: ModelConfig, hidden):
     w = params["embed"]["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return hidden @ w
+    return matmul_promoted(hidden, w)

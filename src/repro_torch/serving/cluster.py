@@ -25,8 +25,8 @@ wall-time; the §4.2 routing delay is below this step granularity).
 This module is ``repro/serving/cluster.py`` with its imports rewritten.
 What differs is ``build``: every replica's engine runs on the one
 ``device`` it is given (on one card all replicas share it, and share the
-same parameter tensors), its KV pools in ``dtype`` (float32 or
-bfloat16).  Mesh-sharded replicas run as in the reference: ``mesh``
+same parameter tensors), its KV pools in ``dtype`` (float32, bfloat16
+or float16).  Mesh-sharded replicas run as in the reference: ``mesh``
 puts every replica's engine over one mesh (sharing one cut of the
 parameters), ``devices_per_replica=k`` carves the ``devices`` list, the
 port's counterpart of ``jax.devices()`` (every visible CUDA device
@@ -181,8 +181,8 @@ class ClusterFrontend:
         replica's engine, the autoscaler's too; ``params`` must live on
         it and are shared, not copied.  ``token_level_prefix`` goes to
         every replica's ``EngineConfig``, and so does ``dtype``, the KV
-        pools' dtype (float32 or bfloat16; ``ServingEngine`` refuses any
-        other, and bf16 for an SSM model).
+        pools' dtype (float32, bfloat16 or float16; ``ServingEngine``
+        refuses any other, and a 16-bit one for an SSM model).
 
         Mesh-sharded replicas: ``mesh`` (a ``ServingMesh``) runs EVERY
         replica's engine over that one mesh, on one cut of ``params``;

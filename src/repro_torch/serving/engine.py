@@ -29,13 +29,13 @@ The engine executes planner ``Batch`` objects:
 
 Weights and activations are float32; on the card TF32 is off
 (``device.resolve_device``).  ``EngineConfig.dtype`` sets the dtype of
-the KV page pools, as the reference's does: float32 (the default) or
-bfloat16.  In bf16 each K/V row is rounded to nearest even when it is
-written and widened to float32 when it is read, by the paged kernels
-(B1-B4) and by the plain ``paged_write`` scatter alike, so a chunk attends
-over its own rows as stored.  Float16 pools and bf16 serving of an
-SSM-bearing model raise ``NotImplementedError`` (the reference fails on
-the latter: its decode scan's carry changes dtype).
+the KV page pools, as the reference's does: float32 (the default),
+bfloat16 or float16.  In 16 bits each K/V row is rounded to nearest even
+when it is written and widened to float32 when it is read, by the paged
+kernels (B1-B4) and by the plain ``paged_write`` scatter alike, so a chunk
+attends over its own rows as stored.  16-bit serving of an SSM-bearing
+model raises ``NotImplementedError`` (the reference fails there: its
+decode scan's carry changes dtype), and so does any other dtype.
 MoE models run with the reference's dropless capacity factor E / k; their
 MoE layers read the per-expert unit counts on the host (``models/moe.py``),
 one more sync per MoE layer per step than a dense model's decode loop.
@@ -167,7 +167,8 @@ class EngineConfig:
             "REPRO_HOST_SPILL_PAGES",
             256 if _env_flag("REPRO_HOST_SPILL", False) else 0))
     h2d_gbps: float = 16.0
-    # dtype of the KV page pools (and SSM lane rows): float32 or bfloat16
+    # dtype of the KV page pools (and SSM lane rows): float32, bfloat16 or
+    # float16
     dtype: torch.dtype = torch.float32
     # mesh-sharded serving: a distributed.sharding.ServingMesh runs each
     # device program once per shard over ``shard_axes`` (what shards is
@@ -177,16 +178,17 @@ class EngineConfig:
 
 
 def check_kv_dtype(cfg: ModelConfig, dtype) -> None:
-    """Refuse a pool dtype the port does not serve: anything but float32
-    and bfloat16 (the reference also takes float16), and any dtype but
-    float32 for a model with SSM layers, which the reference cannot serve
-    either: its first decode group raises ``TypeError: scan body function
-    carry input and carry output must have equal types``
-    (``repro/serving/engine.py:341``; the bf16 conv carry comes back as
+    """Refuse a pool dtype the port does not serve: anything but float32,
+    bfloat16 and float16 (the paged kernels' ``PAGE_DTYPES``), and any
+    dtype but float32 for a model with SSM layers, which the reference
+    cannot serve either: its first decode group raises ``TypeError: scan
+    body function carry input and carry output must have equal types``
+    (``repro/serving/engine.py:341``; the 16-bit conv carry comes back as
     float32 from ``ssm_decode_step``)."""
     if dtype not in PAGE_DTYPES:              # the paged kernels' dtypes
         raise NotImplementedError(
-            f"KV pools of {dtype} are not yet ported (float32, bfloat16)")
+            f"KV pools of {dtype} are not served (float32, bfloat16, "
+            "float16)")
     if dtype != torch.float32 and any(
             kind == "ssm" for kind, _ in cfg.segments()):
         raise NotImplementedError(

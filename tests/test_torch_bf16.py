@@ -21,8 +21,10 @@ package, on the CPU at reduced sizes.
 * Inside the port in bf16: streams identical with prefix sharing on and
   off, across a preempt replay, and with the host spill tier on and off;
   a prefetched page is bit-equal to the page that was spilled.
-* An SSM-bearing config in bf16 and float16 pools raise
-  ``NotImplementedError`` (the reference cannot serve the first either).
+* An SSM-bearing config over bf16 or float16 pools raises
+  ``NotImplementedError`` (the reference cannot serve either), as do
+  float64 pools; float16 pools of smollm-135m serve
+  (``tests/test_torch_fp16.py`` holds them against the JAX engine).
 
 The JAX references are a module-scoped fixture, one engine per model,
 each through few shapes (every shape is a compile of the JAX engine)."""
@@ -65,11 +67,17 @@ JK = {"P": jslo.StageKind.PREFILL, "D": jslo.StageKind.DECODE}
 
 
 
+# the JAX dtype of each 16-bit torch dtype (tests/test_torch_fp16.py
+# reuses these helpers for float16 pools)
+JAX_DTYPES = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
+
+
 # ----------------------- kernels' plain versions ------------------------ #
-def _rng_inputs(seed, B, S, H, KV, hd, page, max_pages):
+def _rng_inputs(seed, B, S, H, KV, hd, page, max_pages, dtype=BF16):
     """numpy inputs: float32 q (B, S, H, hd) and k/v_new (B, S, KV, hd);
-    pools rounded to bf16 (held as float32 numpy, so that both packages
-    get the same bf16 values), 3 spare pages; a permuted block table."""
+    pools rounded to ``dtype`` (held as float32 numpy, so that both
+    packages get the same 16-bit values), 3 spare pages; a permuted block
+    table."""
     rng = np.random.default_rng(seed)
     n_pages = B * max_pages + 3
 
@@ -78,20 +86,33 @@ def _rng_inputs(seed, B, S, H, KV, hd, page, max_pages):
     table = rng.permutation(n_pages)[:B * max_pages].reshape(
         B, max_pages).astype(np.int32)
     return (f(B, S, H, hd), f(B, S, KV, hd), f(B, S, KV, hd),
-            _bf16_np(f(n_pages, page, KV, hd)),
-            _bf16_np(f(n_pages, page, KV, hd)), table)
+            _round_np(f(n_pages, page, KV, hd), dtype),
+            _round_np(f(n_pages, page, KV, hd), dtype), table)
+
+
+def _round_np(a, dtype):
+    """``a`` rounded to ``dtype`` (nearest even), held as float32 numpy."""
+    return torch.from_numpy(a).to(dtype).float().numpy()
 
 
 def _bf16_np(a):
-    return torch.from_numpy(a).to(BF16).float().numpy()
+    return _round_np(a, BF16)
+
+
+def _jdt(a, dtype):
+    return jnp.asarray(a, JAX_DTYPES[dtype])
+
+
+def _tdt(a, dtype):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
 
 
 def _jbf(a):
-    return jnp.asarray(a, jnp.bfloat16)
+    return _jdt(a, BF16)
 
 
 def _tbf(a):
-    return torch.from_numpy(np.ascontiguousarray(a)).to(BF16)
+    return _tdt(a, BF16)
 
 
 def _t(*arrs):
@@ -99,7 +120,7 @@ def _t(*arrs):
 
 
 def _same_pool(got, want):
-    """bit-equal bf16 pools (compared as their 16-bit patterns)"""
+    """bit-equal 16-bit pools (compared as their 16-bit patterns)"""
     np.testing.assert_array_equal(
         got.view(torch.int16).numpy(),
         np.asarray(want).view(np.int16))
@@ -301,12 +322,13 @@ def _port(arch, params, **kw):
         **{**ECFG, "dtype": BF16, **kw}), device="cpu")
 
 
-def _jax_bf16_margin(jcfg, jp, toks, enc=None):
+def _jax_margin(jcfg, jp, toks, enc=None, dtype=BF16):
     """The reference's top-2 logit margin for the token after ``toks``,
-    over bf16 KV pages: one prefill through its paged cache."""
+    over KV pages of ``dtype``: one prefill through its paged cache."""
     T, page = len(toks), 16
     n_pages = -(-T // page)
-    cache = jmodels.init_paged_cache(jcfg, n_pages, page, 1, jnp.bfloat16)
+    cache = jmodels.init_paged_cache(jcfg, n_pages, page, 1,
+                                     JAX_DTYPES[dtype])
     h, _, _ = jmodels.model_forward(
         jp, jcfg, jnp.asarray([toks], jnp.int32), cache=cache,
         pos0=jnp.zeros((1,), jnp.int32),
@@ -316,13 +338,14 @@ def _jax_bf16_margin(jcfg, jp, toks, enc=None):
     return float(top[-1] - top[-2])
 
 
-def _assert_streams_equal(got, want, prompt, jcfg, jp, enc=None):
+def _assert_streams_equal(got, want, prompt, jcfg, jp, enc=None,
+                          dtype=BF16):
     if got == want:
         return
     i = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
              min(len(got), len(want)))
     assert i < min(len(got), len(want)), (got, want)
-    margin = _jax_bf16_margin(jcfg, jp, prompt + want[:i], enc)
+    margin = _jax_margin(jcfg, jp, prompt + want[:i], enc, dtype)
     assert margin < TIE_MARGIN, (
         f"stream differs at token {i} with reference margin {margin}: "
         f"{got} vs {want}")
@@ -487,16 +510,20 @@ def test_bf16_spill_on_off_and_prefetch_bit_equal(models):
 
 
 def test_unserved_dtypes_raise(models):
-    """bf16 over an SSM-bearing model (mamba2, zamba2's hybrid) raises, as
-    the reference cannot serve it; float16 pools are not ported."""
+    """bf16 and float16 over an SSM-bearing model (mamba2, zamba2's
+    hybrid) raise, as the reference cannot serve them; float16 pools of a
+    model without SSM layers serve; any other dtype raises."""
     for arch in ("mamba2-2.7b", "zamba2-7b"):
         cfg = get_reduced(arch)
         params = init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
-        with pytest.raises(NotImplementedError, match="SSM"):
-            ServingEngine(cfg, params, EngineConfig(dtype=BF16, **ECFG),
-                          device="cpu")
+        for dtype in (BF16, torch.float16):
+            with pytest.raises(NotImplementedError, match="SSM"):
+                ServingEngine(cfg, params, EngineConfig(dtype=dtype, **ECFG),
+                              device="cpu")
         ServingEngine(cfg, params, EngineConfig(**ECFG), device="cpu")
     _, _, params, *_ = models["smollm-135m"]
+    eng = _port("smollm-135m", params, dtype=torch.float16)
+    assert all(t.dtype == torch.float16 for t in _leaves(eng.kv.pools))
     with pytest.raises(NotImplementedError):
-        _port("smollm-135m", params, dtype=torch.float16)
+        _port("smollm-135m", params, dtype=torch.float64)

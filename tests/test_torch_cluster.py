@@ -392,13 +392,16 @@ def test_placement_pass_and_affinity_to_placed_chain(sides):
 
 
 def test_build_options_not_ported_raise(sides):
-    """float16 pools are not ported and raise; the mesh options are
-    ported (``tests/test_torch_mesh_serving.py``): a mesh that is not a
+    """float16 replicas build (``tests/test_torch_fp16.py`` serves them)
+    and float64 pools raise; the mesh options are ported
+    (``tests/test_torch_mesh_serving.py``): a mesh that is not a
     ``ServingMesh`` is refused, and one-device slices of a ``devices``
     list give each replica a one-shard mesh."""
     side = sides[1]
+    cl = side.cluster(dtype=torch.float16)
+    assert all(d.engine.kv.dtype == torch.float16 for d in cl.drivers)
     with pytest.raises(NotImplementedError):
-        side.cluster(dtype=torch.float16)
+        side.cluster(dtype=torch.float64)
     with pytest.raises(TypeError):
         side.cluster(mesh=object())
     cl = side.cluster(devices_per_replica=1, devices=["cpu"] * 2)

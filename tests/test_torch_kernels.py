@@ -850,15 +850,16 @@ def _launch_args(kernel, pools):
 
 @pytest.mark.parametrize("pools", [
     (torch.bfloat16, torch.float32),    # mixed: never one launcher
-    (torch.float16, torch.float16),     # no float16 instantiation
+    (torch.float16, torch.float16),     # the f16 launcher, never f32
     (torch.bfloat16, torch.bfloat16),   # the bf16 launcher, never f32
-], ids=["mixed", "float16", "bf16"])
+    (torch.float64, torch.float64),     # no float64 instantiation
+], ids=["mixed", "float16", "bf16", "float64"])
 @pytest.mark.parametrize("kernel", ["decode", "prefill", "verify", "mla"])
 def test_wrapper_page_dtype_checks(kernel, pools, monkeypatch):
-    """The CUDA wrappers of B1-B4 take float32 or bfloat16 pools, both of
-    one dtype: a bf16 pool with a float32 one, or float16 pools, raise
-    before anything is built or launched; bf16 pools ask ``build.load``
-    for the source's bf16 launcher."""
+    """The CUDA wrappers of B1-B4 take float32, bfloat16 or float16 pools,
+    both of one dtype: a bf16 pool with a float32 one, or float64 pools,
+    raise before anything is built or launched; bf16 and float16 pools
+    ask ``build.load`` for the source's launcher of their dtype."""
     from repro_torch.kernels import build
     asked = []
 
@@ -869,11 +870,12 @@ def test_wrapper_page_dtype_checks(kernel, pools, monkeypatch):
     mod, launch, args = _launch_args(kernel, pools)
     monkeypatch.setattr(mod, "sm_count", lambda dev: 132)   # no card here
     n0 = dict(mod.COUNTS)
-    if pools == (torch.bfloat16, torch.bfloat16):
+    variant = {torch.bfloat16: "bf16", torch.float16: "f16"}
+    if pools[0] == pools[1] and pools[0] in variant:
         with pytest.raises(RuntimeError, match="stop before"):
             launch(*args)
-        assert len(asked) == 1 and asked[0][1] == "bf16"
-        assert asked[0][0] in build.BF16_LAUNCHERS
+        assert len(asked) == 1 and asked[0][1] == variant[pools[0]]
+        assert asked[0][0] in build.LAUNCHERS[variant[pools[0]]]
     else:
         with pytest.raises(ValueError, match="float32 or all bfloat16"):
             launch(*args)

@@ -6,8 +6,8 @@ the greedy streams of the engine on one device, with the same
 ``prefill_calls`` and ``decode_calls``, for head-sharded GQA,
 expert-parallel MoE (top-2 and top-3), lane-sharded SSM rows and
 head-sharded MLA; an indivisible mesh shards nothing; spec decoding, bf16
-pools and a 2 x 2 cluster carve with the host tier on serve as without a
-mesh.
+and float16 pools and a 2 x 2 cluster carve with the host tier on serve as
+without a mesh.
 
 Shards combine by concatenation and by sums of one contributor, and each
 paged wrapper is told the unsharded head count for its key splits, so the
@@ -366,21 +366,31 @@ def test_spec_decode_over_mesh(families):
     assert 0 < bc["spec_accepted_tokens"] < bc["spec_drafted_tokens"]
 
 
-def test_bf16_pools_over_mesh(families, monkeypatch):
+def _pools_over_mesh(families, monkeypatch, dtype):
+    """Pools of ``dtype`` on 2 shards serve the unsharded engine's streams
+    and logits, and every shard's pools keep the dtype."""
     fam = families(QWEN)
     log = _Logits(monkeypatch)
     base, bc, _ = _port_run(fam["cfg"], fam["params"], fam["prompts"],
-                            dtype=torch.bfloat16)
+                            dtype=dtype)
     (want,) = log.take().values()
     got, gc, eng = _port_run(fam["cfg"], fam["params"], fam["prompts"],
                              shd.make_serving_mesh(["cpu"] * 2),
-                             dtype=torch.bfloat16)
+                             dtype=dtype)
     assert got == base
     assert all(gc[k] == bc[k] for k in ("prefill_calls", "decode_calls"))
     for seq in log.take().values():
         assert all(torch.equal(a, b) for a, b in zip(seq, want))
-    assert all(t.dtype == torch.bfloat16 for pools in eng.kv.shard_pools
+    assert all(t.dtype == dtype for pools in eng.kv.shard_pools
                for t in pools[0]["self"].values())
+
+
+def test_bf16_pools_over_mesh(families, monkeypatch):
+    _pools_over_mesh(families, monkeypatch, torch.bfloat16)
+
+
+def test_fp16_pools_over_mesh(families, monkeypatch):
+    _pools_over_mesh(families, monkeypatch, torch.float16)
 
 
 def test_cluster_two_replicas_two_devices_each(families):
