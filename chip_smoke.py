@@ -59,7 +59,7 @@ script exits non-zero before the final line:
    groups whose lanes freeze at uneven budgets (a difference counts only
    if the reference's top-2 logit margin there is at least 1e-4).
 4. The main path: ``repro_torch.launch.serve`` replays 16 chatbot requests
-   at their own lengths on full-width smollm-135m, its 30 layers cut to 6
+   at their own lengths on full-width smollm-135m, its 30 layers cut to 3
    (``--layers``, ``MAIN_LAYERS``; random weights from the seed,
    float32).  The kernel launch counts are zeroed just before and read
    just after: every decode step must launch the decode kernel once per
@@ -70,7 +70,7 @@ script exits non-zero before the final line:
    longest seq_len of the decode steps), which must include the replay
    shapes of step 2.
 5. The multi-replica cluster (§4.2): ``ClusterFrontend.build`` stands up
-   two replicas of the main path's smollm-135m (6 layers) on the card,
+   two replicas of the main path's smollm-135m (3 layers) on the card,
    sharing its parameter tensors and one page budget (256 pages a
    replica over 384, page 16), with the host spill tier on (64 pages a
    replica) and ``ClusterTelemetry`` enabled.  Twelve requests at chatbot
@@ -88,8 +88,9 @@ script exits non-zero before the final line:
    exported page bit-equal to the page its chain's prefetch lands on;
    ``ClusterStats`` equal to the telemetry registry; every stream equal to
    plain generation under the tie rule.
-6. Speculative decoding at the full width of qwen3-1.7b (28 layers, random
-   weights from the seed): three prompts decoded by spec cycles of draft
+6. Speculative decoding at the full width of qwen3-1.7b, its 28 layers
+   cut to 14 (``SPEC_LAYERS``; random weights from the seed): three
+   prompts decoded by spec cycles of draft
    length 1, 3 and 8, with the 1-layer draft of the reference's tests and
    with the target as its own draft, each stream held against plain
    greedy generation under the same tie rule.
@@ -166,9 +167,11 @@ script exits non-zero before the final line:
     the limit, keys no row may see poisoned.  Each line names the regime the
     wrapper chose: warps per 16-row group (8 at one row, 1 from 65 rows)
     and key splits (none when the query tiles give every SM a block).
-    Timed at the encoder and the 8-lane cross-decode shape and at the
+    Timed at the encoder and the 8-lane cross-decode shape, at the
     whisper replay's commonest cross shapes (one lane's decode step and
-    its 16-row prefill bucket).
+    its 16-row prefill bucket), at llama-3.2-vision's cross shape and at
+    its replay's commonest (the same over 1600 image tokens, 32 / 8
+    heads of 128).
 15. whisper-large-v3 at its published width and depth (32 encoder and 32
     decoder layers, random weights from the seed, 5.9 GiB in float32):
     each request's frames come from a numpy seed and go through
@@ -213,7 +216,7 @@ script exits non-zero before the final line:
     nothing else.
 19. The serving surface: ``repro_torch.launch.serve.http_gateway`` (the
     launcher's ``--http`` cluster) stands up two replicas of phi4-mini-3.8b
-    at its published width, its 32 layers cut to 4 (24 query / 8 KV heads
+    at its published width, its 32 layers cut to 2 (24 query / 8 KV heads
     of 128, vocab 200064; random weights from the seed, float32) sharing
     one parameter copy, 512 pages a replica over 1024 (page 16; the
     launcher's 1 GiB a replica, capped by what 8 slots can fill), max_len
@@ -324,13 +327,44 @@ script exits non-zero before the final line:
     2 lanes, 8 serve steps), B6 once per encoder and cross layer per step,
     B5 once per SSM layer per prefill, against the same steps through the
     plain versions (the gate read against a control run in the same call).
-    A ``new_phase_seconds`` line gives these phases' seconds and the
-    script's total.
+    A ``new_phase_seconds`` line gives these phases' seconds, step 26's
+    and 27's, and the script's total.
+
+26. llama-3.2-vision-11b at its published widths, its 40 layers cut to
+    10 (``VLM_LAYERS``; ``cross_attn`` blocks 3 and 8 among them; random
+    weights from the seed, float32), every cross gate set to 1 (0 at
+    init: the image would add nothing), each request's image embeddings
+    (1, 1600, 4096) from a numpy seed (the vision encoder is a stub).
+    ``vlm_stream`` (after the whisper replay): one prompt's first-step
+    logits under two images differ by at least ``VLM_IMAGE_MOVES``, then
+    the stream script's greedy streams, each lane with its own image,
+    against plain generation under the tie rule (with the peak GiB).
+    ``vlm_replay``: ``ServingFrontend`` over
+    ``ServingEngine(VLM_ENGINE)`` serves the whisper replay's 8 chatbot
+    requests, each submitted with its image as ``enc_states``; counts
+    zeroed just before the replay: B6 = 2 x (prefill groups + decode
+    steps), B2 = 10 x prefill groups and B1 = 10 x decode steps (every
+    block has self-attention), no other kernel, no plain call, the B6
+    shapes (which must hold step 14's VLM replay shapes), spans, peak, and
+    a decode step of eight lanes by part (the cross K/V projection of
+    every step and cross layer, as in the reference).
+27. ``examples`` (after ``mesh_replay``, before the gateway): each
+    ``examples/torch_*.py`` through its ``main()`` at its defaults (the
+    card; smollm-135m at its published width where it serves or trains),
+    one line each with its numbers, launches, wall seconds, peak GiB and
+    the card line: the served examples launch B1 and B2 and no plain
+    version, the spec demo B3; the multi-replica example's page budgets
+    drain to 0 and prefix affinity saves at least as many prompt tokens as
+    round-robin; the training example's checkpoint lands (in a temporary
+    directory under ``build/``, removed after) and its losses are finite,
+    and run again at the reduced config (the reference example's) its
+    loss falls by ``TRAIN_LOSS_DROP`` (the means of the first and of the
+    last three logged losses).
 
 Every earlier replay also checks that B6 never launched: only the
-no-cache attention of plain generation (steps 3, 5, 6, 15, 17-19, 22),
-the encoder / cross-attention of steps 15-16 and step 25's launch steps
-run it.
+no-cache attention of plain generation (steps 3, 5, 6, 15, 17-19, 22,
+26), the encoder / cross-attention of steps 15-16 and 26 and step 25's
+launch steps run it.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -1183,8 +1217,9 @@ def engine_streams(rec, cfg, params, *, max_len: int, prompt_seed: int,
     """``script`` through a fresh engine (``run_script``), then each
     stream against plain generation; emits ``rec`` with the results and
     fails on a difference that is not a tie.  ``encs``: each request's
-    encoder states (1, T, D), for a cross-attending model.  Returns the
-    plain generation of each request, {rid: tokens}."""
+    encoder states (1, T, D), for a cross-attending model.  ``rec`` also
+    gets the device's peak GiB so far.  Returns the plain generation of
+    each request, {rid: tokens}."""
     encs = encs or {}
     dev = torch.device("cuda")
     prompts = script_prompts(cfg, prompt_seed, prompt_lens)
@@ -1209,6 +1244,7 @@ def engine_streams(rec, cfg, params, *, max_len: int, prompt_seed: int,
             r.update(got=got[rid], want=want)
     ok = ok and all(r["lane_rows_zero"] for r in reused.values())
     rec["ok"] = ok
+    rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     emit(rec)
     if not ok:
         raise SystemExit(f"{rec['phase']}: engine streams differ from plain "
@@ -1270,6 +1306,9 @@ def run_script(cfg, params, prompts, script, *, max_len: int,
 
 # --------------------------- spec-decode phases ------------------------- #
 SPEC_ARCH = "qwen3-1.7b"
+# its 28 layers cut to 14 for the script's time limit (the spec, bf16 and
+# fp16 spec phases share the model; their counts follow the depth)
+SPEC_LAYERS = 14
 SPEC_PROMPTS = {1: 40, 2: 51, 3: 60}
 SPEC_CYCLES = [    # draft length per request per batch (one verify each)
     {1: 3, 2: 8, 3: 1}, {1: 8, 2: 1, 3: 3}, {1: 1, 2: 3, 3: 8},
@@ -1290,13 +1329,13 @@ def one_layer_draft(cfg, dev, seed):
 
 
 def spec_model(seed: int):
-    """qwen3-1.7b at its published width and depth and its random
-    weights, shared by the spec phases in float32 and bf16."""
+    """qwen3-1.7b at its published width, cut to SPEC_LAYERS, and its
+    random weights, shared by the spec phases in float32 and 16 bits."""
     from repro_torch.configs import get_config
     from repro_torch.device import generator
     from repro_torch.models import init_params
     dev = torch.device("cuda")
-    cfg = get_config(SPEC_ARCH)
+    cfg = cut_depth(get_config(SPEC_ARCH), SPEC_LAYERS)
     return cfg, init_params(cfg, generator(dev, seed), device=dev)
 
 
@@ -2441,9 +2480,12 @@ WHISPER_ARCH = "whisper-large-v3"
 # 128-row one; then causal from q_offset 0 (once with keys split, the
 # first query tile's share of one split empty), a chunk at an offset whose
 # last rows meet kv_len < Sk, head dim 32 (once over 160 heads of 20 rows,
-# 4 warps to a row group), head dim 128 at llama-3.2-vision's cross shape
-# and at qwen3-1.7b's no-cache causal shape, and Sq, Sk and kv_len that
-# are no multiples of the tiles; at head dim 112 zamba2-7b's shared
+# 4 warps to a row group), head dim 128 at llama-3.2-vision's cross shape,
+# at its replay's commonest cross shapes (one lane's decode step and its
+# 16-row prefill bucket over 1600 image tokens: the vlm replay checks that
+# it ran them) and at qwen3-1.7b's no-cache causal shape, and Sq, Sk and
+# kv_len that are no multiples of the tiles; at head dim 112 zamba2-7b's
+# shared
 # attention in plain generation (32 heads, G 1): a 763-token prompt (the
 # chatbot trace's mean) and a few rows at an offset with kv_len < Sk (8
 # warps to a row group, keys split).
@@ -2461,13 +2503,17 @@ FLASH_CASES = [
     ("hd32_causal", 2, 45, 101, 6, 2, 32, True, 56, 101),
     ("hd32_many_heads", 8, 20, 200, 20, 20, 32, True, 180, None),
     ("hd128_vlm_cross", 2, 37, 1600, 32, 8, 128, False, 0, None),
+    ("vlm_replay_cross_decode", 1, 1, 1600, 32, 8, 128, False, 0, None),
+    ("vlm_replay_cross_prefill", 1, 16, 1600, 32, 8, 128, False, 0, None),
     ("hd128_qwen3_causal", 1, 200, 200, 16, 8, 128, True, 0, None),
     ("ragged", 2, 65, 129, 3, 3, 64, False, 0, 100),
     ("hd112_zamba2_causal", 1, 763, 763, 32, 32, 112, True, 0, None),
     ("hd112_few_rows", 2, 9, 300, 32, 32, 112, True, 250, 255),
 ]
 FLASH_TIMED = ("encoder", "cross_decode", "replay_cross_decode",
-               "replay_cross_prefill", "hd112_zamba2_causal")
+               "replay_cross_prefill", "hd112_zamba2_causal",
+               "hd128_vlm_cross", "vlm_replay_cross_decode",
+               "vlm_replay_cross_prefill")
 
 
 def flat_heads(q, k, v):
@@ -2829,22 +2875,31 @@ def whisper_replay_phase(cfg, params, kernels, seed: int):
 
 
 def whisper_decode_breakdown(cfg, params, eng, frames):
-    """Device time of one decode step of eight lanes over the replay's
-    table width (every lane at position 400; chunk_len 0, so every write
-    goes to the write-off page and the pools keep their state), whole and
-    by part: the first layer's cross K/V projection of the eight lanes'
-    encoder states (the reference's design repeats it in every step of
-    every layer), its cross-attention (q projection, B6, output
-    projection), its self-attention (the page write and B1), the
-    unembedding; and the step's device time and B6's own (its split
-    kernel; the merge launches are B1's and B6's together) from the
-    profiler."""
-    from repro_torch.models import (attention, encoder_forward, logits_fn,
-                                    model_forward)
+    """``cross_decode_breakdown`` over the encoder states of the first
+    eight requests' frames."""
+    from repro_torch.models import encoder_forward
+    with torch.no_grad():
+        enc = torch.cat([encoder_forward(params["encoder"], cfg, f)
+                         for f in list(frames.values())[:8]])
+    return cross_decode_breakdown(cfg, params, eng, enc)
+
+
+def cross_decode_breakdown(cfg, params, eng, enc):
+    """Device time of one decode step of ``len(enc)`` lanes over the
+    replay's table width (every lane at position 400; chunk_len 0, so
+    every write goes to the write-off page and the pools keep their
+    state), whole and by part: the first cross layer's cross K/V
+    projection of the lanes' encoder (or image) states ``enc`` (the
+    reference's design repeats it in every step of every cross layer),
+    its cross-attention (q projection, B6, output projection, the VLM's
+    gate), its self-attention (the page write and B1), the unembedding;
+    and the step's device time and B6's own (its split kernel; the merge
+    launches are B1's and B6's together) from the profiler."""
+    from repro_torch.models import attention, logits_fn, model_forward
     from repro_torch.models.layers import apply_norm
 
     dev = torch.device("cuda")
-    B, width = 8, eng.kv.max_pages_per_seq
+    B, width = enc.shape[0], eng.kv.max_pages_per_seq
     table = (torch.arange(B * width, device=dev, dtype=torch.int32)
              % eng.ecfg.total_pages).reshape(B, width)
     pos0 = torch.full((B,), 400, dtype=torch.int32, device=dev)
@@ -2852,14 +2907,20 @@ def whisper_decode_breakdown(cfg, params, eng, frames):
     tok = torch.ones(B, 1, dtype=torch.long, device=dev)
     g = torch.Generator(device=dev).manual_seed(9)
     x = torch.randn(B, 1, cfg.d_model, generator=g, device=dev)
-    seg = params["segments"][0]["p"]
-    p0 = {"attn": {k: t[0] for k, t in seg["attn"].items()},
-          "cross": {k: t[0] for k, t in seg["cross"].items()},
-          "norm1": {k: t[0] for k, t in seg["norm1"].items()}}
-    cache0 = {k: t[0] for k, t in eng.kv.pools[0]["self"].items()}
+    # the first layer of the first segment of cross_attn blocks (a
+    # segment of one layer is not stacked)
+    i_seg, n_seg = next((i, n) for i, (k, n) in enumerate(cfg.segments())
+                        if k == "cross_attn")
+    seg = params["segments"][i_seg]["p"]
+
+    def first(tree):
+        return {k: t if n_seg == 1 else t[0] for k, t in tree.items()}
+    p0 = {"attn": first(seg["attn"]), "cross": first(seg["cross"]),
+          "norm1": first(seg["norm1"])}
+    cache0 = first(eng.kv.pools[i_seg]["self"])
+    gated = cfg.arch_type == "vlm"
+    n_cross = cfg.block_pattern.count("cross_attn")
     with torch.no_grad():
-        enc = torch.cat([encoder_forward(params["encoder"], cfg, f)
-                         for f in list(frames.values())[:B]])
         ekv = attention.project_cross_kv(p0["cross"], enc)
         h = apply_norm(p0["norm1"], x, cfg.norm)
 
@@ -2873,14 +2934,14 @@ def whisper_decode_breakdown(cfg, params, eng, frames):
         "cross_kv_projection_ms": lambda: attention.project_cross_kv(
             p0["cross"], enc),
         "cross_attention_ms": lambda: attention.cross_attn_forward(
-            p0["cross"], x, ekv),
+            p0["cross"], x, ekv, gated=gated),
         "self_attention_ms": lambda: attention.attn_forward(
             p0["attn"], h, cfg, positions=pos0[:, None], cache=cache0,
             pos0=pos0, block_tables=table, chunk_len=none),
         "unembed_ms": lambda: logits_fn(params, cfg, x[:, 0]),
     }
     out = {"lanes": B, "keys_per_lane": width * eng.ecfg.page_size,
-           "encoder_frames": enc.shape[1]}
+           "encoder_frames": enc.shape[1], "cross_layers": n_cross}
     with torch.no_grad():
         for name, fn in parts.items():
             out[name] = time_ms(fn)
@@ -2889,10 +2950,333 @@ def whisper_decode_breakdown(cfg, params, eng, frames):
     out["step_b6_device_ms"] = cuda_sum(reading,
                                         ("flash_attention_kernel",))[0]
     out["cross_kv_projection_share_of_step"] = (
-        cfg.n_layers * out["cross_kv_projection_ms"] / out["step_ms"])
+        n_cross * out["cross_kv_projection_ms"] / out["step_ms"])
     out["cross_attention_share_of_step"] = (
-        cfg.n_layers * out["cross_attention_ms"] / out["step_ms"])
+        n_cross * out["cross_attention_ms"] / out["step_ms"])
     return out
+
+
+# ------------------------ llama-3.2-vision phases ----------------------- #
+VLM_ARCH = "llama-3.2-vision-11b"
+# every cross_attn block's gate (0 at init, so with random weights the
+# image would add exactly nothing): tanh(1) = 0.76 of the cross output
+VLM_GATE = 1.0
+VLM_ENGINE = dict(max_slots=8, max_len=1024, page_size=16, total_pages=512)
+VLM_STREAM_MAX_LEN = 256
+# the first-step logits of one prompt under two images must differ by at
+# least this much (100 ties): the image moves the result
+VLM_IMAGE_MOVES = 100 * TIE
+VLM_PUBLISHED = dict(d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+                     d_ff=14336, vocab=128256, n_image_tokens=1600)
+# the VLM's first 10 of its 40 layers, widths unchanged: cross blocks 3
+# and 8 among them.  With all 40 the whole script took 661-747 s on an
+# H100 host, and a host that runs the host-bound phases 1.3-1.9x slower
+# takes it past 1000 s of its 1200 s limit; the 40-layer VLM phases took
+# 47-51 s of it.  With the VLM cut and the earlier paths at their
+# depths it still took 790 s, hence MAIN_LAYERS, GATEWAY["layers"] and
+# SPEC_LAYERS.
+VLM_LAYERS = 10
+
+
+def vlm_config():
+    """llama-3.2-vision-11b at its published widths, its first
+    VLM_LAYERS layers (its ``cross_attn`` blocks among them at depths 3
+    and 8, as in the published pattern)."""
+    from repro_torch.configs import get_config
+    return cut_depth(get_config(VLM_ARCH), VLM_LAYERS)
+
+
+def vlm_model(seed: int):
+    """``vlm_config()`` with random weights from the seed, every cross
+    gate set to VLM_GATE."""
+    from repro_torch.device import generator
+    from repro_torch.models import init_params
+    dev = torch.device("cuda")
+    cfg = vlm_config()
+    return cfg, set_vlm_gates(init_params(cfg, generator(dev, seed),
+                                          device=dev))
+
+
+def set_vlm_gates(params):
+    """Every cross block's gate set to VLM_GATE, in place."""
+    for seg in params["segments"]:
+        if "cross" in seg["p"]:
+            seg["p"]["cross"]["gate"].fill_(VLM_GATE)
+    return params
+
+
+def vlm_image(cfg, seed: int, rid: int):
+    """One request's image embeddings (1, 1600, 4096), the vision
+    encoder's stub output, from a numpy seed."""
+    import numpy as np
+    a = np.random.default_rng([seed, rid]).standard_normal(
+        (1, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return torch.from_numpy(a).to(torch.device("cuda"))
+
+
+def vlm_gates(cfg, params) -> list:
+    return [float(g) for seg in params["segments"] if "cross" in seg["p"]
+            for g in seg["p"]["cross"]["gate"].reshape(-1).tolist()]
+
+
+def vlm_stream_phase(cfg, params, seed: int):
+    """The image moves the result: one prompt's first-step logits under
+    two images (plain generation's forward) differ by at least
+    VLM_IMAGE_MOVES.  Then the engine's greedy streams (B2 and B1 for
+    every layer's self-attention, B6 for the cross-attention of the cross
+    blocks over 1600 image tokens), each request with its own image,
+    against plain generation under the tie rule, as in the stream
+    phase."""
+    from repro_torch.models import logits_fn, model_forward
+    dev = torch.device("cuda")
+    prompt = script_prompts(cfg, seed + 8, {0: 40})[0]
+    first = []
+    with torch.no_grad():
+        for rid in (0, 1):
+            h, _, _ = model_forward(params, cfg,
+                                    torch.tensor([prompt], device=dev),
+                                    enc_states=vlm_image(cfg, seed + 2, rid))
+            first.append(logits_fn(params, cfg, h[0, -1]))
+    moved = (first[0] - first[1]).abs().max().item()
+    tops = [torch.topk(lg, 2).values for lg in first]
+    image = {"max_abs_logit_change": moved, "limit": VLM_IMAGE_MOVES,
+             "top2_margins": [(t[0] - t[1]).item() for t in tops],
+             "argmax_changed": int(first[0].argmax()) != int(
+                 first[1].argmax()),
+             "gates": vlm_gates(cfg, params)}
+    del first, h
+    encs = {rid: vlm_image(cfg, seed, rid) for rid in STREAM_PROMPTS}
+    image_ok = moved >= VLM_IMAGE_MOVES and all(
+        g == VLM_GATE for g in image["gates"])
+    if not image_ok:
+        emit({"phase": "vlm_stream", "image": image, "ok": False})
+        raise SystemExit(f"vlm_stream: the image does not move the logits "
+                         f"({moved} < {VLM_IMAGE_MOVES})")
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    engine_streams({"phase": "vlm_stream", "model": cfg.name,
+                    "layers": cfg.n_layers,
+                    "cross_layers": cfg.block_pattern.count("cross_attn"),
+                    "weights_gib": weights / 2**30, "image": image},
+                   cfg, params, max_len=VLM_STREAM_MAX_LEN,
+                   prompt_seed=seed + 9, encs=encs)
+
+
+def vlm_replay_phase(cfg, params, kernels, seed: int):
+    """The VLM path end to end: ``ServingFrontend`` with the launcher's
+    scheduler and virtual perf model over ``ServingEngine`` (VLM_ENGINE:
+    page 16, 8 slots) serving the launcher's chatbot trace
+    (WHISPER_REPLAY's arguments); each request is submitted with
+    ``enc_states`` its own image embeddings.  Launch counts are zeroed
+    just before the replay and read just after: B6 once per cross block
+    per prefill group and per decode step (no encoder), B2 and B1 once
+    per layer (every block, the cross blocks too, has self-attention) per
+    prefill group and per decode step, B3-B5 never, no plain version.  The
+    line lists the (BH, Sq, Sk) of every B6 call, which must include the
+    VLM replay shapes the B6 phase timed, and a decode step of eight
+    lanes by part (``cross_decode_breakdown``)."""
+    from repro_torch.core.scheduler import SchedulerConfig, SLOsServeScheduler
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.frontend import ServingFrontend
+
+    dev = torch.device("cuda")
+    eng = ServingEngine(cfg, params, EngineConfig(**VLM_ENGINE), device=dev)
+    sched = SLOsServeScheduler(serve.VIRTUAL_PERF, SchedulerConfig(
+        prefill_emits_first_token=True))
+    fe = ServingFrontend(eng, sched, seed=seed)
+    reqs = serve.trace(serve.parse_args(WHISPER_REPLAY
+                                        + ["--seed", str(seed)]))
+    images = {r.rid: vlm_image(cfg, seed + 1, r.rid) for r in reqs}
+    for r in reqs:
+        fe.submit(r, enc_states=images[r.rid])
+    timer, shapes = SpanTimer(), ShapeLog(eng)
+    eng.tracer = timer
+    fa = kernels["flash"]
+    flash_shapes: dict[str, int] = {}
+    flash_bh = fa.flash_attention_bh
+
+    def seen_flash(q, k, v, **kw):
+        key = f"{q.shape[0]}/{q.shape[1]}/{k.shape[1]}"
+        flash_shapes[key] = flash_shapes.get(key, 0) + 1
+        return flash_bh(q, k, v, **kw)
+    fa.flash_attention_bh = seen_flash
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in kernels.values():
+        c.COUNTS["kernel"] = c.COUNTS["plain"] = 0
+    try:
+        wall = serve.replay(fe)
+    finally:
+        fa.flash_attention_bh = flash_bh
+    launches = {k: dict(m.COUNTS) for k, m in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eng.tracer = None
+    s, c = fe.stats, eng.counters
+    L = cfg.n_layers
+    n_cross = cfg.block_pattern.count("cross_attn")
+    timed = {name: f"{B * H}/{Sq}/{Sk}"
+             for name, B, Sq, Sk, H, *_ in FLASH_CASES
+             if name in ("vlm_replay_cross_decode",
+                         "vlm_replay_cross_prefill")}
+    pub = VLM_PUBLISHED
+    checks = {
+        "model_published_widths": (
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab, cfg.n_image_tokens)
+        == tuple(pub[k] for k in ("d_model", "n_heads", "n_kv_heads",
+                                  "head_dim", "d_ff", "vocab",
+                                  "n_image_tokens")),
+        "depth": (L, cfg.block_pattern) == (VLM_LAYERS,
+                                             vlm_config().block_pattern)
+                 and n_cross > 0,
+        "gates_set": all(g == VLM_GATE for g in vlm_gates(cfg, params)),
+        "served_all": s.served == s.submitted == len(reqs) == 8,
+        "tokens_out": s.tokens_out > 0,
+        "flash_launches": launches["flash"]["kernel"]
+            == n_cross * (c["prefill_calls"] + c["decode_steps"]),
+        "prefill_launches":
+            launches["prefill"]["kernel"] == L * c["prefill_calls"],
+        "decode_launches":
+            launches["decode"]["kernel"] == L * c["decode_steps"],
+        "no_other_kernel": all(launches[k]["kernel"] == 0
+                               for k in ("verify", "mla_prefill", "ssd")),
+        "no_plain": not any(v["plain"] for v in launches.values()),
+        "flash_shapes_counted":
+            sum(flash_shapes.values()) == launches["flash"]["kernel"],
+        "timed_cross_decode_ran":
+            timed["vlm_replay_cross_decode"] in flash_shapes,
+        "timed_cross_prefill_ran":
+            timed["vlm_replay_cross_prefill"] in flash_shapes,
+    }
+    rec = replay_record("vlm_replay", cfg, fe, eng, wall, launches, shapes,
+                        timer, peak)
+    rec.update({"cross_layers": n_cross, "image_tokens": cfg.n_image_tokens,
+                "flash_shapes": dict(sorted(flash_shapes.items(),
+                                            key=lambda kv: -kv[1])),
+                "timed_flash_shapes": timed})
+    with torch.no_grad():
+        enc = torch.cat([images[r.rid] for r in reqs[:8]])
+    rec["decode_breakdown"] = cross_decode_breakdown(cfg, params, eng, enc)
+    rec["checks"] = checks
+    emit(rec)
+    if not all(checks.values()):
+        raise SystemExit(f"vlm replay checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
+# ------------------------------- examples ------------------------------- #
+# each example of the port (examples/torch_*.py) through its main() on the
+# card, at its defaults (CUDA, smollm-135m at its published width where it
+# serves or trains), with the arguments added here (the training example
+# also gets a checkpoint directory).  The training example runs twice: at
+# the published width, where the reference's 200 steps of 512 tokens see
+# each of the 49152 tokens about twice as a context, too few to learn its
+# successors, so its loss only has to stay finite; and at the reduced
+# config the reference example trains, whose loss must fall by
+# TRAIN_LOSS_DROP.
+EXAMPLES = [("torch_quickstart", []), ("torch_serve_e2e", []),
+            ("torch_spec_decode_demo", []), ("torch_multi_replica", []),
+            ("torch_train_small", []), ("torch_train_small", ["--reduced"])]
+# nats between the means of the first and of the last three logged losses
+# (every 10th step; 6.19 -> 3.86 on the CPU over 200 steps)
+TRAIN_LOSS_DROP = 1.0
+
+
+def load_example(name: str):
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_checks(name: str, argv: list, res: dict,
+                   launches: dict) -> dict:
+    """What each example's story must show on the card."""
+    kernel = {k: v["kernel"] for k, v in launches.items()}
+    plain = sum(v["plain"] for v in launches.values())
+    served = {"kernels_launched": kernel["decode"] > 0
+              and kernel["prefill"] > 0, "no_plain": plain == 0}
+    if name == "torch_quickstart":
+        return {"admitted": res["admitted"] == [2, 0, 1],
+                "declined": res["declined"] == [3],
+                "no_kernel": not any(kernel.values()), "no_plain": plain == 0}
+    if name == "torch_serve_e2e":
+        return {**served, "served_all": res["served"] == res["submitted"] > 0,
+                "device": res["device"].startswith("cuda")}
+    if name == "torch_spec_decode_demo":
+        return {**served, "verify_launched": kernel["verify"] > 0,
+                "served_all": res["served"] == res["submitted"] == 3,
+                "drafted": res["drafted"] > 0,
+                "accepted_le_drafted": res["accepted"] <= res["drafted"]}
+    if name == "torch_multi_replica":
+        return {**served,
+                "budgets_drained": res["real"]["budget_used_after"]
+                == res["round_robin"]["budget_used_after"]
+                == res["affinity"]["budget_used_after"] == 0,
+                "affinity_saves_at_least_round_robin":
+                    res["affinity"]["prefix_hit_tokens"]
+                    >= res["round_robin"]["prefix_hit_tokens"],
+                "served": res["real"]["served"] > 0}
+    losses = res["losses"]
+    learn = ({"loss_falls": sum(losses[-3:]) / 3
+              <= sum(losses[:3]) / 3 - TRAIN_LOSS_DROP}
+             if "--reduced" in argv else {})
+    return {**learn,
+            "losses_finite": all(math.isfinite(x) for x in losses),
+            "checkpoint_written": res["checkpoint_step"] == res["steps"],
+            "no_kernel": not any(kernel.values()), "no_plain": plain == 0}
+
+
+def examples_phase(kernels, card: str) -> dict:
+    """Every example's ``main`` on the card, one line each: its returned
+    numbers, the kernel launches it made (counts zeroed just before, read
+    just after), its wall seconds and peak GiB beside the card's name and
+    power limit, and its checks (``example_checks``).  The examples'
+    own printing goes to a buffer; its last lines are in the record.
+    Returns the launches summed over the examples."""
+    import shutil
+    import tempfile
+    total = {k: {"kernel": 0, "plain": 0} for k in kernels}
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    for name, extra in EXAMPLES:
+        ckpt = None
+        if name == "torch_train_small":
+            ckpt = tempfile.mkdtemp(prefix="example_ckpt_", dir=build_dir)
+            extra = [*extra, "--checkpoint-dir", ckpt]
+        mod = load_example(name)
+        free_device_memory()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in kernels.values():
+            c.COUNTS["kernel"] = c.COUNTS["plain"] = 0
+        out = io.StringIO()
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                res = mod.main(list(extra))
+            torch.cuda.synchronize()
+        finally:
+            if ckpt is not None:
+                shutil.rmtree(ckpt, ignore_errors=True)
+        wall = time.perf_counter() - t
+        launches = {k: dict(m.COUNTS) for k, m in kernels.items()}
+        for k, v in launches.items():
+            for kind in ("kernel", "plain"):
+                total[k][kind] += v[kind]
+        checks = example_checks(name, extra, res, launches)
+        emit({"phase": "examples", "example": name, "argv": extra,
+              "result": res, "launches": launches, "wall_s": wall,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "gpu": card, "printed_tail": out.getvalue().splitlines()[-4:],
+              "checks": checks})
+        if not all(checks.values()):
+            raise SystemExit(f"example {name} checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+        del mod, res
+    return total
 
 
 # ----------------------- the kernels' remaining dtypes ------------------ #
@@ -3762,12 +4146,13 @@ def main_step_breakdown(cfg, params, eng):
     return out
 
 
-# The main path's depth: smollm-135m's 30 layers cut to 6, which the
-# cluster and dense-cache phases inherit, so that the script keeps within
-# its time limit on a slow host (each host-bound step's time grows with
+# The main path's depth: smollm-135m's 30 layers cut to 3 (6 until the
+# VLM and the examples joined the script), which the cluster and
+# dense-cache phases inherit, so that the script keeps within its time
+# limit on a slow host (each host-bound step's time grows with
 # the layers; the planner's virtual clock and the page counts, not the
 # depth, set the schedule, so the shapes are the uncut replay's).
-MAIN_LAYERS = 6
+MAIN_LAYERS = 3
 
 
 def main_path(pa, pp, fa, seed: int):
@@ -4136,10 +4521,11 @@ def cluster_phase(cfg, params, kernels, seed: int):
 # lengths scaled by 0.25 and capped at 128, token ids over the model's
 # whole vocabulary; 2612 prefill and 1272 decode tokens, at most 532 in
 # one request (a tool loop of six stages).
-# phi4-mini's 32 layers cut to 4 (its widths unchanged): the launcher
+# phi4-mini's 32 layers cut to 2 (its widths unchanged; 4 until the VLM
+# and the examples joined the script): the launcher
 # sizes each replica's pools to 1 GiB over the cut model's bytes a page,
 # which its 8 slots of 1024 tokens cap at 512 pages.
-GATEWAY = dict(arch="phi4-mini-3.8b", layers=4, replicas=2, rate=4.0,
+GATEWAY = dict(arch="phi4-mini-3.8b", layers=2, replicas=2, rate=4.0,
                duration=4.0, time_scale=0.25, max_stage_tokens=128,
                entries=18, page=16, replica_pages=512, total_pages=1024,
                max_len=1024, max_slots=8, greedy_max_tokens=32,
@@ -5365,11 +5751,10 @@ def train_mesh_phase(kernels, card: str, seed: int, dev=None, cfg=None,
             for p, o in zip(sp, so)]
     workers = shd.ShardWorkers(mesh, timeout=TRAIN_MESH_TIMEOUT)
     prog = steps.sharded_train_step(cfg, mesh, pspecs, opt, keep_grads=True)
-    bspec = shd.batch_spec(mesh, spec["batch"])
     slosses, sms, per_step, replicas = [], [], [], []
     grad_read = None
     for k, b in enumerate(data):
-        bb = shd.shard_tree(b, {"tokens": bspec, "labels": bspec}, mesh)
+        bb = steps.shard_batch(prog, b, mesh)
         before_stats = [workers.comm.stats(i) for i in range(mesh.size)]
         sync()
         ts = time.perf_counter()
@@ -5523,8 +5908,9 @@ def main(argv=()) -> int:
           "ptxas": ptxas,
           "parent": None if parent is None else {"dir": args.parent,
                                                  "ptxas": parent.ptxas}})
-    # the seconds of each phase this slice added (the fp16 pools' and the
-    # bf16 inputs'), printed before the "done" line
+    # the seconds of each phase the last two slices added (the fp16
+    # pools', the bf16 inputs', the VLM's and the examples'), printed
+    # before the "done" line
     new_s: dict[str, float] = {}
 
     def new_phase(name, fn, *a, **k):
@@ -5635,6 +6021,14 @@ def main(argv=()) -> int:
                                                    seed)
     del params
     free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = vlm_model(seed)
+    new_phase("vlm_stream", vlm_stream_phase, cfg, params, seed)
+    free_device_memory()
+    paths["vlm_replay"] = new_phase("vlm_replay", vlm_replay_phase, cfg,
+                                    params, kernels, seed)
+    del params
+    free_device_memory()
     paths["bf16_launch_steps"] = new_phase(
         "bf16_launch_steps", bf16_launch_steps_phase, kernels, seed)
     free_device_memory()
@@ -5662,6 +6056,8 @@ def main(argv=()) -> int:
     train_mesh_phase(kernels, card, seed)
     free_device_memory()
     paths["mesh_replay"] = mesh_replay_phase(kernels, seed)
+    free_device_memory()
+    paths["examples"] = new_phase("examples", examples_phase, kernels, card)
     free_device_memory()
     # last: run ahead of the kernel phases, it left the profiler
     # recording no launch at all in several of their readings

@@ -157,8 +157,9 @@ def http_gateway(cfg, params, replicas: int, *, reduced: bool, device,
                       seed=seed)
 
 
-def serve_http(args) -> None:
-    """Run the SSE gateway until SIGINT/SIGTERM, then drain gracefully."""
+def serve_http(args) -> dict:
+    """Run the SSE gateway until SIGINT/SIGTERM, then drain gracefully.
+    Returns the drained cluster's counts."""
     import asyncio
     import signal
 
@@ -188,6 +189,10 @@ def serve_http(args) -> None:
               f"streams completed {gw.stats.completed}", flush=True)
 
     asyncio.run(amain())
+    s = cluster.stats
+    return {"served": s.served, "submitted": s.submitted,
+            "attained": s.attained, "cancelled": s.cancelled,
+            "streams_completed": gw.stats.completed}
 
 
 def build(args):
@@ -227,11 +232,12 @@ def replay(fe) -> float:
     return time.perf_counter() - t0
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
+    """Serve the trace (or ``--http``: the gateway until a signal); returns
+    the printed numbers."""
     args = parse_args(argv)
     if args.http:
-        serve_http(args)
-        return
+        return serve_http(args)
     fe, engine = build(args)
     wall = replay(fe)
     stats = fe.stats
@@ -245,6 +251,13 @@ def main(argv=None):
     print(f"device calls: {c['prefill_calls']} prefill chunks, "
           f"{c['decode_calls']} fused decode loops "
           f"({c['decode_tokens']} tokens, {per_call:.1f} tokens/loop)")
+    return {"served": stats.served, "submitted": stats.submitted,
+            "dropped": stats.dropped, "tokens_out": stats.tokens_out,
+            "attained": stats.attained, "virtual_s": fe.clock,
+            "wall_s": wall, "device": str(engine.device),
+            "prefill_calls": c["prefill_calls"],
+            "decode_calls": c["decode_calls"],
+            "decode_tokens": c["decode_tokens"]}
 
 
 if __name__ == "__main__":

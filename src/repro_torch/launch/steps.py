@@ -163,16 +163,19 @@ def sharded_train_step(cfg: ModelConfig, mesh, param_specs,
     """One shard's train step over ``mesh``: ``program(ms, params,
     opt_state, batch) -> (params, opt_state, metrics)``, its parameters
     and moments resting as ``param_specs`` cut them, its batch its data
-    shard's rows.  Each step it gathers its parameters over the data axes
-    (keeping the plan's model split), runs ``accumulate_grads`` with
-    ``shard=``, sums the gradients over its data group in shard order and
-    divides by its size, takes the norm of the whole tree, keeps its
-    slice of each gradient and applies AdamW to its slice.  The metrics
-    are the data group's means; ``keep_grads``: ``metrics["grads"]`` is
-    the shard's slice of the averaged gradients (before clipping).
-    Under a data axis microbatch j is the j-th slice of every data
-    shard's rows (the same gradient as the reference's for a dense
-    model)."""
+    shard's rows as ``shard_batch`` (or ``run_sharded``) hands them: the
+    program carries its ``microbatches``, which both read.  Each step it
+    gathers its parameters over the data axes (keeping the plan's model
+    split), runs ``accumulate_grads`` with ``shard=``, sums the gradients
+    over its data group in shard order and divides by its size, takes the
+    norm of the whole tree, keeps its slice of each gradient and applies
+    AdamW to its slice.  The metrics are the data group's means;
+    ``keep_grads``: ``metrics["grads"]`` is the shard's slice of the
+    averaged gradients (before clipping).  Under a data axis microbatch j
+    is the reference's: the j-th slice of the global batch, of which each
+    data shard holds its share (``microbatch_order``), so that MoE
+    capacity and the aux statistics count the global microbatch's
+    tokens."""
     opt_cfg = opt_cfg or AdamWConfig()
     plan = serving_shard_plan(cfg, mesh)
     data = data_group(mesh)
@@ -202,7 +205,42 @@ def sharded_train_step(cfg: ModelConfig, mesh, param_specs,
             mets["grads"] = grads
         return params, opt_state, mets
 
+    program.microbatches = microbatches
     return program
+
+
+def microbatch_order(batch, parts: int, microbatches: int):
+    """``batch`` (a dict of tensors, rows first) with its rows reordered
+    so that cutting it into ``parts`` contiguous blocks hands block s its
+    share of each of the reference's microbatches, in microbatch order:
+    of B rows, microbatch j is rows [j B/m, (j+1) B/m), and block s gets
+    rows j B/m + s B/(m parts) ... + B/(m parts) for j = 0 .. m-1.
+    ``accumulate_grads``' j-th slice of block s is then its share of
+    global microbatch j.  The identity for one microbatch or one part."""
+    if microbatches == 1 or parts == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % (microbatches * parts):
+            raise ValueError(f"microbatch_order: {v.shape[0]} rows do not "
+                             f"split into {microbatches} microbatches over "
+                             f"{parts} data shards")
+        out[k] = v.reshape(microbatches, parts, -1, *v.shape[1:]).transpose(
+            0, 1).reshape(v.shape)
+    return out
+
+
+def shard_batch(program, batch, mesh):
+    """Each shard's rows of a global train ``batch`` for ``program`` (a
+    ``sharded_train_step``): the rows cut over the data axes as
+    ``batch_spec`` cuts them, in the order of the program's microbatches
+    (``microbatch_order``)."""
+    B = next(iter(batch.values())).shape[0]
+    specs = {k: batch_spec(mesh, B, extra_dims=v.dim() - 1)
+             for k, v in batch.items()}
+    parts = _axis_size(mesh, batch_spec(mesh, B)[0])
+    return shard_tree(microbatch_order(batch, parts, program.microbatches),
+                      specs, mesh)
 
 
 def train_inputs(cfg: ModelConfig, mesh, seq_len: int, global_batch: int,
@@ -359,8 +397,17 @@ def run_sharded(program, args, workers) -> list:
     """Run ``program`` on every shard of ``workers``' mesh (a
     ``ShardWorkers`` over a ``distributed.sharding.Mesh``): ``args`` are
     (tree, specs) pairs of real tensors (or None), each shard given its
-    own copy of its slices.  Returns every shard's result, in order."""
+    own copy of its slices.  A train program's batch (its third
+    argument) is the global batch in the reference's row order, cut in
+    the order of the program's microbatches as ``shard_batch`` cuts it.
+    Returns every shard's result, in order."""
     mesh = workers.mesh
+    if hasattr(program, "microbatches"):     # (params, opt_state, batch)
+        batch, specs = args[2]
+        parts = _axis_size(mesh, next(iter(specs.values()))[0])
+        args = [*args[:2], (microbatch_order(batch, parts,
+                                             program.microbatches), specs),
+                *args[3:]]
     placed = [None if a is None else shard_tree(a[0], a[1], mesh, copy=True)
               for a in args]
     return workers.run(lambda i, ms: program(

@@ -342,3 +342,74 @@ def test_encoder_state_changes_the_stream(whisper):
         streams.append(got + eng.execute(b)[1])
     assert len(streams[0]) == len(streams[1]) == 7
     assert streams[0] != streams[1]
+
+
+# ----------------------- spec decoding, enc-dec ------------------------- #
+CROSS_SCALE = 0.3       # the target's cross-attention output, scaled down
+P_SPEC = np.random.default_rng(3).integers(1, 512, 21).tolist()
+SPEC_KS = (3, 1, 5, 8, 3, 5)
+SPEC_KEYS = ("spec_draft_calls", "spec_verify_calls", "spec_accepted_tokens",
+             "spec_drafted_tokens", "prefill_calls")
+
+
+def _spec_models(jp):
+    """The whisper target with its cross-attention output scaled by
+    CROSS_SCALE, and as draft its own decoder without cross-attention (the
+    draft sees no encoder states, in both packages): the draft then
+    agrees with the target in part.  Returns numpy trees (target,
+    draft)."""
+    tgt = jax.tree.map(np.array, jp)
+    cross = tgt["segments"][0]["p"]["cross"]
+    cross["wo"] = cross["wo"] * np.float32(CROSS_SCALE)
+    cross["bo"] = cross["bo"] * np.float32(CROSS_SCALE)
+    dft = {k: v for k, v in tgt.items() if k != "encoder"}
+    dft["segments"] = [{"p": {k: v for k, v in tgt["segments"][0]["p"].items()
+                              if k not in ("cross", "norm_x")}}]
+    return tgt, dft
+
+
+def _draft_of(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, name=cfg.name + "-draft",
+                               arch_type="dense", encoder=None,
+                               block_pattern=("attn",) * cfg.n_layers)
+
+
+def _spec_run(eng, batch_cls, kinds, enc):
+    assert eng.add_request(1, P_SPEC, expected_total=60, enc_states=enc)
+    b = batch_cls()
+    b.add(1, kinds["P"], len(P_SPEC))
+    got = eng.execute(b).get(1, [])
+    for k in SPEC_KS:
+        b = batch_cls(spec_step=k)
+        b.add(1, kinds["D"], k + 1)
+        out = eng.execute(b).get(1, [])
+        assert len(out) >= 1                  # progress guarantee
+        got += out
+    return got
+
+
+def test_spec_decode_over_encdec_target_matches_jax_engine(whisper):
+    """Speculative decoding over the reduced whisper target, the request's
+    encoder states passed to every verify: the stream, acceptance and
+    counters equal the JAX engine's, and the draft is accepted in part."""
+    jcfg, jp, cfg, _, _, jenc = whisper
+    tgt, dft = _spec_models(jp)
+    kinds_j = {"P": jslo.StageKind.PREFILL, "D": jslo.StageKind.DECODE}
+    jeng = jengine.ServingEngine(jcfg, tgt, jengine.EngineConfig(**ECFG),
+                                 draft=(_draft_of(jcfg), dft))
+    want = _spec_run(jeng, jbatch.Batch, kinds_j, jnp.asarray(jenc[0:1]))
+    eng = ServingEngine(cfg, bridge.params_from_numpy(tgt, device="cpu"),
+                        EngineConfig(**ECFG),
+                        draft=(_draft_of(cfg),
+                               bridge.params_from_numpy(dft, device="cpu")),
+                        device="cpu")
+    kinds = {"P": StageKind.PREFILL, "D": StageKind.DECODE}
+    got = _spec_run(eng, Batch, kinds, torch.from_numpy(jenc[0:1]))
+    _assert_streams_equal(got, want, P_SPEC, jenc[0:1], jcfg, tgt)
+    c = eng.counters
+    assert 0 < c["spec_accepted_tokens"] < c["spec_drafted_tokens"]
+    if got == want:
+        for key in SPEC_KEYS:
+            assert c[key] == jeng.counters[key], key
+    assert c["verify_fused_ops"] == cfg.n_layers * c["spec_verify_calls"]

@@ -156,9 +156,23 @@ def _port_model(arch, seed):
 
 
 def test_microbatched_train_step_matches_reference():
-    cfg, params = _port_model("smollm-135m", 2)
-    jc = jcfgs.get_reduced("smollm-135m")
-    rng = np.random.default_rng(2)
+    _microbatched_against_reference("smollm-135m", 2)
+
+
+def test_microbatched_moe_train_step_matches_reference():
+    """phi3.5-moe: each microbatch's capacity and aux statistics over its
+    own rows, as the reference's scan takes them."""
+    tm = _microbatched_against_reference("phi3.5-moe-42b-a6.6b", 3)
+    assert float(tm["aux"]) > 0
+
+
+def _microbatched_against_reference(arch, seed):
+    """The port's unsharded two-microbatch step against the reference's
+    jitted one on the port's init handed to JAX; returns the port's
+    metrics."""
+    cfg, params = _port_model(arch, seed)
+    jc = jcfgs.get_reduced(arch)
+    rng = np.random.default_rng(seed)
     b = {k: rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32)
          for k in ("tokens", "labels")}
     kw = dict(lr=1e-3, total_steps=10, warmup_steps=2)
@@ -194,6 +208,7 @@ def test_microbatched_train_step_matches_reference():
         np.testing.assert_allclose(p[big], q[big], atol=1e-6, err_msg=path)
         np.testing.assert_allclose(p, q, atol=2 * lr, err_msg=path)
     assert int(ts2["step"]) == int(js2["step"]) == 1
+    return tm
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "whisper-large-v3",

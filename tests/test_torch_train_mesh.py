@@ -20,6 +20,8 @@ units (dropping as the unsharded call drops), and sequence-sharded decode
 over a dense cache (``seq_sharded_attention``) against unsharded decode.
 Everything here is the port; the reference's spec functions are held in
 ``tests/test_torch_launch.py``."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -56,21 +58,25 @@ def _batches(cfg, seed=0, n=STEPS, b=B):
              for k in ("tokens", "labels")} for _ in range(n)]
 
 
-def _run_both(arch, shape, microbatches=1, seed=0):
-    """The unsharded and the sharded step from one init over STEPS
-    batches.  Returns what the gates read."""
-    cfg = get_reduced(arch)
-    params = init_params(cfg, generator(torch.device("cpu"), seed),
-                         device="cpu")
+def _run_both(arch, shape, microbatches=1, seed=0, cfg=None, params=None):
+    """The unsharded and the sharded step from one init (``params``, or
+    ``cfg``'s seeded init; ``cfg`` defaults to ``arch``'s reduced config)
+    over STEPS batches (each shard handed its rows by
+    ``steps.shard_batch``).  Returns what the gates read."""
+    cfg = cfg or get_reduced(arch)
+    if params is None:
+        params = init_params(cfg, generator(torch.device("cpu"), seed),
+                             device="cpu")
     batches = _batches(cfg, seed)
     up = trainable(tree_map(torch.clone, params))
     uo = init_opt_state(up)
     ustep = steps.make_train_step(cfg, OPT, microbatches)
-    _, _, g0 = loss_and_grads(up, cfg, batches[0])
-    ulosses = []
+    _, _, g0 = steps.accumulate_grads(up, cfg, batches[0], microbatches)
+    ulosses, uaux = [], []
     for b in batches:
         up, uo, m = ustep(up, uo, b)
         ulosses.append(float(m["loss"]))
+        uaux.append(float(m["aux"]))
 
     mesh = _cpu_mesh(shape)
     pspecs = shd.params_shardings(params, cfg, mesh)
@@ -82,13 +88,13 @@ def _run_both(arch, shape, microbatches=1, seed=0):
     so = [init_opt_state(p) for p in sp]
     predicted = (shd.shard_nbytes(params, pspecs, mesh)
                  + shd.shard_nbytes(init_opt_state(params), ospecs, mesh))
-    bspec = shd.batch_spec(mesh, B)
-    slosses, grads = [], None
+    slosses, saux, grads = [], [], None
     for k, b in enumerate(batches):
-        bb = shd.shard_tree(b, {"tokens": bspec, "labels": bspec}, mesh)
+        bb = steps.shard_batch(prog, b, mesh)
         outs = workers.run(lambda i, ms: prog(ms, sp[i], so[i], bb[i]))
         sp, so = [o[0] for o in outs], [o[1] for o in outs]
         slosses.append(float(outs[0][2]["loss"]))
+        saux.append(float(outs[0][2]["aux"]))
         assert len({float(o[2]["loss"]) for o in outs}) == 1
         if k == 0:
             grads = shd.unshard_tree([o[2]["grads"] for o in outs], pspecs,
@@ -100,8 +106,17 @@ def _run_both(arch, shape, microbatches=1, seed=0):
                    for t in flatten(p)[1] + flatten(o)[1])
         assert held == predicted
     return dict(cfg=cfg, mesh=mesh, ulosses=ulosses, slosses=slosses,
-                g0=g0, grads=grads, up=up,
+                uaux=uaux, saux=saux, g0=g0, grads=grads, up=up,
                 sparams=shd.unshard_tree(sp, pspecs, mesh))
+
+
+def _assert_grads_agree(r):
+    paths, got = flatten(r["grads"])
+    for path, g, w in zip(paths, got, flatten(r["g0"])[1]):
+        w = w.detach()
+        np.testing.assert_allclose(
+            g.numpy(), w.numpy(), rtol=1e-4,
+            atol=1e-6 * float(w.abs().max()), err_msg=path)
 
 
 CASES = [("smollm-135m", (2, 2)), ("phi3.5-moe-42b-a6.6b", (2, 2)),
@@ -126,12 +141,7 @@ def test_sharded_train_step_matches_unsharded(arch, shape):
         {"mlp"} if shape[1] == 4 else set())
     assert split == want
     assert r["slosses"][0] == pytest.approx(r["ulosses"][0], rel=1e-4)
-    paths, got = flatten(r["grads"])
-    for path, g, w in zip(paths, got, flatten(r["g0"])[1]):
-        w = w.detach()
-        np.testing.assert_allclose(
-            g.numpy(), w.numpy(), rtol=1e-4,
-            atol=1e-6 * float(w.abs().max()), err_msg=path)
+    _assert_grads_agree(r)
     for k in (1, 2):
         assert r["slosses"][k] == pytest.approx(r["ulosses"][k], rel=1e-4)
     for path, p, q in zip(*flatten(r["sparams"]), flatten(r["up"])[1]):
@@ -151,6 +161,101 @@ def test_microbatched_sharded_step_matches_unsharded():
         np.testing.assert_allclose(p.numpy(), q.detach().numpy(),
                                    atol=2 * STEPS * LR, rtol=0,
                                    err_msg=path)
+
+
+def _moe16():
+    """phi3.5-moe's reduced config with the published 16 experts, and its
+    seeded init: at the training default capacity factor (2.0:
+    ceil(2 * 2 * 32 / 16) = 8 units an expert over a two-row microbatch)
+    units are dropped."""
+    base = get_reduced("phi3.5-moe-42b-a6.6b")
+    cfg = dataclasses.replace(
+        base, moe=dataclasses.replace(base.moe, n_experts=16))
+    return cfg, init_params(cfg, generator(torch.device("cpu"), 1),
+                            device="cpu")
+
+
+def _drops(cfg, params, batch, microbatches=2):
+    """Whether the training default capacity drops units of ``batch``'s
+    microbatches: the dropless loss of some microbatch differs."""
+    dropless = cfg.moe.n_experts / cfg.moe.top_k
+    for rows in torch.tensor_split(torch.arange(B), microbatches):
+        mb = {k: v[rows] for k, v in batch.items()}
+        at = [float(loss_and_grads(params, cfg, mb, moe_cf=cf)[0])
+              for cf in (None, dropless)]
+        if at[0] != pytest.approx(at[1], rel=1e-4):
+            return True
+    return False
+
+
+def test_microbatched_moe_step_takes_the_global_microbatch():
+    """phi3.5-moe (16 experts) on data 2 x model 1 with two
+    microbatches, at the training default capacity, which drops units:
+    each data shard's microbatch j is its share of the global batch's
+    j-th slice, as in the reference, so capacity and the aux statistics
+    count the same tokens as the unsharded two-microbatch step: loss,
+    aux, step 1's gradients and the trained parameters agree with it."""
+    cfg, params = _moe16()
+    assert _drops(cfg, trainable(tree_map(torch.clone, params)),
+                  _batches(cfg, 1, n=1)[0])
+    r = _run_both(None, (2, 1), microbatches=2, seed=1, cfg=cfg,
+                  params=params)
+    for k in range(STEPS):
+        assert r["slosses"][k] == pytest.approx(r["ulosses"][k], rel=1e-4)
+        assert r["saux"][k] == pytest.approx(r["uaux"][k], rel=1e-4)
+    _assert_grads_agree(r)
+    for path, p, q in zip(*flatten(r["sparams"]), flatten(r["up"])[1]):
+        np.testing.assert_allclose(p.numpy(), q.detach().numpy(),
+                                   atol=2 * STEPS * LR, rtol=0,
+                                   err_msg=path)
+
+
+def test_build_and_run_sharded_take_the_global_microbatch():
+    """``steps.build``'s train program with two microbatches, run by
+    ``steps.run_sharded`` on the global batch (no row order given by the
+    caller): step 1's loss and aux equal the unsharded two-microbatch
+    step's on the 16-expert MoE, which drops units."""
+    cfg, params = _moe16()
+    batch = _batches(cfg, 1, n=1)[0]
+    up = trainable(tree_map(torch.clone, params))
+    _, _, m = steps.make_train_step(cfg, OPT, 2)(up, init_opt_state(up),
+                                                 batch)
+    mesh = _cpu_mesh((2, 1))
+    fn, args = steps.build(cfg, dict(seq_len=S, global_batch=B,
+                                     kind="train"), mesh, torch.float32,
+                           microbatches=2, opt_cfg=OPT)
+    real = [(params, args[0].specs),
+            (init_opt_state(params), args[1].specs),
+            (batch, args[2].specs)]
+    outs = steps.run_sharded(fn, real, shd.ShardWorkers(mesh, timeout=60))
+    for o in outs:
+        assert float(o[2]["loss"]) == pytest.approx(float(m["loss"]),
+                                                    rel=1e-4)
+        assert float(o[2]["aux"]) == pytest.approx(float(m["aux"]),
+                                                   rel=1e-4)
+
+
+def test_microbatch_order_hands_each_shard_its_share():
+    """Eight rows, two microbatches, two data shards: shard 0 holds rows
+    0, 1 (microbatch 0) and 4, 5 (microbatch 1), shard 1 rows 2, 3, 6, 7;
+    one microbatch keeps the contiguous cut."""
+    mesh = _cpu_mesh((2, 1))
+    cfg = get_reduced("smollm-135m")
+    pspecs = shd.params_shardings(
+        init_params(cfg, generator(torch.device("cpu"), 0), device="cpu"),
+        cfg, mesh)
+    rows = torch.arange(8)[:, None].repeat(1, 3)
+    two = steps.sharded_train_step(cfg, mesh, pspecs, OPT, 2)
+    got = steps.shard_batch(two, {"tokens": rows, "labels": rows}, mesh)
+    assert [g["tokens"][:, 0].tolist() for g in got] == [[0, 1, 4, 5],
+                                                         [2, 3, 6, 7]]
+    assert all(torch.equal(g["labels"], g["tokens"]) for g in got)
+    one = steps.sharded_train_step(cfg, mesh, pspecs, OPT)
+    got = steps.shard_batch(one, {"tokens": rows}, mesh)
+    assert [g["tokens"][:, 0].tolist() for g in got] == [[0, 1, 2, 3],
+                                                         [4, 5, 6, 7]]
+    with pytest.raises(ValueError):
+        steps.microbatch_order({"tokens": rows[:6]}, 2, 2)
 
 
 @pytest.mark.parametrize("shape", [(2, 1), (2, 2)])
